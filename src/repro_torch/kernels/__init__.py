@@ -1,0 +1,53 @@
+"""Kernel packages of the port + the generator entry-point registry.
+
+Mirrors ``repro.kernels``: every kernel package couples a code generator to
+the estimator through ``<package>.generator``; ``get_generator`` resolves it
+lazily by name.
+"""
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+# name -> generator module; extend when porting a kernel package
+GENERATOR_MODULES = {
+    "stencil3d25": "repro_torch.kernels.stencil3d25.generator",
+}
+
+_DTYPES = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32, 8: torch.float64}
+
+
+def available_generators() -> list[str]:
+    return sorted(GENERATOR_MODULES)
+
+
+def get_generator(name: str):
+    """Import the named kernel package's generator module."""
+    if name not in GENERATOR_MODULES:
+        raise KeyError(
+            f"unknown kernel generator {name!r}; "
+            f"choose from {available_generators()}"
+        )
+    return importlib.import_module(GENERATOR_MODULES[name])
+
+
+def dtype_for(elem_bytes: int) -> torch.dtype:
+    """The torch dtype a generator's ``elem_bytes`` parameter denotes (the
+    same byte table as ``repro.kernels.dtype_for``)."""
+    if elem_bytes not in _DTYPES:
+        raise ValueError(
+            f"unsupported elem_bytes {elem_bytes}; "
+            f"choose from {sorted(_DTYPES)}")
+    return _DTYPES[elem_bytes]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU.  A CUDA device without a card raises; nothing falls back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run the plain versions")
+    return dev

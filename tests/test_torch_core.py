@@ -1,0 +1,158 @@
+"""The port's copy of the GPU estimator path against ``repro.core``.
+
+The copy must price exactly as the reference does: the H100 ranking of the
+paper's 168 launches is compared bitwise, field by field, in two domains.
+"""
+import dataclasses
+import functools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro.core import machines as ref_machines
+from repro.core.selector import rank_gpu_configs as ref_rank_gpu_configs
+from repro.core.selector import ranking_quality as ref_ranking_quality
+from repro.core.specs import star_stencil_3d as ref_star_stencil_3d
+from repro_torch.core import machines
+from repro_torch.core.access import LaunchConfig
+from repro_torch.core.gridwalk import block_points
+from repro_torch.core.selector import (
+    enumerate_gpu_configs,
+    rank_gpu_configs,
+    ranking_quality,
+)
+from repro_torch.core.specs import star_stencil_3d
+
+ROOT = Path(__file__).resolve().parents[1]
+ESTIMATE_FIELDS = ("kernel", "machine", "lups", "l1_cycles_per_lup",
+                   "l2_l1_load_per_lup", "l2_l1_store_per_lup",
+                   "dram_load_per_lup", "dram_store_per_lup", "flops_per_lup",
+                   "perf_lups", "limiter", "limiter_rates")
+
+
+@functools.cache
+def _port_ranking(r, domain):
+    return rank_gpu_configs(star_stencil_3d(r, domain), machines.H100)
+
+
+def _fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+@pytest.mark.parametrize("r,domain,elem_bytes", [
+    (1, (5, 16, 24), 4), (2, (24, 32, 64), 8), (4, (512, 512, 640), 8)])
+def test_star_spec_equals_reference(r, domain, elem_bytes):
+    mine = star_stencil_3d(r, domain, elem_bytes)
+    ref = ref_star_stencil_3d(r, domain, elem_bytes)
+    assert (mine.name, mine.domain, mine.flops_per_point, mine.work_unit) == (
+        ref.name, ref.domain, ref.flops_per_point, ref.work_unit)
+    assert len(mine.accesses) == len(ref.accesses) == 6 * r + 2
+    for a, b in zip(mine.accesses, ref.accesses):
+        assert (a.offsets, a.coeffs, a.dim_map, a.is_store) == (
+            b.offsets, b.coeffs, b.dim_map, b.is_store)
+        assert _fields(a.field) == _fields(b.field)
+
+
+@pytest.mark.parametrize("name", ["V100", "A100", "A100_80G", "H100"])
+def test_machine_parameters_equal_reference(name):
+    assert _fields(getattr(machines, name)) == _fields(getattr(ref_machines, name))
+
+
+@pytest.mark.parametrize("r,domain", [(2, (24, 32, 64)), (4, (64, 128, 128))])
+def test_h100_ranking_bitwise_equals_reference(r, domain):
+    mine = _port_ranking(r, domain)
+    ref = ref_rank_gpu_configs(ref_star_stencil_3d(r, domain), ref_machines.H100)
+    assert len(mine) == len(ref) == 168
+    assert mine.skipped == [] and list(ref.skipped) == []
+    for m, f in zip(mine, ref):
+        assert (m.launch.block, m.launch.folding) == (f.launch.block, f.launch.folding)
+        assert m.perf == f.perf
+        for name in ESTIMATE_FIELDS:
+            assert getattr(m.estimate, name) == getattr(f.estimate, name), name
+        assert _fields(m.estimate.dram_breakdown) == _fields(f.estimate.dram_breakdown)
+        assert _fields(m.estimate.l2_breakdown) == _fields(f.estimate.l2_breakdown)
+
+
+def test_ranking_breaks_ties_toward_enumeration_order():
+    ranked = _port_ranking(2, (24, 32, 64))
+    assert any(a.perf == b.perf for a, b in zip(ranked, ranked[1:]))
+    order = {(c.block, c.folding): i for i, c in enumerate(enumerate_gpu_configs())}
+    for a, b in zip(ranked, ranked[1:]):
+        assert a.perf >= b.perf
+        if a.perf == b.perf:
+            assert order[(a.launch.block, a.launch.folding)] < order[
+                (b.launch.block, b.launch.folding)]
+
+
+def test_unpriceable_launch_is_skipped_with_reason():
+    spec = star_stencil_3d(1, (4, 8, 8))
+    bad = LaunchConfig(block=(0, 1, 1))
+    ranked = rank_gpu_configs(spec, machines.H100, configs=[bad, LaunchConfig((8, 8, 1))])
+    assert len(ranked) == 1 and len(ranked.skipped) == 1
+    assert ranked.skipped[0].config == bad and ranked.skipped[0].reason
+    with pytest.raises(ZeroDivisionError):
+        rank_gpu_configs(spec, machines.H100, configs=[bad], strict=True)
+
+
+def test_ranking_quality_equals_reference():
+    rng = np.random.default_rng(3)
+    pred, meas = rng.random(40).tolist(), rng.random(40).tolist()
+    assert ranking_quality(pred, meas) == ref_ranking_quality(pred, meas)
+    assert ranking_quality([1, 2, 3], [1, 2, 3]) == {"efficiency": 1.0, "spearman": 1.0}
+
+
+def test_every_launch_covers_the_domain_exactly_once():
+    domain = (5, 16, 24)
+    for launch in enumerate_gpu_configs():
+        hits = np.zeros(domain, dtype=np.int64)
+        gx, gy, gz = launch.grid_for(domain)
+        for bz in range(gz):
+            for by in range(gy):
+                for bx in range(gx):
+                    pts = block_points(launch, domain, (bx, by, bz))
+                    np.add.at(hits, (pts[:, 0], pts[:, 1], pts[:, 2]), 1)
+        assert (hits == 1).all(), launch
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    """Every repro_torch module and chip_smoke.py, imported in a fresh
+    interpreter, load neither jax nor any module of the JAX package; their
+    sources hold no such import statement either."""
+    pytest.importorskip("torch")
+    code = r"""
+import ast, importlib, json, pkgutil, runpy, sys
+from pathlib import Path
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_imported")
+files = [Path("chip_smoke.py"), *Path("src/repro_torch").rglob("*.py")]
+imported = set()
+for f in files:
+    for node in ast.walk(ast.parse(f.read_text())):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            imported.add(node.module)
+print(json.dumps({"modules": names, "loaded": sorted(sys.modules),
+                  "imported": sorted(imported)}))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "repro_torch.kernels.stencil3d25.ops" in out["modules"]
+    assert "repro_torch.convert" in out["modules"]
+
+    def foreign(name):
+        return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+    assert [m for m in out["loaded"] if foreign(m)] == []
+    assert [m for m in out["imported"] if foreign(m)] == []
