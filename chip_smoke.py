@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
-Runs the paper's fig.-1 loop through the port's own entry points at the
-paper's §5.2 size (range-4 star stencil, 25 points, domain (512, 512, 640),
-fp64): builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
-ranks all 168 launches of the per-point kernel analytically on the H100,
-runs ``star_stencil`` at the winning launch, and holds every kernel against
-its plain PyTorch version on the card.  It then times each kernel beside its
-bound, its plain version and one library call that computes the same
-function.
+Runs the paper's fig.-1 loop through the port's own entry points on both of
+its applications, and builds the CUDA kernels from ``src/repro_torch/csrc``
+with nvcc first (one nvcc per source, in parallel):
+
+* the §5.2 stencil (range-4 star, 25 points, domain (512, 512, 640), fp64):
+  ranks all 168 launches of the per-point kernel analytically on the H100
+  and runs ``star_stencil`` at the winning launch;
+* the §5.3 D3Q15 Allen-Cahn LBM (domain (256, 256, 256), fp64): ranks all
+  168 launches of the per-point LBM kernel and runs ``lbm_step`` at the
+  winning launch.
+
+Each path's pinned variants (the z-march stencils, the y-tiled LBM) run too,
+in fp64 and fp32, and every kernel is held against its plain PyTorch
+version on the card.  It then times each kernel beside its bound, its plain
+version and, where one exists, one library call that computes the same
+function, and times every priced launch to rank the estimator against the
+card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -48,6 +57,15 @@ REPLACES = {
     "replane": "src/repro/kernels/stencil3d25/kernel.py:69",
     "ring": "src/repro/kernels/stencil3d25/kernel.py:102",
     "ytile_ring": "src/repro/kernels/stencil3d25/kernel.py:145",
+}
+LBM_DOMAIN = (256, 256, 256)          # (Z, Y, X), paper §5.3
+LBM_EDGE_DOMAIN = (61, 127, 251)      # no block extent divides it
+LBM_YTILE_EDGE_DOMAIN = (61, 120, 251)  # 8 | Y, and no tile width divides X
+LBM_YTILE_VARIANTS = ({"variant": "ytile", "ty": 8}, {"variant": "ytile", "ty": 16})
+LBM_SOURCE = "src/repro_torch/csrc/lbm_d3q15.cu"
+LBM_REPLACES = {
+    "replane": "src/repro/kernels/lbm_d3q15/kernel.py:84",
+    "ytile": "src/repro/kernels/lbm_d3q15/kernel.py:141",
 }
 
 
@@ -122,52 +140,25 @@ def star_conv_weight(torch, weights, r: int):
     return k.view(1, 1, *k.shape)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def reset_counts(*kernel_modules) -> None:
+    """Every wrapper's launch count to 0, just before a path is driven."""
+    for module in kernel_modules:
+        module.reset_launch_counts()
 
-    import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print(f"chip_smoke: no repro_torch package under {ROOT / 'src'}; "
-              "run it from the root of a checkout", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
+def run_stencil(args, torch, dev) -> list:
+    """The stencil path (phases 3-7): rank, main path, edges, z-march
+    variants, fp32, times and the ranking against the card.  Returns the
+    kernels' records; its tensors are freed when it returns."""
     import torch.nn.functional as F
 
     from repro_torch.core.machines import H100
     from repro_torch.core.selector import ranking_quality
-    from repro_torch.kernels import _build
+    from repro_torch.kernels.lbm_d3q15 import kernel as LK
     from repro_torch.kernels.stencil3d25 import kernel as K
     from repro_torch.kernels.stencil3d25.generator import best_config, rank_configs
     from repro_torch.kernels.stencil3d25.ops import star_stencil, zmarch_tile
     from repro_torch.kernels.stencil3d25.ref import pad_input, star_stencil_ref, star_weights
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.reset_peak_memory_stats(dev)
-
-    # 1. the card
-    card = card_line()
-    say(f"card: {card}")
-    say(f"torch device: {torch.cuda.get_device_name(0)}, count "
-        f"{torch.cuda.device_count()}, torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    # 2. build every kernel source, one nvcc each, in parallel
-    t0 = time.perf_counter()
-    libs = _build.build()
-    say(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
-    for name, lib in libs.items():
-        log = lib.with_name(lib.name + ".log")
-        for line in log.read_text().splitlines() if log.is_file() else ():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas[{name}]: {line.strip()}")
 
     # 3. the ranking: every launch priced on the H100, nothing run
     t0 = time.perf_counter()
@@ -193,7 +184,7 @@ def main(argv=None) -> int:
 
     # 4. the main path: star_stencil(config=None) ranks and runs star_pointwise
     best = best_config(R, DOMAIN, 8, H100)
-    K.reset_launch_counts()
+    reset_counts(K, LK)
     out = star_stencil(src, r=R)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
@@ -207,7 +198,7 @@ def main(argv=None) -> int:
     del out
     kernels.append({"name": "star_pointwise", "config": None,
                     "launches": launches["star_pointwise"], "max_abs_err": err,
-                    "replaces": REPLACES["replane"]})
+                    "replaces": REPLACES["replane"], "source": SOURCE})
 
     # 5. folding and edge coverage at pinned launches on a domain that no
     # block extent divides
@@ -230,7 +221,7 @@ def main(argv=None) -> int:
     # 6. the z-march variants, each through the entry point with its own
     # launch count
     for cfg in ZMARCH_VARIANTS:
-        K.reset_launch_counts()
+        reset_counts(K, LK)
         out = star_stencil(src, r=R, config=cfg)
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
@@ -246,7 +237,7 @@ def main(argv=None) -> int:
                 else f"star_zmarch[ytile_ring,ty={cfg['ty']}]")
         kernels.append({"name": name, "config": cfg,
                         "launches": launches["star_zmarch"], "max_abs_err": err,
-                        "replaces": REPLACES[cfg["variant"]]})
+                        "replaces": REPLACES[cfg["variant"]], "source": SOURCE})
 
     # fp32: the main path and every z-march variant at the paper size
     src32 = src.float()
@@ -316,14 +307,240 @@ def main(argv=None) -> int:
     say(f"time star_stencil(src, r={R}) fp64 incl. pad: {call_ms:.4f} ms; "
         f"fp32: {cuda_ms(torch, lambda: star_stencil(src32, r=R)):.4f} ms")
 
-    # 8. peak memory
+    return kernels
+
+
+def lbm_bound(pdf_p, phase_p) -> tuple:
+    """Least time (ms) the card needs for one LBM step on the padded fields:
+    each padded input element read once and each output PDF written once at
+    the HBM rate, against the spec's flops per point
+    (``core.specs.lbm_d3q15``) at the peak rate."""
+    from repro_torch.core.specs import lbm_d3q15
+
+    eb = pdf_p.element_size()
+    domain = tuple(n - 2 for n in phase_p.shape)
+    pts = domain[0] * domain[1] * domain[2]
+    t_bytes = (pdf_p.numel() + phase_p.numel() + 15 * pts) * eb / HBM_BYTES_PER_S * 1e3
+    t_ops = lbm_d3q15(domain, eb).flops_per_point * pts / PEAK_FLOPS[eb] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_lbm(args, torch, dev) -> list:
+    """The LBM path: rank, main path (``lbm_step(config=None)``), edges,
+    y-tile variants, fp32, times and the ranking against the card.  Returns
+    the kernels' records; its tensors are freed when it returns."""
+    from repro_torch.core.machines import H100
+    from repro_torch.core.selector import ranking_quality
+    from repro_torch.kernels.lbm_d3q15 import kernel as LK
+    from repro_torch.kernels.lbm_d3q15.generator import best_config, rank_configs
+    from repro_torch.kernels.lbm_d3q15.ops import lbm_step
+    from repro_torch.kernels.lbm_d3q15.ref import WEIGHTS, lbm_step_ref, pad_inputs
+    from repro_torch.kernels.stencil3d25 import kernel as K
+
+    # L1. the ranking: every launch of the per-point LBM kernel priced on the H100
+    t0 = time.perf_counter()
+    ranked = rank_configs(LBM_DOMAIN, 8, H100)
+    t_rank = time.perf_counter() - t0
+    n_pts = LBM_DOMAIN[0] * LBM_DOMAIN[1] * LBM_DOMAIN[2]
+    say(f"lbm ranking: {len(ranked)} launches priced on {H100.name} in {t_rank:.2f} s "
+        f"(D3Q15, domain {LBM_DOMAIN}, fp64)")
+    if len(ranked) != 168:
+        raise AssertionError(f"expected 168 priced LBM launches, got {len(ranked)}")
+    for i, rc in enumerate(ranked[:5]):
+        say(f"  #{i + 1} block {rc.launch.block} folding {rc.launch.folding}: "
+            f"{rc.perf / 1e9:.2f} GLUP/s predicted ({n_pts / rc.perf * 1e3:.4f} ms), "
+            f"{rc.estimate.limiter}-limited")
+    for s in ranked.skipped:
+        say(f"  skipped {s.config}: {s.reason}")
+
+    # the state of tests/test_kernels.py: phase = sigmoid(randn), pdf[q] = w_q * phase
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def state(domain, dtype=torch.float64):
+        phase = torch.sigmoid(torch.randn(domain, dtype=torch.float64, device=dev,
+                                          generator=gen))
+        pdf = torch.stack([w * phase for w in WEIGHTS])
+        return pdf.to(dtype), phase.to(dtype)
+
+    pdf, phase = state(LBM_DOMAIN)
+    pdf_p, phase_p = pad_inputs(pdf, phase)
+    ref_pdf, ref_phase = lbm_step_ref(pdf_p, phase_p)
+    kernels = []
+
+    # L2. the main path: lbm_step(config=None) ranks and runs lbm_pointwise
+    reset_counts(K, LK)
+    out, out_phase = lbm_step(pdf, phase)
+    torch.cuda.synchronize()
+    launches = {**K.LAUNCHES, **LK.LAUNCHES}
+    ran_at = LK.LAST_LAUNCH["lbm_pointwise"]
+    if launches["lbm_pointwise"] < 1:
+        raise AssertionError(f"LBM main path launched no lbm_pointwise: {launches}")
+    if ran_at != ranked[0].launch:
+        raise AssertionError(f"lbm_pointwise ran at {ran_at}, the top-ranked launch is "
+                             f"{ranked[0].launch}")
+    err = check(torch, out, ref_pdf, 8, "lbm_step(config=None) fp64 PDFs")
+    err_phase = check(torch, out_phase, ref_phase, 8, "lbm_step(config=None) fp64 phase")
+    say(f"lbm main path: lbm_step(pdf, phase) fp64 at block {ran_at.block} folding "
+        f"{ran_at.folding} (top-ranked of {len(ranked)}); launches {launches}; max abs "
+        f"error PDFs {err!r}, phase {err_phase!r} (tolerance {TOL[8]})")
+    del out, out_phase
+    kernels.append({"name": "lbm_pointwise", "config": None, "source": LBM_SOURCE,
+                    "launches": launches["lbm_pointwise"], "max_abs_err": err,
+                    "replaces": LBM_REPLACES["replane"]})
+
+    # L3. folding and edge coverage at pinned launches on a domain that no
+    # block extent divides, and a y-tile whose tiles overhang the edge
+    for domain, configs in ((LBM_EDGE_DOMAIN, [{"block": b, "folding": f}
+                                               for b, f in EDGE_LAUNCHES]),
+                            (LBM_YTILE_EDGE_DOMAIN, [LBM_YTILE_VARIANTS[0]])):
+        pdf_e, phase_e = state(domain)
+        for eb, dtype in ((8, torch.float64), (4, torch.float32)):
+            pdf_t, phase_t = pdf_e.to(dtype), phase_e.to(dtype)
+            want = lbm_step_ref(*pad_inputs(pdf_t, phase_t))[0]
+            errs = [check(torch, lbm_step(pdf_t, phase_t, config=cfg)[0], want, eb,
+                          f"lbm edge {domain} {cfg} fp{eb * 8}") for cfg in configs]
+            for cfg, e in zip(configs, errs):
+                say(f"lbm edge {domain} {cfg} fp{eb * 8}: max abs error {e!r}")
+        del pdf_e, phase_e, pdf_t, phase_t, want
+
+    # L4. the y-tile variants, each through the entry point with its own
+    # launch count
+    for cfg in LBM_YTILE_VARIANTS:
+        reset_counts(K, LK)
+        out, out_phase = lbm_step(pdf, phase, config=cfg)
+        torch.cuda.synchronize()
+        launches = {**K.LAUNCHES, **LK.LAUNCHES}
+        if launches["lbm_ytile"] < 1:
+            raise AssertionError(f"{cfg} launched no lbm_ytile: {launches}")
+        err = check(torch, out, ref_pdf, 8, f"lbm_step({cfg}) fp64 PDFs")
+        err_phase = check(torch, out_phase, ref_phase, 8, f"lbm_step({cfg}) fp64 phase")
+        ty, tx = LK.LAST_LAUNCH["lbm_ytile"]
+        say(f"lbm y-tile {cfg} fp64: tile {ty}x{tx}, {LK.ytile_smem_bytes(ty, tx, 8)} B "
+            f"shared memory, z slab {LK.ytile_slab(LBM_DOMAIN, ty, tx)}; launches {launches}; "
+            f"max abs error PDFs {err!r}, phase {err_phase!r}")
+        del out, out_phase
+        kernels.append({"name": f"lbm_ytile[ty={cfg['ty']}]", "config": cfg,
+                        "source": LBM_SOURCE, "launches": launches["lbm_ytile"],
+                        "max_abs_err": err, "replaces": LBM_REPLACES["ytile"]})
+
+    # L5. fp32: the main path and both y-tile variants at the paper size
+    pdf32, phase32 = pdf.float(), phase.float()
+    pdf32_p, phase32_p = pad_inputs(pdf32, phase32)
+    ref32 = lbm_step_ref(pdf32_p, phase32_p)
+    best32 = best_config(LBM_DOMAIN, 4, H100)
+    for cfg in (None,) + LBM_YTILE_VARIANTS:
+        got, got_phase = lbm_step(pdf32, phase32, config=cfg)
+        err = check(torch, got, ref32[0], 4, f"lbm_step({cfg}) fp32 PDFs")
+        err_phase = check(torch, got_phase, ref32[1], 4, f"lbm_step({cfg}) fp32 phase")
+        say(f"fp32 lbm_step(config={cfg}): max abs error PDFs {err!r}, phase {err_phase!r}"
+            + (f"; launch block {best32.launch.block} folding {best32.launch.folding}"
+               if cfg is None else ""))
+    del got, got_phase, ref32, ref_pdf, ref_phase
+
+    # L6. times at the paper size on the pre-padded input
+    inputs = {8: (pdf, phase, pdf_p, phase_p, ranked[0]),
+              4: (pdf32, phase32, pdf32_p, phase32_p, best32)}
+    say("lbm library: none (no single PyTorch call computes the collide-and-stream step)")
+    for eb, (pdf_x, phase_x, pdf_xp, phase_xp, rc) in inputs.items():
+        plain = cuda_ms(torch, lambda: lbm_step_ref(pdf_xp, phase_xp), warmup=1, reps=5)
+        b_ms, b_by = lbm_bound(pdf_xp, phase_xp)
+        for k in kernels[-3:]:
+            if k["config"] is None:
+                launch = rc.launch
+                ms = cuda_ms(torch, lambda: LK.lbm_pointwise(pdf_xp, phase_xp, launch))
+                pred = (f"; predicted {n_pts / rc.perf * 1e3:.4f} ms at block "
+                        f"{launch.block} folding {launch.folding} "
+                        f"({rc.estimate.limiter}-limited)")
+            else:
+                tile = LK.ytile_tile(k["config"]["ty"], eb)
+                ms = cuda_ms(torch, lambda: LK.lbm_ytile(pdf_xp, phase_xp, *tile))
+                pred = f"; not priced by the GPU model (tile {tile[0]}x{tile[1]})"
+            say(f"time {k['name']} fp{eb * 8}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms * 100:.1f}% of bound; plain {plain:.4f} ms (median of 5); "
+                f"library none{pred}")
+            if eb == 8:
+                k.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        new_pdf = lbm_step(pdf_x, phase_x)[0]
+        call_ms = cuda_ms(torch, lambda: lbm_step(pdf_x, phase_x))
+        pad_ms = cuda_ms(torch, lambda: pad_inputs(pdf_x, phase_x))
+        sum_ms = cuda_ms(torch, lambda: new_pdf.sum(0))
+        say(f"time lbm_step(pdf, phase) fp{eb * 8} incl. pad and phase sum: {call_ms:.4f} ms; "
+            f"of which pad_inputs {pad_ms:.4f} ms, new_pdf.sum(0) {sum_ms:.4f} ms")
+        del new_pdf
+
+    # L7. the ranking against the card: every priced launch of lbm_pointwise,
+    # fp64, 1 warm-up + median of 5 (the paper's §5.8 criterion)
+    measured = []
+    for rc in ranked:
+        launch = rc.launch
+        t_ms = cuda_ms(torch, lambda: LK.lbm_pointwise(pdf_p, phase_p, launch),
+                       warmup=1, reps=5)
+        measured.append(n_pts / (t_ms * 1e-3))
+    quality = ranking_quality([rc.perf for rc in ranked], measured)
+    best_i = max(range(len(measured)), key=measured.__getitem__)
+    top_place = 1 + sum(m > measured[0] for m in measured)
+    say(f"lbm ranking vs card (fp64, {len(ranked)} launches): efficiency "
+        f"{quality['efficiency']:.4f}, Spearman {quality['spearman']:.4f}; predicted best "
+        f"{ranked[0].launch.block}/{ranked[0].launch.folding} measures "
+        f"{n_pts / measured[0] * 1e3:.4f} ms (place {top_place}); measured best "
+        f"{ranked[best_i].launch.block}/{ranked[best_i].launch.folding} "
+        f"{n_pts / measured[best_i] * 1e3:.4f} ms (predicted place {best_i + 1}, "
+        f"{n_pts / ranked[best_i].perf * 1e3:.4f} ms predicted); slowest "
+        f"{n_pts / min(measured) * 1e3:.4f} ms")
+    return kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no repro_torch package under {ROOT / 'src'}; "
+              "run it from the root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # 1. the card
+    card = card_line()
+    say(f"card: {card}")
+    say(f"torch device: {torch.cuda.get_device_name(0)}, count "
+        f"{torch.cuda.device_count()}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # 2. build every kernel source, one nvcc each, in parallel
+    t0 = time.perf_counter()
+    libs = _build.build()
+    say(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        log = lib.with_name(lib.name + ".log")
+        for line in log.read_text().splitlines() if log.is_file() else ():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas[{name}]: {line.strip()}")
+
+    kernels = run_stencil(args, torch, dev)
+    torch.cuda.empty_cache()
+    kernels += run_lbm(args, torch, dev)
+
+    # peak memory
     say(f"peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)")
 
-    # 9. the kernels record
+    # the kernels record
     say(f"card: {card}")
     say(json.dumps({"kernels": [
-        {"name": k["name"], "route": "cuda", "source": SOURCE, "replaces": k["replaces"],
+        {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "pass": True}

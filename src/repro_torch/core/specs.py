@@ -2,8 +2,9 @@
 
 These are the "address expressions + field sizes" artifacts a code generator
 hands to the estimator (paper §1.2).  A copy of the specs of
-``repro.core.specs`` that the port's generators price; the per-point CUDA
-kernels in ``repro_torch/csrc`` perform exactly these accesses.
+``repro.core.specs`` (the star stencil and the D3Q15 LBM) that the port's
+generators price; the per-point CUDA kernels in ``repro_torch/csrc``
+perform exactly these accesses.
 """
 from __future__ import annotations
 
@@ -37,3 +38,48 @@ def star_stencil_3d(
         accesses=tuple(accs),
         flops_per_point=float(n_pts),
     )
+
+
+# D3Q15 lattice velocities (c_q), the conventional ordering
+D3Q15_VELOCITIES = (
+    (0, 0, 0),
+    (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1),
+    (1, 1, 1), (-1, -1, -1), (1, 1, -1), (-1, -1, 1),
+    (1, -1, 1), (-1, 1, -1), (-1, 1, 1), (1, -1, -1),
+)
+
+# 3D7pt offsets for the phase-field finite-difference curvature stencil
+D3Q7_OFFSETS = ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
+
+
+def lbm_d3q15(domain=(256, 256, 256), elem_bytes: int = 8) -> KernelSpec:
+    """Allen-Cahn interface-tracking LBM kernel access pattern (paper §5.3).
+
+    Pull scheme: 15 PDF loads from neighbor cells (unaligned), 15 aligned PDF
+    stores, plus a 3D 7-point finite-difference stencil on the phase field.
+    PDFs are stored structure-of-arrays: pdf[q][z][y][x].
+    240 B/LUP streaming + 16-64 B/LUP stencil component (paper).
+    """
+    dz, dy, dx = domain
+    pad = 1
+    src = Field("pdf_src", (15, dz + 2 * pad, dy + 2 * pad, dx + 2 * pad), elem_bytes)
+    dst = Field("pdf_dst", (15, dz, dy, dx), elem_bytes)
+    phi = Field("phase", (dz + 2 * pad, dy + 2 * pad, dx + 2 * pad), elem_bytes)
+    accs = []
+    for q, (cx, cy, cz) in enumerate(D3Q15_VELOCITIES):
+        # pull: load PDF q from the upstream neighbor (-c)
+        accs.append(
+            Access(
+                src,
+                (q, pad - cz, pad - cy, pad - cx),
+                coeffs=(0, 1, 1, 1),
+                dim_map=(0, 0, 1, 2),
+            )
+        )
+        accs.append(
+            Access(dst, (q, 0, 0, 0), coeffs=(0, 1, 1, 1), dim_map=(0, 0, 1, 2), is_store=True)
+        )
+    for (ox, oy, oz) in D3Q7_OFFSETS:
+        accs.append(Access(phi, (pad + oz, pad + oy, pad + ox)))
+    # LBM collide+stream flop estimate for Allen-Cahn interface tracking
+    return KernelSpec("lbm_d3q15", domain, tuple(accs), flops_per_point=180.0)

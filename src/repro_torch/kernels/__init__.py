@@ -13,7 +13,16 @@ import torch
 # name -> generator module; extend when porting a kernel package
 GENERATOR_MODULES = {
     "stencil3d25": "repro_torch.kernels.stencil3d25.generator",
+    "lbm_d3q15": "repro_torch.kernels.lbm_d3q15.generator",
 }
+
+# why a generator's shared-memory (z-march) variants sit in a ranking's
+# ``.skipped``
+SCRATCH_REASON = (
+    "scratch-staged kernel: it stages planes through a shared-memory ring, "
+    "and the GPU model prices per-point kernels only (DESIGN §9 rejects "
+    "scratch-staged kernels for the GPU target); runnable through a pinned "
+    "config")
 
 _DTYPES = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32, 8: torch.float64}
 

@@ -24,14 +24,8 @@ import torch
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import star_stencil_3d
-from repro_torch.kernels import resolve_device
+from repro_torch.kernels import SCRATCH_REASON, resolve_device
 from repro_torch.kernels.stencil3d25.kernel import star_pointwise
-
-SCRATCH_REASON = (
-    "scratch-staged kernel: it stages planes through a shared-memory ring, "
-    "and the GPU model prices per-point kernels only (DESIGN §9 rejects "
-    "scratch-staged kernels for the GPU target); runnable through a pinned "
-    "config")
 
 _RANKINGS: dict = {}
 

@@ -17,6 +17,7 @@ import pytest
 from repro.core import machines as ref_machines
 from repro.core.selector import rank_gpu_configs as ref_rank_gpu_configs
 from repro.core.selector import ranking_quality as ref_ranking_quality
+from repro.core.specs import lbm_d3q15 as ref_lbm_d3q15
 from repro.core.specs import star_stencil_3d as ref_star_stencil_3d
 from repro_torch.core import machines
 from repro_torch.core.access import LaunchConfig
@@ -26,7 +27,7 @@ from repro_torch.core.selector import (
     rank_gpu_configs,
     ranking_quality,
 )
-from repro_torch.core.specs import star_stencil_3d
+from repro_torch.core.specs import lbm_d3q15, star_stencil_3d
 
 ROOT = Path(__file__).resolve().parents[1]
 ESTIMATE_FIELDS = ("kernel", "machine", "lups", "l1_cycles_per_lup",
@@ -44,18 +45,34 @@ def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
-@pytest.mark.parametrize("r,domain,elem_bytes", [
-    (1, (5, 16, 24), 4), (2, (24, 32, 64), 8), (4, (512, 512, 640), 8)])
-def test_star_spec_equals_reference(r, domain, elem_bytes):
-    mine = star_stencil_3d(r, domain, elem_bytes)
-    ref = ref_star_stencil_3d(r, domain, elem_bytes)
+def _assert_spec_equal(mine, ref, n_accesses):
     assert (mine.name, mine.domain, mine.flops_per_point, mine.work_unit) == (
         ref.name, ref.domain, ref.flops_per_point, ref.work_unit)
-    assert len(mine.accesses) == len(ref.accesses) == 6 * r + 2
+    assert len(mine.accesses) == len(ref.accesses) == n_accesses
     for a, b in zip(mine.accesses, ref.accesses):
         assert (a.offsets, a.coeffs, a.dim_map, a.is_store) == (
             b.offsets, b.coeffs, b.dim_map, b.is_store)
         assert _fields(a.field) == _fields(b.field)
+
+
+@pytest.mark.parametrize("r,domain,elem_bytes", [
+    (1, (5, 16, 24), 4), (2, (24, 32, 64), 8), (4, (512, 512, 640), 8)])
+def test_star_spec_equals_reference(r, domain, elem_bytes):
+    _assert_spec_equal(star_stencil_3d(r, domain, elem_bytes),
+                       ref_star_stencil_3d(r, domain, elem_bytes), 6 * r + 2)
+
+
+@pytest.mark.parametrize("domain,elem_bytes", [
+    ((3, 8, 16), 4), ((12, 20, 28), 8), ((256, 256, 256), 8)])
+def test_lbm_spec_equals_reference(domain, elem_bytes):
+    from repro.core.specs import D3Q7_OFFSETS, D3Q15_VELOCITIES
+
+    from repro_torch.core import specs
+
+    assert (specs.D3Q15_VELOCITIES, specs.D3Q7_OFFSETS) == (D3Q15_VELOCITIES, D3Q7_OFFSETS)
+    # 15 pull loads and 15 stores, interleaved, then the 7 phase loads
+    _assert_spec_equal(lbm_d3q15(domain, elem_bytes), ref_lbm_d3q15(domain, elem_bytes), 37)
+    assert lbm_d3q15().domain == ref_lbm_d3q15().domain == (256, 256, 256)
 
 
 @pytest.mark.parametrize("name", ["V100", "A100", "A100_80G", "H100"])
@@ -65,8 +82,11 @@ def test_machine_parameters_equal_reference(name):
 
 @pytest.mark.parametrize("r,domain", [(2, (24, 32, 64)), (4, (64, 128, 128))])
 def test_h100_ranking_bitwise_equals_reference(r, domain):
-    mine = _port_ranking(r, domain)
-    ref = ref_rank_gpu_configs(ref_star_stencil_3d(r, domain), ref_machines.H100)
+    _assert_ranking_equal(_port_ranking(r, domain),
+                          ref_rank_gpu_configs(ref_star_stencil_3d(r, domain), ref_machines.H100))
+
+
+def _assert_ranking_equal(mine, ref):
     assert len(mine) == len(ref) == 168
     assert mine.skipped == [] and list(ref.skipped) == []
     for m, f in zip(mine, ref):
@@ -76,6 +96,12 @@ def test_h100_ranking_bitwise_equals_reference(r, domain):
             assert getattr(m.estimate, name) == getattr(f.estimate, name), name
         assert _fields(m.estimate.dram_breakdown) == _fields(f.estimate.dram_breakdown)
         assert _fields(m.estimate.l2_breakdown) == _fields(f.estimate.l2_breakdown)
+
+
+@pytest.mark.parametrize("domain", [(12, 20, 28), (24, 48, 64)])
+def test_lbm_h100_ranking_bitwise_equals_reference(domain):
+    _assert_ranking_equal(rank_gpu_configs(lbm_d3q15(domain), machines.H100),
+                          ref_rank_gpu_configs(ref_lbm_d3q15(domain), ref_machines.H100))
 
 
 def test_ranking_breaks_ties_toward_enumeration_order():
@@ -149,6 +175,7 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules),
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.kernels.stencil3d25.ops" in out["modules"]
+    assert "repro_torch.kernels.lbm_d3q15.ops" in out["modules"]
     assert "repro_torch.convert" in out["modules"]
 
     def foreign(name):
