@@ -96,15 +96,23 @@ def cuda_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def star_footprint(domain: tuple, r: int) -> int:
+    """Elements of the halo-padded input that a range-r star over ``domain``
+    reads: the domain box and r layers on each of its six faces (the star
+    never reaches the padding's edges and corners)."""
+    Z, Y, X = domain
+    return Z * Y * X + 2 * r * (Y * X + Z * X + Z * Y)
+
+
 def bound(padded, r: int) -> tuple:
     """Least time (ms) the card needs for one stencil on ``padded``: each
-    padded input element read once and each output written once at the HBM
-    rate, against (6r+1) multiplies + 6r adds per point at the peak rate."""
+    input element the star reads read once and each output written once at
+    the HBM rate, against (6r+1) multiplies + 6r adds per point at the peak
+    rate."""
     eb = padded.element_size()
-    pts = 1
-    for n in padded.shape:
-        pts *= n - 2 * r
-    t_bytes = (padded.numel() + pts) * eb / HBM_BYTES_PER_S * 1e3
+    domain = tuple(n - 2 * r for n in padded.shape)
+    pts = domain[0] * domain[1] * domain[2]
+    t_bytes = (star_footprint(domain, r) + pts) * eb / HBM_BYTES_PER_S * 1e3
     t_ops = (12 * r + 1) * pts / PEAK_FLOPS[eb] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -312,15 +320,17 @@ def run_stencil(args, torch, dev) -> list:
 
 def lbm_bound(pdf_p, phase_p) -> tuple:
     """Least time (ms) the card needs for one LBM step on the padded fields:
-    each padded input element read once and each output PDF written once at
-    the HBM rate, against the spec's flops per point
-    (``core.specs.lbm_d3q15``) at the peak rate."""
+    each input element the step reads read once (every PDF pulls one
+    Z x Y x X box of its padded field; the phase field's 7-point footprint)
+    and each output PDF written once at the HBM rate, against the spec's
+    flops per point (``core.specs.lbm_d3q15``) at the peak rate."""
     from repro_torch.core.specs import lbm_d3q15
 
     eb = pdf_p.element_size()
     domain = tuple(n - 2 for n in phase_p.shape)
     pts = domain[0] * domain[1] * domain[2]
-    t_bytes = (pdf_p.numel() + phase_p.numel() + 15 * pts) * eb / HBM_BYTES_PER_S * 1e3
+    reads = 15 * pts + star_footprint(domain, 1)
+    t_bytes = (reads + 15 * pts) * eb / HBM_BYTES_PER_S * 1e3
     t_ops = lbm_d3q15(domain, eb).flops_per_point * pts / PEAK_FLOPS[eb] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -353,13 +363,18 @@ def run_lbm(args, torch, dev) -> list:
     for s in ranked.skipped:
         say(f"  skipped {s.config}: {s.reason}")
 
-    # the state of tests/test_kernels.py: phase = sigmoid(randn), pdf[q] = w_q * phase
+    # the state of tests/test_kernels.py: phase = sigmoid(randn), pdf[q] = w_q * phase;
+    # with ``independent``, every PDF is drawn on its own (uniform in [0, 1)), so
+    # that a kernel pulling PDF q from another PDF of its weight class shows
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
-    def state(domain, dtype=torch.float64):
+    def state(domain, dtype=torch.float64, independent=False):
         phase = torch.sigmoid(torch.randn(domain, dtype=torch.float64, device=dev,
                                           generator=gen))
-        pdf = torch.stack([w * phase for w in WEIGHTS])
+        if independent:
+            pdf = torch.rand((15, *domain), dtype=torch.float64, device=dev, generator=gen)
+        else:
+            pdf = torch.stack([w * phase for w in WEIGHTS])
         return pdf.to(dtype), phase.to(dtype)
 
     pdf, phase = state(LBM_DOMAIN)
@@ -389,22 +404,27 @@ def run_lbm(args, torch, dev) -> list:
                     "replaces": LBM_REPLACES["replane"]})
 
     # L3. folding and edge coverage at pinned launches on a domain that no
-    # block extent divides, and a y-tile whose tiles overhang the edge
-    for domain, configs in ((LBM_EDGE_DOMAIN, [{"block": b, "folding": f}
-                                               for b, f in EDGE_LAUNCHES]),
-                            (LBM_YTILE_EDGE_DOMAIN, [LBM_YTILE_VARIANTS[0]])):
-        pdf_e, phase_e = state(domain)
+    # block extent divides, and a y-tile whose tiles overhang the edge; then
+    # the ranked launch and a y-tile on independent random PDFs
+    ranked_cfg = {"block": ranked[0].launch.block, "folding": ranked[0].launch.folding}
+    for domain, configs, independent in (
+            (LBM_EDGE_DOMAIN, [{"block": b, "folding": f} for b, f in EDGE_LAUNCHES], False),
+            (LBM_YTILE_EDGE_DOMAIN, [LBM_YTILE_VARIANTS[0]], False),
+            (LBM_YTILE_EDGE_DOMAIN, [ranked_cfg, LBM_YTILE_VARIANTS[0]], True)):
+        pdf_e, phase_e = state(domain, independent=independent)
+        pdfs = "independent random PDFs" if independent else "pdf[q] = w_q * phase"
         for eb, dtype in ((8, torch.float64), (4, torch.float32)):
             pdf_t, phase_t = pdf_e.to(dtype), phase_e.to(dtype)
             want = lbm_step_ref(*pad_inputs(pdf_t, phase_t))[0]
             errs = [check(torch, lbm_step(pdf_t, phase_t, config=cfg)[0], want, eb,
-                          f"lbm edge {domain} {cfg} fp{eb * 8}") for cfg in configs]
+                          f"lbm edge {domain} {cfg} fp{eb * 8} ({pdfs})") for cfg in configs]
             for cfg, e in zip(configs, errs):
-                say(f"lbm edge {domain} {cfg} fp{eb * 8}: max abs error {e!r}")
+                say(f"lbm edge {domain} {cfg} fp{eb * 8} ({pdfs}): max abs error {e!r}")
         del pdf_e, phase_e, pdf_t, phase_t, want
 
     # L4. the y-tile variants, each through the entry point with its own
     # launch count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for cfg in LBM_YTILE_VARIANTS:
         reset_counts(K, LK)
         out, out_phase = lbm_step(pdf, phase, config=cfg)
@@ -416,7 +436,8 @@ def run_lbm(args, torch, dev) -> list:
         err_phase = check(torch, out_phase, ref_phase, 8, f"lbm_step({cfg}) fp64 phase")
         ty, tx = LK.LAST_LAUNCH["lbm_ytile"]
         say(f"lbm y-tile {cfg} fp64: tile {ty}x{tx}, {LK.ytile_smem_bytes(ty, tx, 8)} B "
-            f"shared memory, z slab {LK.ytile_slab(LBM_DOMAIN, ty, tx)}; launches {launches}; "
+            f"shared memory, z slab {LK.ytile_slab(LBM_DOMAIN, ty, tx, sms)} on {sms} SMs; "
+            f"launches {launches}; "
             f"max abs error PDFs {err!r}, phase {err_phase!r}")
         del out, out_phase
         kernels.append({"name": f"lbm_ytile[ty={cfg['ty']}]", "config": cfg,

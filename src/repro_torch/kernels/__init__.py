@@ -24,6 +24,9 @@ SCRATCH_REASON = (
     "scratch-staged kernels for the GPU target); runnable through a pinned "
     "config")
 
+# dynamic shared memory one block may opt into on Hopper (227 KB)
+SMEM_PER_BLOCK = 232_448
+
 _DTYPES = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32, 8: torch.float64}
 
 

@@ -23,17 +23,16 @@ import functools
 import torch
 
 from repro_torch.core.access import LaunchConfig
-from repro_torch.kernels import _build
+from repro_torch.kernels import SMEM_PER_BLOCK, _build
 from repro_torch.kernels.lbm_d3q15.ref import lbm_step_ref
-from repro_torch.kernels.stencil3d25.kernel import SMEM_PER_BLOCK
 
 LAUNCHES = {"lbm_pointwise": 0, "lbm_ytile": 0}
 LAST_LAUNCH = {"lbm_pointwise": None, "lbm_ytile": None}
 
 YTILE_TX = (256, 128, 64, 32, 16, 8, 4, 2, 1)  # tx choices of lbm_ytile, widest first
 # the z range of lbm_ytile is cut into slabs until the grid has at least this
-# many CTAs: four for each of the H100's 132 SMs
-YTILE_MIN_CTAS = 4 * 132
+# many CTAs for each SM of the card it launches on
+YTILE_CTAS_PER_SM = 4
 _GRID_YZ_MAX = 65_535
 
 _P = ctypes.c_void_p
@@ -135,12 +134,13 @@ def ytile_tile(ty: int, elem_bytes: int) -> tuple:
         f"{SMEM_PER_BLOCK} B of shared memory")
 
 
-def ytile_slab(domain: tuple, ty: int, tx: int) -> int:
+def ytile_slab(domain: tuple, ty: int, tx: int, sms: int) -> int:
     """Planes of the z slab each ``lbm_ytile`` CTA marches over: the deepest
-    slab that still gives at least ``YTILE_MIN_CTAS`` CTAs (or one plane)."""
+    slab that still gives at least ``YTILE_CTAS_PER_SM`` CTAs for each of the
+    card's ``sms`` SMs (or one plane)."""
     Z, Y, X = domain
     tiles = (-(-Y // ty)) * (-(-X // tx))
-    return max(1, Z // -(-YTILE_MIN_CTAS // tiles))
+    return max(1, Z // -(-(YTILE_CTAS_PER_SM * sms) // tiles))
 
 
 def lbm_ytile(pdf_p: torch.Tensor, phase_p: torch.Tensor, ty: int, tx: int,
@@ -158,7 +158,8 @@ def lbm_ytile(pdf_p: torch.Tensor, phase_p: torch.Tensor, ty: int, tx: int,
         raise ValueError(f"{-(-Y // ty)} y-tiles exceed CUDA's y grid limit")
     if pdf_p.device.type == "cpu":
         return lbm_step_ref(pdf_p, phase_p, tau, kappa)[0]
-    zs = ytile_slab((Z, Y, X), ty, tx)
+    sms = torch.cuda.get_device_properties(pdf_p.device).multi_processor_count
+    zs = ytile_slab((Z, Y, X), ty, tx, sms)
     out = torch.empty((15, Z, Y, X), dtype=pdf_p.dtype, device=pdf_p.device)
     with torch.cuda.device(pdf_p.device):
         rc = _lib().lbm_ytile_launch(

@@ -21,13 +21,11 @@ import functools
 import torch
 
 from repro_torch.core.access import LaunchConfig
-from repro_torch.kernels import _build
+from repro_torch.kernels import SMEM_PER_BLOCK, _build
 from repro_torch.kernels.stencil3d25.ref import star_stencil_ref
 
 LAUNCHES = {"star_pointwise": 0, "star_zmarch": 0}
 
-# dynamic shared memory one block may opt into on Hopper (227 KB)
-SMEM_PER_BLOCK = 232_448
 RING_TILE = (16, 32)               # (TY, TX) of the ring variant
 YTILE_TX = (128, 64, 32, 16, 8, 4, 2, 1)  # TX choices of ytile_ring, largest first
 ZMARCH_PREFETCH = 8                # halo elements a thread stages per plane (kPrefetch)

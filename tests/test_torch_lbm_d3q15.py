@@ -218,11 +218,18 @@ def test_ytile_tiles_respect_shared_memory():
     ((61, 120, 251), 8, 256, 1), ((3, 8, 16), 4, 256, 1), ((256, 2048, 2048), 8, 256, 256)])
 def test_ytile_slabs_fill_the_card(domain, ty, tx, zs):
     Z, Y, X = domain
-    assert K.ytile_slab(domain, ty, tx) == zs
+    sms = 132  # the H100 SXM's
+    assert K.ytile_slab(domain, ty, tx, sms) == zs
     tiles = -(-Y // ty) * -(-X // tx)
     slabs = -(-Z // zs)
-    assert tiles * slabs >= K.YTILE_MIN_CTAS or slabs == Z
+    assert tiles * slabs >= K.YTILE_CTAS_PER_SM * sms or slabs == Z
     assert (slabs - 1) * zs < Z <= slabs * zs
+
+
+def test_ytile_slabs_follow_the_sm_count():
+    # half the SMs need half the CTAs: the slabs deepen
+    assert K.ytile_slab((256, 256, 256), 8, 256, 66) == 28
+    assert K.ytile_slab((256, 256, 256), 8, 256, 264) == 7
 
 
 # ---------------------------------------------------------------------------
