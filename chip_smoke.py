@@ -10,9 +10,15 @@ with nvcc first (one nvcc per source, in parallel):
   and runs ``star_stencil`` at the winning launch;
 * the §5.3 D3Q15 Allen-Cahn LBM (domain (256, 256, 256), fp64): ranks all
   168 launches of the per-point LBM kernel and runs ``lbm_step`` at the
-  winning launch.
+  winning launch;
+* the weighted 2D 5-point Jacobi sweep (domain (4096, 4096), fp64): ranks
+  all 168 launches of the per-point kernel and runs ``jacobi_step`` at the
+  winning launch;
+* the 2D transpose ((8192, 8192), fp32): ranks all 168 launches of the
+  per-point kernel and runs ``transpose`` at the winning launch.
 
-Each path's pinned variants (the z-march stencils, the y-tiled LBM) run too,
+Each path's pinned variants (the z-march stencils, the y-tiled LBM, the
+y-tiled Jacobi sweep, the tiled transpose) run too,
 in fp64 and fp32, and every kernel is held against its plain PyTorch
 version on the card.  It then times each kernel beside its bound, its plain
 version and, where one exists, one library call that computes the same
@@ -67,6 +73,21 @@ LBM_REPLACES = {
     "replane": "src/repro/kernels/lbm_d3q15/kernel.py:84",
     "ytile": "src/repro/kernels/lbm_d3q15/kernel.py:141",
 }
+JACOBI_DOMAIN = (4096, 4096)             # (Y, X), core/specs.py:stencil_2d5pt's default
+JACOBI_EDGE_DOMAIN = (1021, 2043)        # no block extent divides either side
+JACOBI_YTILE_EDGE_DOMAIN = (1008, 2043)  # 8 | Y and 16 | Y, and no tile width divides X
+JACOBI_WEIGHTS = (0.5, 0.125)
+JACOBI_YTILE_VARIANTS = ({"variant": "ytile", "ty": 8}, {"variant": "ytile", "ty": 16})
+JACOBI_SOURCE = "src/repro_torch/csrc/jacobi2d.cu"
+JACOBI_REPLACES = {
+    "rowstream": "src/repro/kernels/jacobi2d/kernel.py:49",
+    "ytile": "src/repro/kernels/jacobi2d/kernel.py:81",
+}
+TRANSPOSE_SHAPE = (8192, 8192)           # (M, N), benchmarks/bench_trace_extract.py:76
+TRANSPOSE_EDGE_SHAPE = (2045, 1021)      # non-square, no side a multiple of 32
+TRANSPOSE_TILES = ({"bm": 32, "bn": 32}, {"bm": 128, "bn": 128})
+TRANSPOSE_SOURCE = "src/repro_torch/csrc/transpose_pad.cu"
+TRANSPOSE_REPLACES = "src/repro/kernels/transpose_pad/kernel.py:29"
 
 
 def say(*parts) -> None:
@@ -148,10 +169,49 @@ def star_conv_weight(torch, weights, r: int):
     return k.view(1, 1, *k.shape)
 
 
-def reset_counts(*kernel_modules) -> None:
+def reset_counts() -> None:
     """Every wrapper's launch count to 0, just before a path is driven."""
-    for module in kernel_modules:
+    from repro_torch.kernels.jacobi2d import kernel as JK
+    from repro_torch.kernels.lbm_d3q15 import kernel as LK
+    from repro_torch.kernels.stencil3d25 import kernel as K
+    from repro_torch.kernels.transpose_pad import kernel as TK
+
+    for module in (K, LK, JK, TK):
         module.reset_launch_counts()
+
+
+def rank_vs_card(torch, label: str, ranked, run, n_pts: int) -> None:
+    """Time every priced launch with ``run(launch)`` (1 warm-up + median of
+    5) and print the ranking's quality against the card (the paper's §5.8
+    criterion: efficiency of the predicted best, Spearman), the top-ranked
+    launch's place, the fastest and slowest launches, and the launches with
+    bz = 1 beside those with bz > 1 (on a 2D domain, read as (1, Y, X), a
+    bz > 1 launch keeps only its tz = 0 threads busy, which the GPU model
+    does not price)."""
+    from repro_torch.core.selector import ranking_quality
+
+    ms = []
+    for rc in ranked:
+        launch = rc.launch
+        ms.append(cuda_ms(torch, lambda: run(launch), warmup=1, reps=5))
+    measured = [n_pts / (t * 1e-3) for t in ms]
+    quality = ranking_quality([rc.perf for rc in ranked], measured)
+    best_i = min(range(len(ms)), key=ms.__getitem__)
+    top_place = 1 + sum(t < ms[0] for t in ms)
+    say(f"{label} ranking vs card ({len(ranked)} launches): efficiency "
+        f"{quality['efficiency']:.4f}, Spearman {quality['spearman']:.4f}; predicted best "
+        f"{ranked[0].launch.block}/{ranked[0].launch.folding} measures {ms[0]:.4f} ms "
+        f"(place {top_place}); measured best "
+        f"{ranked[best_i].launch.block}/{ranked[best_i].launch.folding} {ms[best_i]:.4f} ms "
+        f"(predicted place {best_i + 1}, {n_pts / ranked[best_i].perf * 1e3:.4f} ms "
+        f"predicted); slowest {max(ms):.4f} ms")
+    for name, keep in (("bz = 1", lambda b: b == 1), ("bz > 1", lambda b: b > 1)):
+        group = sorted(t for rc, t in zip(ranked, ms) if keep(rc.launch.block[2]))
+        top20 = sum(keep(rc.launch.block[2]) for rc in ranked[:20])
+        if group:
+            say(f"  {label} {name}: {len(group)} launches ({top20} of the top 20 ranked), "
+                f"fastest {group[0]:.4f} ms, median {statistics.median(group):.4f} ms, "
+                f"slowest {group[-1]:.4f} ms")
 
 
 def run_stencil(args, torch, dev) -> list:
@@ -161,8 +221,6 @@ def run_stencil(args, torch, dev) -> list:
     import torch.nn.functional as F
 
     from repro_torch.core.machines import H100
-    from repro_torch.core.selector import ranking_quality
-    from repro_torch.kernels.lbm_d3q15 import kernel as LK
     from repro_torch.kernels.stencil3d25 import kernel as K
     from repro_torch.kernels.stencil3d25.generator import best_config, rank_configs
     from repro_torch.kernels.stencil3d25.ops import star_stencil, zmarch_tile
@@ -192,7 +250,7 @@ def run_stencil(args, torch, dev) -> list:
 
     # 4. the main path: star_stencil(config=None) ranks and runs star_pointwise
     best = best_config(R, DOMAIN, 8, H100)
-    reset_counts(K, LK)
+    reset_counts()
     out = star_stencil(src, r=R)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
@@ -229,7 +287,7 @@ def run_stencil(args, torch, dev) -> list:
     # 6. the z-march variants, each through the entry point with its own
     # launch count
     for cfg in ZMARCH_VARIANTS:
-        reset_counts(K, LK)
+        reset_counts()
         out = star_stencil(src, r=R, config=cfg)
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
@@ -293,24 +351,9 @@ def run_stencil(args, torch, dev) -> list:
             if eb == 8:
                 k.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms[eb])
-    # the ranking against the card: every priced launch of star_pointwise,
-    # fp64, 1 warm-up + median of 5 (the paper's §5.8 criterion)
-    measured = []
-    for rc in ranked:
-        launch = rc.launch
-        t_ms = cuda_ms(torch, lambda: K.star_pointwise(padded, w64, R, launch), warmup=1, reps=5)
-        measured.append(n_pts / (t_ms * 1e-3))
-    quality = ranking_quality([rc.perf for rc in ranked], measured)
-    best_i = max(range(len(measured)), key=measured.__getitem__)
-    top_place = 1 + sum(m > measured[0] for m in measured)
-    say(f"ranking vs card (fp64, {len(ranked)} launches): efficiency "
-        f"{quality['efficiency']:.4f}, Spearman {quality['spearman']:.4f}; predicted best "
-        f"{ranked[0].launch.block}/{ranked[0].launch.folding} measures "
-        f"{n_pts / measured[0] * 1e3:.4f} ms (place {top_place}); measured best "
-        f"{ranked[best_i].launch.block}/{ranked[best_i].launch.folding} "
-        f"{n_pts / measured[best_i] * 1e3:.4f} ms (predicted place {best_i + 1}, "
-        f"{n_pts / ranked[best_i].perf * 1e3:.4f} ms predicted); slowest "
-        f"{n_pts / min(measured) * 1e3:.4f} ms")
+    # the ranking against the card: every priced launch of star_pointwise, fp64
+    rank_vs_card(torch, "stencil", ranked,
+                 lambda launch: K.star_pointwise(padded, w64, R, launch), n_pts)
     call_ms = cuda_ms(torch, lambda: star_stencil(src, r=R))
     say(f"time star_stencil(src, r={R}) fp64 incl. pad: {call_ms:.4f} ms; "
         f"fp32: {cuda_ms(torch, lambda: star_stencil(src32, r=R)):.4f} ms")
@@ -340,7 +383,6 @@ def run_lbm(args, torch, dev) -> list:
     y-tile variants, fp32, times and the ranking against the card.  Returns
     the kernels' records; its tensors are freed when it returns."""
     from repro_torch.core.machines import H100
-    from repro_torch.core.selector import ranking_quality
     from repro_torch.kernels.lbm_d3q15 import kernel as LK
     from repro_torch.kernels.lbm_d3q15.generator import best_config, rank_configs
     from repro_torch.kernels.lbm_d3q15.ops import lbm_step
@@ -383,7 +425,7 @@ def run_lbm(args, torch, dev) -> list:
     kernels = []
 
     # L2. the main path: lbm_step(config=None) ranks and runs lbm_pointwise
-    reset_counts(K, LK)
+    reset_counts()
     out, out_phase = lbm_step(pdf, phase)
     torch.cuda.synchronize()
     launches = {**K.LAUNCHES, **LK.LAUNCHES}
@@ -426,7 +468,7 @@ def run_lbm(args, torch, dev) -> list:
     # launch count
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for cfg in LBM_YTILE_VARIANTS:
-        reset_counts(K, LK)
+        reset_counts()
         out, out_phase = lbm_step(pdf, phase, config=cfg)
         torch.cuda.synchronize()
         launches = {**K.LAUNCHES, **LK.LAUNCHES}
@@ -489,25 +531,303 @@ def run_lbm(args, torch, dev) -> list:
             f"of which pad_inputs {pad_ms:.4f} ms, new_pdf.sum(0) {sum_ms:.4f} ms")
         del new_pdf
 
-    # L7. the ranking against the card: every priced launch of lbm_pointwise,
-    # fp64, 1 warm-up + median of 5 (the paper's §5.8 criterion)
-    measured = []
-    for rc in ranked:
-        launch = rc.launch
-        t_ms = cuda_ms(torch, lambda: LK.lbm_pointwise(pdf_p, phase_p, launch),
-                       warmup=1, reps=5)
-        measured.append(n_pts / (t_ms * 1e-3))
-    quality = ranking_quality([rc.perf for rc in ranked], measured)
-    best_i = max(range(len(measured)), key=measured.__getitem__)
-    top_place = 1 + sum(m > measured[0] for m in measured)
-    say(f"lbm ranking vs card (fp64, {len(ranked)} launches): efficiency "
-        f"{quality['efficiency']:.4f}, Spearman {quality['spearman']:.4f}; predicted best "
-        f"{ranked[0].launch.block}/{ranked[0].launch.folding} measures "
-        f"{n_pts / measured[0] * 1e3:.4f} ms (place {top_place}); measured best "
-        f"{ranked[best_i].launch.block}/{ranked[best_i].launch.folding} "
-        f"{n_pts / measured[best_i] * 1e3:.4f} ms (predicted place {best_i + 1}, "
-        f"{n_pts / ranked[best_i].perf * 1e3:.4f} ms predicted); slowest "
-        f"{n_pts / min(measured) * 1e3:.4f} ms")
+    # L7. the ranking against the card: every priced launch of lbm_pointwise, fp64
+    rank_vs_card(torch, "lbm", ranked,
+                 lambda launch: LK.lbm_pointwise(pdf_p, phase_p, launch), n_pts)
+    return kernels
+
+
+def jacobi_bound(padded) -> tuple:
+    """Least time (ms) the card needs for one Jacobi sweep on the padded
+    (Y+2, X+2) field: the Y x X box and one halo row and column on each face
+    (no corners) read once and the output written once at the HBM rate,
+    against the spec's 5 flops per point at the peak rate."""
+    eb = padded.element_size()
+    Y, X = (n - 2 for n in padded.shape)
+    t_bytes = (2 * Y * X + 2 * (Y + X)) * eb / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * Y * X / PEAK_FLOPS[eb] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def jacobi_conv_weight(torch, dtype, device):
+    """(1, 1, 3, 3) conv2d weight of the 5-point sweep: wc at the centre, wn
+    on the four neighbours, zero in the corners."""
+    wc, wn = JACOBI_WEIGHTS
+    k = torch.tensor([[0.0, wn, 0.0], [wn, wc, wn], [0.0, wn, 0.0]], dtype=dtype, device=device)
+    return k.view(1, 1, 3, 3)
+
+
+def run_jacobi(args, torch, dev) -> list:
+    """The Jacobi path: rank, main path (``jacobi_step(src)``), edges, y-tile
+    variants, fp32, times and the ranking against the card.  Returns the
+    kernels' records; its tensors are freed when it returns."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.machines import H100
+    from repro_torch.kernels.jacobi2d import kernel as JK
+    from repro_torch.kernels.jacobi2d.generator import best_config, rank_configs
+    from repro_torch.kernels.jacobi2d.ops import jacobi_step
+    from repro_torch.kernels.jacobi2d.ref import jacobi_padded_ref, pad_input
+
+    # J1. the ranking: every launch of the per-point kernel priced on the H100
+    t0 = time.perf_counter()
+    ranked = rank_configs(JACOBI_DOMAIN, 8, H100)
+    t_rank = time.perf_counter() - t0
+    n_pts = JACOBI_DOMAIN[0] * JACOBI_DOMAIN[1]
+    say(f"jacobi ranking: {len(ranked)} launches priced on {H100.name} in {t_rank:.2f} s "
+        f"(2D 5-point, domain {JACOBI_DOMAIN}, fp64)")
+    if len(ranked) != 168:
+        raise AssertionError(f"expected 168 priced Jacobi launches, got {len(ranked)}")
+    for i, rc in enumerate(ranked[:5]):
+        say(f"  #{i + 1} block {rc.launch.block} folding {rc.launch.folding}: "
+            f"{rc.perf / 1e9:.2f} GLUP/s predicted ({n_pts / rc.perf * 1e3:.4f} ms), "
+            f"{rc.estimate.limiter}-limited")
+    say(f"  skipped {[s.config for s in ranked.skipped]}: {ranked.skipped[0].reason}")
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    src = torch.randn(JACOBI_DOMAIN, dtype=torch.float64, device=dev, generator=gen)
+    padded = pad_input(src)
+    ref64 = jacobi_padded_ref(padded, JACOBI_WEIGHTS)
+    kernels = []
+
+    # J2. the main path: jacobi_step(src) ranks and runs jacobi_pointwise
+    reset_counts()
+    out = jacobi_step(src, JACOBI_WEIGHTS)
+    torch.cuda.synchronize()
+    launches = dict(JK.LAUNCHES)
+    ran_at = JK.LAST_LAUNCH["jacobi_pointwise"]
+    if launches["jacobi_pointwise"] < 1:
+        raise AssertionError(f"Jacobi main path launched no jacobi_pointwise: {launches}")
+    if ran_at != ranked[0].launch:
+        raise AssertionError(f"jacobi_pointwise ran at {ran_at}, the top-ranked launch is "
+                             f"{ranked[0].launch}")
+    err = check(torch, out, ref64, 8, "jacobi_step(src) fp64")
+    say(f"jacobi main path: jacobi_step(src) fp64 at block {ran_at.block} folding "
+        f"{ran_at.folding} (top-ranked of {len(ranked)}); launches {launches}; max abs "
+        f"error {err!r} (tolerance {TOL[8]})")
+    del out
+    kernels.append({"name": "jacobi_pointwise", "config": None, "source": JACOBI_SOURCE,
+                    "launches": launches["jacobi_pointwise"], "max_abs_err": err,
+                    "replaces": JACOBI_REPLACES["rowstream"]})
+
+    # J3. folding and edge coverage at pinned launches on a domain that no
+    # block extent divides, and a y-tile whose tiles overhang the x edge
+    for domain, configs in (
+            (JACOBI_EDGE_DOMAIN, [{"block": b, "folding": f} for b, f in EDGE_LAUNCHES]),
+            (JACOBI_YTILE_EDGE_DOMAIN, list(JACOBI_YTILE_VARIANTS))):
+        src_e = torch.randn(domain, dtype=torch.float64, device=dev, generator=gen)
+        for eb, dtype in ((8, torch.float64), (4, torch.float32)):
+            src_t = src_e.to(dtype)
+            want = jacobi_padded_ref(pad_input(src_t), JACOBI_WEIGHTS)
+            for cfg in configs:
+                e = check(torch, jacobi_step(src_t, JACOBI_WEIGHTS, cfg), want, eb,
+                          f"jacobi edge {domain} {cfg} fp{eb * 8}")
+                say(f"jacobi edge {domain} {cfg} fp{eb * 8}: max abs error {e!r}")
+        del src_e, src_t, want
+
+    # J4. the y-tile variants, each through the entry point with its own
+    # launch count; then fp32 on the main path and both y-tiles
+    for cfg in JACOBI_YTILE_VARIANTS:
+        reset_counts()
+        out = jacobi_step(src, JACOBI_WEIGHTS, cfg)
+        torch.cuda.synchronize()
+        launches = dict(JK.LAUNCHES)
+        if launches["jacobi_ytile"] < 1:
+            raise AssertionError(f"{cfg} launched no jacobi_ytile: {launches}")
+        err = check(torch, out, ref64, 8, f"jacobi_step({cfg}) fp64")
+        ty, tx = JK.LAST_LAUNCH["jacobi_ytile"]
+        say(f"jacobi y-tile {cfg} fp64: tile {ty}x{tx}, {JK.ytile_smem_bytes(ty, tx, 8)} B "
+            f"shared memory; launches {launches}; max abs error {err!r}")
+        del out
+        kernels.append({"name": f"jacobi_ytile[ty={cfg['ty']}]", "config": cfg,
+                        "source": JACOBI_SOURCE, "launches": launches["jacobi_ytile"],
+                        "max_abs_err": err, "replaces": JACOBI_REPLACES["ytile"]})
+    src32 = src.float()
+    padded32 = pad_input(src32)
+    ref32 = jacobi_padded_ref(padded32, JACOBI_WEIGHTS)
+    best32 = best_config(JACOBI_DOMAIN, 4, H100)
+    for cfg in (None,) + JACOBI_YTILE_VARIANTS:
+        err = check(torch, jacobi_step(src32, JACOBI_WEIGHTS, cfg), ref32, 4,
+                    f"jacobi_step({cfg}) fp32")
+        say(f"fp32 jacobi_step(config={cfg}): max abs error {err!r}"
+            + (f"; launch block {best32.launch.block} folding {best32.launch.folding}"
+               if cfg is None else ""))
+    del ref32, ref64
+
+    # J5. times at the paper size on the pre-padded input
+    inputs = {8: (src, padded, ranked[0]), 4: (src32, padded32, best32)}
+    for eb, (src_x, pad_x, rc) in inputs.items():
+        x4 = pad_x.view(1, 1, *pad_x.shape)
+        weight = jacobi_conv_weight(torch, pad_x.dtype, dev)
+        conv_err = float((F.conv2d(x4, weight)[0, 0]
+                          - jacobi_padded_ref(pad_x, JACOBI_WEIGHTS)).abs().max())
+        lib = cuda_ms(torch, lambda: F.conv2d(x4, weight), warmup=1, reps=5)
+        plain = cuda_ms(torch, lambda: jacobi_padded_ref(pad_x, JACOBI_WEIGHTS), warmup=1, reps=5)
+        b_ms, b_by = jacobi_bound(pad_x)
+        say(f"jacobi library F.conv2d (3x3 weight, zero corners) fp{eb * 8}: {lib:.4f} ms "
+            f"(median of 5), max abs diff to the plain version {conv_err!r} "
+            f"(cudnn.allow_tf32=False)")
+        for k in kernels[-3:]:
+            if k["config"] is None:
+                launch = rc.launch
+                ms = cuda_ms(torch, lambda: JK.jacobi_pointwise(pad_x, launch, JACOBI_WEIGHTS))
+                pred = (f"; predicted {n_pts / rc.perf * 1e3:.4f} ms at block "
+                        f"{launch.block} folding {launch.folding} "
+                        f"({rc.estimate.limiter}-limited)")
+            else:
+                tile = JK.ytile_tile(k["config"]["ty"], eb)
+                ms = cuda_ms(torch, lambda: JK.jacobi_ytile(pad_x, *tile, JACOBI_WEIGHTS))
+                pred = f"; not priced by the GPU model (tile {tile[0]}x{tile[1]})"
+            say(f"time {k['name']} fp{eb * 8}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms * 100:.1f}% of bound; plain {plain:.4f} ms (median of 5); "
+                f"library {lib:.4f} ms{pred}")
+            if eb == 8:
+                k.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        call_ms = cuda_ms(torch, lambda: jacobi_step(src_x, JACOBI_WEIGHTS))
+        pad_ms = cuda_ms(torch, lambda: pad_input(src_x))
+        say(f"time jacobi_step(src) fp{eb * 8} incl. pad: {call_ms:.4f} ms; of which "
+            f"pad_input {pad_ms:.4f} ms")
+
+    # J6. the ranking against the card: every priced launch of jacobi_pointwise, fp64
+    rank_vs_card(torch, "jacobi", ranked,
+                 lambda launch: JK.jacobi_pointwise(padded, launch, JACOBI_WEIGHTS), n_pts)
+    return kernels
+
+
+def check_exact(torch, got, want, what: str) -> float:
+    """A transpose only moves data: ``got`` must equal the plain version bit
+    for bit; returns the max abs error (0.0)."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{what}: not equal to the plain version "
+                             f"(got {tuple(got.shape)} {got.dtype})")
+    return float((got - want).abs().max())
+
+
+def run_transpose(args, torch, dev) -> list:
+    """The transpose path: rank, main path (``transpose(x)``), edges, tiled
+    variants, fp64, times and the ranking against the card.  Returns the
+    kernels' records; its tensors are freed when it returns."""
+    from repro_torch.core.machines import H100
+    from repro_torch.kernels.transpose_pad import kernel as TK
+    from repro_torch.kernels.transpose_pad.generator import best_config, rank_configs
+    from repro_torch.kernels.transpose_pad.ops import transpose
+    from repro_torch.kernels.transpose_pad.ref import transpose_ref
+
+    # T1. the ranking: every launch of the per-point kernel priced on the H100
+    t0 = time.perf_counter()
+    ranked = rank_configs(TRANSPOSE_SHAPE, 4, H100)
+    t_rank = time.perf_counter() - t0
+    n_pts = TRANSPOSE_SHAPE[0] * TRANSPOSE_SHAPE[1]
+    say(f"transpose ranking: {len(ranked)} launches priced on {H100.name} in {t_rank:.2f} s "
+        f"(shape {TRANSPOSE_SHAPE}, fp32); {len(ranked.skipped)} tile shapes skipped")
+    if len(ranked) != 168:
+        raise AssertionError(f"expected 168 priced transpose launches, got {len(ranked)}")
+    for i, rc in enumerate(ranked[:5]):
+        say(f"  #{i + 1} block {rc.launch.block} folding {rc.launch.folding}: "
+            f"{rc.perf / 1e9:.2f} G elements/s predicted ({n_pts / rc.perf * 1e3:.4f} ms), "
+            f"{rc.estimate.limiter}-limited")
+    say(f"  skipped {[s.config for s in ranked.skipped]}: {ranked.skipped[0].reason}")
+    big = (2 * TRANSPOSE_SHAPE[0], 2 * TRANSPOSE_SHAPE[1])
+    top_big = rank_configs(big, 4, H100)[0]
+    say(f"  at {big} fp32 the top-ranked launch {top_big.launch.block}/"
+        f"{top_big.launch.folding} is predicted at {big[0] * big[1] / top_big.perf * 1e3:.4f} ms "
+        f"({top_big.estimate.limiter}-limited); its byte bound is "
+        f"{2 * big[0] * big[1] * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn(TRANSPOSE_SHAPE, dtype=torch.float32, device=dev, generator=gen)
+    want = transpose_ref(x)
+    kernels = []
+
+    # T2. the main path: transpose(x) ranks and runs transpose_pointwise
+    reset_counts()
+    out = transpose(x)
+    torch.cuda.synchronize()
+    launches = dict(TK.LAUNCHES)
+    ran_at = TK.LAST_LAUNCH["transpose_pointwise"]
+    if launches["transpose_pointwise"] < 1:
+        raise AssertionError(f"transpose main path launched no transpose_pointwise: {launches}")
+    if ran_at != ranked[0].launch:
+        raise AssertionError(f"transpose_pointwise ran at {ran_at}, the top-ranked launch is "
+                             f"{ranked[0].launch}")
+    err = check_exact(torch, out, want, "transpose(x) fp32")
+    say(f"transpose main path: transpose(x) fp32 at block {ran_at.block} folding "
+        f"{ran_at.folding} (top-ranked of {len(ranked)}; "
+        f"{ran_at.block[0] * ran_at.block[1]} of its {ran_at.threads} threads have points); "
+        f"launches {launches}; equal to the plain version (max abs error {err!r})")
+    del out
+    kernels.append({"name": "transpose_pointwise", "config": None, "source": TRANSPOSE_SOURCE,
+                    "launches": launches["transpose_pointwise"], "max_abs_err": err,
+                    "replaces": TRANSPOSE_REPLACES})
+
+    # T3. folding and edge coverage at pinned launches and both tiles on a
+    # non-square shape with no side a multiple of 32
+    x_e = torch.randn(TRANSPOSE_EDGE_SHAPE, dtype=torch.float64, device=dev, generator=gen)
+    configs = [{"block": b, "folding": f} for b, f in EDGE_LAUNCHES] + list(TRANSPOSE_TILES)
+    for dtype in (torch.float32, torch.float64):
+        x_t = x_e.to(dtype)
+        want_e = transpose_ref(x_t)
+        for cfg in configs:
+            check_exact(torch, transpose(x_t, cfg), want_e, f"transpose edge {cfg} {dtype}")
+        say(f"transpose edge {TRANSPOSE_EDGE_SHAPE} {dtype}: equal to the plain version at "
+            f"{configs}")
+    del x_e, x_t, want_e
+
+    # T4. the tiled variants, each through the entry point with its own
+    # launch count; then fp64 on the main path and both tiles
+    for cfg in TRANSPOSE_TILES:
+        reset_counts()
+        out = transpose(x, cfg)
+        torch.cuda.synchronize()
+        launches = dict(TK.LAUNCHES)
+        if launches["transpose_tiled"] < 1:
+            raise AssertionError(f"{cfg} launched no transpose_tiled: {launches}")
+        err = check_exact(torch, out, want, f"transpose({cfg}) fp32")
+        say(f"transpose tiled {cfg} fp32: launches {launches}; equal to the plain version")
+        del out
+        kernels.append({"name": f"transpose_tiled[{cfg['bm']}x{cfg['bn']}]", "config": cfg,
+                        "source": TRANSPOSE_SOURCE, "launches": launches["transpose_tiled"],
+                        "max_abs_err": err, "replaces": TRANSPOSE_REPLACES})
+    x64 = x.double()
+    want64 = transpose_ref(x64)
+    best64 = best_config(TRANSPOSE_SHAPE, 8, H100)
+    for cfg in (None,) + TRANSPOSE_TILES:
+        check_exact(torch, transpose(x64, cfg), want64, f"transpose({cfg}) fp64")
+        say(f"fp64 transpose(config={cfg}): equal to the plain version"
+            + (f"; launch block {best64.launch.block} folding {best64.launch.folding}"
+               if cfg is None else ""))
+    del want, want64
+
+    # T5. times at the paper size; the plain version, x.mT.contiguous(), is
+    # PyTorch's own copy kernel and so also the library call
+    for eb, (x_x, rc) in {4: (x, ranked[0]), 8: (x64, best64)}.items():
+        plain = cuda_ms(torch, lambda: transpose_ref(x_x))
+        b_ms = 2 * x_x.numel() * eb / HBM_BYTES_PER_S * 1e3
+        for k in kernels[-3:]:
+            if k["config"] is None:
+                launch = rc.launch
+                ms = cuda_ms(torch, lambda: TK.transpose_pointwise(x_x, launch))
+                pred = (f"; predicted {n_pts / rc.perf * 1e3:.4f} ms at block "
+                        f"{launch.block} folding {launch.folding} "
+                        f"({rc.estimate.limiter}-limited)")
+            else:
+                bm, bn = k["config"]["bm"], k["config"]["bn"]
+                ms = cuda_ms(torch, lambda: TK.transpose_tiled(x_x, bm, bn))
+                pred = "; not priced by the GPU model"
+            say(f"time {k['name']} fp{eb * 8}: {ms:.4f} ms, bound {b_ms:.4f} ms (bytes), "
+                f"{b_ms / ms * 100:.1f}% of bound; plain = library x.mT.contiguous() "
+                f"{plain:.4f} ms{pred}")
+            if eb == 4:
+                k.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by="bytes",
+                         library_ms=plain)
+        call_ms = cuda_ms(torch, lambda: transpose(x_x))
+        say(f"time transpose(x) fp{eb * 8}: {call_ms:.4f} ms")
+    del x64
+
+    # T6. the ranking against the card: every priced launch of
+    # transpose_pointwise, fp32
+    rank_vs_card(torch, "transpose", ranked,
+                 lambda launch: TK.transpose_pointwise(x, launch), n_pts)
     return kernels
 
 
@@ -553,6 +873,10 @@ def main(argv=None) -> int:
     kernels = run_stencil(args, torch, dev)
     torch.cuda.empty_cache()
     kernels += run_lbm(args, torch, dev)
+    torch.cuda.empty_cache()
+    kernels += run_jacobi(args, torch, dev)
+    torch.cuda.empty_cache()
+    kernels += run_transpose(args, torch, dev)
 
     # peak memory
     say(f"peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "

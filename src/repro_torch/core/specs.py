@@ -2,9 +2,10 @@
 
 These are the "address expressions + field sizes" artifacts a code generator
 hands to the estimator (paper §1.2).  A copy of the specs of
-``repro.core.specs`` (the star stencil and the D3Q15 LBM) that the port's
-generators price; the per-point CUDA kernels in ``repro_torch/csrc``
-perform exactly these accesses.
+``repro.core.specs`` (the star stencil, the 2D 5-point stencil and the
+D3Q15 LBM) that the port's generators price, and the transpose's spec,
+which the reference gets only by tracing; the per-point CUDA kernels in
+``repro_torch/csrc`` perform exactly these accesses.
 """
 from __future__ import annotations
 
@@ -38,6 +39,44 @@ def star_stencil_3d(
         accesses=tuple(accs),
         flops_per_point=float(n_pts),
     )
+
+
+def stencil_2d5pt(domain=(4096, 4096), elem_bytes: int = 8) -> KernelSpec:
+    """2D 5-point stencil (paper figs. 6/7/9 illustrations)."""
+    dy, dx = domain
+    src = Field("src", (dy + 2, dx + 2), elem_bytes)
+    dst = Field("dst", (dy, dx), elem_bytes)
+    accs = [
+        Access(src, (1, 1)),
+        Access(src, (0, 1)),
+        Access(src, (2, 1)),
+        Access(src, (1, 0)),
+        Access(src, (1, 2)),
+        Access(dst, (0, 0), is_store=True),
+    ]
+    return KernelSpec("stencil2d5pt", domain, tuple(accs), flops_per_point=5.0)
+
+
+def transpose_pad(shape, elem_bytes: int = 4) -> KernelSpec:
+    """Per-point transpose of an (M, N) operand ``x`` into (N, M) ``xt``:
+    over the domain (N, M), point (y, x) loads ``x[x, y]`` (``dim_map``
+    (1, 0)) and stores ``xt[y, x]``; no arithmetic.
+
+    Written by hand because the reference has this spec only as the GPU
+    lowering of its traced Pallas kernel
+    (``repro.kernels.transpose_pad.generator.traced_gpu_spec``), and its
+    tracer is broken on jax 0.9.0.  It covers the unpadded operand: the
+    Pallas kernel needs whole (bm, bn) tiles, the guarded CUDA kernel no
+    padding.  At tile multiples it equals the reference's traced spec.
+    """
+    M, N = shape
+    x = Field("x", (M, N), elem_bytes)
+    xt = Field("xt", (N, M), elem_bytes)
+    accs = (
+        Access(x, (0, 0), dim_map=(1, 0)),
+        Access(xt, (0, 0), is_store=True),
+    )
+    return KernelSpec("transpose_pad", (N, M), accs, flops_per_point=0.0)
 
 
 # D3Q15 lattice velocities (c_q), the conventional ordering

@@ -14,12 +14,14 @@ import torch
 GENERATOR_MODULES = {
     "stencil3d25": "repro_torch.kernels.stencil3d25.generator",
     "lbm_d3q15": "repro_torch.kernels.lbm_d3q15.generator",
+    "jacobi2d": "repro_torch.kernels.jacobi2d.generator",
+    "transpose_pad": "repro_torch.kernels.transpose_pad.generator",
 }
 
-# why a generator's shared-memory (z-march) variants sit in a ranking's
-# ``.skipped``
+# why a generator's shared-memory variants (z-march rings, y-tiles, tiles)
+# sit in a ranking's ``.skipped``
 SCRATCH_REASON = (
-    "scratch-staged kernel: it stages planes through a shared-memory ring, "
+    "scratch-staged kernel: it stages planes or tiles through shared memory, "
     "and the GPU model prices per-point kernels only (DESIGN §9 rejects "
     "scratch-staged kernels for the GPU target); runnable through a pinned "
     "config")

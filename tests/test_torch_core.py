@@ -18,6 +18,7 @@ from repro.core import machines as ref_machines
 from repro.core.selector import rank_gpu_configs as ref_rank_gpu_configs
 from repro.core.selector import ranking_quality as ref_ranking_quality
 from repro.core.specs import lbm_d3q15 as ref_lbm_d3q15
+from repro.core.specs import stencil_2d5pt as ref_stencil_2d5pt
 from repro.core.specs import star_stencil_3d as ref_star_stencil_3d
 from repro_torch.core import machines
 from repro_torch.core.access import LaunchConfig
@@ -27,7 +28,7 @@ from repro_torch.core.selector import (
     rank_gpu_configs,
     ranking_quality,
 )
-from repro_torch.core.specs import lbm_d3q15, star_stencil_3d
+from repro_torch.core.specs import lbm_d3q15, star_stencil_3d, stencil_2d5pt, transpose_pad
 
 ROOT = Path(__file__).resolve().parents[1]
 ESTIMATE_FIELDS = ("kernel", "machine", "lups", "l1_cycles_per_lup",
@@ -75,6 +76,56 @@ def test_lbm_spec_equals_reference(domain, elem_bytes):
     assert lbm_d3q15().domain == ref_lbm_d3q15().domain == (256, 256, 256)
 
 
+@pytest.mark.parametrize("domain", [(4096, 4096), (16, 40)])
+@pytest.mark.parametrize("elem_bytes", [4, 8])
+def test_stencil_2d5pt_spec_equals_reference(domain, elem_bytes):
+    _assert_spec_equal(stencil_2d5pt(domain, elem_bytes), ref_stencil_2d5pt(domain, elem_bytes), 6)
+    assert stencil_2d5pt().domain == ref_stencil_2d5pt().domain == (4096, 4096)
+
+
+def _traced_transpose_spec(monkeypatch, shape, elem_bytes):
+    """The reference's transpose spec, which exists only as the GPU lowering
+    of its traced Pallas kernel.  The tracer patches ``pl.load`` and
+    ``pl.store``, which jax 0.9.0 no longer has: a test-only shim gives it
+    something to patch (the tracer replaces both during the trace anyway)."""
+    from jax.experimental import pallas
+
+    from repro.kernels.transpose_pad.generator import traced_gpu_spec
+
+    def load(ref, idx):
+        return ref[idx]
+
+    def store(ref, idx, val):
+        ref[idx] = val
+
+    monkeypatch.setattr(pallas, "load", load, raising=False)
+    monkeypatch.setattr(pallas, "store", store, raising=False)
+    try:
+        return traced_gpu_spec(shape, elem_bytes)
+    finally:
+        traced_gpu_spec.cache_clear()  # no traced spec outlives the shim
+
+
+@pytest.mark.parametrize("shape,elem_bytes", [((256, 512), 4), ((64, 96), 8)])
+def test_transpose_spec_equals_traced_reference(monkeypatch, shape, elem_bytes):
+    _assert_spec_equal(transpose_pad(shape, elem_bytes),
+                       _traced_transpose_spec(monkeypatch, shape, elem_bytes), 2)
+
+
+def test_transpose_spec_structure():
+    """The structural assertions of the reference's
+    ``test_gpu_lowering_transpose_dim_map``, on the port's spec."""
+    spec = transpose_pad((256, 512), 4)
+    assert spec.domain == (512, 256)        # out shape (N, M)
+    load, store = spec.accesses
+    assert not load.is_store and store.is_store
+    assert load.dim_map == (1, 0)           # in[p1, p0]
+    assert store.dim_map == (0, 1)
+    assert (load.field.name, load.field.shape, store.field.name, store.field.shape) == (
+        "x", (256, 512), "xt", (512, 256))
+    assert spec.flops_per_point == 0.0
+
+
 @pytest.mark.parametrize("name", ["V100", "A100", "A100_80G", "H100"])
 def test_machine_parameters_equal_reference(name):
     assert _fields(getattr(machines, name)) == _fields(getattr(ref_machines, name))
@@ -102,6 +153,19 @@ def _assert_ranking_equal(mine, ref):
 def test_lbm_h100_ranking_bitwise_equals_reference(domain):
     _assert_ranking_equal(rank_gpu_configs(lbm_d3q15(domain), machines.H100),
                           ref_rank_gpu_configs(ref_lbm_d3q15(domain), ref_machines.H100))
+
+
+@pytest.mark.parametrize("domain", [(64, 128), (40, 200)])
+def test_jacobi_h100_ranking_bitwise_equals_reference(domain):
+    _assert_ranking_equal(rank_gpu_configs(stencil_2d5pt(domain), machines.H100),
+                          ref_rank_gpu_configs(ref_stencil_2d5pt(domain), ref_machines.H100))
+
+
+@pytest.mark.parametrize("shape", [(256, 512), (96, 160)])
+def test_transpose_h100_ranking_bitwise_equals_reference(monkeypatch, shape):
+    _assert_ranking_equal(rank_gpu_configs(transpose_pad(shape), machines.H100),
+                          ref_rank_gpu_configs(_traced_transpose_spec(monkeypatch, shape, 4),
+                                               ref_machines.H100))
 
 
 def test_ranking_breaks_ties_toward_enumeration_order():
@@ -145,6 +209,23 @@ def test_every_launch_covers_the_domain_exactly_once():
         assert (hits == 1).all(), launch
 
 
+@pytest.mark.parametrize("domain", [(13, 37), (40, 24)])
+def test_every_launch_covers_the_2d_domain_exactly_once(domain):
+    """A 2D domain reads as (1, Y, X): one block in z, and a launch with
+    bz > 1 gives points only to its tz = 0 threads; every point is still
+    covered exactly once (the Jacobi and transpose kernels' map)."""
+    for launch in enumerate_gpu_configs():
+        hits = np.zeros((1, *domain), dtype=np.int64)
+        gx, gy, gz = launch.grid_for(domain)
+        assert gz == 1
+        for bz in range(gz):
+            for by in range(gy):
+                for bx in range(gx):
+                    pts = block_points(launch, domain, (bx, by, bz))
+                    np.add.at(hits, (pts[:, 0], pts[:, 1], pts[:, 2]), 1)
+        assert (hits == 1).all(), launch
+
+
 def test_port_imports_no_jax_and_nothing_of_repro():
     """Every repro_torch module and chip_smoke.py, imported in a fresh
     interpreter, load neither jax nor any module of the JAX package; their
@@ -176,6 +257,8 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules),
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.kernels.stencil3d25.ops" in out["modules"]
     assert "repro_torch.kernels.lbm_d3q15.ops" in out["modules"]
+    assert "repro_torch.kernels.jacobi2d.ops" in out["modules"]
+    assert "repro_torch.kernels.transpose_pad.ops" in out["modules"]
     assert "repro_torch.convert" in out["modules"]
 
     def foreign(name):
