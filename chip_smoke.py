@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
-Runs the paper's fig.-1 loop through the port's own entry points on both of
-its applications, and builds the CUDA kernels from ``src/repro_torch/csrc``
+Runs every ported path through the port's own entry points, and builds the CUDA kernels from ``src/repro_torch/csrc``
 with nvcc first (one nvcc per source, in parallel):
 
 * the §5.2 stencil (range-4 star, 25 points, domain (512, 512, 640), fp64):
@@ -15,15 +14,19 @@ with nvcc first (one nvcc per source, in parallel):
   all 168 launches of the per-point kernel and runs ``jacobi_step`` at the
   winning launch;
 * the 2D transpose ((8192, 8192), fp32): ranks all 168 launches of the
-  per-point kernel and runs ``transpose`` at the winning launch.
+  per-point kernel and runs ``transpose`` at the winning launch;
+* the attention path at granite-3-2b's full width (bf16): ``tuned_matmul``
+  on the GEMMs of one layer at 16384 tokens, ``flash_attention`` on a causal
+  prefill (B 4, S 4096) and on one decode token against a 32k cache
+  (B 128), and ``attention_apply(use_pallas=True)`` on (4, 4096, 2048).
 
 Each path's pinned variants (the z-march stencils, the y-tiled LBM, the
-y-tiled Jacobi sweep, the tiled transpose) run too,
-in fp64 and fp32, and every kernel is held against its plain PyTorch
-version on the card.  It then times each kernel beside its bound, its plain
+y-tiled Jacobi sweep, the tiled transpose, the second GEMM and flash tiles)
+run too, in the path's second dtype as well (fp32 beside fp64 and bf16),
+and every kernel is held against its plain PyTorch version on the card.  It then times each kernel beside its bound, its plain
 version and, where one exists, one library call that computes the same
-function, and times every priced launch to rank the estimator against the
-card.
+function, and times every priced launch of the stencil paths to rank the
+estimator against the card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -88,6 +91,28 @@ TRANSPOSE_EDGE_SHAPE = (2045, 1021)      # non-square, no side a multiple of 32
 TRANSPOSE_TILES = ({"bm": 32, "bn": 32}, {"bm": 128, "bn": 128})
 TRANSPOSE_SOURCE = "src/repro_torch/csrc/transpose_pad.cu"
 TRANSPOSE_REPLACES = "src/repro/kernels/transpose_pad/kernel.py:29"
+# the attention path at granite-3-2b's width (src/repro/configs/granite3_2b.py)
+T_TOKENS = 4 * 4096                      # tokens of the layer's GEMMs
+PREFILL = (4, 4096)                      # (B, S) of the prefill and of the layer
+DECODE_SLICE = 16                        # batch slice of the decode check
+MATMUL_EDGE_SHAPES = ((1000, 2056, 776), (129, 40, 264))  # (M, K, N), no tile divides them
+PEAK_BF16_FLOPS = 989e12                 # H100 SXM data sheet, dense bf16 tensor cores
+# tolerances on the card: bf16 GEMM against the fp32-accumulated product cast
+# to bf16; fp32 GEMM as tests/test_kernels.py:61 (different sum orders);
+# flash as tests/test_kernels.py:102 (bf16) and 2e-3 (fp32)
+GEMM_TOL = {2: dict(rtol=1e-2, atol=1e-2), 4: dict(rtol=1e-4, atol=8e-4)}
+FLASH_TOL = {2: dict(rtol=0.0, atol=3e-2), 4: dict(rtol=0.0, atol=2e-3)}
+# an attention output is a softmax average, about sqrt(e / Skv) in size far
+# from the first keys (0.009 at a 32k cache), so FLASH_TOL alone passes a
+# kernel that skips a block of keys; every output row (a query row's D
+# values, a token's d_model values) is also held to this relative L2 bound,
+# and run_flash shows that an output missing one KV block fails it
+FLASH_ROW_REL = {2: 2e-2, 4: 1e-4}
+MATMUL_SOURCE = "src/repro_torch/csrc/matmul.cu"
+MATMUL_REPLACES = "src/repro/kernels/matmul/kernel.py:42"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"fwd": "src/repro/kernels/flash_attention/kernel.py:77",
+                  "decode": "src/repro/kernels/flash_attention/kernel.py:144"}
 
 
 def say(*parts) -> None:
@@ -171,12 +196,14 @@ def star_conv_weight(torch, weights, r: int):
 
 def reset_counts() -> None:
     """Every wrapper's launch count to 0, just before a path is driven."""
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.jacobi2d import kernel as JK
     from repro_torch.kernels.lbm_d3q15 import kernel as LK
+    from repro_torch.kernels.matmul import kernel as MK
     from repro_torch.kernels.stencil3d25 import kernel as K
     from repro_torch.kernels.transpose_pad import kernel as TK
 
-    for module in (K, LK, JK, TK):
+    for module in (K, LK, JK, TK, MK, FK):
         module.reset_launch_counts()
 
 
@@ -831,6 +858,418 @@ def run_transpose(args, torch, dev) -> list:
     return kernels
 
 
+def bf16_bound(flops: float, n_bytes: float) -> tuple:
+    """Least time (ms) for work of ``flops`` bf16 operations moving
+    ``n_bytes``: the larger of the tensor-core and the HBM time."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(torch, got, want, what: str, rtol: float, atol: float) -> float:
+    """Max abs error of ``got`` against the plain version in fp32; raises when
+    the shapes or dtypes differ, a value is not finite, or the tolerance is
+    exceeded."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: got {tuple(got.shape)} {got.dtype}, "
+                             f"want {tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if not torch.allclose(g, w, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max abs error {err!r} exceeds rtol {rtol}, atol {atol}")
+    return err
+
+
+def check_flash(torch, got, want, what: str, elem_bytes: int) -> tuple:
+    """(max abs error, max row relative error) of an attention output
+    against the plain version; raises unless both FLASH_TOL and
+    FLASH_ROW_REL hold."""
+    from repro_torch.kernels.flash_attention.ref import row_rel_err
+
+    err = check_close(torch, got, want, what, **FLASH_TOL[elem_bytes])
+    rel = row_rel_err(got, want)
+    if rel > FLASH_ROW_REL[elem_bytes]:
+        raise AssertionError(f"{what}: row relative error {rel!r} exceeds "
+                             f"{FLASH_ROW_REL[elem_bytes]}")
+    return err, rel
+
+
+def check_rejects(torch, wrong, want, what: str, elem_bytes: int) -> str:
+    """Raise unless FLASH_ROW_REL rejects ``wrong``, an output computed with
+    one KV block left out; report what each bound reads on it."""
+    from repro_torch.kernels.flash_attention.ref import row_rel_err
+
+    rel = row_rel_err(wrong, want)
+    if rel <= FLASH_ROW_REL[elem_bytes]:
+        raise AssertionError(f"{what}: row bound {FLASH_ROW_REL[elem_bytes]} passes an output "
+                             f"missing a KV block (row relative error {rel!r})")
+    g, w = wrong.float(), want.float()
+    verdict = "passes" if torch.allclose(g, w, **FLASH_TOL[elem_bytes]) else "rejects"
+    return (f"{what}: max abs difference {float((g - w).abs().max())!r} ({FLASH_TOL[elem_bytes]} "
+            f"{verdict} it), row relative error {rel!r} (the row bound "
+            f"{FLASH_ROW_REL[elem_bytes]} rejects it)")
+
+
+def run_matmuls(args, torch, dev) -> list:
+    """The GEMMs of one granite-3-2b layer at T tokens through
+    ``tuned_matmul`` (the main path, every launch counted), each against
+    ``matmul_ref``; the second tile through its pinned config; fp32 and
+    ragged shapes; times beside the bound, the plain version, ``torch.matmul``
+    and the suite's CUDA-core price."""
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.kernels.matmul import kernel as MK
+    from repro_torch.kernels.matmul.generator import DEFAULT, SUITE_GPU_BLOCKS, TILES, suite_price
+    from repro_torch.kernels.matmul.ops import tuned_matmul
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.layers.shapes import attention_proj_shapes, mlp_shapes
+
+    proj = attention_proj_shapes(CONFIG.d_model, CONFIG.n_heads, CONFIG.n_kv,
+                                 CONFIG.resolved_head_dim)
+    mlp = mlp_shapes(CONFIG.d_model, CONFIG.d_ff, CONFIG.mlp)
+    gemms = [("qkv", proj["qkv"], 1), ("out", proj["out"], 1),
+             ("mlp.in", *mlp["in"]), ("mlp.out", *mlp["out"])]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn((T_TOKENS, max(k for _, (k, _), _ in gemms)), device=dev, generator=gen)
+    operands = {}
+    for name, (k, n), mult in gemms:
+        w = torch.randn((k, n), device=dev, generator=gen) * k ** -0.5
+        operands[name] = (x[:, :k].contiguous().bfloat16(), w.bfloat16().contiguous(), mult)
+    del x
+    say(f"matmul: granite-3-2b ({CONFIG.d_model} wide, d_ff {CONFIG.d_ff}) GEMMs of one layer "
+        f"at T = {T_TOKENS} tokens, bf16; bound = max(flops / {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s, bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s), the dense bf16 and HBM rates "
+        f"of the H100 SXM data sheet (NVIDIA), the card named by `{card_line()}`")
+    default = (DEFAULT[2]["bm"], DEFAULT[2]["bn"], DEFAULT[2]["bk"])
+    tiles = [(t["bm"], t["bn"], t["bk"]) for t in TILES[2]]
+
+    # M1. the main path: tuned_matmul on every GEMM of the layer (mlp.in twice)
+    reset_counts()
+    outs = {name: [tuned_matmul(a, b) for _ in range(mult)] for name, (a, b, mult) in operands.items()}
+    torch.cuda.synchronize()
+    launches = dict(MK.LAUNCHES)
+    n_calls = sum(mult for _, _, mult in operands.values())
+    if launches["matmul_tiled"] != n_calls or MK.LAST_LAUNCH["matmul_tiled"] != default:
+        raise AssertionError(f"matmul main path: launches {launches}, last "
+                             f"{MK.LAST_LAUNCH['matmul_tiled']}; want {n_calls} at {default}")
+    plain = {name: matmul_ref(a, b) for name, (a, b, _) in operands.items()}
+    errs = {name: max(check_close(torch, o, plain[name], f"tuned_matmul {name} bf16", **GEMM_TOL[2])
+                      for o in outs[name]) for name in operands}
+    say(f"matmul main path: tuned_matmul at tile {default} on {list(operands)}; launches "
+        f"{launches}; max abs error {errs} (rtol/atol {GEMM_TOL[2]})")
+    del outs
+    records = {default: {"name": f"matmul_tiled[{'x'.join(map(str, default))}]",
+                         "launches": launches["matmul_tiled"], "max_abs_err": max(errs.values())}}
+
+    # M2. the other tile through its pinned config, with its own launch count
+    for tile in tiles:
+        if tile == default:
+            continue
+        cfg = dict(zip(("bm", "bn", "bk"), tile))
+        reset_counts()
+        outs = {name: [tuned_matmul(a, b, cfg) for _ in range(mult)]
+                for name, (a, b, mult) in operands.items()}
+        torch.cuda.synchronize()
+        launches = dict(MK.LAUNCHES)
+        if launches["matmul_tiled"] != n_calls or MK.LAST_LAUNCH["matmul_tiled"] != tile:
+            raise AssertionError(f"{cfg}: launches {launches}")
+        err = max(check_close(torch, o, plain[name], f"tuned_matmul {name} {cfg}", **GEMM_TOL[2])
+                  for name in operands for o in outs[name])
+        say(f"matmul tile {tile}: launches {launches}; max abs error {err!r}")
+        del outs
+        records[tile] = {"name": f"matmul_tiled[{'x'.join(map(str, tile))}]",
+                         "launches": launches["matmul_tiled"], "max_abs_err": err}
+
+    # M3. fp32 (CUDA cores) on the out GEMM, and both dtypes on ragged shapes
+    a32, b32 = operands["out"][0].float(), operands["out"][1].float()
+    want32 = matmul_ref(a32, b32)
+    for tile in MK.TILES[4]:
+        err = check_close(torch, MK.matmul_tiled(a32, b32, *tile), want32,
+                          f"matmul_tiled fp32 {tile}", **GEMM_TOL[4])
+        ms = cuda_ms(torch, lambda: MK.matmul_tiled(a32, b32, *tile), warmup=1, reps=5)
+        b_ms = max(2 * a32.shape[0] * a32.shape[1] * b32.shape[1] / PEAK_FLOPS[4],
+                   (a32.numel() + b32.numel() + want32.numel()) * 4 / HBM_BYTES_PER_S) * 1e3
+        say(f"matmul fp32 out GEMM {tuple(a32.shape)}x{tuple(b32.shape)} tile {tile}: max abs "
+            f"error {err!r} (rtol/atol {GEMM_TOL[4]}); {ms:.4f} ms (median of 5), bound "
+            f"{b_ms:.4f} ms at {PEAK_FLOPS[4] / 1e12:.0f} TFLOP/s fp32")
+    lib32 = cuda_ms(torch, lambda: torch.matmul(a32, b32), warmup=1, reps=5)
+    say(f"matmul fp32 library torch.matmul (allow_tf32=False): {lib32:.4f} ms (median of 5)")
+    del a32, b32, want32
+    for shape in MATMUL_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            a = torch.randn(shape[:2], device=dev, generator=gen).to(dtype)
+            b = (torch.randn(shape[1:], device=dev, generator=gen) * shape[1] ** -0.5).to(dtype)
+            want = matmul_ref(a, b)
+            for tile in MK.TILES[a.element_size()]:
+                check_close(torch, MK.matmul_tiled(a, b, *tile), want,
+                            f"matmul_tiled edge {shape} {dtype} {tile}",
+                            **GEMM_TOL[a.element_size()])
+        say(f"matmul edge {shape} (no tile divides it): every tile within tolerance in bf16 "
+            f"and fp32")
+
+    # M4. times of each GEMM at each tile, beside its bound, plain, library and price
+    totals = {tile: 0.0 for tile in tiles}
+    plain_total = lib_total = bound_total = 0.0
+    by_total = {"bytes": 0.0, "operations": 0.0}
+    for name, (a, b, mult) in operands.items():
+        M, K = a.shape
+        N = b.shape[1]
+        b_ms, b_by = bf16_bound(2.0 * M * K * N, (M * K + K * N + M * N) * 2)
+        plain_ms = cuda_ms(torch, lambda: matmul_ref(a, b), warmup=1, reps=5)
+        lib_ms = cuda_ms(torch, lambda: torch.matmul(a, b))
+        t0 = time.perf_counter()
+        price = suite_price(M, K, N, 2)[0]
+        t_price = time.perf_counter() - t0
+        price_ms = M * K * N / price.perf * 1e3
+        parts = []
+        for tile in tiles:
+            ms = cuda_ms(torch, lambda: MK.matmul_tiled(a, b, *tile))
+            totals[tile] += mult * ms
+            parts.append(f"{tile} {ms:.4f} ms ({2.0 * M * K * N / ms / 1e9:.1f} TFLOP/s, "
+                         f"{b_ms / ms * 100:.1f}% of bound)")
+        plain_total += mult * plain_ms
+        lib_total += mult * lib_ms
+        bound_total += mult * b_ms
+        by_total[b_by] += mult * b_ms
+        say(f"time matmul {name} {M}x{K}x{N} (x{mult}, {2.0 * M * K * N / 1e12:.3f} TFLOP): "
+            f"{'; '.join(parts)}; bound {b_ms:.4f} ms ({b_by}); plain {plain_ms:.4f} ms; "
+            f"library torch.matmul {lib_ms:.4f} ms; the suite's H100 price of matmul_naive at "
+            f"its best of {len(SUITE_GPU_BLOCKS)} blocks, {price.launch.block}: "
+            f"{price_ms:.4f} ms ({price.estimate.limiter}-limited, priced in {t_price:.2f} s; a "
+            f"per-point CUDA-core model priced against a tiled tensor-core kernel, not a "
+            f"prediction of it)")
+    kernels = []
+    bound_by = max(by_total, key=by_total.get)
+    for tile in tiles:
+        say(f"time matmul_tiled {tile} over the layer's {n_calls} GEMMs: {totals[tile]:.4f} ms, "
+            f"bound {bound_total:.4f} ms ({bound_by}), plain {plain_total:.4f} ms, library "
+            f"{lib_total:.4f} ms")
+        kernels.append({**records[tile], "config": dict(zip(("bm", "bn", "bk"), tile)),
+                        "source": MATMUL_SOURCE, "replaces": MATMUL_REPLACES,
+                        "ms": totals[tile], "plain_ms": plain_total, "bound_ms": bound_total,
+                        "bound_by": bound_by, "library_ms": lib_total})
+    return kernels
+
+
+def attention_bound(B, Hq, Hkv, Sq, Skv, D, causal, elem_bytes) -> tuple:
+    """Least time (ms) for one attention call: q, k, v read once and o written
+    once at the HBM rate, against 4·D operations (QK^T and PV) for every
+    (query, key) pair the mask keeps at the bf16 tensor-core rate (the
+    exponentials are not counted)."""
+    off = Skv - Sq
+    pairs = sum(max(0, min(Skv, i + off + 1)) for i in range(Sq)) if causal else Sq * Skv
+    flops = 4.0 * D * B * Hq * pairs
+    n_bytes = (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D) * elem_bytes
+    return bf16_bound(flops, n_bytes) + (flops,)
+
+
+def run_flash(args, torch, dev) -> list:
+    """Prefill and decode at granite-3-2b's width through ``flash_attention``
+    (the main path), each against ``attention_ref`` on batch slices; the
+    pinned second tile; fp32; times beside the bound, the plain version and
+    ``F.scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.generator import DEFAULT, TILES
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref, row_rel_err
+
+    Hq, Hkv, D = CONFIG.n_heads, CONFIG.n_kv, CONFIG.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    kernels = []
+
+    def sliced_ref(q, k, v, causal, step):
+        return torch.cat([attention_ref(q[i:i + step], k[i:i + step], v[i:i + step], causal)
+                          for i in range(0, q.shape[0], step)])
+
+    # F1. prefill: B x S causal, the main path at the default tile
+    B, S = PREFILL
+    q = torch.randn((B, Hq, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    k = torch.randn((B, Hkv, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    v = torch.randn((B, Hkv, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    b_ms, b_by, flops = attention_bound(B, Hq, Hkv, S, S, D, True, 2)
+    say(f"prefill: flash_attention(q, k, v, causal=True) at B={B}, Hq={Hq}, Hkv={Hkv}, S={S}, "
+        f"D={D}, bf16: {flops / 1e12:.3f} TFLOP of the causal triangle, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    # the plain version in fp32 (attention_ref computes in fp32 and casts to
+    # q's dtype), to show how far the bf16 kernel is from the unrounded result
+    want32 = sliced_ref(q.float(), k.float(), v.float(), True, 1)
+    want = want32.to(torch.bfloat16)
+    floor = row_rel_err(want, want32)
+    default = (DEFAULT["bq"], DEFAULT["bk"])
+    for cfg in (None,) + tuple(t for t in TILES if (t["bq"], t["bk"]) != default):
+        reset_counts()
+        out = flash_attention(q, k, v, causal=True, config=cfg)
+        torch.cuda.synchronize()
+        launches = dict(FK.LAUNCHES)
+        tile = default if cfg is None else (cfg["bq"], cfg["bk"])
+        if launches != {"flash_attention_fwd": 1, "flash_decode": 0} or \
+                FK.LAST_LAUNCH["flash_attention_fwd"] != (*tile, True):
+            raise AssertionError(f"prefill {cfg}: launches {launches}, last "
+                                 f"{FK.LAST_LAUNCH['flash_attention_fwd']}")
+        err, rel = check_flash(torch, out, want, f"flash_attention prefill {cfg}", 2)
+        err32, rel32 = float((out.float() - want32).abs().max()), row_rel_err(out, want32)
+        del out
+        say(f"prefill flash_attention(config={cfg}) at (bq, bk) {tile}: launches {launches}; "
+            f"max abs error {err!r} ({FLASH_TOL[2]}), row relative error {rel!r} (bound "
+            f"{FLASH_ROW_REL[2]}); against the fp32 plain version max abs {err32!r}, row "
+            f"relative {rel32!r} (the plain version's own bf16 rounding: {floor!r})")
+        kernels.append({"name": f"flash_attention_fwd[bq={tile[0]},bk={tile[1]}]",
+                        "config": {"bq": tile[0], "bk": tile[1]}, "tile": tile,
+                        "launches": launches["flash_attention_fwd"], "max_abs_err": err,
+                        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["fwd"]})
+    # the row bound's reach: the last query block without KV block 0
+    n = DEFAULT["bk"]
+    wrong = want.clone()
+    wrong[:, :, S - n:] = attention_ref(q[:, :, S - n:], k[:, :, n:], v[:, :, n:], True)
+    say(check_rejects(torch, wrong, want, f"prefill with keys 0-{n - 1} left out of its last "
+                                          f"{n} query rows", 2))
+    del want, want32, wrong
+    plain = cuda_ms(torch, lambda: sliced_ref(q, k, v, True, 1), warmup=1, reps=5)
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                enable_gqa=True))
+    for rec in kernels:
+        bq, bk = rec.pop("tile")
+        ms = cuda_ms(torch, lambda: FK.flash_attention_fwd(q, k, v, bq, bk, True))
+        rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        say(f"time {rec['name']} prefill bf16: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{b_ms / ms * 100:.1f}% of bound); plain {plain:.4f} ms (per-batch slices, median "
+            f"of 5); library F.scaled_dot_product_attention(is_causal, enable_gqa) {lib:.4f} ms")
+    # fp32 (CUDA cores) on the first batch, both tiles
+    q32, k32, v32 = q[:1].float(), k[:1].float(), v[:1].float()
+    want32 = attention_ref(q32, k32, v32, True)
+    b32_ms = attention_bound(1, Hq, Hkv, S, S, D, True, 4)[2] / PEAK_FLOPS[4] * 1e3
+    for bq, bk in FK.FWD_TILES:
+        err, rel = check_flash(torch, FK.flash_attention_fwd(q32, k32, v32, bq, bk, True),
+                               want32, f"flash_attention_fwd fp32 ({bq}, {bk})", 4)
+        ms = cuda_ms(torch, lambda: FK.flash_attention_fwd(q32, k32, v32, bq, bk, True),
+                     warmup=1, reps=5)
+        say(f"prefill fp32 B=1 (bq, bk) ({bq}, {bk}): max abs error {err!r} ({FLASH_TOL[4]}), "
+            f"row relative error {rel!r} (bound {FLASH_ROW_REL[4]}); "
+            f"{ms:.4f} ms (median of 5), operation bound {b32_ms:.4f} ms at "
+            f"{PEAK_FLOPS[4] / 1e12:.0f} TFLOP/s fp32")
+    del q, k, v, q32, k32, v32, want32
+    torch.cuda.empty_cache()
+
+    # F2. decode: one token against a decode_32k cache, the main path (bk 512)
+    shape = SHAPES["decode_32k"]
+    B, Skv = shape.global_batch, shape.seq_len
+    q = torch.randn((B, Hq, 1, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    k = torch.randn((B, Hkv, Skv, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    v = torch.randn((B, Hkv, Skv, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    b_ms, b_by, flops = attention_bound(B, Hq, Hkv, 1, Skv, D, False, 2)
+    say(f"decode: flash_attention(q, k, v) at B={B}, Skv={Skv} ({shape.name}), Hq={Hq}, "
+        f"Hkv={Hkv}, D={D}, bf16: K+V {k.numel() * 4 / 1e9:.2f} GB "
+        f"({k.numel()} elements each; 2^31 = {2 ** 31}), bound {b_ms:.4f} ms ({b_by})")
+    reset_counts()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    launches = dict(FK.LAUNCHES)
+    bk = FK.LAST_LAUNCH["flash_decode"]
+    if launches != {"flash_attention_fwd": 0, "flash_decode": 1} or bk != 512:
+        raise AssertionError(f"decode main path: launches {launches}, bk {bk}")
+    err = rel = err32 = rel32 = floor = 0.0
+    for i in range(0, B, DECODE_SLICE):
+        sl = slice(i, i + DECODE_SLICE)
+        w32 = attention_ref(q[sl].float(), k[sl].float(), v[sl].float(), True)
+        w = w32.to(torch.bfloat16)
+        e, r = check_flash(torch, out[sl], w, f"flash_attention decode batch {i}", 2)
+        err, rel = max(err, e), max(rel, r)
+        err32 = max(err32, float((out[sl].float() - w32).abs().max()))
+        rel32 = max(rel32, row_rel_err(out[sl], w32))
+        floor = max(floor, row_rel_err(w, w32))
+        if i == 0:  # the row bound's reach: the cache's last block left out
+            blind = check_rejects(torch, attention_ref(q[sl], k[sl, :, :-bk], v[sl, :, :-bk], True),
+                                  w, f"decode batch 0-{DECODE_SLICE - 1} with the last {bk} "
+                                  f"keys left out", 2)
+        del w32, w
+    del out
+    say(f"decode main path: flash_decode at bk {bk}; launches {launches}; max abs error {err!r} "
+        f"({FLASH_TOL[2]}), row relative error {rel!r} (bound {FLASH_ROW_REL[2]}), against "
+        f"attention_ref on batch slices of {DECODE_SLICE}; against the fp32 plain version max "
+        f"abs {err32!r}, row relative {rel32!r} (the plain version's own bf16 rounding: "
+        f"{floor!r})")
+    say(blind)
+    q32, k32, v32 = q[:8].float(), k[:8].float(), v[:8].float()
+    e32, r32 = check_flash(torch, FK.flash_decode(q32, k32, v32, bk),
+                           attention_ref(q32, k32, v32, True), "flash_decode fp32 batch 0-7", 4)
+    ms32 = cuda_ms(torch, lambda: FK.flash_decode(q32, k32, v32, bk), warmup=1, reps=5)
+    b32_ms = (k32.numel() + v32.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    say(f"decode fp32 on batch 0-7: max abs error {e32!r} ({FLASH_TOL[4]}), row relative error "
+        f"{r32!r} (bound {FLASH_ROW_REL[4]}); bk {bk} "
+        f"{ms32:.4f} ms (median of 5), byte bound {b32_ms:.4f} ms")
+    del q32, k32, v32
+    plain = cuda_ms(torch, lambda: [attention_ref(q[i:i + DECODE_SLICE], k[i:i + DECODE_SLICE],
+                                                  v[i:i + DECODE_SLICE], True)
+                                    for i in range(0, B, DECODE_SLICE)], warmup=1, reps=3)
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True))
+    parts = []
+    for kb in (512, 128):
+        ms = cuda_ms(torch, lambda: FK.flash_decode(q, k, v, kb))
+        parts.append(f"bk {kb} {ms:.4f} ms ({b_ms / ms * 100:.1f}% of bound, "
+                     f"{k.numel() * 4 / (ms * 1e-3) / 1e9:.0f} GB/s)")
+        if kb == bk:
+            main_ms = ms
+    say(f"time flash_decode bf16: {'; '.join(parts)}; plain {plain:.4f} ms (batch slices of "
+        f"{DECODE_SLICE}, median of 3); library F.scaled_dot_product_attention(enable_gqa) "
+        f"{lib:.4f} ms")
+    kernels.append({"name": f"flash_decode[bk={bk}]", "config": {"bk": bk},
+                    "launches": launches["flash_decode"], "max_abs_err": err,
+                    "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["decode"], "ms": main_ms,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+    return kernels
+
+
+def run_layer(args, torch, dev) -> None:
+    """``attention_apply`` at granite-3-2b's full width with the port's
+    weights: the flash branch (one ``flash_attention_fwd`` launch) against
+    the chunked branch."""
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.layers.attention import attention_apply, attention_init
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    H, KV, D = CONFIG.n_heads, CONFIG.n_kv, CONFIG.resolved_head_dim
+    params = attention_init(CONFIG.d_model, H, KV, D, CONFIG.qkv_bias, torch.bfloat16,
+                            generator=gen, device=dev)
+    x = torch.randn((*PREFILL, CONFIG.d_model), device=dev, generator=gen, dtype=torch.bfloat16)
+    kw = dict(n_heads=H, n_kv=KV, head_dim=D, rope_theta=CONFIG.rope_theta)
+    reset_counts()
+    out, cache = attention_apply(params, x, use_pallas=True, **kw)
+    torch.cuda.synchronize()
+    launches = dict(FK.LAUNCHES)
+    if launches != {"flash_attention_fwd": 1, "flash_decode": 0} or cache is not None:
+        raise AssertionError(f"attention_apply(use_pallas=True) launches {launches}: the flash "
+                             "branch must run flash_attention_fwd exactly once")
+    want, _ = attention_apply(params, x, use_pallas=False, **kw)
+    err, rel = check_flash(torch, out, want, "attention_apply flash vs chunked", 2)
+    del out, want
+    flash_ms = cuda_ms(torch, lambda: attention_apply(params, x, use_pallas=True, **kw),
+                       warmup=1, reps=5)
+    chunked_ms = cuda_ms(torch, lambda: attention_apply(params, x, use_pallas=False, **kw),
+                         warmup=1, reps=5)
+    say(f"layer: attention_apply(x {tuple(x.shape)} bf16, granite-3-2b weights from "
+        f"attention_init, use_pallas=True): launches {launches}; max abs error against "
+        f"use_pallas=False {err!r} ({FLASH_TOL[2]}), row relative error {rel!r} (bound "
+        f"{FLASH_ROW_REL[2]}); call {flash_ms:.4f} ms with the flash "
+        f"kernel, {chunked_ms:.4f} ms chunked (median of 5)")
+
+
+def run_attention(args, torch, dev) -> list:
+    """The attention path at granite-3-2b's full width: the layer's GEMMs,
+    prefill and decode attention, and the attention layer itself."""
+    kernels = run_matmuls(args, torch, dev)
+    torch.cuda.empty_cache()
+    kernels += run_flash(args, torch, dev)
+    torch.cuda.empty_cache()
+    run_layer(args, torch, dev)
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -877,6 +1316,8 @@ def main(argv=None) -> int:
     kernels += run_jacobi(args, torch, dev)
     torch.cuda.empty_cache()
     kernels += run_transpose(args, torch, dev)
+    torch.cuda.empty_cache()
+    kernels += run_attention(args, torch, dev)
 
     # peak memory
     say(f"peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "

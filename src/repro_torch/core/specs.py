@@ -2,10 +2,12 @@
 
 These are the "address expressions + field sizes" artifacts a code generator
 hands to the estimator (paper §1.2).  A copy of the specs of
-``repro.core.specs`` (the star stencil, the 2D 5-point stencil and the
-D3Q15 LBM) that the port's generators price, and the transpose's spec,
-which the reference gets only by tracing; the per-point CUDA kernels in
-``repro_torch/csrc`` perform exactly these accesses.
+``repro.core.specs`` (the star stencil, the 2D 5-point stencil, the
+D3Q15 LBM and the naive GEMM) that the port's generators price, and the
+transpose's spec, which the reference gets only by tracing; the per-point
+CUDA kernels in ``repro_torch/csrc`` perform exactly these accesses.  The
+GEMM spec is the suite's CUDA-core price of a model's matmuls; the tiled
+tensor-core GEMM (``csrc/matmul.cu``) is not that kernel.
 """
 from __future__ import annotations
 
@@ -122,3 +124,31 @@ def lbm_d3q15(domain=(256, 256, 256), elem_bytes: int = 8) -> KernelSpec:
         accs.append(Access(phi, (pad + oz, pad + oy, pad + ox)))
     # LBM collide+stream flop estimate for Allen-Cahn interface tracking
     return KernelSpec("lbm_d3q15", domain, tuple(accs), flops_per_point=180.0)
+
+
+def matmul_naive(M: int, K: int, N: int, elem_bytes: int = 2,
+                 name: str | None = None) -> KernelSpec:
+    """C[m,n] += A[m,k] * B[k,n] as address expressions (blocked linear
+    algebra on the paper's model).
+
+    The iteration domain is one point per multiply-accumulate, in (z,y,x) =
+    (k, m, n) order: a thread block covers an (bm x bn) output tile and a bk
+    slice of the reduction, so block/folding shapes trade A-row reuse
+    (along x), B-column reuse (along y), and C-tile residency (along z) —
+    the same locality space a tiled CUDA-core GEMM explores.  The store's
+    address ignores the k dimension (coeff via dim_map), exactly like the
+    LBM spec's per-PDF dimension folding.  Work unit: 1 MAC = 2 flops;
+    ``perf_lups`` is MAC/s.
+    """
+    a = Field("A", (M, K), elem_bytes)
+    b = Field("B", (K, N), elem_bytes)
+    c = Field("C", (M, N), elem_bytes)
+    accs = (
+        Access(a, (0, 0), dim_map=(1, 0)),            # A[m, k]
+        Access(b, (0, 0), dim_map=(0, 2)),            # B[k, n]
+        Access(c, (0, 0), dim_map=(1, 2), is_store=True),  # C[m, n]
+    )
+    return KernelSpec(
+        name or f"gemm_{M}x{K}x{N}", (K, M, N), accs,
+        flops_per_point=2.0, work_unit="MAC",
+    )

@@ -16,6 +16,8 @@ GENERATOR_MODULES = {
     "lbm_d3q15": "repro_torch.kernels.lbm_d3q15.generator",
     "jacobi2d": "repro_torch.kernels.jacobi2d.generator",
     "transpose_pad": "repro_torch.kernels.transpose_pad.generator",
+    "matmul": "repro_torch.kernels.matmul.generator",
+    "flash_attention": "repro_torch.kernels.flash_attention.generator",
 }
 
 # why a generator's shared-memory variants (z-march rings, y-tiles, tiles)
@@ -26,10 +28,37 @@ SCRATCH_REASON = (
     "scratch-staged kernels for the GPU target); runnable through a pinned "
     "config")
 
+# why the matmul and flash-attention generators list the TPU's decisions
+# in ``.skipped`` (``tpu_skipped``) and rank nothing
+TPU_REASON = (
+    "VMEM block size of the TPU's Pallas kernel: the GPU model has no "
+    "tensor-core term and prices per-point kernels only (DESIGN §8/§9), so "
+    "it ranks neither these nor the CUDA kernel's tiles; the CUDA kernel "
+    "runs at its pinned default tile")
+
 # dynamic shared memory one block may opt into on Hopper (227 KB)
 SMEM_PER_BLOCK = 232_448
 
 _DTYPES = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32, 8: torch.float64}
+
+
+def pow2_tiles(lo: int, hi: int) -> list[int]:
+    """Powers of two from ``lo`` up to ``hi`` (the TPU generators' block
+    sizes; a copy of ``repro.core.tpu_adapt.pow2_tiles``)."""
+    out = []
+    t = lo
+    while t <= hi:
+        out.append(t)
+        t *= 2
+    return out
+
+
+def tpu_skipped(space) -> list:
+    """The TPU's block decisions ``space`` (a generator's ``tpu_space``) as
+    ``SkippedConfig`` entries with ``TPU_REASON``."""
+    from repro_torch.core.selector import SkippedConfig
+
+    return [SkippedConfig(cfg, TPU_REASON) for cfg in space]
 
 
 def available_generators() -> list[str]:

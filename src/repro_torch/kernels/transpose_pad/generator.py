@@ -24,7 +24,7 @@ import torch
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import transpose_pad
-from repro_torch.kernels import SCRATCH_REASON, resolve_device
+from repro_torch.kernels import SCRATCH_REASON, pow2_tiles, resolve_device
 from repro_torch.kernels.transpose_pad.kernel import transpose_pointwise
 
 _RANKINGS: dict = {}
@@ -32,15 +32,6 @@ _RANKINGS: dict = {}
 
 def pad_to_tiles(n: int, tile: int) -> int:
     return -(-n // tile) * tile
-
-
-def pow2_tiles(lo: int, hi: int) -> list[int]:
-    out = []
-    t = lo
-    while t <= hi:
-        out.append(t)
-        t *= 2
-    return out
 
 
 def tile_space(shape: tuple, tile: int = 8):

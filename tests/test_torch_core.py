@@ -18,6 +18,7 @@ from repro.core import machines as ref_machines
 from repro.core.selector import rank_gpu_configs as ref_rank_gpu_configs
 from repro.core.selector import ranking_quality as ref_ranking_quality
 from repro.core.specs import lbm_d3q15 as ref_lbm_d3q15
+from repro.core.specs import matmul_naive as ref_matmul_naive
 from repro.core.specs import stencil_2d5pt as ref_stencil_2d5pt
 from repro.core.specs import star_stencil_3d as ref_star_stencil_3d
 from repro_torch.core import machines
@@ -28,7 +29,13 @@ from repro_torch.core.selector import (
     rank_gpu_configs,
     ranking_quality,
 )
-from repro_torch.core.specs import lbm_d3q15, star_stencil_3d, stencil_2d5pt, transpose_pad
+from repro_torch.core.specs import (
+    lbm_d3q15,
+    matmul_naive,
+    star_stencil_3d,
+    stencil_2d5pt,
+    transpose_pad,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 ESTIMATE_FIELDS = ("kernel", "machine", "lups", "l1_cycles_per_lup",
@@ -124,6 +131,58 @@ def test_transpose_spec_structure():
     assert (load.field.name, load.field.shape, store.field.name, store.field.shape) == (
         "x", (256, 512), "xt", (512, 256))
     assert spec.flops_per_point == 0.0
+
+
+@pytest.mark.parametrize("M,K,N,elem_bytes", [
+    (16384, 2048, 3072, 2), (16384, 8192, 2048, 2), (200, 96, 136, 4), (64, 48, 40, 2)])
+def test_matmul_naive_spec_equals_reference(M, K, N, elem_bytes):
+    _assert_spec_equal(matmul_naive(M, K, N, elem_bytes), ref_matmul_naive(M, K, N, elem_bytes), 3)
+    assert matmul_naive(8, 8, 8, name="x").name == ref_matmul_naive(8, 8, 8, name="x").name
+
+
+@pytest.mark.parametrize("M,K,N", [(16384, 2048, 3072), (200, 96, 136), (64, 48, 40)])
+def test_matmul_naive_h100_price_at_suite_blocks_bitwise_equals_reference(M, K, N):
+    """The suite's GPU price of a GEMM: every field of ``estimate_gpu`` at
+    the eight ``SUITE_GPU_BLOCKS``, the granite-3-2b qkv GEMM included."""
+    from repro.core.perfmodel import estimate_gpu as ref_estimate_gpu
+    from repro.suite.lowering import suite_gpu_configs as ref_suite_gpu_configs
+
+    from repro_torch.core.perfmodel import estimate_gpu
+    from repro_torch.kernels.matmul.generator import suite_gpu_configs, suite_price
+
+    ref_spec = ref_matmul_naive(M, K, N, 2)
+    ranked = {rc.launch.block: rc for rc in suite_price(M, K, N, 2, machines.H100)}
+    for mine_cfg, ref_cfg in zip(suite_gpu_configs(), ref_suite_gpu_configs(), strict=True):
+        mine = estimate_gpu(matmul_naive(M, K, N, 2), mine_cfg, machines.H100)
+        ref = ref_estimate_gpu(ref_spec, ref_cfg, ref_machines.H100)
+        for name in ESTIMATE_FIELDS:
+            assert getattr(mine, name) == getattr(ref, name), (ref_cfg.block, name)
+        assert _fields(mine.dram_breakdown) == _fields(ref.dram_breakdown)
+        assert _fields(mine.l2_breakdown) == _fields(ref.l2_breakdown)
+        assert ranked[mine_cfg.block].perf == ref.perf_lups
+
+
+def test_from_numpy_carries_jax_bf16_bit_exactly():
+    torch = pytest.importorskip("torch")
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.convert import from_numpy
+
+    x = jax.random.normal(jax.random.PRNGKey(0), (5, 7), dtype=jnp.float32) * 1e3
+    special = jnp.asarray([0.0, -0.0, jnp.inf, -jnp.inf, jnp.nan, 1e-40, 3.0e38])
+    for arr in (x.astype(jnp.bfloat16), special.astype(jnp.bfloat16)):
+        host = np.asarray(arr)
+        assert host.dtype.name == "bfloat16"
+        got = from_numpy({"w": host, "s": host[1]}, "cpu")
+        assert got["w"].dtype == torch.bfloat16 and tuple(got["w"].shape) == host.shape
+        bits = got["w"].view(torch.int16).numpy().view(np.uint16)
+        np.testing.assert_array_equal(bits, host.view(np.uint16))
+        assert got["s"].dtype == torch.bfloat16 and got["s"].shape == host[1].shape
+        # and back: the same bits come out as the JAX array's values
+        back = jnp.asarray(got["w"].float().numpy()).astype(jnp.bfloat16)
+        np.testing.assert_array_equal(np.asarray(back).view(np.uint16), host.view(np.uint16))
+    assert from_numpy(np.float32(2.5), "cpu").dtype == torch.float32
 
 
 @pytest.mark.parametrize("name", ["V100", "A100", "A100_80G", "H100"])
@@ -260,6 +319,11 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules),
     assert "repro_torch.kernels.jacobi2d.ops" in out["modules"]
     assert "repro_torch.kernels.transpose_pad.ops" in out["modules"]
     assert "repro_torch.convert" in out["modules"]
+    for name in ("kernels.matmul.ops", "kernels.matmul.generator",
+                 "kernels.flash_attention.ops", "kernels.flash_attention.generator",
+                 "layers.attention", "layers.rope", "layers.shapes",
+                 "configs.base", "configs.granite3_2b"):
+        assert f"repro_torch.{name}" in out["modules"]
 
     def foreign(name):
         return name.split(".")[0] in ("jax", "jaxlib", "repro")
