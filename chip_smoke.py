@@ -11,22 +11,24 @@ with nvcc first (one nvcc per source, in parallel):
   168 launches of the per-point LBM kernel and runs ``lbm_step`` at the
   winning launch;
 * the weighted 2D 5-point Jacobi sweep (domain (4096, 4096), fp64): ranks
-  all 168 launches of the per-point kernel and runs ``jacobi_step`` at the
-  winning launch;
-* the 2D transpose ((8192, 8192), fp32): ranks all 168 launches of the
-  per-point kernel and runs ``transpose`` at the winning launch;
+  the 22 of the 168 launches that fill the 2D domain's depth and runs
+  ``jacobi_step`` at the winning launch;
+* the 2D transpose ((8192, 8192), fp32): ranks the 22 launches that fill
+  the domain's depth and runs ``transpose`` at the winning launch;
 * the attention path at granite-3-2b's full width (bf16): ``tuned_matmul``
   on the GEMMs of one layer at 16384 tokens, ``flash_attention`` on a causal
   prefill (B 4, S 4096) and on one decode token against a 32k cache
-  (B 128), and ``attention_apply(use_pallas=True)`` on (4, 4096, 2048).
+  (B 128), and ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
+  the GEMMs are also timed in turns with ``torch.matmul``, since the card
+  slows under sustained tensor-core load.
 
 Each path's pinned variants (the z-march stencils, the y-tiled LBM, the
 y-tiled Jacobi sweep, the tiled transpose, the second GEMM and flash tiles)
 run too, in the path's second dtype as well (fp32 beside fp64 and bf16),
 and every kernel is held against its plain PyTorch version on the card.  It then times each kernel beside its bound, its plain
 version and, where one exists, one library call that computes the same
-function, and times every priced launch of the stencil paths to rank the
-estimator against the card.
+function, and times every priced launch of the stencil paths (all 168 on
+the 2D paths, the skipped ones too) to rank the estimator against the card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -96,6 +98,8 @@ T_TOKENS = 4 * 4096                      # tokens of the layer's GEMMs
 PREFILL = (4, 4096)                      # (B, S) of the prefill and of the layer
 DECODE_SLICE = 16                        # batch slice of the decode check
 MATMUL_EDGE_SHAPES = ((1000, 2056, 776), (129, 40, 264))  # (M, K, N), no tile divides them
+MATMUL_MANY_TILES = (8200, 264, 8200)    # > 132 x 4 tiles: each persistent CTA walks many
+FLAT_LAUNCHES = 22                       # of the 168, those with z extent bz·fz = 1
 PEAK_BF16_FLOPS = 989e12                 # H100 SXM data sheet, dense bf16 tensor cores
 # tolerances on the card: bf16 GEMM against the fp32-accumulated product cast
 # to bf16; fp32 GEMM as tests/test_kernels.py:61 (different sum orders);
@@ -140,6 +144,26 @@ def cuda_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def interleaved_ms(torch, fns: dict, rounds: int) -> dict:
+    """Median device time of each of ``fns`` (name -> callable), one run of
+    each per round, in turns, the order reversed every other round."""
+    names = list(fns)
+    for name in names:
+        fns[name]()
+    torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            stop.record()
+            stop.synchronize()
+            times[name].append(start.elapsed_time(stop))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def star_footprint(domain: tuple, r: int) -> int:
@@ -207,31 +231,40 @@ def reset_counts() -> None:
         module.reset_launch_counts()
 
 
-def rank_vs_card(torch, label: str, ranked, run, n_pts: int) -> None:
+def rank_vs_card(torch, label: str, ranked, run, n_pts: int, flat: bool = False) -> None:
     """Time every priced launch with ``run(launch)`` (1 warm-up + median of
     5) and print the ranking's quality against the card (the paper's §5.8
     criterion: efficiency of the predicted best, Spearman), the top-ranked
     launch's place, the fastest and slowest launches, and the launches with
     bz = 1 beside those with bz > 1 (on a 2D domain, read as (1, Y, X), a
     bz > 1 launch keeps only its tz = 0 threads busy, which the GPU model
-    does not price)."""
+    does not price).  ``ranked`` is the core's ranking of all 168; with
+    ``flat`` the quality is printed again over the launches a 2D generator
+    keeps (``kernels.fills_depth``)."""
     from repro_torch.core.selector import ranking_quality
+    from repro_torch.kernels import fills_depth
 
     ms = []
     for rc in ranked:
         launch = rc.launch
         ms.append(cuda_ms(torch, lambda: run(launch), warmup=1, reps=5))
-    measured = [n_pts / (t * 1e-3) for t in ms]
-    quality = ranking_quality([rc.perf for rc in ranked], measured)
-    best_i = min(range(len(ms)), key=ms.__getitem__)
-    top_place = 1 + sum(t < ms[0] for t in ms)
-    say(f"{label} ranking vs card ({len(ranked)} launches): efficiency "
-        f"{quality['efficiency']:.4f}, Spearman {quality['spearman']:.4f}; predicted best "
-        f"{ranked[0].launch.block}/{ranked[0].launch.folding} measures {ms[0]:.4f} ms "
-        f"(place {top_place}); measured best "
-        f"{ranked[best_i].launch.block}/{ranked[best_i].launch.folding} {ms[best_i]:.4f} ms "
-        f"(predicted place {best_i + 1}, {n_pts / ranked[best_i].perf * 1e3:.4f} ms "
-        f"predicted); slowest {max(ms):.4f} ms")
+    groups = [("", list(range(len(ranked))))]
+    if flat:
+        groups.append((" kept (z extent 1)",
+                       [i for i, rc in enumerate(ranked) if fills_depth(rc.launch)]))
+    for name, idx in groups:
+        sub, sub_ms = [ranked[i] for i in idx], [ms[i] for i in idx]
+        quality = ranking_quality([rc.perf for rc in sub],
+                                  [n_pts / (t * 1e-3) for t in sub_ms])
+        best_i = min(range(len(sub_ms)), key=sub_ms.__getitem__)
+        top_place = 1 + sum(t < sub_ms[0] for t in sub_ms)
+        say(f"{label} ranking vs card{name} ({len(sub)} launches): efficiency "
+            f"{quality['efficiency']:.4f}, Spearman {quality['spearman']:.4f}; predicted best "
+            f"{sub[0].launch.block}/{sub[0].launch.folding} measures {sub_ms[0]:.4f} ms "
+            f"(place {top_place}); measured best "
+            f"{sub[best_i].launch.block}/{sub[best_i].launch.folding} {sub_ms[best_i]:.4f} ms "
+            f"(predicted place {best_i + 1}, {n_pts / sub[best_i].perf * 1e3:.4f} ms "
+            f"predicted); slowest {max(sub_ms):.4f} ms")
     for name, keep in (("bz = 1", lambda b: b == 1), ("bz > 1", lambda b: b > 1)):
         group = sorted(t for rc, t in zip(ranked, ms) if keep(rc.launch.block[2]))
         top20 = sum(keep(rc.launch.block[2]) for rc in ranked[:20])
@@ -564,6 +597,22 @@ def run_lbm(args, torch, dev) -> list:
     return kernels
 
 
+def say_skipped(ranked) -> None:
+    """Print a 2D generator's skipped decisions, grouped by reason: the
+    shared-memory variants by name, the launches deeper than the domain by
+    count (``kernels.DEPTH_REASON``)."""
+    from repro_torch.kernels import DEPTH_REASON
+
+    by_reason = {}
+    for sk in ranked.skipped:
+        by_reason.setdefault(sk.reason, []).append(sk.config)
+    for reason, configs in by_reason.items():
+        what = f"{len(configs)} launches" if reason == DEPTH_REASON else configs
+        say(f"  skipped {what}: {reason}")
+    if len(by_reason.get(DEPTH_REASON, ())) != 168 - FLAT_LAUNCHES:
+        raise AssertionError(f"expected {168 - FLAT_LAUNCHES} launches skipped for depth")
+
+
 def jacobi_bound(padded) -> tuple:
     """Least time (ms) the card needs for one Jacobi sweep on the padded
     (Y+2, X+2) field: the Y x X box and one halo row and column on each face
@@ -591,6 +640,8 @@ def run_jacobi(args, torch, dev) -> list:
     import torch.nn.functional as F
 
     from repro_torch.core.machines import H100
+    from repro_torch.core.selector import rank_gpu_configs
+    from repro_torch.core.specs import stencil_2d5pt
     from repro_torch.kernels.jacobi2d import kernel as JK
     from repro_torch.kernels.jacobi2d.generator import best_config, rank_configs
     from repro_torch.kernels.jacobi2d.ops import jacobi_step
@@ -601,15 +652,15 @@ def run_jacobi(args, torch, dev) -> list:
     ranked = rank_configs(JACOBI_DOMAIN, 8, H100)
     t_rank = time.perf_counter() - t0
     n_pts = JACOBI_DOMAIN[0] * JACOBI_DOMAIN[1]
-    say(f"jacobi ranking: {len(ranked)} launches priced on {H100.name} in {t_rank:.2f} s "
+    say(f"jacobi ranking: {len(ranked)} launches kept, priced on {H100.name} in {t_rank:.2f} s "
         f"(2D 5-point, domain {JACOBI_DOMAIN}, fp64)")
-    if len(ranked) != 168:
-        raise AssertionError(f"expected 168 priced Jacobi launches, got {len(ranked)}")
+    if len(ranked) != FLAT_LAUNCHES:
+        raise AssertionError(f"expected {FLAT_LAUNCHES} kept Jacobi launches, got {len(ranked)}")
     for i, rc in enumerate(ranked[:5]):
         say(f"  #{i + 1} block {rc.launch.block} folding {rc.launch.folding}: "
             f"{rc.perf / 1e9:.2f} GLUP/s predicted ({n_pts / rc.perf * 1e3:.4f} ms), "
             f"{rc.estimate.limiter}-limited")
-    say(f"  skipped {[s.config for s in ranked.skipped]}: {ranked.skipped[0].reason}")
+    say_skipped(ranked)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     src = torch.randn(JACOBI_DOMAIN, dtype=torch.float64, device=dev, generator=gen)
@@ -715,9 +766,12 @@ def run_jacobi(args, torch, dev) -> list:
         say(f"time jacobi_step(src) fp{eb * 8} incl. pad: {call_ms:.4f} ms; of which "
             f"pad_input {pad_ms:.4f} ms")
 
-    # J6. the ranking against the card: every priced launch of jacobi_pointwise, fp64
-    rank_vs_card(torch, "jacobi", ranked,
-                 lambda launch: JK.jacobi_pointwise(padded, launch, JACOBI_WEIGHTS), n_pts)
+    # J6. the ranking against the card: all 168 launches of jacobi_pointwise as
+    # the core prices them, kept and skipped, fp64
+    core = rank_gpu_configs(stencil_2d5pt(JACOBI_DOMAIN, 8), H100)
+    rank_vs_card(torch, "jacobi", core,
+                 lambda launch: JK.jacobi_pointwise(padded, launch, JACOBI_WEIGHTS), n_pts,
+                 flat=True)
     return kernels
 
 
@@ -735,6 +789,8 @@ def run_transpose(args, torch, dev) -> list:
     variants, fp64, times and the ranking against the card.  Returns the
     kernels' records; its tensors are freed when it returns."""
     from repro_torch.core.machines import H100
+    from repro_torch.core.selector import rank_gpu_configs
+    from repro_torch.core.specs import transpose_pad
     from repro_torch.kernels.transpose_pad import kernel as TK
     from repro_torch.kernels.transpose_pad.generator import best_config, rank_configs
     from repro_torch.kernels.transpose_pad.ops import transpose
@@ -745,15 +801,16 @@ def run_transpose(args, torch, dev) -> list:
     ranked = rank_configs(TRANSPOSE_SHAPE, 4, H100)
     t_rank = time.perf_counter() - t0
     n_pts = TRANSPOSE_SHAPE[0] * TRANSPOSE_SHAPE[1]
-    say(f"transpose ranking: {len(ranked)} launches priced on {H100.name} in {t_rank:.2f} s "
-        f"(shape {TRANSPOSE_SHAPE}, fp32); {len(ranked.skipped)} tile shapes skipped")
-    if len(ranked) != 168:
-        raise AssertionError(f"expected 168 priced transpose launches, got {len(ranked)}")
+    say(f"transpose ranking: {len(ranked)} launches kept, priced on {H100.name} in "
+        f"{t_rank:.2f} s (shape {TRANSPOSE_SHAPE}, fp32)")
+    if len(ranked) != FLAT_LAUNCHES:
+        raise AssertionError(f"expected {FLAT_LAUNCHES} kept transpose launches, "
+                             f"got {len(ranked)}")
     for i, rc in enumerate(ranked[:5]):
         say(f"  #{i + 1} block {rc.launch.block} folding {rc.launch.folding}: "
             f"{rc.perf / 1e9:.2f} G elements/s predicted ({n_pts / rc.perf * 1e3:.4f} ms), "
             f"{rc.estimate.limiter}-limited")
-    say(f"  skipped {[s.config for s in ranked.skipped]}: {ranked.skipped[0].reason}")
+    say_skipped(ranked)
     big = (2 * TRANSPOSE_SHAPE[0], 2 * TRANSPOSE_SHAPE[1])
     top_big = rank_configs(big, 4, H100)[0]
     say(f"  at {big} fp32 the top-ranked launch {top_big.launch.block}/"
@@ -774,9 +831,9 @@ def run_transpose(args, torch, dev) -> list:
     ran_at = TK.LAST_LAUNCH["transpose_pointwise"]
     if launches["transpose_pointwise"] < 1:
         raise AssertionError(f"transpose main path launched no transpose_pointwise: {launches}")
-    if ran_at != ranked[0].launch:
+    if ran_at != ranked[0].launch or ran_at.block[2] * ran_at.folding[2] != 1:
         raise AssertionError(f"transpose_pointwise ran at {ran_at}, the top-ranked launch is "
-                             f"{ranked[0].launch}")
+                             f"{ranked[0].launch}; both must have a z extent of 1")
     err = check_exact(torch, out, want, "transpose(x) fp32")
     say(f"transpose main path: transpose(x) fp32 at block {ran_at.block} folding "
         f"{ran_at.folding} (top-ranked of {len(ranked)}; "
@@ -851,10 +908,11 @@ def run_transpose(args, torch, dev) -> list:
         say(f"time transpose(x) fp{eb * 8}: {call_ms:.4f} ms")
     del x64
 
-    # T6. the ranking against the card: every priced launch of
-    # transpose_pointwise, fp32
-    rank_vs_card(torch, "transpose", ranked,
-                 lambda launch: TK.transpose_pointwise(x, launch), n_pts)
+    # T6. the ranking against the card: all 168 launches of transpose_pointwise
+    # as the core prices them, kept and skipped, fp32
+    core = rank_gpu_configs(transpose_pad(TRANSPOSE_SHAPE, 4), H100)
+    rank_vs_card(torch, "transpose", core,
+                 lambda launch: TK.transpose_pointwise(x, launch), n_pts, flat=True)
     return kernels
 
 
@@ -1007,6 +1065,19 @@ def run_matmuls(args, torch, dev) -> list:
                             **GEMM_TOL[a.element_size()])
         say(f"matmul edge {shape} (no tile divides it): every tile within tolerance in bf16 "
             f"and fp32")
+    a = torch.randn(MATMUL_MANY_TILES[:2], device=dev, generator=gen).bfloat16()
+    b = (torch.randn(MATMUL_MANY_TILES[1:], device=dev, generator=gen)
+         * MATMUL_MANY_TILES[1] ** -0.5).bfloat16()
+    want = matmul_ref(a, b)
+    parts = []
+    for tile in tiles:
+        err = check_close(torch, MK.matmul_tiled(a, b, *tile), want,
+                          f"matmul_tiled many tiles {MATMUL_MANY_TILES} {tile}", **GEMM_TOL[2])
+        n_tiles = -(-a.shape[0] // tile[0]) * -(-b.shape[1] // tile[1])
+        parts.append(f"{tile}: {n_tiles} tiles, max abs error {err!r}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say(f"matmul many tiles {MATMUL_MANY_TILES} bf16 on {sms} SMs: {'; '.join(parts)}")
+    del a, b, want
 
     # M4. times of each GEMM at each tile, beside its bound, plain, library and price
     totals = {tile: 0.0 for tile in tiles}
@@ -1039,6 +1110,18 @@ def run_matmuls(args, torch, dev) -> list:
             f"{price_ms:.4f} ms ({price.estimate.limiter}-limited, priced in {t_price:.2f} s; a "
             f"per-point CUDA-core model priced against a tiled tensor-core kernel, not a "
             f"prediction of it)")
+    # M5. the five GEMMs as one batch, the tiles and torch.matmul in turns
+    # (10 rounds, the order reversed every other round): the card slows
+    # under sustained tensor-core load, so only turns compare them fairly
+    def layer(fn):
+        return lambda: [fn(a, b) for a, b, mult in operands.values() for _ in range(mult)]
+
+    batches = {tile: layer(lambda a, b, t=tile: MK.matmul_tiled(a, b, *t)) for tile in tiles}
+    batches["torch.matmul"] = layer(torch.matmul)
+    turns = interleaved_ms(torch, batches, rounds=10)
+    say(f"time the layer's {n_calls} GEMMs in turns (median of 10 rounds, each one batch): "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in turns.items())
+        + f"; bound {bound_total:.4f} ms; {card_line()}")
     kernels = []
     bound_by = max(by_total, key=by_total.get)
     for tile in tiles:

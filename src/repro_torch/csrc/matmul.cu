@@ -7,20 +7,42 @@
 //   Replaces the TPU kernel repro/kernels/matmul/kernel.py:
 //   make_matmul(M, K, N, bm, bk, bn) (grid (M/bm, N/bn, K/bk), k innermost,
 //   an f32 VMEM accumulator written once at the last k step).  The TPU's
-//   sequential k axis becomes a loop inside the CTA: one CTA per (BM, BN)
-//   output tile walks K in BK slabs staged through shared memory and keeps
-//   the f32 accumulator in registers.  The TPU's 128..1024 VMEM blocks do
-//   not fit a CTA; the CTA tiles are this kernel's own (instantiated below).
+//   sequential k axis becomes a loop inside the CTA over BK-deep slabs, the
+//   f32 accumulator stays in registers, and the CTA tiles are this kernel's
+//   own (instantiated below): the TPU's 128..1024 VMEM blocks do not fit.
 //
-//   bf16: tensor cores through warp-level mma.sync.m16n8k16 (bf16 in, f32
-//   accumulate).  8 warps, 2 x 4 over the tile; each warp owns a
-//   (BM/2) x (BN/4) sub-tile.  Slabs arrive by cp.async (16 B a thread) in a
-//   3-stage ring, so the next two slabs load while one is multiplied;
-//   fragments come from shared memory by ldmatrix (B with .trans), the rows
-//   padded by 8 elements so that the 8 row addresses of an ldmatrix fall in
-//   8 different bank groups.  Bound on the H100 at the model's shapes:
-//   tensor-core operations (989 TFLOP/s dense bf16); mma.sync reaches only
-//   part of that rate (wgmma and TMA are the later redesign).
+//   bf16: bound by the tensor cores at the model's shapes (989 TFLOP/s
+//   dense bf16; a 16384 x 2048 x 3072 GEMM does ~1400 flops a byte, far
+//   above the H100's ridge of ~295), and only wgmma reaches their full
+//   rate.  So the kernel is Hopper's own shape: one CTA of three
+//   warpgroups per SM, persistent over the output tiles.
+//   - Warpgroup 0 is the producer: one thread issues TMA copies of a
+//     (BM x 64) A slab and a (64 x BN) B slab (BN/64 boxes 64 wide) into a
+//     ring of stages in shared memory, 128-byte swizzled; a "full" mbarrier
+//     per stage carries the transaction bytes, an "empty" one is signalled
+//     by the consumers.  It drops to 40 registers (setmaxnreg).
+//   - Warpgroups 1 and 2 are consumers, one per 64-row half of the tile:
+//     wgmma.mma_async m64nBNk16 straight from shared memory (A K-major, B
+//     MN-major through the transpose-B mode, so B is never transposed in
+//     memory), the accumulator in BN/2 fp32 registers a thread (232 by
+//     setmaxnreg).  One wgmma group stays in flight: a stage is released
+//     once wgmma.wait_group shows that the slab before it has been read.
+//   - The tiles are walked in a grouped raster (GROUP_M tile rows at a
+//     time), so the tiles in flight on the 132 SMs share A rows and B
+//     columns in the 50 MB L2.  While the consumers round one tile, the
+//     producer already fills the ring for the next.
+//   - The epilogue rounds the fp32 accumulator to bf16 once, into two
+//     swizzled 64 x 64 buffers per consumer in shared memory, and TMA
+//     stores each chunk, asynchronously, so the next tile's wgmmas start
+//     at once (scattered 4-byte stores from registers kept the tensor
+//     cores idle at every tile's end).
+//   Edges: TMA zero-fills what lies outside the tensors (a ragged M or N,
+//   the K tail) on loads and clips it on stores.  TMA needs 16-byte global
+//   strides and a 16-byte-aligned base: K and N multiples of 8 and aligned
+//   operands (the wrapper checks both).  The tensor maps are encoded on the
+//   host at each call (cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPointByVersion, so nothing links against libcuda;
+//   CUDA 12.5 or later) and passed as __grid_constant__ parameters.
 //
 //   fp32: CUDA-core FMAs (no TF32: the reference's fp32 tolerance would not
 //   survive it).  256 threads as 16 x 16; each thread owns TM x TN outputs
@@ -28,16 +50,15 @@
 //   float4 reads from shared memory are conflict-free; A is stored
 //   transposed in shared memory; the next slab is loaded into registers
 //   while the current one is multiplied (two shared buffers).  Bound:
-//   fp32 operations (67 TFLOP/s).
-//
-//   Edges: rows and columns beyond M, N and the K tail are masked (zero-fill
-//   on load, guarded stores), so no dimension needs to be a tile multiple.
-//   Loads are 16 B wide: K and N must be multiples of 8 (bf16) or 4 (fp32)
-//   and the operands 16-byte aligned; the wrapper checks both.
+//   fp32 operations (67 TFLOP/s).  Rows and columns beyond M, N and the K
+//   tail are masked (zero-fill on load, guarded stores); its 16-byte loads
+//   need K and N multiples of 4 and 16-byte-aligned operands.
 //
 // Every launcher has a plain C interface for ctypes, launches on the given
-// stream, allocates nothing, and returns cudaGetLastError() after the launch.
+// stream, allocates nothing, and returns cudaGetLastError() after the launch
+// (or a negative code of its own, see matmul_error_string).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -47,169 +68,342 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kErrNoEncoder = -1;  // cuTensorMapEncodeTiled not found in the driver
+constexpr int kErrEncode = -2;     // cuTensorMapEncodeTiled refused the operands
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte global -> shared copy; with pred false nothing is read and the
-// destination is zero-filled
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+// ---------------------------------------------------------------------------
+// bf16: mbarriers, TMA and wgmma (PTX)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
 }
 
-// d += a · b for one m16n8k16 tile: bf16 inputs, f32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// one 2D box of the tensor map at coordinates (c0 innermost, c1) into
+// shared memory; completion is counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
-constexpr int kWarpsM = 2;
-constexpr int kWarpsN = 4;
-constexpr int kBf16Threads = kWarpsM * kWarpsN * 32;
-constexpr int kStages = 3;
-
-template <int BM, int BN, int BK>
-constexpr int bf16_smem_bytes() {
-  return kStages * (BM * (BK + 8) + BK * (BN + 8)) * 2;
+// one 2D box from shared memory into the tensor at (c0 innermost, c1);
+// what lies outside the tensor is not written.  Tracked as a bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(kBf16Threads)
-matmul_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                   bf16* __restrict__ C, int M, int N, int K) {
-  constexpr int WTM = BM / kWarpsM;  // warp sub-tile rows
-  constexpr int WTN = BN / kWarpsN;  // warp sub-tile columns
-  constexpr int MT = WTM / 16;       // m16 tiles of a warp
-  constexpr int NT = WTN / 8;        // n8 tiles of a warp
-  constexpr int AS = BK + 8;         // shared row strides (elements), padded
-  constexpr int BS = BN + 8;
-  static_assert(MT >= 1 && NT % 2 == 0 && BK % 16 == 0, "bad tile");
+// at most N bulk store groups still read their shared memory
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [kStages][BM][AS]
-  bf16* Bs = As + kStages * BM * AS;         // [kStages][BK][BS]
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp / kWarpsN;
-  const int wn = warp % kWarpsN;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int ktiles = (K + BK - 1) / BK;
+// shared-memory writes of this thread visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-  auto load_slab = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    bf16* as = As + stage * BM * AS;
-    bf16* bs = Bs + stage * BK * BS;
-    constexpr int ACH = BM * BK / 8;  // 16-byte chunks of the A slab
-    for (int c = tid; c < ACH; c += kBf16Threads) {
-      const int r = c / (BK / 8), ch = c % (BK / 8);
-      const int gm = m0 + r, gk = k0 + ch * 8;
-      const bool ok = gm < M && gk < K;
-      cp_async_16(smem_u32(as + r * AS + ch * 8), ok ? A + (int64_t)gm * K + gk : A, ok);
+// barrier `id` over the 128 threads of one warpgroup
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128) : "memory");
+}
+
+// a wgmma shared-memory matrix descriptor with the 128-byte swizzle; the
+// address and both byte offsets in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 256 fp32 fragment, 128 registers a thread) += A (smem) * B (smem);
+// A K-major, B MN-major (imm-trans-b = 1), scale-d 0 overwrites d
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 fp32 fragment, 64 registers a thread) += A (smem) * B (smem);
+// A K-major, B MN-major (imm-trans-b = 1), scale-d 0 overwrites d
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (BN == 256)
+    wgmma_n256(d, da, db, scale_d);
+  else
+    wgmma_n128(d, da, db, scale_d);
+}
+
+constexpr int kWgThreads = 128;
+constexpr int kWgmmaThreads = 3 * kWgThreads;  // producer + two consumer warpgroups
+constexpr int kBM = 128;                       // two 64-row consumer halves
+constexpr int kBK = 64;                        // one 128-byte swizzle row of bf16
+constexpr int kBox = 64;                       // B box width (128 bytes of bf16)
+constexpr int kGroupM = 8;                     // tile rows of one raster group
+constexpr int kCBytes = 64 * kBox * 2;         // one 64 x 64 epilogue chunk of C
+constexpr int kSmemLimit = 232448;             // dynamic shared memory a CTA may opt into
+
+template <int BN>
+struct WgmmaTile {
+  static constexpr int kABytes = kBM * kBK * 2;
+  static constexpr int kBBytes = kBK * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kEpiBytes = 2 * 2 * kCBytes;  // two chunk buffers per consumer
+  static constexpr int kStages = (kSmemLimit - 2048 - kEpiBytes) / kStageBytes;
+  // the stages, the epilogue's buffers, 1024 bytes of slack to align them
+  // to the swizzle's 1024-byte period, and a full and an empty mbarrier
+  // per stage
+  static constexpr int kSmem = kStages * kStageBytes + kEpiBytes + 1024 + 2 * kStages * 8;
+  static_assert(BN == 128 || BN == 256, "wgmma tile width");
+  static_assert(kStages >= 2 && kSmem <= kSmemLimit, "shared memory");
+};
+
+// tile t of the grouped raster -> (tile row, tile column)
+__device__ __forceinline__ void tile_coords(int t, int m_tiles, int n_tiles, int& mt, int& nt) {
+  const int per_group = kGroupM * n_tiles;
+  const int first = (t / per_group) * kGroupM;
+  const int rows = min(m_tiles - first, kGroupM);
+  mt = first + (t % per_group) % rows;
+  nt = (t % per_group) / rows;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                    const __grid_constant__ CUtensorMap tma_b,
+                    const __grid_constant__ CUtensorMap tma_c, int M, int N, int K) {
+  using T = WgmmaTile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sa = base;                               // [stages][BM][64], swizzled
+  const uint32_t sb = base + T::kStages * T::kABytes;     // [stages][BN/64][64][64], swizzled
+  const uint32_t sc = sb + T::kStages * T::kBBytes;       // [2 consumers][2][64][64], swizzled
+  const uint32_t bars = sc + T::kEpiBytes;                // full[stages], empty[stages]
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (T::kStages + s); };
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int tid = threadIdx.x % kWgThreads;
+  const int m_tiles = (M + kBM - 1) / kBM;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = m_tiles * n_tiles;
+  const int ktiles = (K + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(full(s), 1);   // the producer's arrive.expect_tx
+      mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
     }
-    constexpr int BCH = BK * BN / 8;
-    for (int c = tid; c < BCH; c += kBf16Threads) {
-      const int r = c / (BN / 8), ch = c % (BN / 8);
-      const int gk = k0 + r, gn = n0 + ch * 8;
-      const bool ok = gk < K && gn < N;
-      cp_async_16(smem_u32(bs + r * BS + ch * 8), ok ? B + (int64_t)gk * N + gn : B, ok);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_slab(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // lane -> the row / column an ldmatrix.x4 lane addresses: matrices
-  // (rows 0-7, cols 0-7), (rows 8-15, cols 0-7), (rows 0-7, cols 8-15),
-  // (rows 8-15, cols 8-15)
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int lcol = (lane >> 4) * 8;
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();  // slab kt has landed
-    __syncthreads();               // ... for every thread; slab kt-1 is consumed
-    const int next = kt + kStages - 1;
-    if (next < ktiles) load_slab(next % kStages, next);
-    cp_async_commit();
-
-    const bf16* as = As + (kt % kStages) * BM * AS;
-    const bf16* bs = Bs + (kt % kStages) * BK * BS;
+  // one if/else on the warpgroup for the whole kernel: the roles never
+  // reconverge, so setmaxnreg takes effect
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int mt, nt;
+        tile_coords(t, m_tiles, n_tiles, mt, nt);
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % T::kStages;
+          mbar_wait(empty(s), ((it / T::kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(full(s), T::kStageBytes);
+          tma_load_2d(sa + s * T::kABytes, &tma_a, kt * kBK, mt * kBM, full(s));
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4];
-      uint32_t bfr[NT / 2][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], smem_u32(as + (wm * WTM + i * 16 + lrow) * AS + kk + lcol));
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j)
-        ldmatrix_x4_trans(bfr[j], smem_u32(bs + (kk + lrow) * BS + wn * WTN + j * 16 + lcol));
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-          mma_bf16(acc[i][2 * j], af[i], bfr[j][0], bfr[j][1]);
-          mma_bf16(acc[i][2 * j + 1], af[i], bfr[j][2], bfr[j][3]);
+          for (int j = 0; j < BN / kBox; ++j)
+            tma_load_2d(sb + s * T::kBBytes + j * kBK * kBox * 2, &tma_b, nt * BN + j * kBox,
+                        kt * kBK, full(s));
         }
+      }
     }
-  }
-  cp_async_wait<0>();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int half = wg - 1;  // rows 64*half .. 64*half+63 of the tile
+    const int warp = tid / 32, lane = tid % 32;
+    float acc[BN / 2];
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int mt, nt;
+      tile_coords(t, m_tiles, n_tiles, mt, nt);
+      int prev = 0;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int s = it % T::kStages;
+        mbar_wait(full(s), (it / T::kStages) & 1);
+        // A: K-major, 8-row groups 1024 bytes apart; a k16 step is 32
+        // bytes along the swizzled row.  B: MN-major, 64-wide boxes
+        // 8 KB apart (leading offset), 8-row k groups 1024 bytes apart;
+        // a k16 step is 16 rows, 2048 bytes.
+        const uint32_t a0 = sa + s * T::kABytes + half * 64 * kBK * 2;
+        const uint32_t b0 = sb + s * T::kBBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_tile<BN>(acc, smem_desc(a0 + kk * 32, 16, 1024),
+                         smem_desc(b0 + kk * 16 * kBox * 2, kBK * kBox * 2, 1024),
+                         (kt > 0 || kk > 0) ? 1 : 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the slab before this one has been read
+        if (kt > 0 && tid == 0) mbar_arrive(empty(prev));
+        prev = s;
+      }
+      wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(empty(prev));
 
-  // accumulator layout of m16n8: c0, c1 at (lane/4, 2*(lane%4) + {0, 1}),
-  // c2, c3 eight rows below; N is even, so a column pair never straddles N
+      // the epilogue, in 64-column chunks through two swizzled buffers:
+      // round to bf16 into shared memory, then one TMA store per chunk,
+      // which clips what lies outside C and runs on while the next tile
+      // is multiplied.  Register 4j+e of the m64nBN fragment holds row
+      // 16*warp + lane/4 (+8 for e >= 2), column 8j + 2*(lane%4) + (e & 1).
+      const int r = warp * 16 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int row = m0 + wm * WTM + i * 16 + (lane >> 2);
+      for (int c = 0; c < BN / kBox; ++c) {
+        const uint32_t buf = sc + (half * 2 + (c & 1)) * kCBytes;
+        if (tid == 0) tma_store_wait_read<1>();  // the store that last read buf is done
+        warpgroup_sync(1 + half);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = n0 + wn * WTN + j * 8 + (lane & 3) * 2;
-      if (col >= N) continue;
-      if (row < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (int64_t)row * N + col) =
-            __floats2bfloat162_rn(acc[i][j][0], acc[i][j][1]);
-      if (row + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (int64_t)(row + 8) * N + col) =
-            __floats2bfloat162_rn(acc[i][j][2], acc[i][j][3]);
+        for (int jj = 0; jj < kBox / 8; ++jj) {
+          const int j = c * (kBox / 8) + jj;
+          // 128-byte swizzle: 16-byte unit jj of row r sits at unit jj ^ (r % 8)
+          const uint32_t off = r * 128 + ((jj ^ (r & 7)) << 4) + (lane % 4) * 4;
+          *reinterpret_cast<__nv_bfloat162*>(smem_raw + (buf - raw) + off) =
+              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(smem_raw + (buf - raw) + off + 8 * 128) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        fence_async_shared();
+        warpgroup_sync(1 + half);
+        if (tid == 0) tma_store_2d(&tma_c, buf, nt * BN + c * kBox, mt * kBM + half * 64);
+      }
     }
+    if (tid == 0) tma_store_wait_all();
   }
 }
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kF32Threads = 256;
 
@@ -326,15 +520,60 @@ matmul_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-template <int BM, int BN, int BK>
-int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t s) {
-  constexpr int smem = bf16_smem_bytes<BM, BN, BK>();
-  auto kern = matmul_bf16_kernel<BM, BN, BK>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, by the runtime's entry-point query
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) bf16 matrix in (box_rows, 64) boxes with the
+// 128-byte swizzle; reads outside it are zero-filled, writes clipped
+int encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBox, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <int BN>
+int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t s) {
+  using T = WgmmaTile<BN>;
+  CUtensorMap ma, mb, mc;
+  int rc = encode_bf16(&ma, a, M, K, kBM);           // A (M, K): boxes of 128 rows x 64 k
+  if (rc == 0) rc = encode_bf16(&mb, b, K, N, kBK);  // B (K, N): boxes of 64 k x 64 n
+  if (rc == 0) rc = encode_bf16(&mc, c, M, N, 64);   // C (M, N): chunks of 64 rows x 64 n
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  auto kern = matmul_wgmma_kernel<BN>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, 1);
-  kern<<<grid, kBf16Threads, smem, s>>>(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-                                        static_cast<bf16*>(c), M, N, K);
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
+  const int grid = tiles < sms ? tiles : sms;  // persistent: at most one CTA per SM
+  kern<<<grid, kWgmmaThreads, T::kSmem, s>>>(ma, mb, mc, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -359,9 +598,9 @@ extern "C" {
 int matmul_tiled_launch(int elem_bytes, const void* a, const void* b, void* c, int M, int N,
                         int K, int bm, int bn, int bk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem_bytes == 2) {
-    if (bm == 128 && bn == 128 && bk == 32) return launch_bf16<128, 128, 32>(a, b, c, M, N, K, s);
-    if (bm == 128 && bn == 256 && bk == 32) return launch_bf16<128, 256, 32>(a, b, c, M, N, K, s);
+  if (elem_bytes == 2 && bm == kBM && bk == kBK) {
+    if (bn == 256) return launch_wgmma<256>(a, b, c, M, N, K, s);
+    if (bn == 128) return launch_wgmma<128>(a, b, c, M, N, K, s);
   } else if (elem_bytes == 4) {
     if (bm == 128 && bn == 128 && bk == 16) return launch_f32<128, 128, 16>(a, b, c, M, N, K, s);
   }
@@ -369,6 +608,8 @@ int matmul_tiled_launch(int elem_bytes, const void* a, const void* b, void* c, i
 }
 
 const char* matmul_error_string(int code) {
+  if (code == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (code == kErrEncode) return "cuTensorMapEncodeTiled refused the operands";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

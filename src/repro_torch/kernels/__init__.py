@@ -28,6 +28,14 @@ SCRATCH_REASON = (
     "scratch-staged kernels for the GPU target); runnable through a pinned "
     "config")
 
+# why the 2D generators (jacobi2d, transpose_pad) list the launches deeper
+# than their domain in ``.skipped`` (``flat_launches``)
+DEPTH_REASON = (
+    "launch deeper than the domain: a 2D domain reads as (1, Y, X), so of a "
+    "launch whose z extent bz·fz exceeds 1 only the z = 0 threads and fold "
+    "steps get a point, while the GPU model prices the whole block as busy "
+    "(core.gridwalk.block_points); runnable through a pinned config")
+
 # why the matmul and flash-attention generators list the TPU's decisions
 # in ``.skipped`` (``tpu_skipped``) and rank nothing
 TPU_REASON = (
@@ -59,6 +67,25 @@ def tpu_skipped(space) -> list:
     from repro_torch.core.selector import SkippedConfig
 
     return [SkippedConfig(cfg, TPU_REASON) for cfg in space]
+
+
+def fills_depth(launch) -> bool:
+    """Whether every thread and fold step of ``launch`` has a point of a 2D
+    domain (1, Y, X): its z extent bz·fz is 1."""
+    return launch.block[2] * launch.folding[2] == 1
+
+
+def flat_launches(ranked):
+    """The launches of a 2D ranking that fill the domain's depth, in their
+    ranked order; the others go to ``.skipped`` with ``DEPTH_REASON``, after
+    what was skipped already, as pinned configs ``{"block", "folding"}``."""
+    from repro_torch.core.selector import RankingResult, SkippedConfig
+
+    deep = [SkippedConfig({"block": rc.launch.block, "folding": rc.launch.folding},
+                          DEPTH_REASON)
+            for rc in ranked if not fills_depth(rc.launch)]
+    return RankingResult([rc for rc in ranked if fills_depth(rc.launch)],
+                         ranked.skipped + deep)
 
 
 def available_generators() -> list[str]:

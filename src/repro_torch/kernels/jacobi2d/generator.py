@@ -15,6 +15,13 @@ GPU model prices per-point kernels only: they are recorded in ``.skipped``
 with that reason and stay runnable through a pinned config
 (``ops.jacobi_step``).
 
+The domain is 2D and reads as (1, Y, X), so a launch whose z extent bz·fz
+exceeds 1 leaves every thread and fold step with z > 0 without a point,
+which the GPU model prices as work done.  The ranking keeps only the
+launches with z extent 1 (``kernels.flat_launches``), in the core's order;
+the others are recorded in ``.skipped`` with their own reason and stay
+runnable through a pinned config.
+
 Ranking runs on the host, serially, and is memoized per
 ``(domain, elem_bytes, machine)``.
 """
@@ -25,7 +32,7 @@ import torch
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import stencil_2d5pt
-from repro_torch.kernels import SCRATCH_REASON, resolve_device
+from repro_torch.kernels import SCRATCH_REASON, flat_launches, resolve_device
 from repro_torch.kernels.jacobi2d.kernel import jacobi_pointwise
 
 _RANKINGS: dict = {}
@@ -44,14 +51,17 @@ def ytile_space(domain: tuple):
 
 def rank_configs(domain: tuple, elem_bytes: int = 8,
                  machine: GPUMachine = H100) -> RankingResult:
-    """Every launch of the per-point kernel, best first, priced on
-    ``machine``; the y-tiled variants are in ``.skipped``."""
+    """The launches of the per-point kernel that fill the domain's depth
+    (``kernels.fills_depth``), best first, priced on ``machine``: the copied
+    core ranking, filtered, in its order.  The y-tiled variants and the deeper
+    launches are in ``.skipped``, each with its reason."""
     key = (tuple(domain), elem_bytes, machine)
     cached = _RANKINGS.get(key)
     if cached is None:
         cached = rank_gpu_configs(stencil_2d5pt(tuple(domain), elem_bytes), machine)
         cached.skipped.extend(
             SkippedConfig(cfg, SCRATCH_REASON) for cfg in ytile_space(tuple(domain)))
+        cached = flat_launches(cached)
         _RANKINGS[key] = cached
     return RankingResult(cached, cached.skipped)  # a copy: callers may mutate it
 

@@ -32,7 +32,11 @@ SUITE_GPU_BLOCKS = [
     (16, 8, 8), (32, 4, 1), (16, 8, 2),
 ]
 
-# the CUDA GEMM's tiles per element size, and the pinned default (the first)
+# the CUDA GEMM's tiles per element size, and the pinned default (the
+# first).  bf16: 128x256x64 was picked by timing the granite-3-2b layer's
+# five GEMMs at 16384 tokens on an H100 at 700 W (chip_smoke.py's
+# run_matmuls prints them): 2.81 ms against 3.09 ms at 128x128x64, whose
+# narrower wgmma reads A from shared memory twice as often per flop
 TILES = {eb: tuple({"bm": bm, "bn": bn, "bk": bk} for bm, bn, bk in tiles)
          for eb, tiles in _KERNEL_TILES.items()}
 DEFAULT = {eb: tiles[0] for eb, tiles in TILES.items()}

@@ -1,13 +1,17 @@
 """Wrapper of the hand-written CUDA GEMM (``repro_torch/csrc/matmul.cu``).
 
-``matmul_tiled(a, b, bm, bn, bk)`` computes ``a @ b`` with one CTA per
-(bm, bn) output tile walking K in bk slabs through shared memory, an fp32
-accumulator in registers and the result cast to the inputs' dtype: bf16 on
-the tensor cores (``mma.sync``), fp32 on the CUDA cores.  Replaces the TPU's
-``make_matmul(M, K, N, bm, bk, bn)``; the tiles are the kernel's own
-(``TILES``), and the edges are masked, so no dimension needs to be a tile
-multiple.  The 16-byte loads need K and N to be multiples of 16 bytes' worth
-of elements and 16-byte aligned operands.
+``matmul_tiled(a, b, bm, bn, bk)`` computes ``a @ b`` with an fp32
+accumulator in registers and the result cast to the inputs' dtype.  bf16
+runs on the tensor cores through Hopper's wgmma: persistent CTAs, one per
+SM, walk the (bm, bn) output tiles; in each, a producer warp keeps TMA
+copies of bk-deep slabs in flight through a ring in shared memory and two
+consumer warpgroups multiply them.  fp32 runs on the CUDA cores, one CTA
+per (bm, bn) tile.  Replaces the TPU's ``make_matmul(M, K, N, bm, bk, bn)``;
+the tiles are the kernel's own (``TILES``), and the edges are masked (TMA
+zero-fills the loads and clips the stores; the fp32 kernel guards both),
+so no dimension needs to be a tile multiple.  The 16-byte global strides of TMA (and the fp32 kernel's
+16-byte loads) need K and N to be multiples of 16 bytes' worth of elements
+and 16-byte aligned operands.
 
 On CPU tensors it computes the plain version (``ref.matmul_ref``); on CUDA
 tensors it launches the kernel on the current stream or raises.
@@ -28,13 +32,13 @@ LAUNCHES = {"matmul_tiled": 0}
 LAST_LAUNCH = {"matmul_tiled": None}
 
 # the instantiated CTA tiles (bm, bn, bk) per element size: bf16 on the
-# tensor cores, fp32 on the CUDA cores
+# tensor cores (wgmma, persistent), fp32 on the CUDA cores (one CTA per tile)
 TILES = {
-    2: ((128, 128, 32), (128, 256, 32)),
+    2: ((128, 256, 64), (128, 128, 64)),
     4: ((128, 128, 16),),
 }
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_GRID_Y_MAX = 65_535
+_GRID_Y_MAX = 65_535  # the fp32 kernel's grid has a y extent of M / bm
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,14 +86,14 @@ def _check(a: torch.Tensor, b: torch.Tensor, tile: tuple) -> tuple:
     vec = vector_width(eb)
     if K % vec or N % vec:
         raise ValueError(f"K={K} and N={N} must be multiples of {vec} for {a.dtype}")
-    if -(-M // tile[0]) > _GRID_Y_MAX:
+    if eb == 4 and -(-M // tile[0]) > _GRID_Y_MAX:
         raise ValueError(f"{-(-M // tile[0])} row tiles exceed CUDA's y grid limit")
     return M, K, N
 
 
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int) -> torch.Tensor:
-    """``a @ b`` (fp32 accumulation, cast to the inputs' dtype), one CTA per
-    (bm, bn) tile of the output."""
+    """``a @ b`` (fp32 accumulation, cast to the inputs' dtype) in (bm, bn)
+    tiles of the output."""
     tile = (int(bm), int(bn), int(bk))
     M, K, N = _check(a, b, tile)
     if a.device.type == "cpu":

@@ -14,6 +14,13 @@ shared memory, and the GPU model prices per-point kernels only: they are
 recorded in ``.skipped`` with that reason and stay runnable through a
 pinned config (``ops.transpose``).
 
+The domain is 2D and reads as (1, Y, X), so a launch whose z extent bz·fz
+exceeds 1 leaves every thread and fold step with z > 0 without a point,
+which the GPU model prices as work done.  The ranking keeps only the
+launches with z extent 1 (``kernels.flat_launches``), in the core's order;
+the others are recorded in ``.skipped`` with their own reason and stay
+runnable through a pinned config.
+
 Ranking runs on the host, serially, and is memoized per
 ``(shape, elem_bytes, machine)``.
 """
@@ -24,7 +31,7 @@ import torch
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import transpose_pad
-from repro_torch.kernels import SCRATCH_REASON, pow2_tiles, resolve_device
+from repro_torch.kernels import SCRATCH_REASON, flat_launches, pow2_tiles, resolve_device
 from repro_torch.kernels.transpose_pad.kernel import transpose_pointwise
 
 _RANKINGS: dict = {}
@@ -50,14 +57,17 @@ def tile_space(shape: tuple, tile: int = 8):
 
 def rank_configs(shape: tuple, elem_bytes: int = 4,
                  machine: GPUMachine = H100) -> RankingResult:
-    """Every launch of the per-point kernel, best first, priced on
-    ``machine``; the tile shapes are in ``.skipped``."""
+    """The launches of the per-point kernel that fill the domain's depth
+    (``kernels.fills_depth``), best first, priced on ``machine``: the copied
+    core ranking, filtered, in its order.  The tile shapes and the deeper
+    launches are in ``.skipped``, each with its reason."""
     key = (tuple(shape), elem_bytes, machine)
     cached = _RANKINGS.get(key)
     if cached is None:
         cached = rank_gpu_configs(transpose_pad(tuple(shape), elem_bytes), machine)
         cached.skipped.extend(
             SkippedConfig(cfg, SCRATCH_REASON) for cfg in tile_space(tuple(shape)))
+        cached = flat_launches(cached)
         _RANKINGS[key] = cached
     return RankingResult(cached, cached.skipped)  # a copy: callers may mutate it
 

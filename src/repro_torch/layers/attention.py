@@ -15,16 +15,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import resolve_device
+
 from .rope import apply_rope
 
 NEG_INF = -1e30
 
 
 def attention_init(d_model: int, n_heads: int, n_kv: int, head_dim: int, qkv_bias: bool = False,
-                   dtype=torch.bfloat16, *, generator: torch.Generator, device="cpu") -> dict:
+                   dtype=torch.bfloat16, *, generator: torch.Generator, device="cuda") -> dict:
     """Projection weights with the reference's scales: wq/wk/wv normal
     times d_model^-1/2, wo times (n_heads·head_dim)^-1/2, zero biases;
-    drawn in fp32 from ``generator`` and cast to ``dtype``."""
+    drawn in fp32 from ``generator`` (on ``device``) and cast to ``dtype``.
+    They lie on the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
+
     def normal(shape, scale):
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (w * scale).to(dtype)

@@ -161,7 +161,7 @@ def test_rope_matches_reference(dtype):
 @pytest.mark.parametrize("bias", [False, True])
 def test_attention_init_shapes_and_scales(bias):
     gen = torch.Generator().manual_seed(0)
-    p = attention_init(2048, 32, 8, 64, bias, torch.bfloat16, generator=gen)
+    p = attention_init(2048, 32, 8, 64, bias, torch.bfloat16, generator=gen, device="cpu")
     ref = {k: np.asarray(v) for k, v in _jax_params("bfloat16", bias).items()}
     assert set(p) == set(ref)
     want = shapes.attention_proj_shapes(2048, 32, 8, 64)
@@ -173,8 +173,16 @@ def test_attention_init_shapes_and_scales(bias):
     if bias:
         assert all(not p[b].any() for b in ("bq", "bk", "bv"))
     again = attention_init(2048, 32, 8, 64, bias, torch.bfloat16,
-                           generator=torch.Generator().manual_seed(0))
+                           generator=torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(p[k], again[k]) for k in p)
+
+
+def test_attention_init_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attention_init(64, 2, 1, 32, generator=torch.Generator().manual_seed(0))
+    p = attention_init(64, 2, 1, 32, generator=torch.Generator().manual_seed(0), device="cpu")
+    assert all(t.device.type == "cpu" for t in p.values())
 
 
 def test_attention_params_from_numpy_carries_bf16_bits():

@@ -15,8 +15,9 @@ torch = pytest.importorskip("torch")  # the port's optional extra
 from repro_torch import convert
 from repro_torch.core.access import LaunchConfig
 from repro_torch.core.machines import H100
-from repro_torch.core.selector import enumerate_gpu_configs
-from repro_torch.kernels import SCRATCH_REASON, get_generator
+from repro_torch.core.selector import enumerate_gpu_configs, rank_gpu_configs
+from repro_torch.core.specs import stencil_2d5pt
+from repro_torch.kernels import DEPTH_REASON, SCRATCH_REASON, dtype_for, fills_depth, get_generator
 from repro_torch.kernels.jacobi2d import kernel as K
 from repro_torch.kernels.jacobi2d.generator import generate, rank_configs, ytile_space
 from repro_torch.kernels.jacobi2d.ops import jacobi_step
@@ -114,16 +115,41 @@ def test_generator_ranks_every_launch_and_skips_the_ytile_variants():
 
     dom = (32, 24)
     ranked = rank_configs(dom, 8, H100)
-    assert len(ranked) == 168
+    # 22 of the 168 launches fill the (1, Y, X) domain's depth; 146 are skipped
+    deep = [s for s in ranked.skipped if s.reason == DEPTH_REASON]
+    assert len(ranked) == 22 and len(deep) == 146
     want = [cfg for cfg in _space(dom) if cfg["variant"] == "ytile"]
-    assert [s.config for s in ranked.skipped] == want == [
+    tiles = ranked.skipped[:len(want)]
+    assert [s.config for s in tiles] == want == [
         {"variant": "ytile", "ty": 8}, {"variant": "ytile", "ty": 16}]
-    assert all(s.reason == SCRATCH_REASON for s in ranked.skipped)
+    assert all(s.reason == SCRATCH_REASON for s in tiles)
+    assert ranked.skipped == tiles + deep
     assert list(ytile_space((12, 8))) == [] and list(ytile_space((24, 8))) == [
         {"variant": "ytile", "ty": 8}]
     ranked.clear()  # callers get a copy; the memoized ranking is untouched
-    assert len(rank_configs(dom, 8, H100)) == 168
+    assert len(rank_configs(dom, 8, H100)) == 22
     assert get_generator("jacobi2d").rank_configs is rank_configs
+
+
+@pytest.mark.parametrize("domain,elem_bytes", [((32, 24), 8), ((24, 40), 4), ((4096, 4096), 8)])
+def test_ranking_is_the_core_ranking_filtered_to_flat_launches(domain, elem_bytes):
+    """Kept: the core's ranking (pinned to the reference's in
+    test_torch_core.py), bitwise and in order, less the launches with
+    bz·fz > 1, which are skipped with DEPTH_REASON in that same order."""
+    core = rank_gpu_configs(stencil_2d5pt(domain, elem_bytes), H100)
+    assert len(core) == 168
+    ranked = rank_configs(domain, elem_bytes, H100)
+    flat = [rc for rc in core if rc.launch.block[2] * rc.launch.folding[2] == 1]
+    assert [(rc.launch, rc.perf) for rc in ranked] == [(rc.launch, rc.perf) for rc in flat]
+    assert all(fills_depth(rc.launch) for rc in ranked)
+    deep = [s.config for s in ranked.skipped if s.reason == DEPTH_REASON]
+    assert deep == [{"block": rc.launch.block, "folding": rc.launch.folding}
+                    for rc in core if not fills_depth(rc.launch)]
+    kern, best = generate(domain, dtype=dtype_for(elem_bytes), device="cpu")
+    assert best.launch == ranked[0].launch == flat[0].launch
+    if domain == (4096, 4096):  # the paper size: the top launch already has z extent 1
+        assert core[0].launch == ranked[0].launch == LaunchConfig(block=(1024, 1, 1),
+                                                                   folding=(1, 2, 1))
 
 
 def test_generate_returns_the_best_launch():

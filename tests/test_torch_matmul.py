@@ -138,7 +138,8 @@ def test_tpu_space_equals_reference():
 
 
 def test_tiles_and_defaults():
-    assert DEFAULT == {2: {"bm": 128, "bn": 128, "bk": 32}, 4: {"bm": 128, "bn": 128, "bk": 16}}
+    assert DEFAULT == {2: {"bm": 128, "bn": 256, "bk": 64}, 4: {"bm": 128, "bn": 128, "bk": 16}}
+    assert K.TILES[2] == ((128, 256, 64), (128, 128, 64))
     assert len(TILES[2]) >= 2
     for eb, tiles in TILES.items():
         assert DEFAULT[eb] in tiles
@@ -185,11 +186,17 @@ def test_wrapper_validates_its_operands(a, b, exc, match):
 def test_wrapper_validates_its_tile():
     a, b = torch.zeros((4, 8)), torch.zeros((8, 8))
     with pytest.raises(ValueError, match="not instantiated"):
-        K.matmul_tiled(a, b, 128, 128, 32)  # a bf16 tile
+        K.matmul_tiled(a, b, 128, 256, 64)  # a bf16 tile
     with pytest.raises(ValueError, match="not instantiated"):
         tuned_matmul(a, b, {"bm": 128, "bk": 128, "bn": 128})  # a TPU block
-    with pytest.raises(ValueError, match="grid limit"):
+    with pytest.raises(ValueError, match="not instantiated"):
+        K.matmul_tiled(a.bfloat16(), b.bfloat16(), 128, 128, 32)  # the mma.sync kernel's tile
+    with pytest.raises(ValueError, match="grid limit"):  # the fp32 kernel's grid is (N/bn, M/bm)
         K.matmul_tiled(torch.empty((128 * 65_536, 4)), torch.zeros((4, 4)), 128, 128, 16)
+    # the bf16 kernel is persistent: as many row tiles as that are no limit
+    bf = torch.empty((128 * 65_536, 8), dtype=torch.bfloat16)
+    assert K._check(bf, torch.zeros((8, 8), dtype=torch.bfloat16), K.TILES[2][0]) == (
+        128 * 65_536, 8, 8)
     with pytest.raises(ValueError, match=r"\(M, K\)"):
         tuned_matmul(a, torch.zeros((4, 8)))
 
@@ -227,6 +234,43 @@ def test_card_every_tile_matches_plain_on_ragged_shapes(cuda, dtype, shape):
         torch.testing.assert_close(got, want, **CARD_TOL[dtype], msg=str(tile))
 
 
+def _layer_gemm_shapes():
+    """(M, K, N) of the granite-3-2b layer's GEMMs at 16384 tokens: qkv,
+    out, the MLP's input (run twice on the main path) and output."""
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.layers.shapes import attention_proj_shapes, mlp_shapes
+
+    proj = attention_proj_shapes(CONFIG.d_model, CONFIG.n_heads, CONFIG.n_kv,
+                                 CONFIG.resolved_head_dim)
+    mlp = mlp_shapes(CONFIG.d_model, CONFIG.d_ff, CONFIG.mlp)
+    return [(16384, *proj["qkv"]), (16384, *proj["out"]), (16384, *mlp["in"][0]),
+            (16384, *mlp["out"][0])]
+
+
+def test_layer_gemm_shapes():
+    assert _layer_gemm_shapes() == [(16384, 2048, 3072), (16384, 2048, 2048),
+                                    (16384, 2048, 8192), (16384, 8192, 2048)]
+
+
+# (8200, 264, 8200): 2145 tiles of 128 x 256 and 4225 of 128 x 128, more than
+# 132 SMs x 4, so every persistent CTA walks many tiles and the last wave is
+# partial; K = 264 leaves a tail of 8 in the last 64-deep slab
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["qkv", "out", "mlp.in", "mlp.out", (8200, 264, 8200)])
+def test_card_wgmma_matches_plain_on_the_layer_and_many_tiles(cuda, shape):
+    if isinstance(shape, str):
+        shape = dict(zip(("qkv", "out", "mlp.in", "mlp.out"), _layer_gemm_shapes()))[shape]
+    a_np, b_np = _ab(4, shape, scale=shape[1] ** -0.5)
+    a = torch.from_numpy(a_np).to(cuda).bfloat16()
+    b = torch.from_numpy(b_np).to(cuda).bfloat16()
+    want = matmul_ref(a, b)
+    for tile in K.TILES[2]:
+        got = K.matmul_tiled(a, b, *tile)
+        torch.cuda.synchronize()
+        assert K.LAST_LAUNCH["matmul_tiled"] == tile
+        torch.testing.assert_close(got, want, **CARD_TOL[torch.bfloat16], msg=str(tile))
+
+
 @pytest.mark.gpu
 def test_card_entry_point_launches_the_default_tile(cuda):
     a_np, b_np = _ab(3, (512, 256, 384), scale=256 ** -0.5)
@@ -237,7 +281,7 @@ def test_card_entry_point_launches_the_default_tile(cuda):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {"matmul_tiled": 1}
     d = DEFAULT[2]
-    assert K.LAST_LAUNCH["matmul_tiled"] == (d["bm"], d["bn"], d["bk"])
+    assert K.LAST_LAUNCH["matmul_tiled"] == (d["bm"], d["bn"], d["bk"]) == (128, 256, 64)
     torch.testing.assert_close(got, matmul_ref(a, b), **CARD_TOL[torch.bfloat16])
     # a shape no tile fits runs the plain version, launching nothing
     odd = torch.ones((16, 30), device=cuda, dtype=torch.bfloat16)

@@ -16,8 +16,9 @@ torch = pytest.importorskip("torch")  # the port's optional extra
 from repro_torch import convert
 from repro_torch.core.access import LaunchConfig
 from repro_torch.core.machines import H100
-from repro_torch.core.selector import enumerate_gpu_configs
-from repro_torch.kernels import SCRATCH_REASON, get_generator
+from repro_torch.core.selector import enumerate_gpu_configs, rank_gpu_configs
+from repro_torch.core.specs import transpose_pad
+from repro_torch.kernels import DEPTH_REASON, SCRATCH_REASON, dtype_for, fills_depth, get_generator
 from repro_torch.kernels.transpose_pad import kernel as K
 from repro_torch.kernels.transpose_pad.generator import (
     generate,
@@ -95,12 +96,37 @@ def test_generator_ranks_every_launch_and_skips_the_tile_space(shape):
     from repro.kernels.transpose_pad.generator import _space
 
     ranked = rank_configs(shape, 4, H100)
-    assert len(ranked) == 168
+    # 22 of the 168 launches fill the (1, Y, X) domain's depth; 146 are skipped
+    deep = [s for s in ranked.skipped if s.reason == DEPTH_REASON]
+    assert len(ranked) == 22 and len(deep) == 146
     want = list(_space(pad_to_tiles(shape[0], 8), pad_to_tiles(shape[1], 8)))
-    assert [s.config for s in ranked.skipped] == want == list(tile_space(shape))
-    assert want and all(s.reason == SCRATCH_REASON for s in ranked.skipped)
+    tiles = ranked.skipped[:len(want)]
+    assert [s.config for s in tiles] == want == list(tile_space(shape))
+    assert want and all(s.reason == SCRATCH_REASON for s in tiles)
+    assert ranked.skipped == tiles + deep
     ranked.clear()  # callers get a copy; the memoized ranking is untouched
-    assert len(rank_configs(shape, 4, H100)) == 168
+    assert len(rank_configs(shape, 4, H100)) == 22
+
+
+@pytest.mark.parametrize("shape,elem_bytes", [((37, 53), 4), ((64, 96), 8), ((8192, 8192), 4)])
+def test_ranking_is_the_core_ranking_filtered_to_flat_launches(shape, elem_bytes):
+    """Kept: the core's ranking (pinned to the reference's in
+    test_torch_core.py), bitwise and in order, less the launches with
+    bz·fz > 1, which are skipped with DEPTH_REASON in that same order."""
+    core = rank_gpu_configs(transpose_pad(shape, elem_bytes), H100)
+    assert len(core) == 168
+    ranked = rank_configs(shape, elem_bytes, H100)
+    flat = [rc for rc in core if rc.launch.block[2] * rc.launch.folding[2] == 1]
+    assert [(rc.launch, rc.perf) for rc in ranked] == [(rc.launch, rc.perf) for rc in flat]
+    assert all(fills_depth(rc.launch) for rc in ranked)
+    deep = [s.config for s in ranked.skipped if s.reason == DEPTH_REASON]
+    assert deep == [{"block": rc.launch.block, "folding": rc.launch.folding}
+                    for rc in core if not fills_depth(rc.launch)]
+    kern, best = generate(shape, dtype=dtype_for(elem_bytes), device="cpu")
+    assert best.launch == ranked[0].launch == flat[0].launch
+    if shape == (8192, 8192):  # the paper size: the top launch overall has bz = 64
+        assert core[0].launch.block[2] > 1
+        assert ranked[0].launch == LaunchConfig(block=(4, 256, 1), folding=(1, 1, 1))
 
 
 def test_tile_space_of_the_paper_size():
