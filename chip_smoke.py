@@ -19,8 +19,9 @@ with nvcc first (one nvcc per source, in parallel):
   on the GEMMs of one layer at 16384 tokens, ``flash_attention`` on a causal
   prefill (B 4, S 4096) and on one decode token against a 32k cache
   (B 128), and ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
-  the GEMMs are also timed in turns with ``torch.matmul``, since the card
-  slows under sustained tensor-core load.
+  the GEMMs are also timed in turns with ``torch.matmul``, and the prefill's
+  two tiles in turns with ``F.scaled_dot_product_attention``, since the
+  card slows under sustained tensor-core load.
 
 Each path's pinned variants (the z-march stencils, the y-tiled LBM, the
 y-tiled Jacobi sweep, the tiled transpose, the second GEMM and flash tiles)
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -112,6 +114,7 @@ FLASH_TOL = {2: dict(rtol=0.0, atol=3e-2), 4: dict(rtol=0.0, atol=2e-3)}
 # values, a token's d_model values) is also held to this relative L2 bound,
 # and run_flash shows that an output missing one KV block fails it
 FLASH_ROW_REL = {2: 2e-2, 4: 1e-4}
+FLASH_ROUNDS = 30                        # rounds of the prefill's tiles and SDPA in turns
 MATMUL_SOURCE = "src/repro_torch/csrc/matmul.cu"
 MATMUL_REPLACES = "src/repro/kernels/matmul/kernel.py:42"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
@@ -121,6 +124,22 @@ FLASH_REPLACES = {"fwd": "src/repro/kernels/flash_attention/kernel.py:77",
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ptxas_kernel_name(line: str) -> str:
+    """``name<args>`` of the kernel a ptxas "Compiling entry function" line
+    names: the last component of its mangled name and its integer template
+    arguments."""
+    m = re.search(r"_ZN(\w+)", line)
+    if not m:
+        return "?"
+    rest, name = m.group(1), "?"
+    while rest[:1].isdigit():
+        n = int(re.match(r"\d+", rest).group())
+        digits = len(str(n))
+        name, rest = rest[digits:digits + n], rest[digits + n:]
+    args = re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0]) if rest.startswith("I") else []
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def card_line() -> str:
@@ -1147,6 +1166,23 @@ def attention_bound(B, Hq, Hkv, Sq, Skv, D, causal, elem_bytes) -> tuple:
     return bf16_bound(flops, n_bytes) + (flops,)
 
 
+def exp_floor(B, Hq, S, bq, bk, torch) -> tuple:
+    """The exponentials the forward computes at tile (bq, bk) on a causal
+    prefill of S (whole diagonal blocks, one per score, plus one correction
+    per row and block), the causal triangle's own count, and the least time
+    (ms) the card's MUFU units need for them at 16 ex2 a clock per SM, at
+    the SM clock that ``nvidia-smi`` reads now and at its maximum."""
+    blocks = sum(min(S // bk, (qb * bq + bq - 1) // bk + 1) for qb in range(S // bq))
+    exps = B * Hq * blocks * bk * bq + B * Hq * blocks * bq
+    triangle = B * Hq * S * (S + 1) // 2
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                            check=True, timeout=60).stdout.split("\n")[0].split(",")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = [float(x) for x in clocks]
+    return exps, triangle, sms, mhz, [exps / (16 * sms * f * 1e6) * 1e3 for f in mhz]
+
+
 def run_flash(args, torch, dev) -> list:
     """Prefill and decode at granite-3-2b's width through ``flash_attention``
     (the main path), each against ``attention_ref`` on batch slices; the
@@ -1197,12 +1233,14 @@ def run_flash(args, torch, dev) -> list:
         err, rel = check_flash(torch, out, want, f"flash_attention prefill {cfg}", 2)
         err32, rel32 = float((out.float() - want32).abs().max()), row_rel_err(out, want32)
         del out
-        say(f"prefill flash_attention(config={cfg}) at (bq, bk) {tile}: launches {launches}; "
+        say(f"prefill flash_attention(config={cfg}) at (bq, bk) {tile} "
+            f"({FK.fwd_route(torch.bfloat16, D, *tile)}): launches {launches}; "
             f"max abs error {err!r} ({FLASH_TOL[2]}), row relative error {rel!r} (bound "
             f"{FLASH_ROW_REL[2]}); against the fp32 plain version max abs {err32!r}, row "
             f"relative {rel32!r} (the plain version's own bf16 rounding: {floor!r})")
         kernels.append({"name": f"flash_attention_fwd[bq={tile[0]},bk={tile[1]}]",
                         "config": {"bq": tile[0], "bk": tile[1]}, "tile": tile,
+                        "fwd_route": FK.fwd_route(torch.bfloat16, D, *tile),
                         "launches": launches["flash_attention_fwd"], "max_abs_err": err,
                         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["fwd"]})
     # the row bound's reach: the last query block without KV block 0
@@ -1213,15 +1251,28 @@ def run_flash(args, torch, dev) -> list:
                                           f"{n} query rows", 2))
     del want, want32, wrong
     plain = cuda_ms(torch, lambda: sliced_ref(q, k, v, True, 1), warmup=1, reps=5)
-    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                enable_gqa=True))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    lib = cuda_ms(torch, sdpa)
+    fwd = {rec["name"]: (lambda t=rec["tile"]: FK.flash_attention_fwd(q, k, v, *t, True))
+           for rec in kernels}
+    turns = interleaved_ms(torch, {**fwd, "sdpa": sdpa}, FLASH_ROUNDS)
     for rec in kernels:
         bq, bk = rec.pop("tile")
-        ms = cuda_ms(torch, lambda: FK.flash_attention_fwd(q, k, v, bq, bk, True))
-        rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-        say(f"time {rec['name']} prefill bf16: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-            f"{b_ms / ms * 100:.1f}% of bound); plain {plain:.4f} ms (per-batch slices, median "
-            f"of 5); library F.scaled_dot_product_attention(is_causal, enable_gqa) {lib:.4f} ms")
+        ms = cuda_ms(torch, fwd[rec["name"]])
+        rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                   in_turns_ms=turns[rec["name"]], library_in_turns_ms=turns["sdpa"])
+        say(f"time {rec['name']} prefill bf16 ({rec['fwd_route']}): {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms * 100:.1f}% of bound); plain "
+            f"{plain:.4f} ms (per-batch slices, median of 5); library "
+            f"F.scaled_dot_product_attention(is_causal, enable_gqa) {lib:.4f} ms")
+    say(f"prefill in turns ({FLASH_ROUNDS} rounds, order reversed every other round): "
+        + "; ".join(f"{name} {ms:.4f} ms" for name, ms in turns.items())
+        + f"; the default tile against SDPA: {turns[kernels[0]['name']] / turns['sdpa']:.4f}x")
+    exps, triangle, sms, mhz, floors = exp_floor(B, Hq, S, *default, torch)
+    say(f"prefill exponential floor at (bq, bk) {default}: {exps} exponentials computed (the "
+        f"causal triangle has {triangle}) / (16 a clock x {sms} SMs x SM clock): "
+        f"{floors[0]:.4f} ms at the clock read now ({mhz[0]:.0f} MHz), {floors[1]:.4f} ms at the "
+        f"maximum ({mhz[1]:.0f} MHz); the tensor-core bound is {b_ms:.4f} ms")
     # fp32 (CUDA cores) on the first batch, both tiles
     q32, k32, v32 = q[:1].float(), k[:1].float(), v[:1].float()
     want32 = attention_ref(q32, k32, v32, True)
@@ -1328,6 +1379,8 @@ def run_layer(args, torch, dev) -> None:
     if launches != {"flash_attention_fwd": 1, "flash_decode": 0} or cache is not None:
         raise AssertionError(f"attention_apply(use_pallas=True) launches {launches}: the flash "
                              "branch must run flash_attention_fwd exactly once")
+    bq, bk, _ = FK.LAST_LAUNCH["flash_attention_fwd"]
+    route = FK.fwd_route(torch.bfloat16, D, bq, bk)
     want, _ = attention_apply(params, x, use_pallas=False, **kw)
     err, rel = check_flash(torch, out, want, "attention_apply flash vs chunked", 2)
     del out, want
@@ -1336,7 +1389,8 @@ def run_layer(args, torch, dev) -> None:
     chunked_ms = cuda_ms(torch, lambda: attention_apply(params, x, use_pallas=False, **kw),
                          warmup=1, reps=5)
     say(f"layer: attention_apply(x {tuple(x.shape)} bf16, granite-3-2b weights from "
-        f"attention_init, use_pallas=True): launches {launches}; max abs error against "
+        f"attention_init, use_pallas=True): launches {launches} at (bq, bk) {(bq, bk)} "
+        f"({route}); max abs error against "
         f"use_pallas=False {err!r} ({FLASH_TOL[2]}), row relative error {rel!r} (bound "
         f"{FLASH_ROW_REL[2]}); call {flash_ms:.4f} ms with the flash "
         f"kernel, {chunked_ms:.4f} ms chunked (median of 5)")
@@ -1388,9 +1442,12 @@ def main(argv=None) -> int:
     say(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         log = lib.with_name(lib.name + ".log")
+        kernel = ""
         for line in log.read_text().splitlines() if log.is_file() else ():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas[{name}]: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = ptxas_kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                say(f"  ptxas[{name}] {kernel}: {line.strip()}")
 
     kernels = run_stencil(args, torch, dev)
     torch.cuda.empty_cache()
@@ -1412,7 +1469,9 @@ def main(argv=None) -> int:
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"], "pass": True}
+         "library_ms": k["library_ms"], "pass": True,
+         **{key: k[key] for key in ("fwd_route", "in_turns_ms", "library_in_turns_ms")
+            if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

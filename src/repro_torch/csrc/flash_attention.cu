@@ -9,7 +9,8 @@
 // NEG_INF = -1e30 (not -inf), per KV block m' = max(m, rowmax s),
 // p = exp(s - m'), l = l e^(m - m') + sum p, acc = acc e^(m - m') + p v,
 // and o = acc / max(l, 1e-30).  Two departures from the reference's f32
-// arithmetic: exp is __expf (the hardware ex2.approx path, a few ulp), and
+// arithmetic: exp is ex2.approx based (__expf, or 2^x of a log2 e-scaled
+// argument in the wgmma kernel; a few ulp), and
 // the bf16 forward rounds p to bf16 for the tensor-core P V product while l
 // sums the unrounded p.  The fp32 kernels and the decode kernel keep p in
 // f32.
@@ -24,7 +25,48 @@
 //   when kb*BK > qb*BQ + BQ - 1 + (Skv - Sq), as the reference's pl.when does.
 //   Heavy (late) query blocks are scheduled first.
 //
-//   bf16: tensor cores through mma.sync.m16n8k16 (FA2 form).  BQ/16 warps,
+//   bf16 at (128, 128), D 64 and 128: flash_fwd_wgmma_kernel, Hopper's own
+//   form (FA3).  Bound at the model's prefill by the tensor cores (4·D
+//   flops a kept (query, key) pair at 989 TFLOP/s) and, at D = 64, as much
+//   by the exponentials: the MUFU unit does 16 ex2 a clock per SM, about
+//   as long as the tensor-core bound.  So the design keeps both busy at
+//   once.  Persistent CTAs (one per SM) of three warpgroups walk the tiles
+//   (b*Hq + h, q block of 128 rows), heavy causal q blocks first; the
+//   producer loads the next tile's Q and K while the consumers finish the
+//   last one.
+//   - Warpgroup 0 is the producer: one thread issues TMA loads of the Q
+//     block (once a tile) and of K and V blocks of 128 keys into a ring of
+//     kFaStages stages, each tensor viewed as a row-major (B*H*S, D) matrix
+//     in (128 x 64) boxes, 128-byte swizzled.  K and V have full and empty
+//     mbarriers of their own, so Q K^T starts before V lands.  It drops to
+//     40 registers (setmaxnreg); the consumers rise to 232.
+//   - Warpgroups 1 and 2 are consumers, 64 query rows each.  S = Q K^T is
+//     wgmma m64n128k16 with Q from registers (kQInRegs: its A fragments
+//     loaded once a tile by ldmatrix, which frees the Q buffer at once and
+//     leaves shared memory to K) and K from shared memory (stored key x D,
+//     K-major, so nothing is transposed); O += P V is wgmma m64nDk16 with
+//     A from registers (P rounded from the S accumulators: their layout is
+//     the A fragment's) and V read MN-major through the transpose-B mode.
+//   - Ping-pong (kPingPong): named barriers 1 and 2 give the consumers
+//     turns on the tensor cores, so one consumer's softmax runs while the
+//     other's two GEMMs (S of block j, P V of block j-1) run.
+//   - Inside a consumer (kIntraOverlap): the exponentials of block j wait
+//     only for S_j, and run while P_{j-1} V_{j-1} is still on the tensor
+//     cores; p is packed to bf16 once that product is done, and O takes
+//     block j's correction in the next turn, under S_{j+1}
+//     (kRescaleInTurn).
+//   The ablation (kernels/flash_attention/ablate.py) times each switch
+//   off; at the model's prefill ping-pong and the intra-warpgroup overlap
+//   gain nothing measurable, the softmax stays on the critical path
+//   (PERF.md).
+//   - The softmax works in the exp2 domain: one FFMA (s * scale log2 e -
+//     m) and one ex2 an element; the causal mask is applied only in the
+//     last KV block (with Sq and Skv multiples of 128 no other block is
+//     cut), the others run without mask code.  The epilogue divides by
+//     max(l, 1e-30) and stores bf16 pairs from registers.
+//
+//   bf16 at D 32, and at (64, 64): tensor cores through mma.sync.m16n8k16
+//   (FA2 form).  BQ/16 warps,
 //   each owning 16 query rows: S = Q K^T and O += P V as m16n8k16 tiles, Q
 //   fragments in registers, K and V blocks double-buffered in shared memory
 //   by cp.async (rows padded by 8 elements against bank conflicts), P reused
@@ -47,12 +89,16 @@
 //   Skv = 32768, Hkv = 8, D = 64 K alone has 2^31 elements.
 //
 // Every launcher has a plain C interface for ctypes, launches on the given
-// stream, allocates nothing, and returns cudaGetLastError() after the launch.
+// stream, allocates nothing, and returns cudaGetLastError() after the launch
+// (or a negative code of its own, see flash_error_string).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -60,10 +106,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // the reference's finite mask value
 constexpr float kMinDenom = 1e-30f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
@@ -278,6 +320,534 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
           __floats2bfloat162_rn(o[j][2 * r] / denom, o[j][2 * r + 1] / denom);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at (128, 128), D 64 and 128: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+
+constexpr int kFaThreads = 384;       // a producer and two consumer warpgroups
+constexpr int kFaBlock = 128;         // query rows of a CTA (64 a consumer), keys of a KV block
+constexpr int kFaBoxBytes = kFaBlock * kSwizzleCols * 2;  // one swizzled (128 x 64) TMA box
+constexpr int kFaStages = 2;          // depth of the K and V rings
+constexpr bool kPingPong = true;      // the consumers take turns on the tensor cores
+constexpr bool kIntraOverlap = true;  // a block's softmax overlaps the previous block's P V
+constexpr bool kRescaleInTurn = true; // O's correction runs under the next Q K^T
+constexpr bool kQInRegs = true;       // Q K^T takes Q from registers, not shared memory
+constexpr int kSmemLimit = 232448;    // dynamic shared memory a CTA may opt into
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct FwdWgmma {
+  static constexpr int kBoxes = D / kSwizzleCols;        // TMA boxes of a row block
+  static constexpr int kTileBytes = kBoxes * kFaBoxBytes;  // Q, or one K or V block
+  static constexpr int kBars = 2 + 4 * kFaStages;        // Q full and empty; K and V full and empty
+  // Q, the rings, 1024 bytes of slack to align them to the swizzle's period,
+  // the mbarriers
+  static constexpr int kSmem = (1 + 2 * kFaStages) * kTileBytes + 1024 + 8 * kBars;
+  static_assert(D == 64 || D == 128, "wgmma forward head dim");
+  static_assert(kFaStages >= 2 && kSmem <= kSmemLimit, "shared memory");
+};
+
+// S (64 x 128 fp32 fragment, 64 registers a thread) = or += A (smem) * B (smem);
+// both K-major (imm-trans-b = 0); scale-d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 fp32 fragment, 32 registers a thread) += A (registers: four
+// bf16 pairs a thread, the m16n8k16 A layout per warp) * B (smem: K-major
+// for TransB 0, MN-major for TransB 1); scale-d 0 overwrites d
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// d (64 x 128 fp32 fragment, 64 registers a thread) += A (registers: four
+// bf16 pairs a thread, the m16n8k16 A layout per warp) * B (smem: K-major
+// for TransB 0, MN-major for TransB 1); scale-d 0 overwrites d
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// barrier `id` over the 256 consumer threads: wait, or arrive without waiting
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(256) : "memory");
+}
+__device__ __forceinline__ void consumers_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(256) : "memory");
+}
+
+// keep the compiler from moving register work on a wgmma operand across a
+// wgmma wait: the tensor cores read and write these registers asynchronously
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T for one consumer's 64 query rows and a block of 128 keys: Q and
+// K both K-major, D/64 swizzled boxes of 128 rows (16 KB) each; a k16 step
+// is 32 bytes along a swizzled row
+template <int D>
+__device__ __forceinline__ void qk_gemm(float (&s)[64], uint32_t q, uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t step = (kk / 4) * kFaBoxBytes + (kk % 4) * 32;
+    wgmma_ss_n128(s, smem_desc(q + step, 16, 1024), smem_desc(k + step, 16, 1024), kk > 0);
+  }
+}
+
+// The same with Q in registers (this consumer's 64 rows as D/16 m16n8k16
+// A fragments a warp, qf from load_q), so only K is read from shared memory
+template <int D>
+__device__ __forceinline__ void qk_gemm(float (&s)[64], const uint32_t (&qf)[D / 16][4],
+                                        uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_rs_n128<0>(s, qf[kk], smem_desc(k + (kk / 4) * kFaBoxBytes + (kk % 4) * 32, 16, 1024),
+                     kk > 0);
+}
+
+// Q's A fragments from the swizzled Q tile, by ldmatrix: lane l reads row
+// l % 16 of its warp's 16 rows, 16-byte chunk l / 16 of the k step, which
+// the 128-byte swizzle puts at chunk ^ (row % 8) of the row
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[D / 16][4], uint32_t sq, int first_row) {
+  const int lane = threadIdx.x & 31;
+  const int row = first_row + (threadIdx.x / 32 % 4) * 16 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int chunk = (kk % 4) * 2 + (lane >> 4);
+    ldmatrix_x4(qf[kk], sq + (kk / 4) * kFaBoxBytes + row * 128 + ((chunk ^ (row & 7)) << 4));
+  }
+}
+
+// O += P V: P in registers (pack_p), V MN-major through the transpose-B
+// mode, its 64-wide column boxes 16 KB apart (leading offset), 8-key groups
+// 1024 bytes apart; a k16 step is 16 keys, 2048 bytes
+template <int D>
+__device__ __forceinline__ void pv_gemm(float (&o)[D / 2], const uint32_t (&p)[8][4], uint32_t v) {
+#pragma unroll
+  for (int t = 0; t < kFaBlock / 16; ++t) {
+    const uint64_t db = smem_desc(v + t * 2048, kFaBoxBytes, 1024);
+    if constexpr (D == 64)
+      wgmma_rs_n64<1>(o, p[t], db, 1);
+    else
+      wgmma_rs_n128<1>(o, p[t], db, 1);
+  }
+}
+
+// The S accumulator as P's A fragments, rounded to bf16.  Register 4j+e of
+// an m64nN fp32 fragment holds row 16*warp + lane/4 (+8 for e >= 2), column
+// 8j + 2*(lane%4) + (e&1); the A fragment of k step t is the m16n8k16 one
+// of each warp: {row r, cols 2q, 2q+1}, {r+8, same}, {r, +8}, {r+8, +8} of
+// keys 16t.., i.e. accumulator n8 tiles 2t and 2t+1.
+__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[t][i] = pack_bf16(s[8 * t + 2 * i], s[8 * t + 2 * i + 1]);
+}
+
+// One block's online softmax in the exp2 domain, in place: s (raw Q K^T)
+// becomes p = 2^(s c - m) with c = scale * log2 e and m the running row max
+// of s c; l keeps the thread's partial row sums of the unrounded p (summed
+// over a row's four lanes once, in the epilogue); corr is each row's
+// 2^(m_old - m).  kMask: keys past key_lim[r] get the reference's finite
+// NEG_INF (a row that sees no key then averages the block, as the mma.sync
+// kernel and the TPU kernel do).
+template <bool kMask>
+__device__ __forceinline__ void softmax_block(float (&s)[64], float (&m)[2], float (&l)[2],
+                                              float (&corr)[2], float c, int key0,
+                                              const int (&key_lim)[2]) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kMask) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * j + 2 * (lane & 3) + (e & 1);
+        s[4 * j + e] = key > key_lim[e >> 1] ? kNegInf : s[4 * j + e] * c;
+      }
+  }
+  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], kMask ? mx[r] : mx[r] * c);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x = s[4 * j + e];
+      x = kMask ? ex2(x - m[e >> 1]) : ex2(fmaf(x, c, -m[e >> 1]));
+      sum[e >> 1] += x;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+}
+
+// O scaled by each row's softmax correction: register 4j+e holds row e >> 1
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+// The tiles (b*Hq + h, q block) in the order the persistent CTAs take them:
+// heavy (late) causal q blocks first, the heads of one q block side by side
+// (a KV head's query heads share its K and V in L2)
+__device__ __forceinline__ void fwd_tile(int t, int bh_count, int nqb, int& bh, int& qb) {
+  qb = nqb - 1 - t / bh_count;
+  bh = t % bh_count;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFaThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
+                       const __grid_constant__ CUtensorMap tma_k,
+                       const __grid_constant__ CUtensorMap tma_v, bf16* __restrict__ O, int B,
+                       int Hq, int Hkv, int Sq, int Skv, float c, int causal) {
+  using T = FwdWgmma<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;                               // [boxes][128][64], swizzled
+  const uint32_t sk = sq + T::kTileBytes;                 // [stages][boxes][128][64]
+  const uint32_t sv = sk + kFaStages * T::kTileBytes;     // [stages][boxes][128][64]
+  const uint32_t bars = sv + kFaStages * T::kTileBytes;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (2 + kFaStages + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (2 + 2 * kFaStages + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (2 + 3 * kFaStages + s); };
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int bh_count = B * Hq, nqb = Sq / kFaBlock, tiles = bh_count * nqb;
+  const int off = Skv - Sq;
+  // KV blocks 0..n-1 of q block qb; with Sq and Skv multiples of 128, only
+  // block n-1 of a causal call is cut by the mask
+  auto kv_blocks = [&](int qb) {
+    return last_kv_block(causal, qb, kFaBlock, kFaBlock, Skv / kFaBlock, off) + 1;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);  // the producer's arrive.expect_tx
+    mbar_init(q_empty, 8);  // lane 0 of each consumer warp
+    for (int s = 0; s < kFaStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);
+      mbar_init(v_empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // one if/else on the warpgroup for the whole kernel: the roles never
+  // reconverge, so setmaxnreg takes effect.  Every role walks the same
+  // tiles (t = blockIdx.x, + gridDim.x, ...) and counts the same KV blocks
+  // (it), which index the ring and give each mbarrier's phase.
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      int it = 0, ti = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int bh, qb;
+        fwd_tile(t, bh_count, nqb, bh, qb);
+        const int n = kv_blocks(qb);
+        if (n <= 0) continue;
+        const int b = bh / Hq, kvh = (bh % Hq) / (Hq / Hkv);
+        const int kv_row = (b * Hkv + kvh) * Skv;
+        mbar_wait(q_empty, (ti & 1) ^ 1);  // the last tile's Q K^T are done
+        mbar_arrive_expect_tx(q_full, T::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_2d(sq + x * kFaBoxBytes, &tma_q, x * kSwizzleCols, bh * Sq + qb * kFaBlock,
+                      q_full);
+        for (int j = 0; j < n; ++j, ++it) {
+          const int s = it % kFaStages, ph = (it / kFaStages) & 1;
+          const int row = kv_row + j * kFaBlock;
+          mbar_wait(k_empty(s), ph ^ 1);
+          mbar_arrive_expect_tx(k_full(s), T::kTileBytes);
+#pragma unroll
+          for (int x = 0; x < T::kBoxes; ++x)
+            tma_load_2d(sk + s * T::kTileBytes + x * kFaBoxBytes, &tma_k, x * kSwizzleCols, row,
+                        k_full(s));
+          mbar_wait(v_empty(s), ph ^ 1);
+          mbar_arrive_expect_tx(v_full(s), T::kTileBytes);
+#pragma unroll
+          for (int x = 0; x < T::kBoxes; ++x)
+            tma_load_2d(sv + s * T::kTileBytes + x * kFaBoxBytes, &tma_v, x * kSwizzleCols, row,
+                        v_full(s));
+        }
+        ++ti;
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cons = wg - 1;  // query rows 64*cons .. 64*cons+63 of a q block
+    const int warp = tid / 32, lane = tid % 32;
+    const uint32_t q = sq + cons * 64 * 128;  // this consumer's 64 rows of each Q box
+    // named barriers 1 and 2: consumer 0's and consumer 1's turn to issue
+    const int mine = 1 + cons, theirs = 2 - cons;
+    float o[D / 2], s[64], m[2], l[2], corr[2];
+    uint32_t p[8][4], qf[D / 16][4];
+    int it = 0, ti = 0;
+    bool started = false;
+
+    // only the last block of a causal call runs the mask code
+#define SOFTMAX(j)                                                          \
+  if (causal && (j) == n - 1)                                               \
+    softmax_block<true>(s, m, l, corr, c, (j) * kFaBlock, key_lim);         \
+  else                                                                      \
+    softmax_block<false>(s, m, l, corr, c, (j) * kFaBlock, key_lim)
+#define RELEASE(bar) \
+  if (lane == 0) mbar_arrive(bar)
+#define QK(stage)                                      \
+  if constexpr (kQInRegs)                              \
+    qk_gemm<D>(s, qf, sk + (stage) * T::kTileBytes);   \
+  else                                                 \
+    qk_gemm<D>(s, q, sk + (stage) * T::kTileBytes)
+
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int bh, qb;
+      fwd_tile(t, bh_count, nqb, bh, qb);
+      const int n = kv_blocks(qb);
+      const int row = qb * kFaBlock + cons * 64 + warp * 16 + lane / 4;  // the thread's first row
+      const int key_lim[2] = {row + off, row + 8 + off};
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+      if (n > 0) {
+        if (kPingPong && cons == 1 && !started) consumers_arrive(1);  // consumer 0 goes first
+        started = true;
+        mbar_wait(q_full, ti & 1);
+        if (kQInRegs) {  // Q in registers for the whole tile: its buffer is free at once
+          load_q<D>(qf, sq, cons * 64);
+          __syncwarp();
+          RELEASE(q_empty);
+        }
+        // block 0: S only
+        const int s0 = it % kFaStages;
+        mbar_wait(k_full(s0), (it / kFaStages) & 1);
+        if (kPingPong) consumers_sync(mine);
+        wgmma_fence();
+        QK(s0);
+        wgmma_commit();
+        if (kPingPong) consumers_arrive(theirs);
+        wgmma_wait<0>();
+        fence_regs(s);
+        RELEASE(k_empty(s0));
+        if (!kQInRegs && n == 1) RELEASE(q_empty);
+        SOFTMAX(0);
+        pack_p(s, p);
+        // block j: S_j and P_{j-1} V_{j-1} in one turn on the tensor cores,
+        // then S_j's softmax while P V still runs (and the other consumer's
+        // turn begins)
+        for (int j = 1; j < n; ++j) {
+          const int st = (it + j) % kFaStages, pst = (it + j - 1) % kFaStages;
+          mbar_wait(k_full(st), ((it + j) / kFaStages) & 1);
+          mbar_wait(v_full(pst), ((it + j - 1) / kFaStages) & 1);
+          if (kPingPong) consumers_sync(mine);
+          wgmma_fence();
+          QK(st);
+          wgmma_commit();
+          if (kRescaleInTurn) {  // block j-1's correction, before its P V adds in
+            rescale(o, corr);
+            wgmma_fence();
+          }
+          pv_gemm<D>(o, p, sv + pst * T::kTileBytes);
+          wgmma_commit();
+          if (kPingPong) consumers_arrive(theirs);
+          if (kIntraOverlap)
+            wgmma_wait<1>();
+          else
+            wgmma_wait<0>();
+          fence_regs(s);
+          RELEASE(k_empty(st));
+          if (!kQInRegs && j == n - 1) RELEASE(q_empty);
+          SOFTMAX(j);
+          wgmma_wait<0>();
+          fence_regs(o);
+          fence_regs(p);
+          RELEASE(v_empty(pst));
+          if (!kRescaleInTurn) rescale(o, corr);
+          pack_p(s, p);
+        }
+        // the last block's P V
+        const int lst = (it + n - 1) % kFaStages;
+        mbar_wait(v_full(lst), ((it + n - 1) / kFaStages) & 1);
+        if (kPingPong) consumers_sync(mine);
+        if (kRescaleInTurn) rescale(o, corr);
+        wgmma_fence();
+        pv_gemm<D>(o, p, sv + lst * T::kTileBytes);
+        wgmma_commit();
+        if (kPingPong) consumers_arrive(theirs);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        RELEASE(v_empty(lst));
+        it += n;
+        ++ti;
+      }
+
+      // o / max(l, 1e-30), rounded to bf16, stored from registers while the
+      // producer already loads the next tile
+      bf16* og = O + ((int64_t)bh * Sq + row) * D + 2 * (lane & 3);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const float denom = fmaxf(l[r], kMinDenom);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(og + (int64_t)r * 8 * D + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+      }
+    }
+#undef QK
+#undef RELEASE
+#undef SOFTMAX
+    // consumer 1 arrived once ahead, at its first turn: consumer 0 takes
+    // that arrival here, so both barriers end balanced
+    if (kPingPong && cons == 0 && started) consumers_sync(1);
+  }
+}
+
+// One consumer's P V for a given P (fp32 64 x 128, row-major) and V (one
+// TMA block of 128 keys), through the kernel's own pack_p and pv_gemm;
+// O (fp32 64 x D) from the accumulator's registers.  A card check of the
+// register-A (RS) fragment layout, not part of any entry point.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_pv_probe_kernel(const __grid_constant__ CUtensorMap tma_v, const float* __restrict__ P,
+                      float* __restrict__ O) {
+  using T = FwdWgmma<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sv = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = sv + T::kTileBytes;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, T::kTileBytes);
+    for (int x = 0; x < T::kBoxes; ++x)
+      tma_load_2d(sv + x * kFaBoxBytes, &tma_v, x * kSwizzleCols, 0, bar);
+  }
+  const int row = warp * 16 + lane / 4, col = 2 * (lane & 3);
+  float s[64], o[D / 2];
+  uint32_t p[8][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * j + e] = P[(row + 8 * (e >> 1)) * kFaBlock + 8 * j + col + (e & 1)];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  pack_p(s, p);
+  mbar_wait(bar, 0);
+  wgmma_fence();
+  pv_gemm<D>(o, p, sv);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(p);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) O[(row + 8 * (e >> 1)) * D + 8 * j + col + (e & 1)] = o[4 * j + e];
 }
 
 template <int BQ, int BK, int D>
@@ -613,6 +1183,33 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o, int B, 
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+                     int Sq, int Skv, float scale, int causal, cudaStream_t s) {
+  using T = FwdWgmma<D>;
+  // TMA row coordinates are 32-bit
+  if ((int64_t)B * Hq * Sq > INT32_MAX || (int64_t)B * Hkv * Skv > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  // q, k and v as row-major (B*H*S, D) matrices in (128 rows, 64 columns) boxes
+  CUtensorMap mq, mk, mv;
+  int rc = encode_bf16(&mq, q, B * Hq * Sq, D, kFaBlock);
+  if (rc == 0) rc = encode_bf16(&mk, k, B * Hkv * Skv, D, kFaBlock);
+  if (rc == 0) rc = encode_bf16(&mv, v, B * Hkv * Skv, D, kFaBlock);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  auto kern = flash_fwd_wgmma_kernel<D>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = B * Hq * (Sq / kFaBlock);
+  const int grid = tiles < sms ? tiles : sms;  // persistent: at most one CTA per SM
+  kern<<<grid, kFaThreads, T::kSmem, s>>>(mq, mk, mv, static_cast<bf16*>(o), B, Hq, Hkv, Sq, Skv,
+                                          scale * kLog2e, causal);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D, int G>
 int launch_decode(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
                   int Skv, int bk, float scale, cudaStream_t s) {
@@ -640,28 +1237,66 @@ int dispatch_decode(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// elem_bytes 2 (bf16) or 4 (fp32), D and (bq, bk) of the instantiated
-// kernels (bf16: D 32, 64 or 128; fp32: D 32 or 64; both (128, 128) and
-// (64, 64)); anything else returns cudaErrorInvalidValue without launching.
+// The forward kernel for elem_bytes 2 (bf16) or 4 (fp32), head dim D and
+// tile (bq, bk): kRouteWgmma for bf16 (128, 128) at D 64 and 128,
+// kRouteMmaSync for the other bf16 kernels (D 32 at both tiles, D 64 and
+// 128 at (64, 64)), kRouteCudaCores for fp32 (D 32 or 64, both tiles),
+// kRouteNone for anything not instantiated.
+enum { kRouteNone = 0, kRouteWgmma = 1, kRouteMmaSync = 2, kRouteCudaCores = 3 };
+
+int flash_fwd_route(int elem_bytes, int D, int bq, int bk) {
+  const bool big = bq == 128 && bk == 128, small = bq == 64 && bk == 64;
+  if (!big && !small) return kRouteNone;
+  if (elem_bytes == 2) {
+    if (big && (D == 64 || D == 128)) return kRouteWgmma;
+    if (D == 32 || D == 64 || D == 128) return kRouteMmaSync;
+  } else if (elem_bytes == 4 && (D == 32 || D == 64)) {
+    return kRouteCudaCores;
+  }
+  return kRouteNone;
+}
+
+// launches the kernel flash_fwd_route names; a combination it does not
+// name returns cudaErrorInvalidValue without launching
 int flash_fwd_launch(int elem_bytes, const void* q, const void* k, const void* v, void* o, int B,
                      int Hq, int Hkv, int Sq, int Skv, int D, int bq, int bk, float scale,
                      int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool big = bq == 128 && bk == 128, small = bq == 64 && bk == 64;
-  if (!big && !small) return (int)cudaErrorInvalidValue;
-#define FWD(KERN, BQ, BK, HD) KERN<BQ, BK, HD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, s)
-#define FWD_TILES(KERN, HD) return big ? FWD(KERN, 128, 128, HD) : FWD(KERN, 64, 64, HD)
-  if (elem_bytes == 2) {
-    if (D == 32) FWD_TILES(launch_fwd_bf16, 32);
-    if (D == 64) FWD_TILES(launch_fwd_bf16, 64);
-    if (D == 128) FWD_TILES(launch_fwd_bf16, 128);
-  } else if (elem_bytes == 4) {
-    if (D == 32) FWD_TILES(launch_fwd_f32, 32);
-    if (D == 64) FWD_TILES(launch_fwd_f32, 64);
+  const bool big = bq == 128;
+#define FWD(KERN, ...) KERN<__VA_ARGS__>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, s)
+  switch (flash_fwd_route(elem_bytes, D, bq, bk)) {
+    case kRouteWgmma:
+      return D == 64 ? FWD(launch_fwd_wgmma, 64) : FWD(launch_fwd_wgmma, 128);
+    case kRouteMmaSync:
+      if (D == 32) return big ? FWD(launch_fwd_bf16, 128, 128, 32) : FWD(launch_fwd_bf16, 64, 64, 32);
+      return D == 64 ? FWD(launch_fwd_bf16, 64, 64, 64) : FWD(launch_fwd_bf16, 64, 64, 128);
+    case kRouteCudaCores:
+      if (D == 32) return big ? FWD(launch_fwd_f32, 128, 128, 32) : FWD(launch_fwd_f32, 64, 64, 32);
+      return big ? FWD(launch_fwd_f32, 128, 128, 64) : FWD(launch_fwd_f32, 64, 64, 64);
   }
-#undef FWD_TILES
 #undef FWD
   return (int)cudaErrorInvalidValue;
+}
+
+// the RS fragment probe: p fp32 (64, 128), v bf16 (128, D), o fp32 (64, D),
+// D 64 or 128, all contiguous on the card
+int flash_pv_probe_launch(const void* p, const void* v, void* o, int D, void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap mv;
+  if (int rc = encode_bf16(&mv, v, kFaBlock, D, kFaBlock)) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* pp = static_cast<const float*>(p);
+  auto* po = static_cast<float*>(o);
+  if (D == 64) {
+    constexpr int smem = FwdWgmma<64>::kTileBytes + 1024 + 8;
+    if (int err = set_smem(flash_pv_probe_kernel<64>, smem)) return err;
+    flash_pv_probe_kernel<64><<<1, 128, smem, s>>>(mv, pp, po);
+  } else {
+    constexpr int smem = FwdWgmma<128>::kTileBytes + 1024 + 8;
+    if (int err = set_smem(flash_pv_probe_kernel<128>, smem)) return err;
+    flash_pv_probe_kernel<128><<<1, 128, smem, s>>>(mv, pp, po);
+  }
+  return (int)cudaGetLastError();
 }
 
 // elem_bytes 2 or 4, D 32, 64 or 128, bk a multiple of 64 that divides Skv
@@ -684,6 +1319,8 @@ int flash_decode_launch(int elem_bytes, const void* q, const void* k, const void
 }
 
 const char* flash_error_string(int code) {
+  if (code == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (code == kErrEncode) return "cuTensorMapEncodeTiled refused the operands";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

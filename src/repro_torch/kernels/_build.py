@@ -87,3 +87,37 @@ def load(name: str) -> ctypes.CDLL:
     """Load the library of ``csrc/<name>.cu``, built first if needed (the
     kernel module that calls this keeps the handle)."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def build_variants(name: str, variants: dict) -> dict:
+    """Compile edited copies of ``csrc/<name>.cu`` for an ablation, every
+    ``nvcc`` started at once: ``variants`` maps a variant's name to a list of
+    (old, new) textual edits (``[]`` for the source as it is).  The copies
+    and their libraries go under ``.build/ablate/<name>/`` (the headers are
+    found in ``csrc``); returns variant name -> library path.  Raises when
+    an edit's text is missing or a build fails."""
+    src = (CSRC / f"{name}.cu").read_text()
+    out = BUILD_DIR / "ablate" / name
+    out.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    procs = {}
+    for variant, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"variant {variant!r}: {old!r} not found in {name}.cu")
+            text = text.replace(old, new)
+        stem = variant.replace(" ", "_")
+        cu, so = out / f"{stem}.cu", out / f"lib{stem}.so"
+        cu.write_text(text)
+        procs[variant] = (so, subprocess.Popen(
+            [nvcc_path(), *flags, "-I", str(CSRC), "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for variant, (so, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed on variant {variant!r}:\n{stderr}{stdout}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {variant: so for variant, (so, _) in procs.items()}

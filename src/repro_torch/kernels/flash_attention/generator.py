@@ -7,10 +7,16 @@ only (DESIGN §8/§9): the suite lowers attention to per-head GEMMs for GPU
 machines, and nothing in it can rank the tiles of a flash kernel.  So
 nothing is ranked here: ``tpu_space`` is the TPU's space, which
 ``repro_torch.kernels.tpu_skipped`` lists as skipped with that reason, and
-the forward kernel runs at the reference's own fallback,
-``DEFAULT = {"bq": 128, "bk": 128}``
-(``repro/kernels/flash_attention/ops.py:29``), unless a config pins one of
-``TILES``.
+the forward kernel runs at ``DEFAULT = {"bq": 128, "bk": 128}`` unless a
+config pins one of ``TILES``.
+
+(128, 128) is the reference's own fallback
+(``repro/kernels/flash_attention/ops.py:29``) and, since bf16 at that tile
+runs the wgmma + TMA kernel, the faster tile on the H100: at granite-3-2b's
+causal prefill (B 4 × 4096, D 64) ``chip_smoke.py`` times both tiles in
+turns, and (128, 128) took about 0.6 of the (64, 64) ``mma.sync`` kernel's
+time in every run since (``PERF.md`` §6 row 10, with the card and its
+power limit).  Before that kernel (64, 64) had been 8–11 % faster.
 """
 from __future__ import annotations
 
@@ -18,9 +24,7 @@ from repro_torch.kernels import pow2_tiles
 from repro_torch.kernels.flash_attention.kernel import FWD_TILES
 
 TILES = tuple({"bq": bq, "bk": bk} for bq, bk in FWD_TILES)
-# the reference's fallback; (64, 64) ran faster at the model's prefill on
-# the H100 (PERF.md §6 row 10), a redesign question (ROADMAP.md queue 2)
-DEFAULT = {"bq": 128, "bk": 128}
+DEFAULT = {"bq": 128, "bk": 128}  # the wgmma kernel's tile for bf16 at D 64 and 128
 
 
 def tpu_space(Sq: int, Skv: int):

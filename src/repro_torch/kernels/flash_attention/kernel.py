@@ -5,8 +5,10 @@
   forward with online softmax, one CTA per (b·Hq + h, q block of bq rows)
   streaming KV blocks of bk rows.  Replaces the TPU's
   ``make_flash_attention(B, Hq, Hkv, Sq, Skv, D, bq, bk, causal)``; bq | Sq
-  and bk | Skv, as there.  bf16 runs on the tensor cores (``mma.sync``), fp32
-  on the CUDA cores.
+  and bk | Skv, as there.  ``fwd_route`` names the kernel a call runs:
+  bf16 at (128, 128) with D 64 or 128 runs the warp-specialised wgmma + TMA
+  kernel (``"wgmma"``), the other bf16 calls the ``mma.sync`` kernel
+  (``"mma_sync"``), fp32 the CUDA cores (``"cuda_cores"``).
 * ``flash_decode(q, k, v, bk)`` — one query token against the KV cache,
   one CTA per (b, KV head) and up to 8 of its query heads, over blocks of
   bk keys.  Replaces ``make_flash_decode(B, Hq, Hkv, Skv, D, bk)``.
@@ -16,7 +18,9 @@ contiguous and of one dtype; Hkv divides Hq.  On CPU tensors both compute
 the plain version (``ref.attention_ref``); on CUDA tensors they launch the
 kernel on the current stream or raise.  ``LAUNCHES`` counts kernel
 launches per wrapper, and ``LAST_LAUNCH`` holds what each last ran on the
-card: ``(bq, bk, causal)`` and ``bk``.
+card: ``(bq, bk, causal)`` and ``bk``.  ``wgmma_pv_probe`` runs one
+consumer's P·V of the wgmma kernel alone, a card check of its register
+fragment layout.
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ LAST_LAUNCH = {"flash_attention_fwd": None, "flash_decode": None}
 # the instantiated forward kernels: (bq, bk) tiles, and head dims per dtype
 FWD_TILES = ((128, 128), (64, 64))
 FWD_HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
+# the kernel of each forward route, as csrc/flash_attention.cu's flash_fwd_route numbers them
+FWD_ROUTES = {"wgmma": 1, "mma_sync": 2, "cuda_cores": 3}
+WGMMA_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (32, 64, 128)
 DECODE_BK_MAX = 2048          # keys of a block's scores in shared memory
 _GRID_Y_MAX = 65_535
@@ -55,7 +62,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.flash_fwd_launch.argtypes = [_I, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P]
     lib.flash_decode_launch.argtypes = [_I, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]
-    for fn in (lib.flash_fwd_launch, lib.flash_decode_launch):
+    lib.flash_fwd_route.argtypes = [_I] * 4
+    lib.flash_pv_probe_launch.argtypes = [_P, _P, _P, _I, _P]
+    for fn in (lib.flash_fwd_launch, lib.flash_decode_launch, lib.flash_fwd_route,
+               lib.flash_pv_probe_launch):
         fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
@@ -84,6 +94,20 @@ def _check(q, k, v) -> tuple:
     return B, Hq, Hkv, Sq, Skv, D
 
 
+def fwd_route(dtype: torch.dtype, D: int, bq: int, bk: int) -> str:
+    """The forward kernel that a call with ``dtype``, head dim ``D`` and tile
+    (bq, bk) runs on the card: ``"wgmma"``, ``"mma_sync"`` or
+    ``"cuda_cores"``; raises ValueError for a combination not instantiated."""
+    if (bq, bk) not in FWD_TILES:
+        raise ValueError(f"(bq, bk) = {(bq, bk)} is not instantiated; choose from {FWD_TILES}")
+    if dtype not in FWD_HEAD_DIMS or D not in FWD_HEAD_DIMS[dtype]:
+        raise ValueError(f"head dim {D} is not instantiated for {dtype}; "
+                         f"choose from {FWD_HEAD_DIMS.get(dtype, ())}")
+    if dtype == torch.float32:
+        return "cuda_cores"
+    return "wgmma" if (bq, bk) == (128, 128) and D in WGMMA_HEAD_DIMS else "mma_sync"
+
+
 def _aligned(*tensors) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k and v must be 16-byte aligned")
@@ -102,11 +126,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: i
     bq, bk, causal = int(bq), int(bk), bool(causal)
     if Sq % bq or Skv % bk:
         raise ValueError(f"bq={bq} must divide Sq={Sq} and bk={bk} Skv={Skv}")
-    if (bq, bk) not in FWD_TILES:
-        raise ValueError(f"(bq, bk) = {(bq, bk)} is not instantiated; choose from {FWD_TILES}")
-    if D not in FWD_HEAD_DIMS[q.dtype]:
-        raise ValueError(f"head dim {D} is not instantiated for {q.dtype}; "
-                         f"choose from {FWD_HEAD_DIMS[q.dtype]}")
+    fwd_route(q.dtype, D, bq, bk)
     if Sq // bq > _GRID_Y_MAX:
         raise ValueError(f"{Sq // bq} q blocks exceed CUDA's y grid limit")
     if q.device.type == "cpu":
@@ -146,4 +166,26 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 12
     _raise_on(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     LAST_LAUNCH["flash_decode"] = bk
+    return out
+
+
+def wgmma_pv_probe(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One consumer warpgroup's O = P·V in the wgmma kernel, alone: p fp32
+    (64, 128) goes into the S accumulator's registers, is rounded to bf16 A
+    fragments as the kernel rounds them and multiplied with v bf16
+    (128, D), D 64 or 128, loaded by TMA; returns O fp32 (64, D).  A card
+    check of the register-A fragment layout; it has no plain version."""
+    if p.shape != (64, 128) or p.dtype != torch.float32 or v.dtype != torch.bfloat16 \
+            or v.dim() != 2 or v.shape[0] != 128 or v.shape[1] not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"expected p fp32 (64, 128) and v bf16 (128, 64 or 128), got "
+                         f"{p.dtype} {tuple(p.shape)}, {v.dtype} {tuple(v.shape)}")
+    if p.device.type != "cuda" or v.device != p.device:
+        raise ValueError("wgmma_pv_probe runs only on the card")
+    p, v = p.contiguous(), v.contiguous()
+    _aligned(p, v)
+    out = torch.empty((64, v.shape[1]), device=p.device, dtype=torch.float32)
+    with torch.cuda.device(p.device):
+        rc = _lib().flash_pv_probe_launch(p.data_ptr(), v.data_ptr(), out.data_ptr(), v.shape[1],
+                                          torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "wgmma_pv_probe")
     return out

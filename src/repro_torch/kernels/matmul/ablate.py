@@ -15,7 +15,7 @@ granite-3-2b layer's five GEMMs at 16384 tokens (the main path of
 
 Needs a CUDA device and nvcc (exits nonzero without); prints the card's
 name and power limit and the median time of each variant.  The variants
-are built beside the kernels' libraries, under ``repro_torch/.build``.
+are built beside the kernels' libraries, under ``repro_torch/.build/ablate``.
 """
 from __future__ import annotations
 
@@ -41,27 +41,8 @@ def build_variants() -> dict:
     started at once."""
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / "matmul.cu").read_text()
-    out = _build.BUILD_DIR / "ablate"
-    out.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs = {}
-    for name, edits in {"as built": [], **VARIANTS}.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} not found in matmul.cu")
-            text = text.replace(old, new)
-        stem = name.replace(" ", "_")
-        cu, so = out / f"{stem}.cu", out / f"lib{stem}.so"
-        cu.write_text(text)
-        procs[name] = (so, subprocess.Popen([_build.nvcc_path(), *flags, "-o", str(so), str(cu)],
-                                            stderr=subprocess.PIPE, text=True))
     libs = {}
-    for name, (so, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name!r}:\n{err}")
+    for name, so in _build.build_variants("matmul", {"as built": [], **VARIANTS}).items():
         lib = ctypes.CDLL(str(so))
         lib.matmul_tiled_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                                             + [ctypes.c_int] * 6 + [ctypes.c_void_p])

@@ -220,6 +220,88 @@ def test_wrappers_validate_tiles_and_decode_blocks():
         K.flash_decode(torch.zeros(1, 2, 1, 16), *(torch.zeros(1, 2, 256, 16),) * 2, 128)
 
 
+ROUTES = [(torch.bfloat16, 32, (128, 128), "mma_sync"), (torch.bfloat16, 32, (64, 64), "mma_sync"),
+          (torch.bfloat16, 64, (128, 128), "wgmma"), (torch.bfloat16, 64, (64, 64), "mma_sync"),
+          (torch.bfloat16, 128, (128, 128), "wgmma"), (torch.bfloat16, 128, (64, 64), "mma_sync"),
+          (torch.float32, 32, (128, 128), "cuda_cores"), (torch.float32, 32, (64, 64), "cuda_cores"),
+          (torch.float32, 64, (128, 128), "cuda_cores"), (torch.float32, 64, (64, 64), "cuda_cores")]
+
+
+@pytest.mark.parametrize("dtype,D,tile,route", ROUTES)
+def test_fwd_route_names_the_kernel_of_every_instantiation(dtype, D, tile, route):
+    """bf16 at (128, 128) with D 64 or 128 runs the wgmma kernel; every other
+    bf16 call mma.sync, fp32 the CUDA cores."""
+    assert K.fwd_route(dtype, D, *tile) == route
+    assert route in K.FWD_ROUTES
+
+
+def test_fwd_route_covers_exactly_the_instantiated_kernels():
+    assert {(dt, D, tile) for dt, D, tile, _ in ROUTES} == {
+        (dt, D, tile) for dt, dims in K.FWD_HEAD_DIMS.items() for D in dims
+        for tile in K.FWD_TILES}
+
+
+@pytest.mark.parametrize("dtype,D,tile", [
+    (torch.bfloat16, 48, (128, 128)), (torch.bfloat16, 256, (128, 128)),
+    (torch.float32, 128, (128, 128)), (torch.float16, 64, (128, 128)),
+    (torch.bfloat16, 64, (128, 64)), (torch.bfloat16, 64, (64, 128)),
+    (torch.bfloat16, 64, (256, 256)), (torch.float32, 64, (32, 32)),
+])
+def test_fwd_route_rejects_what_is_not_instantiated(dtype, D, tile):
+    with pytest.raises(ValueError, match="not instantiated"):
+        K.fwd_route(dtype, D, *tile)
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 128), (256, 256), (32, 32)])
+def test_forward_wrapper_rejects_tiles_not_instantiated(tile):
+    q = torch.zeros(1, 2, 256, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not instantiated"):
+        K.flash_attention_fwd(q, q, q, *tile, True)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_forward_wrapper_rejects_non_contiguous_operands(which):
+    ops_ = [torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16) for _ in range(3)]
+    ops_[which] = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention_fwd(*ops_, 128, 128, True)
+
+
+def test_alignment_check_rejects_an_offset_operand():
+    """The card path checks 16-byte alignment (TMA needs it) before it
+    launches; an operand one element into its storage fails it."""
+    buf = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16)
+    aligned, shifted = buf[:-1].view(1, 2, 128, 64), buf[1:].view(1, 2, 128, 64)
+    K._aligned(aligned, aligned, aligned)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K._aligned(aligned, shifted, aligned)
+
+
+def test_pv_probe_runs_only_on_the_card():
+    with pytest.raises(ValueError, match="only on the card"):
+        K.wgmma_pv_probe(torch.zeros(64, 128), torch.zeros(128, 64, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="expected p fp32"):
+        K.wgmma_pv_probe(torch.zeros(64, 128), torch.zeros(128, 32, dtype=torch.bfloat16))
+
+
+def _ablation_cases():
+    from repro_torch.kernels.flash_attention import ablate
+
+    return [*ablate.VARIANTS.items(), *ablate.PROBES.items()]
+
+
+@pytest.mark.parametrize("name,edits", _ablation_cases())
+def test_ablation_edits_find_their_text_once(name, edits):
+    """Each variant of ``flash_attention/ablate.py`` edits text that occurs
+    exactly once in the kernel source, so it changes what it names."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    for old, new in edits:
+        assert src.count(old) == 1, (name, old)
+        assert old != new
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernels against their plain version
 # ---------------------------------------------------------------------------
@@ -241,17 +323,61 @@ def _card_qkv(cuda, dtype, *shape, seed=0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ["permutation", "random"])
+def test_card_wgmma_pv_fragment_layout(cuda, D, case):
+    """One consumer's P·V of the wgmma kernel, alone: P goes into the S
+    accumulator's registers and leaves as register-A fragments.  With P a
+    permutation (row i picks key 37 i + 5 mod 128) and V small integers
+    (exact in bf16), O must be V's rows in that order exactly; an element
+    taken from the wrong fragment names the key it came from."""
+    keys = torch.arange(128, device=cuda)
+    V = ((keys[:, None] + 3 * torch.arange(D, device=cuda)[None, :]) % 251).float()
+    if case == "permutation":
+        pick = (37 * torch.arange(64, device=cuda) + 5) % 128
+        P = (keys[None, :] == pick[:, None]).float()
+        got = K.wgmma_pv_probe(P, V.bfloat16())
+        torch.cuda.synchronize()
+        want = V[pick]
+        bad = (got != want).nonzero()
+        if len(bad):
+            i, d = bad[0].tolist()
+            src = ((V[:, d] == got[i, d]).nonzero().flatten().tolist())
+            pytest.fail(f"{len(bad)} wrong elements; O[{i}, {d}] = {got[i, d].item()} (keys "
+                        f"{src} hold it in column {d}), want key {pick[i].item()}'s "
+                        f"{want[i, d].item()}")
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        P = torch.rand((64, 128), device=cuda, generator=gen)
+        Vr = torch.randn((128, D), device=cuda, generator=gen).bfloat16()
+        got = K.wgmma_pv_probe(P, Vr)
+        torch.cuda.synchronize()
+        # the kernel rounds P to bf16, as the forward does, and sums in fp32
+        want = P.bfloat16().float() @ Vr.float()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 32), (torch.bfloat16, 64),
                                      (torch.bfloat16, 128), (torch.float32, 32),
                                      (torch.float32, 64)])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [(3, 5, 5, 128, 128), (1, 6, 2, 256, 384),
-                                             (3, 3, 1, 384, 384)])
+                                             (3, 3, 1, 384, 384), (1, 2, 2, 128, 128),
+                                             (1, 4, 2, 128, 512), (2, 32, 8, 2048, 2048)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq, Skv, causal):
-    """Odd B·Hq, GQA groups of 1, 3 and 5, and Sq < Skv (the causal offset)."""
+    """Odd B·Hq, GQA groups of 1, 3, 4 and 5, Sq < Skv (the causal offset,
+    up to three blocks), a single diagonal block, and more tiles than two
+    waves of 132 SMs (each persistent CTA of the wgmma kernel walks
+    several); bf16 (128, 128) at D 64 and 128 runs the wgmma kernel, and
+    the library's route table agrees with ``fwd_route``."""
     q, k, v = _card_qkv(cuda, dtype, B, Hq, Hkv, Sq, Skv, D)
     want = attention_ref(q, k, v, causal).float()
     for bq, bk in K.FWD_TILES:
+        route = K.fwd_route(dtype, D, bq, bk)
+        if dtype == torch.bfloat16 and (bq, bk) == (128, 128) and D in (64, 128):
+            assert route == "wgmma"
+        assert K._lib().flash_fwd_route(q.element_size(), D, bq, bk) == K.FWD_ROUTES[route]
         before = K.LAUNCHES["flash_attention_fwd"]
         got = K.flash_attention_fwd(q, k, v, bq, bk, causal)
         torch.cuda.synchronize()
@@ -259,8 +385,8 @@ def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq,
         assert K.LAST_LAUNCH["flash_attention_fwd"] == (bq, bk, causal)
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         torch.testing.assert_close(got.float(), want, rtol=0, atol=ATOL[dtype],
-                                   msg=f"bq={bq} bk={bk}")
-        assert row_rel_err(got, want) <= ROW_REL[dtype], f"bq={bq} bk={bk}"
+                                   msg=f"bq={bq} bk={bk} ({route})")
+        assert row_rel_err(got, want) <= ROW_REL[dtype], f"bq={bq} bk={bk} ({route})"
 
 
 @pytest.mark.gpu

@@ -183,6 +183,42 @@ def test_wrapper_validates_its_operands(a, b, exc, match):
         K.matmul_tiled(a, b, *tile)
 
 
+@pytest.mark.parametrize("name", ["not persistent", "row raster", "no wgmma overlap"])
+def test_ablation_edits_find_their_text_once(name):
+    """Each variant of ``matmul/ablate.py`` edits text that occurs exactly
+    once in ``matmul.cu`` (the PTX helpers moved to ``sm90.cuh``), so it
+    changes what it names."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul import ablate
+
+    src = (_build.CSRC / "matmul.cu").read_text()
+    for old, new in ablate.VARIANTS[name]:
+        assert src.count(old) == 1 and old != new
+
+
+def test_hopper_helpers_live_in_the_shared_header(monkeypatch, tmp_path):
+    """matmul.cu and flash_attention.cu include sm90.cuh for the mbarrier,
+    TMA, descriptor and wgmma helpers and the tensor-map encoder, and
+    neither keeps a copy; a change to the header rebuilds both."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    header = (_build.CSRC / "sm90.cuh").read_text()
+    for helper in ("mbar_wait", "tma_load_2d", "smem_desc", "wgmma_fence", "encode_bf16"):
+        assert f" {helper}(" in header
+    for name in ("matmul", "flash_attention"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "sm90.cuh"' in src
+        assert "__forceinline__ void mbar_wait(" not in src and "int encode_bf16(" not in src
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in ("matmul", "flash_attention")}
+    (csrc / "sm90.cuh").write_text(header + "\n")
+    assert all(_build.library_path(n) != p for n, p in before.items())
+
+
 def test_wrapper_validates_its_tile():
     a, b = torch.zeros((4, 8)), torch.zeros((8, 8))
     with pytest.raises(ValueError, match="not instantiated"):
