@@ -18,7 +18,8 @@ with nvcc first (one nvcc per source, in parallel):
 * the attention path at granite-3-2b's full width (bf16): ``tuned_matmul``
   on the GEMMs of one layer at 16384 tokens, ``flash_attention`` on a causal
   prefill (B 4, S 4096) and on one decode token against a 32k cache
-  (B 128), and ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
+  (B 128, and B 8 with the cache split across the SMs), and
+  ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
   the GEMMs are also timed in turns with ``torch.matmul``, and the prefill's
   two tiles in turns with ``F.scaled_dot_product_attention``, since the
   card slows under sustained tensor-core load.
@@ -99,6 +100,8 @@ TRANSPOSE_REPLACES = "src/repro/kernels/transpose_pad/kernel.py:29"
 T_TOKENS = 4 * 4096                      # tokens of the layer's GEMMs
 PREFILL = (4, 4096)                      # (B, S) of the prefill and of the layer
 DECODE_SLICE = 16                        # batch slice of the decode check
+DECODE_SMALL_B = 8                       # one user at low concurrency: the split-KV decode
+QUEUED_CALLS = 10                        # calls back to back in a queued timing
 MATMUL_EDGE_SHAPES = ((1000, 2056, 776), (129, 40, 264))  # (M, K, N), no tile divides them
 MATMUL_MANY_TILES = (8200, 264, 8200)    # > 132 x 4 tiles: each persistent CTA walks many
 FLAT_LAUNCHES = 22                       # of the 168, those with z extent bz·fz = 1
@@ -165,9 +168,13 @@ def cuda_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def interleaved_ms(torch, fns: dict, rounds: int) -> dict:
+def interleaved_ms(torch, fns: dict, rounds: int, calls: int = 1) -> dict:
     """Median device time of each of ``fns`` (name -> callable), one run of
-    each per round, in turns, the order reversed every other round."""
+    each per round, in turns, the order reversed every other round.  With
+    ``calls`` > 1 each run is that many calls back to back between the two
+    events, divided by ``calls``: the host then queues the next call while
+    the card runs the last, so the time is the card's alone, without the
+    host's launch overhead that a single call on an idle card includes."""
     names = list(fns)
     for name in names:
         fns[name]()
@@ -178,10 +185,11 @@ def interleaved_ms(torch, fns: dict, rounds: int) -> dict:
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            fns[name]()
+            for _ in range(calls):
+                fns[name]()
             stop.record()
             stop.synchronize()
-            times[name].append(start.elapsed_time(stop))
+            times[name].append(start.elapsed_time(stop) / calls)
     return {name: statistics.median(t) for name, t in times.items()}
 
 
@@ -1226,8 +1234,8 @@ def run_flash(args, torch, dev) -> list:
         torch.cuda.synchronize()
         launches = dict(FK.LAUNCHES)
         tile = default if cfg is None else (cfg["bq"], cfg["bk"])
-        if launches != {"flash_attention_fwd": 1, "flash_decode": 0} or \
-                FK.LAST_LAUNCH["flash_attention_fwd"] != (*tile, True):
+        if launches != {"flash_attention_fwd": 1, "flash_decode": 0, "flash_decode_combine": 0} \
+                or FK.LAST_LAUNCH["flash_attention_fwd"] != (*tile, True):
             raise AssertionError(f"prefill {cfg}: launches {launches}, last "
                                  f"{FK.LAST_LAUNCH['flash_attention_fwd']}")
         err, rel = check_flash(torch, out, want, f"flash_attention prefill {cfg}", 2)
@@ -1289,7 +1297,8 @@ def run_flash(args, torch, dev) -> list:
     del q, k, v, q32, k32, v32, want32
     torch.cuda.empty_cache()
 
-    # F2. decode: one token against a decode_32k cache, the main path (bk 512)
+    # F2. decode: one token against a decode_32k cache, the main path
+    # (flash_attention picks bk 512, which only the CUDA-core route uses)
     shape = SHAPES["decode_32k"]
     B, Skv = shape.global_batch, shape.seq_len
     q = torch.randn((B, Hq, 1, D), device=dev, generator=gen, dtype=torch.bfloat16)
@@ -1302,10 +1311,11 @@ def run_flash(args, torch, dev) -> list:
     reset_counts()
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    launches = dict(FK.LAUNCHES)
+    launches, decode = dict(FK.LAUNCHES), dict(FK.LAST_DECODE)
     bk = FK.LAST_LAUNCH["flash_decode"]
-    if launches != {"flash_attention_fwd": 0, "flash_decode": 1} or bk != 512:
-        raise AssertionError(f"decode main path: launches {launches}, bk {bk}")
+    if launches != {"flash_attention_fwd": 0, "flash_decode": 1, "flash_decode_combine": 0} or \
+            bk != 512 or decode != {"route": "tma_mma", "splits": 1}:
+        raise AssertionError(f"decode main path: launches {launches}, bk {bk}, {decode}")
     err = rel = err32 = rel32 = floor = 0.0
     for i in range(0, B, DECODE_SLICE):
         sl = slice(i, i + DECODE_SLICE)
@@ -1322,7 +1332,8 @@ def run_flash(args, torch, dev) -> list:
                                   f"keys left out", 2)
         del w32, w
     del out
-    say(f"decode main path: flash_decode at bk {bk}; launches {launches}; max abs error {err!r} "
+    say(f"decode main path: flash_decode ({decode['route']}, {decode['splits']} split; bk {bk}); "
+        f"launches {launches}; max abs error {err!r} "
         f"({FLASH_TOL[2]}), row relative error {rel!r} (bound {FLASH_ROW_REL[2]}), against "
         f"attention_ref on batch slices of {DECODE_SLICE}; against the fp32 plain version max "
         f"abs {err32!r}, row relative {rel32!r} (the plain version's own bf16 rounding: "
@@ -1331,31 +1342,119 @@ def run_flash(args, torch, dev) -> list:
     q32, k32, v32 = q[:8].float(), k[:8].float(), v[:8].float()
     e32, r32 = check_flash(torch, FK.flash_decode(q32, k32, v32, bk),
                            attention_ref(q32, k32, v32, True), "flash_decode fp32 batch 0-7", 4)
+    route32 = FK.LAST_DECODE["route"]
+    if route32 != FK.decode_route(torch.float32, D) or route32 != "cuda_cores":
+        raise AssertionError(f"fp32 decode ran route {route32}")
     ms32 = cuda_ms(torch, lambda: FK.flash_decode(q32, k32, v32, bk), warmup=1, reps=5)
     b32_ms = (k32.numel() + v32.numel()) * 4 / HBM_BYTES_PER_S * 1e3
-    say(f"decode fp32 on batch 0-7: max abs error {e32!r} ({FLASH_TOL[4]}), row relative error "
-        f"{r32!r} (bound {FLASH_ROW_REL[4]}); bk {bk} "
+    say(f"decode fp32 on batch 0-7 ({route32}): max abs error {e32!r} ({FLASH_TOL[4]}), row "
+        f"relative error {r32!r} (bound {FLASH_ROW_REL[4]}); bk {bk} "
         f"{ms32:.4f} ms (median of 5), byte bound {b32_ms:.4f} ms")
     del q32, k32, v32
     plain = cuda_ms(torch, lambda: [attention_ref(q[i:i + DECODE_SLICE], k[i:i + DECODE_SLICE],
                                                   v[i:i + DECODE_SLICE], True)
                                     for i in range(0, B, DECODE_SLICE)], warmup=1, reps=3)
-    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True))
-    parts = []
-    for kb in (512, 128):
-        ms = cuda_ms(torch, lambda: FK.flash_decode(q, k, v, kb))
-        parts.append(f"bk {kb} {ms:.4f} ms ({b_ms / ms * 100:.1f}% of bound, "
-                     f"{k.numel() * 4 / (ms * 1e-3) / 1e9:.0f} GB/s)")
-        if kb == bk:
-            main_ms = ms
-    say(f"time flash_decode bf16: {'; '.join(parts)}; plain {plain:.4f} ms (batch slices of "
-        f"{DECODE_SLICE}, median of 3); library F.scaled_dot_product_attention(enable_gqa) "
-        f"{lib:.4f} ms")
-    kernels.append({"name": f"flash_decode[bk={bk}]", "config": {"bk": bk},
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    lib = cuda_ms(torch, sdpa)
+    dec = lambda: FK.flash_decode(q, k, v, bk)
+    main_ms = cuda_ms(torch, dec)
+    turns = interleaved_ms(torch, {"flash_decode": dec, "sdpa": sdpa}, FLASH_ROUNDS)
+    queued = interleaved_ms(torch, {"flash_decode": dec, "sdpa": sdpa}, 10, QUEUED_CALLS)
+    say(f"time flash_decode bf16 B {B} ({decode['route']}, {decode['splits']} split): "
+        f"{main_ms:.4f} ms ({b_ms / main_ms * 100:.1f}% of bound, "
+        f"{k.numel() * 4 / (main_ms * 1e-3) / 1e9:.0f} GB/s); plain {plain:.4f} ms (batch slices "
+        f"of {DECODE_SLICE}, median of 3); library F.scaled_dot_product_attention(enable_gqa) "
+        f"{lib:.4f} ms; in turns ({FLASH_ROUNDS} rounds) {turns['flash_decode']:.4f} against SDPA "
+        f"{turns['sdpa']:.4f} ms ({turns['flash_decode'] / turns['sdpa']:.4f}x); queued "
+        f"({QUEUED_CALLS} calls back to back, in turns, 10 rounds: the card's time without the "
+        f"host's launch overhead) {queued['flash_decode']:.4f} against SDPA {queued['sdpa']:.4f} "
+        f"ms ({b_ms / queued['flash_decode'] * 100:.1f}% of bound); {card_line()}")
+    kernels.append({"name": f"flash_decode[B={B}]", "config": {"bk": bk},
+                    "decode_route": decode["route"], "splits": decode["splits"],
                     "launches": launches["flash_decode"], "max_abs_err": err,
                     "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["decode"], "ms": main_ms,
-                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                    "in_turns_ms": turns["flash_decode"], "library_in_turns_ms": turns["sdpa"],
+                    "queued_ms": queued["flash_decode"], "library_queued_ms": queued["sdpa"]})
+    kernels += run_small_decode(torch, q[:DECODE_SMALL_B], k[:DECODE_SMALL_B], v[:DECODE_SMALL_B])
     return kernels
+
+
+def run_small_decode(torch, q, k, v) -> list:
+    """F3. The decode at a single user's batch (the first sequences of the
+    decode_32k cache) through ``flash_attention``: too few (b, KV head)
+    units to fill the card, so the cache is split and a second kernel
+    combines the partials.  Both kernels against their plain versions,
+    timed beside their bounds and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref,
+        combine_partials_ref,
+        decode_partials_ref,
+        row_rel_err,
+    )
+
+    B, Hq, _, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    b_ms, b_by, _ = attention_bound(B, Hq, Hkv, 1, Skv, D, False, 2)
+    reset_counts()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    launches, decode = dict(FK.LAUNCHES), dict(FK.LAST_DECODE)
+    splits = decode["splits"]
+    if launches != {"flash_attention_fwd": 0, "flash_decode": 1, "flash_decode_combine": 1} or \
+            decode["route"] != "tma_mma" or splits <= 1:
+        raise AssertionError(f"decode B {B}: launches {launches}, {decode}")
+    want32 = attention_ref(q.float(), k.float(), v.float(), False)
+    want = want32.to(torch.bfloat16)
+    err, rel = check_flash(torch, out, want, f"flash_attention decode B {B}", 2)
+    say(f"decode B {B} x {Skv}: flash_attention ran {decode['route']} in {splits} splits and the "
+        f"combine; launches {launches}; max abs error {err!r} ({FLASH_TOL[2]}), row relative "
+        f"error {rel!r} (bound {FLASH_ROW_REL[2]}); against the fp32 plain version row relative "
+        f"{row_rel_err(out, want32)!r} (its own bf16 rounding {row_rel_err(want, want32)!r})")
+    del out, want, want32
+    # the combine kernel alone, on the plain version's partials of these splits
+    part = decode_partials_ref(q, k, v, splits)
+    c_err = check_close(torch, FK.decode_combine(part), combine_partials_ref(part), "decode_combine",
+                        **FLASH_TOL[2])
+    c_bytes = part.numel() * 4 + B * Hq * D * 2
+    c_bound = c_bytes / HBM_BYTES_PER_S * 1e3
+    c_ms = cuda_ms(torch, lambda: FK.decode_combine(part))
+    c_queued = interleaved_ms(torch, {"combine": lambda: FK.decode_combine(part)}, 5,
+                              QUEUED_CALLS)["combine"]
+    c_plain = cuda_ms(torch, lambda: combine_partials_ref(part), warmup=1, reps=5)
+    say(f"decode_combine of {splits} splits ({tuple(part.shape)} fp32 partials): max abs error "
+        f"{c_err!r} against combine_partials_ref; {c_ms:.4f} ms (queued {c_queued:.4f} ms), byte "
+        f"bound {c_bound:.4f} ms, plain {c_plain:.4f} ms")
+    plain = cuda_ms(torch, lambda: attention_ref(q, k, v, False), warmup=1, reps=3)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    lib = cuda_ms(torch, sdpa)
+    dec = lambda: flash_attention(q, k, v)
+    ms = cuda_ms(torch, dec)
+    turns = interleaved_ms(torch, {"flash_decode": dec, "sdpa": sdpa}, FLASH_ROUNDS)
+    queued = interleaved_ms(torch, {"flash_decode": dec, "sdpa": sdpa}, 10, QUEUED_CALLS)
+    say(f"time flash_decode bf16 B {B} ({splits} splits, the combine included): {ms:.4f} ms "
+        f"({b_ms / ms * 100:.1f}% of the {b_ms:.4f} ms bound, "
+        f"{k.numel() * 4 / (ms * 1e-3) / 1e9:.0f} GB/s); plain {plain:.4f} ms; library "
+        f"F.scaled_dot_product_attention(enable_gqa) {lib:.4f} ms; in turns ({FLASH_ROUNDS} "
+        f"rounds) {turns['flash_decode']:.4f} against SDPA {turns['sdpa']:.4f} ms "
+        f"({turns['flash_decode'] / turns['sdpa']:.4f}x); queued ({QUEUED_CALLS} calls back to "
+        f"back, in turns, 10 rounds) {queued['flash_decode']:.4f} against SDPA "
+        f"{queued['sdpa']:.4f} ms ({b_ms / queued['flash_decode'] * 100:.1f}% of bound); "
+        f"{card_line()}")
+    common = {"source": FLASH_SOURCE, "replaces": FLASH_REPLACES["decode"]}
+    return [{"name": f"flash_decode[B={B}]", "decode_route": decode["route"], "splits": splits,
+             "launches": launches["flash_decode"], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+             "in_turns_ms": turns["flash_decode"], "library_in_turns_ms": turns["sdpa"],
+             "queued_ms": queued["flash_decode"], "library_queued_ms": queued["sdpa"], **common},
+            {"name": "flash_decode_combine", "splits": splits,
+             "launches": launches["flash_decode_combine"], "max_abs_err": c_err, "ms": c_ms,
+             "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": "bytes", "library_ms": None,
+             "queued_ms": c_queued, **common}]
 
 
 def run_layer(args, torch, dev) -> None:
@@ -1376,7 +1475,8 @@ def run_layer(args, torch, dev) -> None:
     out, cache = attention_apply(params, x, use_pallas=True, **kw)
     torch.cuda.synchronize()
     launches = dict(FK.LAUNCHES)
-    if launches != {"flash_attention_fwd": 1, "flash_decode": 0} or cache is not None:
+    if launches != {"flash_attention_fwd": 1, "flash_decode": 0, "flash_decode_combine": 0} \
+            or cache is not None:
         raise AssertionError(f"attention_apply(use_pallas=True) launches {launches}: the flash "
                              "branch must run flash_attention_fwd exactly once")
     bq, bk, _ = FK.LAST_LAUNCH["flash_attention_fwd"]
@@ -1470,7 +1570,8 @@ def main(argv=None) -> int:
          "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "pass": True,
-         **{key: k[key] for key in ("fwd_route", "in_turns_ms", "library_in_turns_ms")
+         **{key: k[key] for key in ("fwd_route", "decode_route", "splits", "in_turns_ms",
+                                    "library_in_turns_ms", "queued_ms", "library_queued_ms")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

@@ -12,8 +12,8 @@
 // arithmetic: exp is ex2.approx based (__expf, or 2^x of a log2 e-scaled
 // argument in the wgmma kernel; a few ulp), and
 // the bf16 forward rounds p to bf16 for the tensor-core P V product while l
-// sums the unrounded p.  The fp32 kernels and the decode kernel keep p in
-// f32.
+// sums the unrounded p.  The fp32 kernels and the decode kernels keep p in
+// f32 (the tensor-core decode as the sum of two bf16 parts).
 //
 // flash_attention_fwd
 //   Replaces repro/kernels/flash_attention/kernel.py:
@@ -79,14 +79,55 @@
 //
 // flash_decode
 //   Replaces repro/kernels/flash_attention/kernel.py:
-//   make_flash_decode(B, Hq, Hkv, Skv, D, bk) (grid (B*Hq, Skv/bk)).  One CTA
-//   per (b, KV head) serves up to 8 query heads of that KV head's group, so
-//   K and V are read once; it walks the cache in blocks of bk keys: the
-//   block's scores go to shared memory, the block max and sum are reduced
-//   over the CTA, and every thread accumulates p v for its keys.  Lanes read
-//   16 B each, D/8 (bf16) or D/4 (fp32) lanes to a key row.  Bound: DRAM
-//   bytes (K and V once).  Every element offset is 64-bit: at B = 128,
-//   Skv = 32768, Hkv = 8, D = 64 K alone has 2^31 elements.
+//   make_flash_decode(B, Hq, Hkv, Skv, D, bk) (grid (B*Hq, Skv/bk), one
+//   query head a program, KV blocks innermost).  Bound: DRAM bytes, K and V
+//   read once (8.59 GB at the model's decode_32k, 2.56 ms at 3.35 TB/s); a
+//   KV head's query heads share its K and V, so each key row is read once
+//   for all of them.  flash_decode_route picks the kernel:
+//
+//   bf16 at D 64 and 128 ("tma_mma"): flash_decode_tma_kernel, Hopper's own
+//   form.  A work unit is (b, KV head, chunk of up to 16 of its query heads,
+//   split of the cache); persistent CTAs (one per SM) walk the units.
+//   - One producer thread keeps TMA loads of 128-key K and V blocks in
+//     flight: a K ring and a V ring of 6 blocks each at D 64, 3 at D 128
+//     (192 KB together either way), each block one or two (128 x 64) boxes,
+//     128-byte swizzled, of the (B*Hkv*Skv, D) views, with full and empty
+//     mbarriers for K and V apart.  A box may run past the unit's last key
+//     (into the next KV head's rows, or zero-filled past the tensor): those
+//     keys' scores are set to the finite NEG_INF and add nothing.  Loads
+//     never wait for the softmax: the ring is refilled as soon as a
+//     consumer releases a stage.
+//   - kDecConsumers consumer warps take the blocks in turn (warp w the
+//     blocks w, w + n, ...; n divides the stages, so each stage serves one
+//     warp and its mbarrier phases are waited on in order), each with its
+//     own running max, sum and O for
+//     a 16-row tile, with no CTA barrier in the key loop: S = Q K^T by
+//     mma.sync.m16n8k16 (Q's A fragments in registers for the unit, rows
+//     past the group zero and never stored; K by ldmatrix from the
+//     swizzled stage, key x D, so no transpose), the row max and sum over
+//     the four lanes of a quad, O += P V with P from the S accumulators
+//     and V by ldmatrix.trans.  p keeps f32 precision (kDecPSplit): P V
+//     runs twice, on hi = bf16(p) and lo = bf16(p - hi).  Where the group
+//     has at most 8 query heads (ROWS 8) rows 8-15 skip the softmax.
+//   - At a unit's end the warps combine their (m, l, O) through shared
+//     memory (two barriers of the consumer warps a unit) and write o =
+//     O / max(l, 1e-30), or, when the cache is split, f32 partials (m, l,
+//     unnormalised O) that flash_decode_combine_kernel merges.
+//   - Split-KV: the wrapper splits the cache (kernel.decode_splits, whole
+//     128-key blocks) only when the units would not fill the card, so small
+//     batches keep every SM streaming.
+//   bk is not used by this kernel (its blocks are 128 keys; the splits are
+//   whole blocks); Skv need not be a multiple of 128.  TMA row coordinates
+//   are 32-bit: B*Hkv*Skv above INT32_MAX is refused.
+//
+//   bf16 at D 32 and fp32 ("cuda_cores"): flash_decode_kernel.  One CTA per
+//   (b, KV head) serves up to 8 query heads of that KV head's group; it
+//   walks the cache in blocks of bk keys: the block's scores go to shared
+//   memory, the block max and sum are reduced over the CTA, and every
+//   thread accumulates p v for its keys.  Lanes read 16 B each, D/8 (bf16)
+//   or D/4 (fp32) lanes to a key row.  Six CTA barriers a block keep its
+//   loads from overlapping the softmax.  Every element offset is 64-bit:
+//   at B = 128, Skv = 32768, Hkv = 8, D = 64 K alone has 2^31 elements.
 //
 // Every launcher has a plain C interface for ctypes, launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() after the launch
@@ -1154,6 +1195,354 @@ flash_decode_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// decode, bf16 at D 64 and 128: a TMA ring under warp-local mma.sync consumers
+// ---------------------------------------------------------------------------
+constexpr int kDecBlock = 128;        // keys of a ring stage: the rows of one TMA box
+constexpr int kDecBoxBytes = kDecBlock * kSwizzleCols * 2;
+constexpr int kDecRows = 16;          // query rows of a unit: one m16n8k16 A tile
+constexpr int kDecConsumers = 3;      // consumer warps; warp 0 is the producer
+constexpr int kDecStagesD64 = 6;      // K and V stages of the rings at D 64 (16 KB a block)
+constexpr int kDecStagesD128 = 3;     // at D 128 (32 KB a block)
+constexpr int kDecPSplit = 1;         // P V on bf16(p) and on bf16(p - bf16(p)): p keeps f32 precision
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct DecTma {
+  static constexpr int kBoxes = D / kSwizzleCols;           // TMA boxes of a block
+  static constexpr int kTileBytes = kBoxes * kDecBoxBytes;  // one K or V block
+  static constexpr int kStages = D == 64 ? kDecStagesD64 : kDecStagesD128;
+  static constexpr int kRedFloats = kDecConsumers * kDecRows * (D + 2);  // each warp's O, m, l
+  static constexpr int kBars = 4 * kStages;                 // K and V full and empty
+  // the rings, 1024 bytes of slack to align them to the swizzle's period,
+  // the warps' partials, the mbarriers
+  static constexpr int kSmem = 2 * kStages * kTileBytes + 1024 + 4 * kRedFloats + 8 * kBars;
+  static_assert(D == 64 || D == 128, "tensor-core decode head dim");
+  static_assert(kStages >= 1 && kSmem <= kSmemLimit, "shared memory");
+  // block it sits in stage it % kStages and goes to warp it % kDecConsumers:
+  // so each stage serves one warp, which waits on its phases in order (a
+  // parity wait more than one phase ahead of its mbarrier would pass)
+  static_assert(kStages % kDecConsumers == 0, "each stage must serve one consumer warp");
+};
+
+// barrier 1 over the consumer warps
+__device__ __forceinline__ void dec_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kDecConsumers * 32) : "memory");
+}
+
+// Q's m16n8k16 A fragments for the unit's query rows (rows past ng zero):
+// register i of k step t holds row lane/4 + 8 (i & 1), columns 16t +
+// 2 (lane % 4) + 8 (i >> 1) and the next
+template <int D>
+__device__ __forceinline__ void dec_load_q(uint32_t (&qf)[D / 16][4], const bf16* q, int ng) {
+  const int lane = threadIdx.x & 31, qr = lane >> 2, qc = 2 * (lane & 3);
+#pragma unroll
+  for (int t = 0; t < D / 16; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = qr + (i & 1) * 8, col = 16 * t + qc + (i >> 1) * 8;
+      qf[t][i] = row < ng ? *reinterpret_cast<const uint32_t*>(q + row * D + col) : 0u;
+    }
+}
+
+// the byte offset of (row, 16-byte chunk) in a block of D/64 swizzled boxes:
+// chunk c of a row sits at c ^ (row % 8) of its box's 128-byte row
+__device__ __forceinline__ uint32_t dec_swz(int row, int chunk) {
+  return (chunk >> 3) * kDecBoxBytes + row * 128 + (((chunk & 7) ^ (row & 7)) << 4);
+}
+
+// S (16 rows x 128 keys) = Q K^T: n8 tile n holds keys 8n..8n+7; K by
+// ldmatrix, the x4 matrices (keys 0-7, d 0-7), (keys 0-7, d 8-15), (keys
+// 8-15, d 0-7), (keys 8-15, d 8-15) of each 16 keys
+template <int D>
+__device__ __forceinline__ void dec_qk(float (&s)[16][4], const uint32_t (&qf)[D / 16][4],
+                                       uint32_t k) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int t = 0; t < D / 16; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t kf[4];
+      const int key = 16 * j + (lane & 7) + (lane >> 4) * 8;
+      ldmatrix_x4(kf, k + dec_swz(key, 2 * t + ((lane >> 3) & 1)));
+      mma_bf16(s[2 * j], qf[t], kf[0], kf[1]);
+      mma_bf16(s[2 * j + 1], qf[t], kf[2], kf[3]);
+    }
+}
+
+// One block's online softmax in the exp2 domain, in place: s (raw Q K^T)
+// becomes p = 2^(s c - m), m the running row max of s c; l keeps the
+// thread's partial row sums (summed over the quad at the unit's end); corr
+// is 2^(m_old - m).  Register e of tile n is key key0 + 8n + 2 (lane % 4)
+// + (e & 1), row lane/4 + 8 (e >> 1); keys at or past `end` get the finite
+// NEG_INF.  ROWS 8: rows 8-15 hold no query head and are skipped.
+template <int ROWS>
+__device__ __forceinline__ void dec_softmax(float (&s)[16][4], float (&m)[2], float (&l)[2],
+                                            float (&corr)[2], float c, int key0, int end) {
+  constexpr int R = ROWS / 8;
+  const bool mask = key0 + kDecBlock > end;  // only the cache's last block can be cut
+  const int key = key0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        float x = s[n][e] * c;
+        if (mask && key + 8 * n + (e & 1) >= end) x = kNegInf;
+        s[n][e] = x;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[n][e] = ex2(s[n][e] - m_new);
+        sum += s[n][e];
+      }
+    l[r] = l[r] * corr[r] + sum;
+  }
+  if (R == 1) corr[1] = 1.f;
+}
+
+// hi = bf16(x0, x1) and lo = bf16 of what hi leaves out
+__device__ __forceinline__ void split_p(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// O (16 rows x D) += P V: the S accumulators of n8 tiles 2t and 2t+1 are
+// the A fragment of k step t (keys 16t..16t+15); V by ldmatrix.trans, the
+// x4 matrices (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15),
+// (keys 8-15, d 8-15) of each 16 columns
+template <int D, int ROWS>
+__device__ __forceinline__ void dec_pv(float (&o)[D / 8][4], const float (&s)[16][4], uint32_t v) {
+  const int lane = threadIdx.x & 31;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = lane >> 4;
+#pragma unroll
+  for (int t = 0; t < kDecBlock / 16; ++t) {
+    uint32_t hi[4] = {0u, 0u, 0u, 0u}, lo[4] = {0u, 0u, 0u, 0u};
+    split_p(s[2 * t][0], s[2 * t][1], hi[0], lo[0]);
+    split_p(s[2 * t + 1][0], s[2 * t + 1][1], hi[2], lo[2]);
+    if (ROWS > 8) {
+      split_p(s[2 * t][2], s[2 * t][3], hi[1], lo[1]);
+      split_p(s[2 * t + 1][2], s[2 * t + 1][3], hi[3], lo[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, v + dec_swz(16 * t + lrow, 2 * j + lcol));
+      mma_bf16(o[2 * j], hi, vf[0], vf[1]);
+      mma_bf16(o[2 * j + 1], hi, vf[2], vf[3]);
+      if (kDecPSplit) {
+        mma_bf16(o[2 * j], lo, vf[0], vf[1]);
+        mma_bf16(o[2 * j + 1], lo, vf[2], vf[3]);
+      }
+    }
+  }
+}
+
+// grid: at most one CTA per SM, each walking the units u = blockIdx.x,
+// + gridDim.x, ...; unit u is (b*Hkv + kvh, split, chunk), chunk fastest,
+// and covers query heads kvh*group + 16*chunk .. (at most 16) and the
+// 128-key blocks [sp*nb/splits, (sp+1)*nb/splits) of the cache.  splits 1:
+// o is written; else part (B, Hq, splits, D + 2) f32 gets each unit's
+// unnormalised O, its row max m of the scaled scores and its sum l.
+template <int D, int ROWS>
+__global__ void __launch_bounds__((1 + kDecConsumers) * 32, 1)
+flash_decode_tma_kernel(const __grid_constant__ CUtensorMap tma_k,
+                        const __grid_constant__ CUtensorMap tma_v, const bf16* __restrict__ Q,
+                        bf16* __restrict__ O, float* __restrict__ part, int B, int Hq, int Hkv,
+                        int Skv, int splits, float c) {
+  using T = DecTma<D>;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sk = (raw + 1023u) & ~1023u;             // [stages][boxes][128][64], swizzled
+  const uint32_t sv = sk + S * T::kTileBytes;             // [stages][boxes][128][64], swizzled
+  const uint32_t sred = sv + S * T::kTileBytes;           // [warps][16][D + 2] f32
+  float* red = reinterpret_cast<float*>(smem_raw + (sred - raw));
+  const uint32_t bars = sred + 4 * T::kRedFloats;
+  auto k_full = [&](int s) { return bars + 8u * s; };
+  auto v_full = [&](int s) { return bars + 8u * (S + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (2 * S + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (3 * S + s); };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = Hq / Hkv, chunks = (group + kDecRows - 1) / kDecRows;
+  const int nb = (Skv + kDecBlock - 1) / kDecBlock;
+  const int units = B * Hkv * chunks * splits;
+  auto unit = [&](int u, int& bkv, int& sp, int& ch, int& kb0, int& kb1) {
+    ch = u % chunks;
+    sp = u / chunks % splits;
+    bkv = u / chunks / splits;
+    kb0 = (int)((int64_t)sp * nb / splits);
+    kb1 = (int)((int64_t)(sp + 1) * nb / splits);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);   // the producer's arrive.expect_tx
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 1);  // lane 0 of the warp that took the block
+      mbar_init(v_empty(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // every role walks the same units and counts the same blocks (it), which
+  // index the rings, give each mbarrier's phase and name the consumer warp
+  if (warp == 0) {
+    if (lane == 0) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        int bkv, sp, ch, kb0, kb1;
+        unit(u, bkv, sp, ch, kb0, kb1);
+        for (int kb = kb0; kb < kb1; ++kb, ++it) {
+          const int st = it % S, ph = (it / S) & 1;
+          const int row = bkv * Skv + kb * kDecBlock;
+          mbar_wait(k_empty(st), ph ^ 1);
+          mbar_arrive_expect_tx(k_full(st), T::kTileBytes);
+#pragma unroll
+          for (int x = 0; x < T::kBoxes; ++x)
+            tma_load_2d(sk + st * T::kTileBytes + x * kDecBoxBytes, &tma_k, x * kSwizzleCols, row,
+                        k_full(st));
+          mbar_wait(v_empty(st), ph ^ 1);
+          mbar_arrive_expect_tx(v_full(st), T::kTileBytes);
+#pragma unroll
+          for (int x = 0; x < T::kBoxes; ++x)
+            tma_load_2d(sv + st * T::kTileBytes + x * kDecBoxBytes, &tma_v, x * kSwizzleCols, row,
+                        v_full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = warp - 1, qr = lane >> 2, qc = 2 * (lane & 3);
+  float* mine = red + cw * kDecRows * (D + 2);
+  float s[16][4], o[D / 8][4], m[2], l[2], corr[2];
+  uint32_t qf[D / 16][4];
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int bkv, sp, ch, kb0, kb1;
+    unit(u, bkv, sp, ch, kb0, kb1);
+    const int b = bkv / Hkv, kvh = bkv % Hkv;
+    const int ng = min(kDecRows, group - ch * kDecRows);
+    const int64_t h0 = (int64_t)b * Hq + kvh * group + ch * kDecRows;  // the unit's first b*Hq + h
+    dec_load_q<D>(qf, Q + h0 * D, ng);
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+    for (int kb = kb0; kb < kb1; ++kb, ++it) {
+      if (it % kDecConsumers != cw) continue;
+      const int st = it % S, ph = (it / S) & 1;
+      mbar_wait(k_full(st), ph);
+      dec_qk<D>(s, qf, sk + st * T::kTileBytes);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty(st));
+      dec_softmax<ROWS>(s, m, l, corr, c, kb * kDecBlock, Skv);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+      mbar_wait(v_full(st), ph);
+      dec_pv<D, ROWS>(o, s, sv + st * T::kTileBytes);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty(st));
+    }
+
+    // the warps' (m, l, O) of the unit's rows into shared memory, then
+    // merged: o = sum_w 2^(m_w - M) O_w / max(sum_w 2^(m_w - M) l_w, 1e-30)
+#pragma unroll
+    for (int r = 0; r < ROWS / 8; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = qr + 8 * r;
+      if (row < ng) {
+        float* dst = mine + row * (D + 2);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          dst[8 * n + qc] = o[n][2 * r];
+          dst[8 * n + qc + 1] = o[n][2 * r + 1];
+        }
+        if (qc == 0) {
+          dst[D] = m[r];
+          dst[D + 1] = l[r];
+        }
+      }
+    }
+    dec_consumers_sync();
+    for (int i = threadIdx.x - 32; i < ng * D; i += kDecConsumers * 32) {
+      const int row = i / D, d = i % D;
+      float mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kDecConsumers; ++w) mx = fmaxf(mx, red[(w * kDecRows + row) * (D + 2) + D]);
+      float acc = 0.f, sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kDecConsumers; ++w) {
+        const float* src = red + (w * kDecRows + row) * (D + 2);
+        const float f = ex2(src[D] - mx);
+        acc += f * src[d];
+        sum += f * src[D + 1];
+      }
+      if (splits == 1) {
+        O[(h0 + row) * D + d] = __float2bfloat16_rn(acc / fmaxf(sum, kMinDenom));
+      } else {
+        float* dst = part + ((h0 + row) * splits + sp) * (D + 2);
+        dst[d] = acc;
+        if (d == 0) {
+          dst[D] = mx * kLn2;  // the natural-log domain of the plain version
+          dst[D + 1] = sum;
+        }
+      }
+    }
+    dec_consumers_sync();  // the partials' buffer is free for the next unit
+  }
+}
+
+// o (rows, D) bf16 from the partials (rows, splits, D + 2) f32 of the
+// splits: m = max_s m_s, o = sum_s e^(m_s - m) O_s / max(sum_s e^(m_s - m)
+// l_s, 1e-30).  One warp a row, lanes along D.
+__global__ void __launch_bounds__(128)
+flash_decode_combine_kernel(const float* __restrict__ part, bf16* __restrict__ O, int rows, int D,
+                            int splits) {
+  const int row = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const float* p = part + (int64_t)row * splits * (D + 2);
+  float mx = kNegInf;
+  for (int sp = lane; sp < splits; sp += 32) mx = fmaxf(mx, p[sp * (D + 2) + D]);
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+  float sum = 0.f;
+  for (int sp = lane; sp < splits; sp += 32)
+    sum += expf(p[sp * (D + 2) + D] - mx) * p[sp * (D + 2) + D + 1];
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+  const float denom = fmaxf(sum, kMinDenom);
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.f;
+    for (int sp = 0; sp < splits; ++sp) acc += expf(p[sp * (D + 2) + D] - mx) * p[sp * (D + 2) + d];
+    O[(int64_t)row * D + d] = __float2bfloat16_rn(acc / denom);
+  }
+}
+
 template <typename Kern>
 int set_smem(Kern kern, int bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1223,6 +1612,44 @@ int launch_decode(const void* q, const void* k, const void* v, void* o, int B, i
   return (int)cudaGetLastError();
 }
 
+template <int D, int ROWS>
+int launch_decode_tma(const void* q, const void* k, const void* v, void* o, void* part, int B,
+                      int Hq, int Hkv, int Skv, int splits, float scale, cudaStream_t s) {
+  using T = DecTma<D>;
+  const int nb = (Skv + kDecBlock - 1) / kDecBlock;
+  const int chunks = (Hq / Hkv + kDecRows - 1) / kDecRows;
+  // TMA row coordinates are 32-bit; each split holds at least one block
+  if ((int64_t)B * Hkv * Skv > INT32_MAX || (int64_t)B * Hkv * chunks * splits > INT32_MAX ||
+      splits < 1 || splits > nb || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // k and v as row-major (B*Hkv*Skv, D) matrices in (128 rows, 64 columns) boxes
+  CUtensorMap mk, mv;
+  int rc = encode_bf16(&mk, k, B * Hkv * Skv, D, kDecBlock);
+  if (rc == 0) rc = encode_bf16(&mv, v, B * Hkv * Skv, D, kDecBlock);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  auto kern = flash_decode_tma_kernel<D, ROWS>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int units = B * Hkv * chunks * splits;
+  const int grid = units < sms ? units : sms;  // persistent: at most one CTA per SM
+  kern<<<grid, (1 + kDecConsumers) * 32, T::kSmem, s>>>(
+      mk, mv, static_cast<const bf16*>(q), static_cast<bf16*>(o), static_cast<float*>(part), B, Hq,
+      Hkv, Skv, splits, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dispatch_decode_tma(const void* q, const void* k, const void* v, void* o, void* part, int B,
+                        int Hq, int Hkv, int Skv, int splits, float scale, cudaStream_t s) {
+  if (Hq / Hkv <= 8)  // every query head of a unit in rows 0-7
+    return launch_decode_tma<D, 8>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
+  return launch_decode_tma<D, 16>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
+}
+
 template <typename T, int D>
 int dispatch_decode(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
                     int Skv, int bk, float scale, cudaStream_t s) {
@@ -1242,7 +1669,7 @@ extern "C" {
 // kRouteMmaSync for the other bf16 kernels (D 32 at both tiles, D 64 and
 // 128 at (64, 64)), kRouteCudaCores for fp32 (D 32 or 64, both tiles),
 // kRouteNone for anything not instantiated.
-enum { kRouteNone = 0, kRouteWgmma = 1, kRouteMmaSync = 2, kRouteCudaCores = 3 };
+enum { kRouteNone = 0, kRouteWgmma = 1, kRouteMmaSync = 2, kRouteCudaCores = 3, kRouteTmaMma = 4 };
 
 int flash_fwd_route(int elem_bytes, int D, int bq, int bk) {
   const bool big = bq == 128 && bk == 128, small = bq == 64 && bk == 64;
@@ -1299,23 +1726,49 @@ int flash_pv_probe_launch(const void* p, const void* v, void* o, int D, void* st
   return (int)cudaGetLastError();
 }
 
-// elem_bytes 2 or 4, D 32, 64 or 128, bk a multiple of 64 that divides Skv
+// The decode kernel for elem_bytes 2 (bf16) or 4 (fp32) and head dim D:
+// kRouteTmaMma for bf16 at D 64 and 128, kRouteCudaCores for bf16 at D 32
+// and fp32 at D 32, 64 and 128, kRouteNone for anything not instantiated.
+int flash_decode_route(int elem_bytes, int D) {
+  if (elem_bytes == 2 && (D == 64 || D == 128)) return kRouteTmaMma;
+  if ((elem_bytes == 2 || elem_bytes == 4) && (D == 32 || D == 64 || D == 128))
+    return kRouteCudaCores;
+  return kRouteNone;
+}
+
+// launches the kernel flash_decode_route names.  kRouteTmaMma: splits (1 up
+// to the cache's 128-key blocks) parts of the cache, bk unused; splits 1
+// writes o, more write part (B, Hq, splits, D + 2) f32 for
+// flash_decode_combine_launch.  kRouteCudaCores: splits 1, bk a multiple of
+// 64 that divides Skv.  Anything else returns cudaErrorInvalidValue without
+// launching.
 int flash_decode_launch(int elem_bytes, const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hkv, int Skv, int D, int bk, float scale,
-                        void* stream) {
+                        void* part, int B, int Hq, int Hkv, int Skv, int D, int bk, int splits,
+                        float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DEC(T, HD) return dispatch_decode<T, HD>(q, k, v, o, B, Hq, Hkv, Skv, bk, scale, s)
-  if (elem_bytes == 2) {
-    if (D == 32) DEC(bf16, 32);
-    if (D == 64) DEC(bf16, 64);
-    if (D == 128) DEC(bf16, 128);
-  } else if (elem_bytes == 4) {
-    if (D == 32) DEC(float, 32);
-    if (D == 64) DEC(float, 64);
-    if (D == 128) DEC(float, 128);
+  switch (flash_decode_route(elem_bytes, D)) {
+    case kRouteTmaMma:
+      if (D == 64) return dispatch_decode_tma<64>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
+      return dispatch_decode_tma<128>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
+    case kRouteCudaCores:
+      if (splits != 1) break;
+      if (elem_bytes == 2) DEC(bf16, 32);
+      if (D == 32) DEC(float, 32);
+      if (D == 64) DEC(float, 64);
+      DEC(float, 128);
   }
 #undef DEC
   return (int)cudaErrorInvalidValue;
+}
+
+// o (rows, D) bf16 from part (rows, splits, D + 2) f32, all on the card
+int flash_decode_combine_launch(const void* part, void* o, int rows, int D, int splits,
+                                void* stream) {
+  if (rows < 1 || D < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  flash_decode_combine_kernel<<<(rows + 3) / 4, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(o), rows, D, splits);
+  return (int)cudaGetLastError();
 }
 
 const char* flash_error_string(int code) {

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -107,7 +108,7 @@ def build_variants(name: str, variants: dict) -> dict:
             if old not in text:
                 raise RuntimeError(f"variant {variant!r}: {old!r} not found in {name}.cu")
             text = text.replace(old, new)
-        stem = variant.replace(" ", "_")
+        stem = re.sub(r"[^A-Za-z0-9_-]", "_", variant)  # nvcc's file names take no commas
         cu, so = out / f"{stem}.cu", out / f"lib{stem}.so"
         cu.write_text(text)
         procs[variant] = (so, subprocess.Popen(

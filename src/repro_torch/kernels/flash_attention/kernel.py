@@ -9,16 +9,23 @@
   bf16 at (128, 128) with D 64 or 128 runs the warp-specialised wgmma + TMA
   kernel (``"wgmma"``), the other bf16 calls the ``mma.sync`` kernel
   (``"mma_sync"``), fp32 the CUDA cores (``"cuda_cores"``).
-* ``flash_decode(q, k, v, bk)`` — one query token against the KV cache,
-  one CTA per (b, KV head) and up to 8 of its query heads, over blocks of
-  bk keys.  Replaces ``make_flash_decode(B, Hq, Hkv, Skv, D, bk)``.
+* ``flash_decode(q, k, v, bk, splits=None)`` — one query token against
+  the KV cache.  Replaces ``make_flash_decode(B, Hq, Hkv, Skv, D, bk)``.
+  ``decode_route`` names the kernel: bf16 at D 64 or 128 runs the
+  tensor-core kernel fed by a TMA ring (``"tma_mma"``), which ignores bk
+  and, where the (b, KV head) units would not fill the card, splits the
+  cache into ``decode_splits`` parts of whole 128-key blocks (``splits``
+  pins the count) whose partials the second kernel,
+  ``decode_combine``, merges; bf16 at D 32 and fp32 run the CUDA-core
+  kernel over blocks of bk keys (``"cuda_cores"``).
 
 q is (B, Hq, Sq, D) (Sq = 1 for decode), k and v (B, Hkv, Skv, D), all
 contiguous and of one dtype; Hkv divides Hq.  On CPU tensors both compute
 the plain version (``ref.attention_ref``); on CUDA tensors they launch the
 kernel on the current stream or raise.  ``LAUNCHES`` counts kernel
 launches per wrapper, and ``LAST_LAUNCH`` holds what each last ran on the
-card: ``(bq, bk, causal)`` and ``bk``.  ``wgmma_pv_probe`` runs one
+card: ``(bq, bk, causal)`` and ``bk``; ``LAST_DECODE`` the last decode's
+route and splits.  ``wgmma_pv_probe`` runs one
 consumer's P·V of the wgmma kernel alone, a card check of its register
 fragment layout.
 """
@@ -30,10 +37,16 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    DECODE_BLOCK,
+    attention_ref,
+    combine_partials_ref,
+    decode_split_bounds,
+)
 
-LAUNCHES = {"flash_attention_fwd": 0, "flash_decode": 0}
+LAUNCHES = {"flash_attention_fwd": 0, "flash_decode": 0, "flash_decode_combine": 0}
 LAST_LAUNCH = {"flash_attention_fwd": None, "flash_decode": None}
+LAST_DECODE = {"route": None, "splits": None}
 
 # the instantiated forward kernels: (bq, bk) tiles, and head dims per dtype
 FWD_TILES = ((128, 128), (64, 64))
@@ -42,7 +55,11 @@ FWD_HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
 FWD_ROUTES = {"wgmma": 1, "mma_sync": 2, "cuda_cores": 3}
 WGMMA_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (32, 64, 128)
-DECODE_BK_MAX = 2048          # keys of a block's scores in shared memory
+DECODE_BK_MAX = 2048          # keys of a block's scores in shared memory (CUDA-core decode)
+# the kernel of each decode route, as csrc/flash_attention.cu's flash_decode_route numbers them
+DECODE_ROUTES = {"tma_mma": 4, "cuda_cores": 3}
+TMA_DECODE_HEAD_DIMS = (64, 128)
+DECODE_ROWS = 16              # query heads of one tensor-core decode unit (an m16n8k16 A tile)
 _GRID_Y_MAX = 65_535
 
 _P = ctypes.c_void_p
@@ -51,9 +68,9 @@ _F = ctypes.c_float
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        LAST_LAUNCH[k] = None
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    LAST_LAUNCH.update(dict.fromkeys(LAST_LAUNCH))
+    LAST_DECODE.update(route=None, splits=None)
 
 
 @functools.cache
@@ -61,11 +78,13 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared."""
     lib = _build.load("flash_attention")
     lib.flash_fwd_launch.argtypes = [_I, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P]
-    lib.flash_decode_launch.argtypes = [_I, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]
+    lib.flash_decode_launch.argtypes = [_I, _P, _P, _P, _P, _P] + [_I] * 7 + [_F, _P]
+    lib.flash_decode_combine_launch.argtypes = [_P, _P, _I, _I, _I, _P]
     lib.flash_fwd_route.argtypes = [_I] * 4
+    lib.flash_decode_route.argtypes = [_I] * 2
     lib.flash_pv_probe_launch.argtypes = [_P, _P, _P, _I, _P]
-    for fn in (lib.flash_fwd_launch, lib.flash_decode_launch, lib.flash_fwd_route,
-               lib.flash_pv_probe_launch):
+    for fn in (lib.flash_fwd_launch, lib.flash_decode_launch, lib.flash_decode_combine_launch,
+               lib.flash_fwd_route, lib.flash_decode_route, lib.flash_pv_probe_launch):
         fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
@@ -108,6 +127,38 @@ def fwd_route(dtype: torch.dtype, D: int, bq: int, bk: int) -> str:
     return "wgmma" if (bq, bk) == (128, 128) and D in WGMMA_HEAD_DIMS else "mma_sync"
 
 
+def decode_route(dtype: torch.dtype, D: int) -> str:
+    """The decode kernel that a call with ``dtype`` and head dim ``D`` runs
+    on the card: ``"tma_mma"`` (bf16 at D 64 and 128) or ``"cuda_cores"``
+    (bf16 at D 32, fp32); raises ValueError for a combination not
+    instantiated."""
+    if dtype not in FWD_HEAD_DIMS or D not in DECODE_HEAD_DIMS:
+        raise ValueError(f"decode at head dim {D} is not instantiated for {dtype}; choose "
+                         f"bfloat16 or float32 and a head dim from {DECODE_HEAD_DIMS}")
+    return "tma_mma" if dtype == torch.bfloat16 and D in TMA_DECODE_HEAD_DIMS else "cuda_cores"
+
+
+@functools.cache
+def decode_splits(B: int, Hkv: int, chunks: int, Skv: int, sms: int) -> int:
+    """How many parts the tensor-core decode splits the cache into.  A unit
+    is (b, KV head, chunk of up to 16 query heads, split); persistent CTAs,
+    one per SM, walk the units.  1 where the B·Hkv·chunks units already
+    fill the ``sms`` SMs; else the count, up to four times what gives each
+    SM a unit, with the least modelled time: waves of units times (blocks
+    of 128 keys a unit + 1, the unit's start and end; the ablation's split
+    sweep at B 8 measured that overhead at about one block).  Each split is
+    a whole number of blocks (``ref.decode_split_bounds``)."""
+    units = B * Hkv * chunks
+    if units >= sms:
+        return 1
+    nb = -(-Skv // DECODE_BLOCK)
+
+    def cost(s):
+        return -(-units * s // sms) * (-(-nb // s) + 1)
+
+    return min(range(1, min(nb, 4 * -(-sms // units)) + 1), key=lambda s: (cost(s), s))
+
+
 def _aligned(*tensors) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k and v must be 16-byte aligned")
@@ -144,8 +195,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: i
     return out
 
 
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 128) -> torch.Tensor:
-    """One query token (B, Hq, 1, D) against the whole cache (no mask)."""
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 128,
+                 splits: int | None = None) -> torch.Tensor:
+    """One query token (B, Hq, 1, D) against the whole cache (no mask).
+    ``bk`` is the CUDA-core kernel's block (validated for every call, as the
+    reference's; the tensor-core kernel walks 128-key blocks and ignores
+    it).  ``splits`` pins the tensor-core kernel's split count (1 up to the
+    cache's 128-key blocks; 1 only on the CUDA-core route); by default
+    ``decode_splits`` chooses it from the card's SM count."""
     B, Hq, Hkv, Sq, Skv, D = _check(q, k, v)
     bk = int(bk)
     if Sq != 1:
@@ -155,17 +212,65 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 12
                          f"that divides Skv={Skv}")
     if D not in DECODE_HEAD_DIMS:
         raise ValueError(f"head dim {D} is not instantiated; choose from {DECODE_HEAD_DIMS}")
+    route = decode_route(q.dtype, D)
+    if splits is not None:
+        splits = int(splits)
+        if route == "cuda_cores" and splits != 1:
+            raise ValueError(f"the {route} decode does not split the cache (splits={splits})")
+        decode_split_bounds(Skv, splits)  # 1 <= splits <= the cache's 128-key blocks
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=False)
     _aligned(q, k, v)
-    out = torch.empty_like(q)
+    if splits is None:
+        chunks = -(-(Hq // Hkv) // DECODE_ROWS)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = decode_splits(B, Hkv, chunks, Skv, sms) if route == "tma_mma" else 1
+    # one split writes the output, more write the partials for decode_combine
+    if splits == 1:
+        out, part = torch.empty_like(q), None
+    else:
+        out, part = None, torch.empty((B, Hq, splits, D + 2), device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().flash_decode_launch(
-            q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Skv, D, bk, D ** -0.5, torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
-    LAST_LAUNCH["flash_decode"] = bk
+            q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr() if part is None else None, None if part is None else part.data_ptr(),
+            B, Hq, Hkv, Skv, D, bk, splits, D ** -0.5, stream)
+        _raise_on(rc, "flash_decode")
+        LAUNCHES["flash_decode"] += 1
+        LAST_LAUNCH["flash_decode"] = bk
+        LAST_DECODE.update(route=route, splits=splits)
+        return out if part is None else _combine(part, q.dtype, stream)
+
+
+def decode_combine(part: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(B, Hq, 1, D) from the split decode's partials (B, Hq, splits, D + 2)
+    fp32 (each split's unnormalised O, its max m of the scaled scores, its
+    sum l; ``ref.decode_partials_ref``): on the card a bf16 output, D 64 or
+    128; on the CPU the plain version ``ref.combine_partials_ref``."""
+    if not isinstance(part, torch.Tensor) or part.dim() != 4 or part.dtype != torch.float32 \
+            or part.shape[-1] - 2 not in TMA_DECODE_HEAD_DIMS:
+        raise ValueError(f"expected partials fp32 (B, Hq, splits, D + 2) with D in "
+                         f"{TMA_DECODE_HEAD_DIMS}, got {getattr(part, 'dtype', type(part))} "
+                         f"{tuple(getattr(part, 'shape', ()))}")
+    if part.device.type == "cpu":
+        return combine_partials_ref(part, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the combine kernel writes bfloat16, not {dtype}")
+    part = part.contiguous()
+    with torch.cuda.device(part.device):
+        return _combine(part, dtype, torch.cuda.current_stream().cuda_stream)
+
+
+def _combine(part: torch.Tensor, dtype: torch.dtype, stream: int) -> torch.Tensor:
+    """Launch the combine kernel on contiguous partials of the current
+    device, on ``stream``."""
+    B, Hq, splits, D = part.shape[0], part.shape[1], part.shape[2], part.shape[3] - 2
+    out = torch.empty((B, Hq, 1, D), device=part.device, dtype=dtype)
+    rc = _lib().flash_decode_combine_launch(part.data_ptr(), out.data_ptr(), B * Hq, D, splits,
+                                            stream)
+    _raise_on(rc, "flash_decode_combine")
+    LAUNCHES["flash_decode_combine"] += 1
     return out
 
 

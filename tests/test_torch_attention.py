@@ -239,7 +239,7 @@ def test_card_attention_apply_runs_the_flash_kernel_once(cuda, dtype, tol, row_r
     FK.reset_launch_counts()
     got, _ = attention_apply(params, x, n_heads=8, n_kv=2, head_dim=64, use_pallas=True)
     torch.cuda.synchronize()
-    assert FK.LAUNCHES == {"flash_attention_fwd": 1, "flash_decode": 0}
+    assert FK.LAUNCHES == {"flash_attention_fwd": 1, "flash_decode": 0, "flash_decode_combine": 0}
     want, _ = attention_apply(params, x, n_heads=8, n_kv=2, head_dim=64, use_pallas=False)
     assert FK.LAUNCHES["flash_attention_fwd"] == 1
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)

@@ -25,7 +25,14 @@ from repro_torch.kernels.flash_attention.generator import (
     tpu_space,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref, row_rel_err
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    combine_partials_ref,
+    decode_combine_ref,
+    decode_partials_ref,
+    decode_split_bounds,
+    row_rel_err,
+)
 
 
 def _qkv(seed, B, Hq, Hkv, Sq, Skv, D):
@@ -284,10 +291,147 @@ def test_pv_probe_runs_only_on_the_card():
         K.wgmma_pv_probe(torch.zeros(64, 128), torch.zeros(128, 32, dtype=torch.bfloat16))
 
 
+DECODE_ROUTES = [(torch.bfloat16, 32, "cuda_cores"), (torch.bfloat16, 64, "tma_mma"),
+                 (torch.bfloat16, 128, "tma_mma"), (torch.float32, 32, "cuda_cores"),
+                 (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores")]
+
+
+@pytest.mark.parametrize("dtype,D,route", DECODE_ROUTES)
+def test_decode_route_names_the_kernel_of_every_instantiation(dtype, D, route):
+    """bf16 at D 64 and 128 runs the TMA-fed tensor-core decode; bf16 at D 32
+    and fp32 the CUDA-core kernel (fp32 stays off TF32)."""
+    assert K.decode_route(dtype, D) == route
+    assert route in K.DECODE_ROUTES
+
+
+def test_decode_route_covers_exactly_the_instantiated_kernels():
+    assert {(dt, D) for dt, D, _ in DECODE_ROUTES} == {
+        (dt, D) for dt in K.FWD_HEAD_DIMS for D in K.DECODE_HEAD_DIMS}
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 48), (torch.bfloat16, 256),
+                                     (torch.float32, 16), (torch.float16, 64),
+                                     (torch.float64, 64)])
+def test_decode_route_rejects_what_is_not_instantiated(dtype, D):
+    with pytest.raises(ValueError, match="not instantiated"):
+        K.decode_route(dtype, D)
+
+
+@pytest.mark.parametrize("B,Hkv,chunks,Skv,sms,want", [
+    (128, 8, 1, 32768, 132, 1),   # granite-3-2b's decode_32k: 1024 units fill the card
+    (32, 8, 1, 32768, 132, 1),    # 256 units
+    (16, 8, 1, 32768, 132, 1),    # 128 units busy 97 % of the SMs; a split would add a wave
+    (8, 8, 1, 32768, 132, 2),     # one user at low concurrency: 64 units, 128 once split
+    (1, 1, 1, 1024, 132, 8),      # the cache's eight blocks are the limit
+    (2, 1, 1, 2 ** 24 + 512, 132, 66),
+    (3, 2, 2, 1088, 132, 9),
+])
+def test_decode_splits_fills_the_card_and_no_more(B, Hkv, chunks, Skv, sms, want):
+    assert K.decode_splits(B, Hkv, chunks, Skv, sms) == want
+
+
+@pytest.mark.parametrize("B,Hkv,chunks,Skv", [(8, 8, 1, 32768), (1, 1, 1, 1152), (3, 2, 2, 1088),
+                                              (1, 4, 1, 64), (5, 1, 1, 100_000)])
+def test_decode_splits_cover_every_key_once_in_whole_blocks(B, Hkv, chunks, Skv):
+    """The chosen split count, and every count the kernel takes, partition
+    the keys into whole 128-key blocks (only the cache's end may cut one)."""
+    nb = -(-Skv // 128)
+    chosen = K.decode_splits(B, Hkv, chunks, Skv, 132)
+    assert 1 <= chosen <= nb
+    if B * Hkv * chunks <= 66:  # half the card idle unsplit
+        assert chosen > 1 or nb == 1
+    for splits in sorted({1, 2, 7, chosen, nb} & set(range(1, nb + 1))):
+        bounds = decode_split_bounds(Skv, splits)
+        assert len(bounds) == splits
+        assert [k for k0, k1 in bounds for k in range(k0, k1)] == list(range(Skv))
+        assert all(k1 > k0 and k0 % 128 == 0 and (k1 % 128 == 0 or k1 == Skv)
+                   for k0, k1 in bounds)
+        sizes = {k1 - k0 for k0, k1 in bounds[:-1]}
+        assert max(sizes, default=0) - min(sizes, default=0) <= 128  # blocks spread evenly
+    for bad in (0, nb + 1):
+        with pytest.raises(ValueError, match="splits"):
+            decode_split_bounds(Skv, bad)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("gqa", [(8, 2), (4, 4), (5, 1)])
+def test_decode_combine_ref_matches_pallas_kernel(splits, gqa):
+    """The split decode's plain version (partials of each split from the
+    plain softmax, then combined) against ``attention_ref`` and against the
+    reference's ``make_flash_decode`` in interpret mode (fp32 2e-3)."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.kernel import make_flash_decode
+
+    Hq, Hkv = gqa
+    B, S, D = 2, 512, 64
+    q, k, v = _qkv(7, B, Hq, Hkv, 1, S, D)
+    want = np.asarray(make_flash_decode(B, Hq, Hkv, S, D, 128)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    tq, tk, tv = _port(q, k, v)
+    got = decode_combine_ref(tq, tk, tv, splits)
+    assert got.shape == (B, Hq, 1, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3)
+    torch.testing.assert_close(got, attention_ref(tq, tk, tv, causal=False), rtol=0, atol=2e-5)
+    part = decode_partials_ref(tq, tk, tv, splits)
+    assert part.shape == (B, Hq, splits, D + 2) and part.dtype == torch.float32
+    torch.testing.assert_close(K.decode_combine(part, torch.float32), got, rtol=0, atol=0)
+
+
+def test_decode_partials_hold_each_splits_softmax():
+    """m is the split's largest scaled score, l its exponentials' sum and O
+    their unnormalised average of V; a split's own o is O / l."""
+    q, k, v = _port(*_qkv(8, 1, 2, 1, 1, 384, 32))
+    part = decode_partials_ref(q, k, v, 3)
+    for s, (k0, k1) in enumerate(decode_split_bounds(384, 3)):
+        scores = torch.einsum("d,kd->k", q[0, 1, 0], k[0, 0, k0:k1]) * 32 ** -0.5
+        assert torch.isclose(part[0, 1, s, 32], scores.max())
+        torch.testing.assert_close(part[0, 1, s, 33], torch.exp(scores - scores.max()).sum())
+        torch.testing.assert_close(part[0, 1, s, :32] / part[0, 1, s, 33],
+                                   attention_ref(q, k[:, :, k0:k1], v[:, :, k0:k1], False)[0, 1, 0])
+
+
+def test_combine_of_a_single_split_is_the_plain_division():
+    part = torch.cat([torch.full((1, 1, 1, 4), 3.0), torch.tensor([[[[-2.0, 1.5]]]])], dim=-1)
+    torch.testing.assert_close(combine_partials_ref(part, torch.float32),
+                               torch.full((1, 1, 1, 4), 2.0))
+    zero = torch.zeros(1, 1, 1, 6)  # l = 0: o = O / max(l, 1e-30), as the reference divides
+    assert combine_partials_ref(zero, torch.float32).abs().max() == 0
+
+
+def test_decode_wrapper_validates_splits():
+    q1, k = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16), torch.zeros(1, 2, 256, 64,
+                                                                         dtype=torch.bfloat16)
+    for bad in (0, 3):  # 256 keys are two blocks
+        with pytest.raises(ValueError, match="splits"):
+            K.flash_decode(q1, k, k, 128, splits=bad)
+    q32, k32 = q1.float(), k.float()
+    with pytest.raises(ValueError, match="does not split"):
+        K.flash_decode(q32, k32, k32, 128, splits=2)
+    assert K.flash_decode(q32, k32, k32, 128, splits=1).shape == (1, 2, 1, 64)
+    assert K.flash_decode(q1, k, k, 128, splits=2).shape == (1, 2, 1, 64)  # the plain version
+    with pytest.raises(ValueError, match="partials"):
+        K.decode_combine(torch.zeros(1, 2, 2, 34))
+
+
 def _ablation_cases():
     from repro_torch.kernels.flash_attention import ablate
 
-    return [*ablate.VARIANTS.items(), *ablate.PROBES.items()]
+    return [*ablate.VARIANTS.items(), *ablate.PROBES.items(), *ablate.DECODE_VARIANTS.items(),
+            *ablate.DECODE_PROBES.items()]
+
+
+@pytest.mark.parametrize("part,want", [
+    ("fwd", {"as built", "no ping-pong", "probe: no Q K^T"}),
+    ("decode", {"as built", "decode: one consumer warp", "decode probe: loads only"}),
+    ("all", {"no ping-pong", "decode: CUDA-core kernel"}),
+])
+def test_ablation_builds_the_variants_of_each_part(part, want):
+    from repro_torch.kernels.flash_attention import ablate
+
+    edits = ablate.variant_edits(part)
+    assert want <= set(edits) and edits["as built"] == []
+    assert all(name.startswith("decode") for name in edits if name != "as built") == (part == "decode")
 
 
 @pytest.mark.parametrize("name,edits", _ablation_cases())
@@ -432,11 +576,132 @@ def test_card_entry_point_dispatch(cuda):
     K.reset_launch_counts()
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"flash_attention_fwd": 1, "flash_decode": 0}
+    assert K.LAUNCHES == {"flash_attention_fwd": 1, "flash_decode": 0, "flash_decode_combine": 0}
     assert K.LAST_LAUNCH["flash_attention_fwd"] == (128, 128, True)
     torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(), rtol=0, atol=3e-2)
     assert row_rel_err(got, attention_ref(q, k, v)) <= ROW_REL[torch.bfloat16]
     flash_attention(q[:, :, :1], k, v)
     flash_attention(q[:, :, :100], k[:, :, :100], v[:, :, :100])  # plain version
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"flash_attention_fwd": 1, "flash_decode": 1}
+    # four (b, KV head) units leave the card idle: the cache is split and combined
+    assert K.LAST_DECODE == {"route": "tma_mma", "splits": 2}
+    assert K.LAUNCHES == {"flash_attention_fwd": 1, "flash_decode": 1, "flash_decode_combine": 1}
+
+
+def _check_decode(got, q, k, v, what):
+    want = attention_ref(q, k, v, causal=False)
+    assert got.shape == q.shape and got.dtype == q.dtype and bool(torch.isfinite(got).all()), what
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[q.dtype], msg=what)
+    assert row_rel_err(got, want) <= ROW_REL[q.dtype], what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Skv", [1024 + 128, 1024 + 64])
+@pytest.mark.parametrize("B,Hq,Hkv", [(3, 8, 2), (1, 5, 1), (2, 32, 8)])
+def test_card_tma_decode_masks_the_end_of_a_unit(cuda, D, Skv, B, Hq, Hkv):
+    """Nine 128-key blocks, or eight and a half (bk 64): the last unit's box
+    runs into the next KV head's rows or past the tensor, and those keys
+    must add nothing; every split count, the default's too, leaves an
+    uneven last split."""
+    q, k, v = _card_qkv(cuda, torch.bfloat16, B, Hq, Hkv, 1, Skv, D, seed=3)
+    assert K.decode_route(torch.bfloat16, D) == "tma_mma"
+    assert K._lib().flash_decode_route(2, D) == K.DECODE_ROUTES["tma_mma"]
+    for splits in (None, 1, 2, 4):
+        K.reset_launch_counts()
+        got = K.flash_decode(q, k, v, 64, splits=splits)
+        torch.cuda.synchronize()
+        n = K.LAST_DECODE["splits"]
+        assert K.LAST_DECODE["route"] == "tma_mma" and (splits is None or n == splits)
+        assert K.LAUNCHES["flash_decode"] == 1 and K.LAST_LAUNCH["flash_decode"] == 64
+        assert K.LAUNCHES["flash_decode_combine"] == (n > 1)
+        _check_decode(got, q, k, v, f"splits={splits} ({n})")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [12, 16, 17])
+def test_card_tma_decode_groups_over_eight_heads(cuda, D, group):
+    """All 16 rows of the A tile, and a group of 17 that takes two chunks
+    (16 query heads and 1) of one KV head."""
+    q, k, v = _card_qkv(cuda, torch.bfloat16, 2, 2 * group, 2, 1, 1024, D, seed=4)
+    for splits in (1, 3):
+        _check_decode(K.flash_decode(q, k, v, 128, splits=splits), q, k, v, f"splits={splits}")
+    assert K.LAST_DECODE == {"route": "tma_mma", "splits": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_card_tma_decode_split_counts_agree(cuda, D):
+    """Splits 1, 2, 7 and the most allowed (one 128-key block each) give the
+    same output within the row bound."""
+    B, Hq, Hkv, Skv = 2, 8, 2, 4096 + 128
+    q, k, v = _card_qkv(cuda, torch.bfloat16, B, Hq, Hkv, 1, Skv, D, seed=5)
+    outs = {}
+    for splits in (1, 2, 7, Skv // 128):
+        outs[splits] = K.flash_decode(q, k, v, 128, splits=splits)
+        torch.cuda.synchronize()
+        assert K.LAST_DECODE["splits"] == splits
+        _check_decode(outs[splits], q, k, v, f"splits={splits}")
+    for splits, got in outs.items():
+        assert row_rel_err(got, outs[1]) <= ROW_REL[torch.bfloat16], splits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_card_tma_decode_fragments_exactly(cuda, D, splits):
+    """Each query head's one-hot q picks column d_h; K holds small integers
+    but for one key a head, whose column d_h holds 2048, so its score
+    outweighs every other by more than e^88 and p is exactly one-hot in
+    fp32; V holds small integers.  The output must then be that key's V
+    row exactly: a misplaced Q, K or V fragment, or a masked key that
+    leaks, shows as a wrong value, not as a tolerance miss."""
+    B, Hq, Hkv, Skv = 3, 16, 4, 1024 + 64
+    group = Hq // Hkv
+    rng = np.random.default_rng(6)
+    k = rng.integers(-4, 5, (B, Hkv, Skv, D)).astype(np.float32)
+    v = rng.integers(-8, 9, (B, Hkv, Skv, D)).astype(np.float32)
+    q = np.zeros((B, Hq, 1, D), np.float32)
+    picks = {}
+    for b in range(B):
+        for h in range(Hq):
+            kvh, g = divmod(h, group)
+            d = (7 * h + 5 * b + 3) % D
+            key = (389 * h + 127 * b + 61) % Skv if (b, h) != (0, 0) else Skv - 1
+            q[b, h, 0, d] = 1.0
+            k[b, kvh, key, d] = 2048.0
+            picks[b, h] = (kvh, key)
+    # a KV head's last box runs 64 rows into the next KV head's keys 0-63:
+    # make those the best match for this KV head's query heads (in columns
+    # that the next KV head's own query heads do not read), so a leak shows
+    for b in range(B):
+        for kvh in range(Hkv - 1):
+            for h in range(kvh * group, (kvh + 1) * group):
+                k[b, kvh + 1, :64, (7 * h + 5 * b + 3) % D] = 4096.0
+    want = np.stack([np.stack([v[b, picks[b, h][0], picks[b, h][1]] for h in range(Hq)])
+                     for b in range(B)])[:, :, None]
+    tq, tk, tv = (torch.from_numpy(a).to(cuda).bfloat16() for a in (q, k, v))
+    got = K.flash_decode(tq, tk, tv, 64, splits=splits).float().cpu().numpy()
+    assert K.LAST_DECODE == {"route": "tma_mma", "splits": splits}
+    bad = np.argwhere(got != want)
+    if len(bad):
+        b, h, _, d = bad[0]
+        pytest.fail(f"{len(bad)} wrong elements; o[{b}, {h}, {d}] = {got[b, h, 0, d]}, want "
+                    f"{want[b, h, 0, d]} (key {picks[b, h][1]} of KV head {picks[b, h][0]})")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("splits", [2, 5, 40])
+def test_card_decode_combine_matches_plain(cuda, D, splits):
+    """The combine kernel alone, on the plain version's partials."""
+    q, k, v = _card_qkv(cuda, torch.bfloat16, 3, 12, 3, 1, 40 * 128, D, seed=7)
+    part = decode_partials_ref(q, k, v, splits)
+    before = K.LAUNCHES["flash_decode_combine"]
+    got = K.decode_combine(part)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_decode_combine"] == before + 1
+    want = combine_partials_ref(part, torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=1e-2)
+    assert row_rel_err(got, combine_partials_ref(part, torch.float32)) <= 4e-3
