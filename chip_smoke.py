@@ -16,7 +16,8 @@ with nvcc first (one nvcc per source, in parallel):
 * the 2D transpose ((8192, 8192), fp32): ranks the 22 launches that fill
   the domain's depth and runs ``transpose`` at the winning launch;
 * the attention path at granite-3-2b's full width (bf16): ``tuned_matmul``
-  on the GEMMs of one layer at 16384 tokens, ``flash_attention`` on a causal
+  on the GEMMs of one layer at 16384 tokens (and on the out GEMM in fp32,
+  three TF32 passes held to an fp64 product), ``flash_attention`` on a causal
   prefill (B 4, S 4096) and on one decode token against a 32k cache
   (B 128, and B 8 with the cache split across the SMs), and
   ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
@@ -104,12 +105,18 @@ DECODE_SMALL_B = 8                       # one user at low concurrency: the spli
 QUEUED_CALLS = 10                        # calls back to back in a queued timing
 MATMUL_EDGE_SHAPES = ((1000, 2056, 776), (129, 40, 264))  # (M, K, N), no tile divides them
 MATMUL_MANY_TILES = (8200, 264, 8200)    # > 132 x 4 tiles: each persistent CTA walks many
+MATMUL_F32_TAIL = (300, 1028, 260)       # fp32 only (K % 8 = 4): a K tail of 4 in the last slab
 FLAT_LAUNCHES = 22                       # of the 168, those with z extent bz·fz = 1
 PEAK_BF16_FLOPS = 989e12                 # H100 SXM data sheet, dense bf16 tensor cores
+PEAK_TF32_FLOPS = 494.7e12               # H100 SXM data sheet, dense TF32 tensor cores
 # tolerances on the card: bf16 GEMM against the fp32-accumulated product cast
 # to bf16; fp32 GEMM as tests/test_kernels.py:61 (different sum orders);
 # flash as tests/test_kernels.py:102 (bf16) and 2e-3 (fp32)
 GEMM_TOL = {2: dict(rtol=1e-2, atol=1e-2), 4: dict(rtol=1e-4, atol=8e-4)}
+# the fp32 GEMM runs on TF32 tensor cores in three passes: its RMS and max
+# abs error against an fp64 product may be at most this many times those of
+# torch.matmul with TF32 off (one TF32 pass reads hundreds of times)
+F32_GATE = 3.0
 FLASH_TOL = {2: dict(rtol=0.0, atol=3e-2), 4: dict(rtol=0.0, atol=2e-3)}
 # an attention output is a softmax average, about sqrt(e / Skv) in size far
 # from the first keys (0.009 at a 32k cache), so FLASH_TOL alone passes a
@@ -1035,7 +1042,8 @@ def run_matmuls(args, torch, dev) -> list:
     torch.cuda.synchronize()
     launches = dict(MK.LAUNCHES)
     n_calls = sum(mult for _, _, mult in operands.values())
-    if launches["matmul_tiled"] != n_calls or MK.LAST_LAUNCH["matmul_tiled"] != default:
+    if launches != {"matmul_tiled": n_calls, "matmul_split_b": 0} or \
+            MK.LAST_LAUNCH["matmul_tiled"] != ("wgmma", default):
         raise AssertionError(f"matmul main path: launches {launches}, last "
                              f"{MK.LAST_LAUNCH['matmul_tiled']}; want {n_calls} at {default}")
     plain = {name: matmul_ref(a, b) for name, (a, b, _) in operands.items()}
@@ -1057,7 +1065,8 @@ def run_matmuls(args, torch, dev) -> list:
                 for name, (a, b, mult) in operands.items()}
         torch.cuda.synchronize()
         launches = dict(MK.LAUNCHES)
-        if launches["matmul_tiled"] != n_calls or MK.LAST_LAUNCH["matmul_tiled"] != tile:
+        if launches != {"matmul_tiled": n_calls, "matmul_split_b": 0} or \
+                MK.LAST_LAUNCH["matmul_tiled"] != ("wgmma", tile):
             raise AssertionError(f"{cfg}: launches {launches}")
         err = max(check_close(torch, o, plain[name], f"tuned_matmul {name} {cfg}", **GEMM_TOL[2])
                   for name in operands for o in outs[name])
@@ -1066,21 +1075,7 @@ def run_matmuls(args, torch, dev) -> list:
         records[tile] = {"name": f"matmul_tiled[{'x'.join(map(str, tile))}]",
                          "launches": launches["matmul_tiled"], "max_abs_err": err}
 
-    # M3. fp32 (CUDA cores) on the out GEMM, and both dtypes on ragged shapes
-    a32, b32 = operands["out"][0].float(), operands["out"][1].float()
-    want32 = matmul_ref(a32, b32)
-    for tile in MK.TILES[4]:
-        err = check_close(torch, MK.matmul_tiled(a32, b32, *tile), want32,
-                          f"matmul_tiled fp32 {tile}", **GEMM_TOL[4])
-        ms = cuda_ms(torch, lambda: MK.matmul_tiled(a32, b32, *tile), warmup=1, reps=5)
-        b_ms = max(2 * a32.shape[0] * a32.shape[1] * b32.shape[1] / PEAK_FLOPS[4],
-                   (a32.numel() + b32.numel() + want32.numel()) * 4 / HBM_BYTES_PER_S) * 1e3
-        say(f"matmul fp32 out GEMM {tuple(a32.shape)}x{tuple(b32.shape)} tile {tile}: max abs "
-            f"error {err!r} (rtol/atol {GEMM_TOL[4]}); {ms:.4f} ms (median of 5), bound "
-            f"{b_ms:.4f} ms at {PEAK_FLOPS[4] / 1e12:.0f} TFLOP/s fp32")
-    lib32 = cuda_ms(torch, lambda: torch.matmul(a32, b32), warmup=1, reps=5)
-    say(f"matmul fp32 library torch.matmul (allow_tf32=False): {lib32:.4f} ms (median of 5)")
-    del a32, b32, want32
+    # M3. both dtypes on ragged shapes (the fp32 main path is run_matmul_fp32)
     for shape in MATMUL_EDGE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             a = torch.randn(shape[:2], device=dev, generator=gen).to(dtype)
@@ -1162,6 +1157,151 @@ def run_matmuls(args, torch, dev) -> list:
     return kernels
 
 
+def gemm_errors(torch, got, exact) -> tuple:
+    """(RMS, max abs) of ``got`` against the fp64 product ``exact``."""
+    d = got.double() - exact
+    return float(d.pow(2).mean().sqrt()), float(d.abs().max())
+
+
+def tf32_matmul(torch, a, b):
+    """``torch.matmul`` with TF32 allowed (one TF32 pass), the flag restored."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    out = torch.matmul(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
+def run_matmul_fp32(args, torch, dev) -> list:
+    """The layer's out GEMM in fp32 through ``tuned_matmul`` (the main path:
+    the split pass and the split-TF32 GEMM, each launch counted), operands
+    drawn in fp32: a value drawn in bf16 is exact in TF32, so one TF32 pass
+    would pass a check on it.  The kernel is held to ``matmul_ref`` within
+    GEMM_TOL and to an fp64 product within F32_GATE times the error of
+    ``torch.matmul`` with TF32 off, a gate shown to reject a one-pass TF32
+    product; the split pass bit for bit against ``ref.split_tf32``; the
+    other tile, a K tail; times beside both bounds, the plain version and
+    ``torch.matmul``, in turns."""
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.kernels.matmul import kernel as MK
+    from repro_torch.kernels.matmul.generator import DEFAULT
+    from repro_torch.kernels.matmul.ops import tuned_matmul
+    from repro_torch.kernels.matmul.ref import matmul_ref, split_tf32
+    from repro_torch.layers.shapes import attention_proj_shapes
+
+    K, N = attention_proj_shapes(CONFIG.d_model, CONFIG.n_heads, CONFIG.n_kv,
+                                 CONFIG.resolved_head_dim)["out"]
+    M = T_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    a = torch.randn((M, K), device=dev, generator=gen)
+    b = torch.randn((K, N), device=dev, generator=gen) * K ** -0.5
+    default = (DEFAULT[4]["bm"], DEFAULT[4]["bn"], DEFAULT[4]["bk"])
+    flops = 2.0 * M * K * N
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = (M * K + K * N + M * N) * 4 / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    cc_ms = flops / PEAK_FLOPS[4] * 1e3
+    say(f"matmul fp32: the out GEMM {M}x{K}x{N}, operands drawn in fp32; bound "
+        f"{b_ms:.4f} ms ({b_by}: three TF32 passes at {PEAK_TF32_FLOPS / 1e12:.1f} TFLOP/s, "
+        f"the bytes {t_bytes:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); one fp32 pass on "
+        f"the CUDA cores at {PEAK_FLOPS[4] / 1e12:.0f} TFLOP/s: {cc_ms:.4f} ms")
+
+    want = matmul_ref(a, b)  # torch.matmul in fp32, TF32 off
+    exact = a.double() @ b.double()
+    off = gemm_errors(torch, want, exact)
+    one = gemm_errors(torch, tf32_matmul(torch, a, b), exact)
+    gate = tuple(F32_GATE * e for e in off)
+    if one[0] <= gate[0] and one[1] <= gate[1]:
+        raise AssertionError(f"the {F32_GATE}x error gate {gate} passes a one-pass TF32 product "
+                             f"(RMS, max abs {one})")
+    records = {}
+    for tile in MK.TILES[4]:
+        cfg = None if tile == default else dict(zip(("bm", "bn", "bk"), tile))
+        reset_counts()
+        got = tuned_matmul(a, b, cfg)
+        torch.cuda.synchronize()
+        launches = dict(MK.LAUNCHES)
+        if launches != {"matmul_tiled": 1, "matmul_split_b": 1} or \
+                MK.LAST_LAUNCH["matmul_tiled"] != ("split_tf32", tile):
+            raise AssertionError(f"matmul fp32 {cfg}: launches {launches}, last "
+                                 f"{MK.LAST_LAUNCH['matmul_tiled']}")
+        err = check_close(torch, got, want, f"tuned_matmul out fp32 {cfg}", **GEMM_TOL[4])
+        errs = gemm_errors(torch, got, exact)
+        del got
+        if errs[0] > gate[0] or errs[1] > gate[1]:
+            raise AssertionError(f"matmul_split_tf32 {tile}: error against fp64 (RMS, max abs) "
+                                 f"{errs} exceeds {F32_GATE}x torch.matmul's (TF32 off) {off}")
+        say(f"matmul fp32 {'main path' if cfg is None else 'tile'}: tuned_matmul(config={cfg}) "
+            f"ran split_tf32 at {tile}; launches {launches}; max abs error against matmul_ref "
+            f"{err!r} ({GEMM_TOL[4]}); against fp64, RMS and max abs: kernel {errs[0]!r}, "
+            f"{errs[1]!r}; torch.matmul TF32 off {off[0]!r}, {off[1]!r} "
+            f"({errs[0] / off[0]:.3f}x, {errs[1] / off[1]:.3f}x; the gate is {F32_GATE}x); one "
+            f"TF32 pass (torch.matmul, allow_tf32=True) {one[0]!r}, {one[1]!r} "
+            f"({one[0] / off[0]:.1f}x, {one[1] / off[1]:.1f}x: the gate rejects it)")
+        records[tile] = {"name": f"matmul_split_tf32[{'x'.join(map(str, tile))}]",
+                         "config": dict(zip(("bm", "bn", "bk"), tile)),
+                         "launches": launches["matmul_tiled"], "max_abs_err": err,
+                         "split_b_launches": launches["matmul_split_b"]}
+    del exact, want
+
+    # the split pass, bit for bit against its plain version
+    hi, lo = MK.split_b(b)
+    phi, plo = split_tf32(b.mT)
+    torch.cuda.synchronize()
+    for got, plain, part in ((hi, phi, "hi"), (lo, plo, "lo")):
+        if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
+            raise AssertionError(f"matmul_split_b {part} differs from ref.split_tf32")
+    del phi, plo
+    say(f"matmul_split_b of B {tuple(b.shape)}: hi and lo ({N}, {K}) equal ref.split_tf32(b.mT) "
+        f"bit for bit")
+    tail = tuple(MATMUL_F32_TAIL)
+    ta = torch.randn(tail[:2], device=dev, generator=gen)
+    tb = torch.randn(tail[1:], device=dev, generator=gen) * tail[1] ** -0.5
+    for tile in MK.TILES[4]:
+        check_close(torch, MK.matmul_tiled(ta, tb, *tile), matmul_ref(ta, tb),
+                    f"matmul_tiled fp32 K tail {tail} {tile}", **GEMM_TOL[4])
+    say(f"matmul fp32 K tail {tail} (K % 32 = {tail[1] % 32}): every tile within {GEMM_TOL[4]}")
+    del ta, tb
+
+    # times: the GEMM alone on B's parts, the split pass alone, the call,
+    # torch.matmul with TF32 off (the yardstick) and on (context)
+    plain_ms = cuda_ms(torch, lambda: matmul_ref(a, b), warmup=1, reps=5)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(a, b))
+    tf32_ms = cuda_ms(torch, lambda: tf32_matmul(torch, a, b))
+    split_ms = cuda_ms(torch, lambda: MK.split_b(b))
+    split_plain = cuda_ms(torch, lambda: split_tf32(b.mT), warmup=1, reps=5)
+    split_bound = (K * N * 4 + 2 * N * K * 4) / HBM_BYTES_PER_S * 1e3
+    gemms = {records[t]["name"]: (lambda t=t: MK.split_tf32_gemm(a, hi, lo, t))
+             for t in MK.TILES[4]}
+    call = lambda: MK.matmul_tiled(a, b, *default)
+    turns = interleaved_ms(torch, {**gemms, "matmul_tiled call": call,
+                                   "torch.matmul": lambda: torch.matmul(a, b)}, rounds=10)
+    call_ms = cuda_ms(torch, call)
+    kernels = []
+    for tile in MK.TILES[4]:
+        rec = records[tile]
+        ms = cuda_ms(torch, gemms[rec["name"]])
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   in_turns_ms=turns[rec["name"]], library_in_turns_ms=turns["torch.matmul"],
+                   source=MATMUL_SOURCE, replaces=MATMUL_REPLACES)
+        say(f"time {rec['name']} (the GEMM alone): {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+            f"of fp32 product, {b_ms / ms * 100:.1f}% of the three-pass bound, "
+            f"{cc_ms / ms:.2f}x the CUDA cores' ceiling rate); in turns {rec['in_turns_ms']:.4f} "
+            f"against torch.matmul (TF32 off) {turns['torch.matmul']:.4f} ms "
+            f"({rec['in_turns_ms'] / turns['torch.matmul']:.4f}x)")
+        kernels.append(rec)
+    say(f"time matmul fp32 out GEMM: the call matmul_tiled (split pass + GEMM) {call_ms:.4f} ms, "
+        f"in turns {turns['matmul_tiled call']:.4f}; split pass alone {split_ms:.4f} ms (byte "
+        f"bound {split_bound:.4f} ms, plain {split_plain:.4f} ms); plain {plain_ms:.4f} ms "
+        f"(median of 5); library torch.matmul (allow_tf32=False) {lib_ms:.4f} ms; one TF32 pass "
+        f"(allow_tf32=True, context, not a yardstick: it gives up fp32's accuracy) "
+        f"{tf32_ms:.4f} ms; {card_line()}")
+    kernels.append({"name": "matmul_split_b", "launches": records[default]["split_b_launches"],
+                    "max_abs_err": 0.0, "ms": split_ms, "plain_ms": split_plain,
+                    "bound_ms": split_bound, "bound_by": "bytes", "library_ms": None,
+                    "source": MATMUL_SOURCE, "replaces": MATMUL_REPLACES})
+    return kernels
+
+
 def attention_bound(B, Hq, Hkv, Sq, Skv, D, causal, elem_bytes) -> tuple:
     """Least time (ms) for one attention call: q, k, v read once and o written
     once at the HBM rate, against 4·D operations (QK^T and PV) for every
@@ -1189,6 +1329,36 @@ def exp_floor(B, Hq, S, bq, bk, torch) -> tuple:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = [float(x) for x in clocks]
     return exps, triangle, sms, mhz, [exps / (16 * sms * f * 1e6) * 1e3 for f in mhz]
+
+
+def sdpa_fp32(torch, q, k, v, causal: bool, what: str) -> float:
+    """Time ``F.scaled_dot_product_attention`` on fp32 q, k, v (TF32 off) as
+    dispatched and under ``sdpa_kernel`` for each backend that takes the
+    call; name the backend the dispatched call took, by the one whose output
+    equals the dispatched output bit for bit.  Returns the dispatched time."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    call = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+    dispatched = call()
+    parts, same = [], []
+    for name in ("MATH", "EFFICIENT_ATTENTION", "FLASH_ATTENTION", "CUDNN_ATTENTION"):
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            try:
+                out = call()
+                torch.cuda.synchronize()
+            except RuntimeError as exc:  # the backend does not take this call
+                parts.append(f"{name} refuses ({str(exc).splitlines()[0][:80]})")
+                continue
+            parts.append(f"{name} {cuda_ms(torch, call):.4f} ms")
+        if torch.equal(out, dispatched):
+            same.append(name)
+        del out
+    ms = cuda_ms(torch, call)
+    say(f"{what}: library F.scaled_dot_product_attention fp32 (allow_tf32=False, enable_gqa) "
+        f"as dispatched {ms:.4f} ms, which took {' / '.join(same) or 'no backend named here'} "
+        f"(its output equals that backend's bit for bit); per backend: {'; '.join(parts)}")
+    return ms
 
 
 def run_flash(args, torch, dev) -> list:
@@ -1294,6 +1464,7 @@ def run_flash(args, torch, dev) -> list:
             f"row relative error {rel!r} (bound {FLASH_ROW_REL[4]}); "
             f"{ms:.4f} ms (median of 5), operation bound {b32_ms:.4f} ms at "
             f"{PEAK_FLOPS[4] / 1e12:.0f} TFLOP/s fp32")
+    sdpa_fp32(torch, q32, k32, v32, True, "prefill fp32 B=1")
     del q, k, v, q32, k32, v32, want32
     torch.cuda.empty_cache()
 
@@ -1350,6 +1521,7 @@ def run_flash(args, torch, dev) -> list:
     say(f"decode fp32 on batch 0-7 ({route32}): max abs error {e32!r} ({FLASH_TOL[4]}), row "
         f"relative error {r32!r} (bound {FLASH_ROW_REL[4]}); bk {bk} "
         f"{ms32:.4f} ms (median of 5), byte bound {b32_ms:.4f} ms")
+    sdpa_fp32(torch, q32, k32, v32, False, "decode fp32 on batch 0-7")
     del q32, k32, v32
     plain = cuda_ms(torch, lambda: [attention_ref(q[i:i + DECODE_SLICE], k[i:i + DECODE_SLICE],
                                                   v[i:i + DECODE_SLICE], True)
@@ -1500,6 +1672,8 @@ def run_attention(args, torch, dev) -> list:
     """The attention path at granite-3-2b's full width: the layer's GEMMs,
     prefill and decode attention, and the attention layer itself."""
     kernels = run_matmuls(args, torch, dev)
+    torch.cuda.empty_cache()
+    kernels += run_matmul_fp32(args, torch, dev)
     torch.cuda.empty_cache()
     kernels += run_flash(args, torch, dev)
     torch.cuda.empty_cache()

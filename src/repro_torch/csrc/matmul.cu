@@ -44,15 +44,49 @@
 //   cudaGetDriverEntryPointByVersion, so nothing links against libcuda;
 //   CUDA 12.5 or later) and passed as __grid_constant__ parameters.
 //
-//   fp32: CUDA-core FMAs (no TF32: the reference's fp32 tolerance would not
-//   survive it).  256 threads as 16 x 16; each thread owns TM x TN outputs
-//   in groups of 4 rows / 4 columns at a stride of 64, so that its
-//   float4 reads from shared memory are conflict-free; A is stored
-//   transposed in shared memory; the next slab is loaded into registers
-//   while the current one is multiplied (two shared buffers).  Bound:
-//   fp32 operations (67 TFLOP/s).  Rows and columns beyond M, N and the K
-//   tail are masked (zero-fill on load, guarded stores); its 16-byte loads
-//   need K and N multiples of 4 and 16-byte-aligned operands.
+//   fp32: bound by the tensor cores too, once they take it.  The CUDA
+//   cores' fp32 rate is 67 TFLOP/s; the TF32 tensor cores run 494.7
+//   (dense, H100 SXM data sheet), but one TF32 pass keeps 11 of the 24
+//   significant bits of each operand.  So the product is taken in three
+//   TF32 passes ("3xTF32"): each operand x splits into hi = tf32(x) and
+//   lo = tf32(x - hi), and a_lo b_hi + a_hi b_lo + a_hi b_hi is summed in
+//   fp32; the dropped a_lo b_lo and the rounding of the lo parts are about
+//   2^-22 of each product, below fp32's own summation error over K.  The
+//   least time is that of three TF32 products (0.8335 ms at the 16384 x
+//   2048 x 2048 GEMM, 2.5x under the CUDA cores' 2.0513 ms).
+//   - matmul_split_b_kernel: TF32 wgmma takes both operands K-major (it
+//     has no transpose mode), so B (K, N) is read once and written as B^T
+//     split into two (N, K) arrays, hi and lo, through a shared tile (both
+//     sides coalesced): 2 x 16 MB at that GEMM.
+//   - matmul_split_tf32_kernel: the bf16 kernel's shape.  Persistent
+//     CTAs walk the tiles in the grouped raster; a producer warp keeps a
+//     TMA ring full, each stage a (BM x 32) slab of A (raw fp32, 128-byte
+//     rows and swizzle) and a (BN x 32) slab of B_hi and of B_lo; two
+//     consumer warpgroups, 64 rows each, read their A fragments by
+//     ldmatrix through the swizzle, split them in registers (cvt.rna.tf32)
+//     once a slab, and issue wgmma m64n128k8 .tf32 with A from registers,
+//     the small terms first.  A is read from device memory once and split
+//     once a slab, not once a pass.  The tensor cores' fp32 sums do not
+//     round to nearest, so (kPromote) each slab is summed in a second
+//     accumulator and added into the tile's on the CUDA cores; the two
+//     accumulators fix the tile at 128 x 128 x 32, 4 stages.  The
+//     epilogue stores fp32 through swizzled shared buffers with TMA.
+//   Measured at that GEMM (kernels/matmul/ablate.py --part fp32, H100 SXM,
+//   700 W): 1.02 ms, 82 % of the bound, against 2.89 ms for torch.matmul
+//   with TF32 off, with 0.24x its RMS error against an fp64 product.  A
+//   one-pass probe takes 0.56 ms, as long as torch.matmul's own one TF32
+//   pass: three passes cost 1.8x one.
+//   Edges as in bf16: TMA zero-fills the loads (ragged M and N, the K
+//   tail) and clips the stores; the 16-byte strides need K and N
+//   multiples of 4.
+//
+//   The fp32 CUDA-core kernel that the split route replaced stays as the
+//   ablation's comparator (matmul_tiled_launch with elem_bytes 4 and tile
+//   128 x 128 x 16): 256 threads as 16 x 16, each owning TM x TN outputs in
+//   groups of 4 at a stride of 64 (conflict-free float4 reads of shared
+//   memory), A transposed in shared memory, the next slab loaded into
+//   registers while the current one is multiplied; masked edges; K and N
+//   multiples of 4.
 //
 // Every launcher has a plain C interface for ctypes, launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() after the launch
@@ -305,7 +339,280 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: three TF32 passes on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitBK = 32;                      // one 128-byte swizzle row of fp32
+constexpr int kSplitBox = 32;                     // C chunk width (128 bytes of fp32)
+constexpr int kSplitCBytes = 64 * kSplitBox * 4;  // one 64 x 32 epilogue chunk of C
+constexpr int kSplitT = 32;                       // the B split pass's square tile
+// 3: lo*B_hi + hi*B_lo + hi*B_hi; 1: hi*B_hi alone (a one-pass TF32 product)
+constexpr int kPasses = 3;
+// each 32-deep slab summed in a second accumulator, then added into the
+// tile's in fp32 on the CUDA cores: the tensor cores' own sums do not round
+// to nearest (summed straight, the out GEMM's RMS error against fp64 reads
+// 17.6x torch.matmul's, 0.24x with slab sums).  The two accumulators take
+// 128 registers a thread, so the tile is 128 wide: a 256-wide one has no
+// room for the second
+constexpr bool kPromote = true;
+constexpr int kSplitBN = 128;
+
+// the TF32 value nearest x (ties away from zero), as fp32 bits with the low
+// 13 mantissa bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// keep the compiler from moving register work on a wgmma accumulator above
+// the wgmma wait: the tensor cores write these registers asynchronously
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128 fp32 fragment, 64 registers a thread) += A (registers, TF32) *
+// B (smem, TF32, K-major); scale-d 0 overwrites d.  TF32 has no transpose
+// mode: both operands are K-major
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// one slab's products into d.  B_hi and B_lo: K-major, 8-row groups 1024
+// bytes apart; a k8 step is 32 bytes along the swizzled row.  The small
+// terms go first, while the sum is small; `keep` is the scale-d of the
+// first product (0 starts d anew)
+__device__ __forceinline__ void slab_mma(float (&d)[kSplitBN / 2], const uint32_t (&hi)[kSplitBK / 8][4],
+                                         const uint32_t (&lo)[kSplitBK / 8][4], uint32_t bhi,
+                                         uint32_t blo, int keep) {
+  if constexpr (kPasses == 3) {
+#pragma unroll
+    for (int kk = 0; kk < kSplitBK / 8; ++kk)
+      wgmma_tf32_n128(d, lo[kk], smem_desc(bhi + kk * 32, 16, 1024), kk > 0 ? 1 : keep);
+#pragma unroll
+    for (int kk = 0; kk < kSplitBK / 8; ++kk)
+      wgmma_tf32_n128(d, hi[kk], smem_desc(blo + kk * 32, 16, 1024), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kSplitBK / 8; ++kk)
+    wgmma_tf32_n128(d, hi[kk], smem_desc(bhi + kk * 32, 16, 1024),
+                   (kPasses == 3 || kk > 0) ? 1 : keep);
+}
+
+struct SplitTile {
+  static constexpr int kABytes = kBM * kSplitBK * 4;        // a (BM x 32) slab of A
+  static constexpr int kBBytes = kSplitBN * kSplitBK * 4;   // a (BN x 32) slab of B_hi or of B_lo
+  static constexpr int kStageBytes = kABytes + 2 * kBBytes;
+  static constexpr int kEpiBytes = 2 * 2 * kSplitCBytes;  // two chunk buffers per consumer
+  static constexpr int kFitStages = (kSmemLimit - 2048 - kEpiBytes) / kStageBytes;
+  static constexpr int kStages = kFitStages;
+  static constexpr int kSmem = kStages * kStageBytes + kEpiBytes + 1024 + 2 * kStages * 8;
+  static_assert(kStages >= 2 && kSmem <= kSmemLimit, "shared memory");
+};
+
+// B (K, N) row-major -> B^T as two (N, K) K-major arrays, hi = tf32(b) and
+// lo = tf32(b - hi), through a (32 x 33) shared tile so that the reads run
+// along N and the writes along K; one CTA of 32 x 8 threads per 32 x 32
+// tile, the tiles on a 1D grid (N tiles fastest)
+__global__ void __launch_bounds__(256)
+matmul_split_b_kernel(const float* __restrict__ B, float* __restrict__ hi, float* __restrict__ lo,
+                      int K, int N) {
+  __shared__ float tile[kSplitT][kSplitT + 1];
+  const int n_blocks = (N + kSplitT - 1) / kSplitT;
+  const int n0 = (blockIdx.x % n_blocks) * kSplitT;
+  const int k0 = (blockIdx.x / n_blocks) * kSplitT;
+  const int tx = threadIdx.x % kSplitT, ty = threadIdx.x / kSplitT;
+#pragma unroll
+  for (int i = ty; i < kSplitT; i += 256 / kSplitT) {
+    const int k = k0 + i, n = n0 + tx;
+    if (k < K && n < N) tile[i][tx] = B[(int64_t)k * N + n];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = ty; i < kSplitT; i += 256 / kSplitT) {
+    const int n = n0 + i, k = k0 + tx;
+    if (n < N && k < K) {
+      const float x = tile[tx][i];
+      const float h = __uint_as_float(tf32_rna(x));
+      hi[(int64_t)n * K + k] = h;
+      lo[(int64_t)n * K + k] = __uint_as_float(tf32_rna(x - h));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+matmul_split_tf32_kernel(const __grid_constant__ CUtensorMap tma_a,
+                         const __grid_constant__ CUtensorMap tma_bhi,
+                         const __grid_constant__ CUtensorMap tma_blo,
+                         const __grid_constant__ CUtensorMap tma_c, int M, int N, int K) {
+  using T = SplitTile;
+  constexpr int BN = kSplitBN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sa = base;                                // [stages][BM][32], swizzled
+  const uint32_t sb = base + T::kStages * T::kABytes;      // [stages][hi, lo][BN][32], swizzled
+  const uint32_t sc = sb + T::kStages * 2 * T::kBBytes;    // [2 consumers][2][64][32], swizzled
+  const uint32_t bars = sc + T::kEpiBytes;                 // full[stages], empty[stages]
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (T::kStages + s); };
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int tid = threadIdx.x % kWgThreads;
+  const int m_tiles = (M + kBM - 1) / kBM;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = m_tiles * n_tiles;
+  const int ktiles = (K + kSplitBK - 1) / kSplitBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(full(s), 1);   // the producer's arrive.expect_tx
+      mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int mt, nt;
+        tile_coords(t, m_tiles, n_tiles, mt, nt);
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % T::kStages;
+          const uint32_t b = sb + s * 2 * T::kBBytes;
+          mbar_wait(empty(s), ((it / T::kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(full(s), T::kStageBytes);
+          tma_load_2d(sa + s * T::kABytes, &tma_a, kt * kSplitBK, mt * kBM, full(s));
+          tma_load_2d(b, &tma_bhi, kt * kSplitBK, nt * BN, full(s));
+          tma_load_2d(b + T::kBBytes, &tma_blo, kt * kSplitBK, nt * BN, full(s));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int half = wg - 1;  // rows 64*half .. 64*half+63 of the tile
+    const int warp = tid / 32, lane = tid % 32;
+    // ldmatrix.x4 of k8 step kk: lane l gives the address of row l % 8
+    // (+8 for l % 16 >= 8) of its warp's 16 rows, 16-byte chunk 2 kk + l / 16
+    // (4 fp32 of k), which the 128-byte swizzle puts at chunk ^ (row % 8).
+    // Matrix i lands in register i: thread (g = lane / 4, q = lane % 4) gets
+    // A(g, q), A(g+8, q), A(g, q+4), A(g+8, q+4) of the 16 x 8 step, the
+    // m64nNk8 TF32 A fragment
+    const int lrow = half * 64 + warp * 16 + (lane & 15);
+    const int lchunk = lane >> 4;
+    float acc[BN / 2];
+    float part[BN / 2];  // the slab sum (unused without kPromote)
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int mt, nt;
+      tile_coords(t, m_tiles, n_tiles, mt, nt);
+      if constexpr (kPromote) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      }
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int s = it % T::kStages;
+        mbar_wait(full(s), (it / T::kStages) & 1);
+        const uint32_t a0 = sa + s * T::kABytes + lrow * 128;
+        const uint32_t bhi = sb + s * 2 * T::kBBytes;
+        const uint32_t blo = bhi + T::kBBytes;
+        // A split once a slab, in registers: hi = tf32(a), lo = tf32(a - hi)
+        uint32_t hi[kSplitBK / 8][4], lo[kSplitBK / 8][4];
+#pragma unroll
+        for (int kk = 0; kk < kSplitBK / 8; ++kk) {
+          uint32_t x[4];
+          ldmatrix_x4(x, a0 + (((2 * kk + lchunk) ^ (lrow & 7)) << 4));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hi[kk][e] = tf32_rna(__uint_as_float(x[e]));
+            lo[kk][e] = tf32_rna(__uint_as_float(x[e]) - __uint_as_float(hi[kk][e]));
+          }
+        }
+        wgmma_fence();
+        if constexpr (kPromote)
+          slab_mma(part, hi, lo, bhi, blo, 0);
+        else
+          slab_mma(acc, hi, lo, bhi, blo, kt > 0 ? 1 : 0);
+        wgmma_commit();
+        wgmma_wait<0>();  // the A fragments are reused next slab, and the slab sum is read now
+        if (tid == 0) mbar_arrive(empty(s));
+        if constexpr (kPromote) {
+          fence_regs(part);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+        }
+      }
+      fence_regs(acc);
+
+      // the epilogue, in 32-column chunks through two swizzled buffers, one
+      // TMA store per chunk, which clips what lies outside C and runs on
+      // while the next tile is multiplied.  Register 4j+e of the m64nBN
+      // fragment holds row 16*warp + lane/4 (+8 for e >= 2), column
+      // 8j + 2*(lane%4) + (e & 1): bytes 32 jj + 8 (lane%4) + 4 (e & 1) of
+      // the chunk's row, 16-byte unit 2 jj + (lane%4) / 2
+      const int r = warp * 16 + lane / 4;
+#pragma unroll
+      for (int c = 0; c < BN / kSplitBox; ++c) {
+        const uint32_t buf = sc + (half * 2 + (c & 1)) * kSplitCBytes;
+        if (tid == 0) tma_store_wait_read<1>();  // the store that last read buf is done
+        warpgroup_sync(1 + half);
+#pragma unroll
+        for (int jj = 0; jj < kSplitBox / 8; ++jj) {
+          const int j = c * (kSplitBox / 8) + jj;
+          const uint32_t off = r * 128 + (((2 * jj + (lane % 4) / 2) ^ (r & 7)) << 4) + (lane % 2) * 8;
+          *reinterpret_cast<float2*>(smem_raw + (buf - raw) + off) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(smem_raw + (buf - raw) + off + 8 * 128) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        fence_async_shared();
+        warpgroup_sync(1 + half);
+        if (tid == 0) tma_store_2d(&tma_c, buf, nt * BN + c * kSplitBox, mt * kBM + half * 64);
+      }
+    }
+    if (tid == 0) tma_store_wait_all();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores: the split route's "before", kept for the ablation
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Threads = 256;
@@ -423,6 +730,15 @@ matmul_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+// one CTA per SM at most (persistent), fewer when there are fewer tiles
+cudaError_t persistent_grid(int tiles, int& grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  grid = tiles < sms ? tiles : sms;
+  return err;
+}
+
 template <int BN>
 int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t s) {
   using T = WgmmaTile<BN>;
@@ -431,16 +747,41 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, cud
   if (rc == 0) rc = encode_bf16(&mb, b, K, N, kBK);  // B (K, N): boxes of 64 k x 64 n
   if (rc == 0) rc = encode_bf16(&mc, c, M, N, 64);   // C (M, N): chunks of 64 rows x 64 n
   if (rc != 0) return rc;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int grid = 0;
+  cudaError_t err = persistent_grid(((M + kBM - 1) / kBM) * ((N + BN - 1) / BN), grid);
   auto kern = matmul_wgmma_kernel<BN>;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
-  const int grid = tiles < sms ? tiles : sms;  // persistent: at most one CTA per SM
   kern<<<grid, kWgmmaThreads, T::kSmem, s>>>(ma, mb, mc, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+int launch_split_b(const void* b, void* hi, void* lo, int K, int N, cudaStream_t s) {
+  const int blocks = ((N + kSplitT - 1) / kSplitT) * ((K + kSplitT - 1) / kSplitT);
+  matmul_split_b_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(b),
+                                               static_cast<float*>(hi), static_cast<float*>(lo),
+                                               K, N);
+  return (int)cudaGetLastError();
+}
+
+int launch_split_tf32(const void* a, const void* bhi, const void* blo, void* c, int M, int N, int K,
+                      cudaStream_t s) {
+  using T = SplitTile;
+  constexpr int BN = kSplitBN;
+  CUtensorMap ma, mh, ml, mc;
+  int rc = encode_f32(&ma, a, M, K, kBM);            // A (M, K): boxes of 128 rows x 32 k
+  if (rc == 0) rc = encode_f32(&mh, bhi, N, K, BN);  // B_hi (N, K): boxes of BN n x 32 k
+  if (rc == 0) rc = encode_f32(&ml, blo, N, K, BN);  // B_lo likewise
+  if (rc == 0) rc = encode_f32(&mc, c, M, N, 64);    // C (M, N): chunks of 64 rows x 32 n
+  if (rc != 0) return rc;
+  int grid = 0;
+  cudaError_t err = persistent_grid(((M + kBM - 1) / kBM) * ((N + BN - 1) / BN), grid);
+  auto kern = matmul_split_tf32_kernel;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kWgmmaThreads, T::kSmem, s>>>(ma, mh, ml, mc, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -460,8 +801,9 @@ int launch_f32(const void* a, const void* b, void* c, int M, int N, int K, cudaS
 
 extern "C" {
 
-// elem_bytes 2 (bf16) or 4 (fp32) and a (bm, bn, bk) of the instantiated
-// tiles; anything else returns cudaErrorInvalidValue without launching.
+// elem_bytes 2 (bf16, wgmma) or 4 (fp32, the CUDA-core kernel) and a
+// (bm, bn, bk) of the instantiated tiles; anything else returns
+// cudaErrorInvalidValue without launching.
 int matmul_tiled_launch(int elem_bytes, const void* a, const void* b, void* c, int M, int N,
                         int K, int bm, int bn, int bk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -471,6 +813,22 @@ int matmul_tiled_launch(int elem_bytes, const void* a, const void* b, void* c, i
   } else if (elem_bytes == 4) {
     if (bm == 128 && bn == 128 && bk == 16) return launch_f32<128, 128, 16>(a, b, c, M, N, K, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// B (K, N) fp32 -> hi, lo (N, K): B^T split into its TF32 parts
+int matmul_split_b_launch(const void* b, void* hi, void* lo, int K, int N, void* stream) {
+  return launch_split_b(b, hi, lo, K, N, static_cast<cudaStream_t>(stream));
+}
+
+// C (M, N) = A (M, K) B in fp32 from B's split parts b_hi, b_lo (N, K), in
+// three TF32 passes; (bm, bn, bk) must be the instantiated 128 x 128 x 32,
+// anything else returns cudaErrorInvalidValue without launching.
+int matmul_split_tf32_launch(const void* a, const void* b_hi, const void* b_lo, void* c, int M,
+                             int N, int K, int bm, int bn, int bk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == kBM && bn == kSplitBN && bk == kSplitBK)
+    return launch_split_tf32(a, b_hi, b_lo, c, M, N, K, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -128,20 +128,31 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major (rows, cols) bf16 matrix in (box_rows, 64) boxes with the
-// 128-byte swizzle; reads outside it are zero-filled, writes clipped
-int encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// a row-major (rows, cols) matrix of `elem_bytes` elements in
+// (box_rows, 128 bytes) boxes with the 128-byte swizzle; reads outside it
+// are zero-filled, writes clipped
+int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+              int rows, int cols, int box_rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kSwizzleCols, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// bf16 in (box_rows, 64) boxes
+int encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, cols, box_rows);
+}
+
+// fp32 in (box_rows, 32) boxes
+int encode_f32(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows, cols, box_rows);
 }
 
 }  // namespace

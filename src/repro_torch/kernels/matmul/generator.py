@@ -36,7 +36,9 @@ SUITE_GPU_BLOCKS = [
 # first).  bf16: 128x256x64 was picked by timing the granite-3-2b layer's
 # five GEMMs at 16384 tokens on an H100 at 700 W (chip_smoke.py's
 # run_matmuls prints them): 2.81 ms against 3.09 ms at 128x128x64, whose
-# narrower wgmma reads A from shared memory twice as often per flop
+# narrower wgmma reads A from shared memory twice as often per flop.  fp32:
+# 128x128x32, the split-TF32 kernel's tile whose registers hold a second
+# accumulator for the slab sums
 TILES = {eb: tuple({"bm": bm, "bn": bn, "bk": bk} for bm, bn, bk in tiles)
          for eb, tiles in _KERNEL_TILES.items()}
 DEFAULT = {eb: tiles[0] for eb, tiles in TILES.items()}

@@ -6,6 +6,9 @@ and through ``repro_torch``'s ``tuned_matmul`` at each of its tiles and its
 plain version, with the reference sweep's tolerances (fp32 1e-4, bf16 2e-2,
 atol 8x).  On the CPU the wrapper runs the plain version; the CUDA GEMM is
 compared with it by the ``gpu``-marked tests, which skip without a card.
+The fp32 kernel sums three TF32 passes: ``ref.split_tf32`` and
+``matmul_split_tf32_ref`` emulate it here, and on the card its split pass is
+held to that emulation bit for bit.
 """
 import numpy as np
 import pytest
@@ -27,7 +30,13 @@ from repro_torch.kernels.matmul.generator import (
     tpu_space,
 )
 from repro_torch.kernels.matmul.ops import tuned_matmul
-from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.kernels.matmul.ref import (
+    matmul_ref,
+    matmul_split_parts_ref,
+    matmul_split_tf32_ref,
+    split_tf32,
+    tf32_round,
+)
 
 SWEEP = [(128, 128, 128), (256, 384, 128), (128, 256, 256)]
 
@@ -138,8 +147,10 @@ def test_tpu_space_equals_reference():
 
 
 def test_tiles_and_defaults():
-    assert DEFAULT == {2: {"bm": 128, "bn": 256, "bk": 64}, 4: {"bm": 128, "bn": 128, "bk": 16}}
+    assert DEFAULT == {2: {"bm": 128, "bn": 256, "bk": 64}, 4: {"bm": 128, "bn": 128, "bk": 32}}
     assert K.TILES[2] == ((128, 256, 64), (128, 128, 64))
+    assert K.TILES[4] == ((128, 128, 32),)
+    assert K.ROUTE == {2: "wgmma", 4: "split_tf32"}
     assert len(TILES[2]) >= 2
     for eb, tiles in TILES.items():
         assert DEFAULT[eb] in tiles
@@ -183,16 +194,20 @@ def test_wrapper_validates_its_operands(a, b, exc, match):
         K.matmul_tiled(a, b, *tile)
 
 
-@pytest.mark.parametrize("name", ["not persistent", "row raster", "no wgmma overlap"])
+@pytest.mark.parametrize("name", ["not persistent", "row raster", "no wgmma overlap",
+                                  "fp32 one pass", "fp32 not persistent", "fp32 2 stages",
+                                  "fp32 no slab sums"])
 def test_ablation_edits_find_their_text_once(name):
-    """Each variant of ``matmul/ablate.py`` edits text that occurs exactly
-    once in ``matmul.cu`` (the PTX helpers moved to ``sm90.cuh``), so it
-    changes what it names."""
+    """Each variant of ``matmul/ablate.py`` (``--part bf16`` and, prefixed
+    "fp32 ", ``--part fp32``) edits text that occurs exactly once in
+    ``matmul.cu`` (the PTX helpers moved to ``sm90.cuh``), so it changes
+    what it names."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.matmul import ablate
 
     src = (_build.CSRC / "matmul.cu").read_text()
-    for old, new in ablate.VARIANTS[name]:
+    table = ablate.F32_VARIANTS if name.startswith("fp32 ") else ablate.VARIANTS
+    for old, new in table[name.removeprefix("fp32 ")]:
         assert src.count(old) == 1 and old != new
 
 
@@ -227,14 +242,95 @@ def test_wrapper_validates_its_tile():
         tuned_matmul(a, b, {"bm": 128, "bk": 128, "bn": 128})  # a TPU block
     with pytest.raises(ValueError, match="not instantiated"):
         K.matmul_tiled(a.bfloat16(), b.bfloat16(), 128, 128, 32)  # the mma.sync kernel's tile
-    with pytest.raises(ValueError, match="grid limit"):  # the fp32 kernel's grid is (N/bn, M/bm)
-        K.matmul_tiled(torch.empty((128 * 65_536, 4)), torch.zeros((4, 4)), 128, 128, 16)
-    # the bf16 kernel is persistent: as many row tiles as that are no limit
+    with pytest.raises(ValueError, match="not instantiated"):
+        K.matmul_tiled(a, b, 128, 128, 16)  # the CUDA-core kernel's tile, the ablation's alone
+    # both kernels are persistent: more row tiles than CUDA's y grid limit
+    # (65535, which bound the CUDA-core kernel's (N/bn, M/bm) grid) are no limit
     bf = torch.empty((128 * 65_536, 8), dtype=torch.bfloat16)
     assert K._check(bf, torch.zeros((8, 8), dtype=torch.bfloat16), K.TILES[2][0]) == (
         128 * 65_536, 8, 8)
+    f32 = torch.empty((128 * 65_536, 4))
+    assert K._check(f32, torch.zeros((4, 4)), K.TILES[4][0]) == (128 * 65_536, 4, 4)
     with pytest.raises(ValueError, match=r"\(M, K\)"):
         tuned_matmul(a, torch.zeros((4, 8)))
+
+
+def test_split_tf32_rounds_to_nearest_ties_away():
+    """cvt.rna.tf32.f32: 10 mantissa bits kept, the low 13 zero, halves away
+    from zero."""
+    x = torch.tensor([1 + 2 ** -12, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11, 3.0,
+                      2 ** -130, 0.0])
+    want = torch.tensor([1.0, 1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -9, 3.0, 2 ** -130, 0.0])
+    got = tf32_round(x)
+    assert torch.equal(got, want) and ((got.view(torch.int32) & 0x1FFF) == 0).all()
+    hi, lo = split_tf32(x)
+    assert torch.equal(hi, got)
+    assert torch.equal(lo[:4], torch.tensor([2 ** -12, -(2 ** -11), 2 ** -11, -(2 ** -11)]))
+
+
+def test_split_tf32_recovers_x_to_2_pow_minus_22():
+    """hi + lo recovers x to 2^-22 of |x|, both parts TF32 values, over a
+    spread of magnitudes and signs."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal(1 << 16) * np.exp2(rng.integers(-60, 60, 1 << 16))).astype(np.float32)
+    hi, lo = split_tf32(torch.from_numpy(x))
+    for part in (hi, lo):
+        assert ((part.view(torch.int32) & 0x1FFF) == 0).all()
+    xd = torch.from_numpy(x).double()
+    assert float(((hi.double() + lo.double() - xd).abs() / xd.abs()).max()) <= 2.0 ** -22
+    assert float(((hi.double() - xd).abs() / xd.abs()).max()) > 2.0 ** -13  # hi alone is not
+
+
+def test_three_pass_emulation_within_tol_where_one_pass_is_not():
+    """At K = 2048 the three-pass product stays within the fp32 GEMM
+    tolerance of the fp32 product, where one TF32 pass (hi * hi) does not:
+    three passes are needed, one is not enough."""
+    a_np, b_np = _ab(6, (128, 2048, 128), scale=2048 ** -0.5)
+    a, b = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    want = matmul_ref(a, b)
+    tol = _tol("float32")
+    torch.testing.assert_close(matmul_split_tf32_ref(a, b), want, **tol)
+    one = split_tf32(a)[0] @ split_tf32(b)[0]
+    assert not torch.allclose(one, want, **tol)
+    exact = a.double() @ b.double()
+    err = lambda x: float((x.double() - exact).pow(2).mean().sqrt())
+    assert err(matmul_split_tf32_ref(a, b)) <= 3 * err(want) < err(one) / 100
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+def test_split_tf32_emulation_matches_pallas_kernel(shape):
+    """The fp32 kernel's arithmetic (three TF32 passes, emulated) against the
+    reference's fp32 Pallas matmul, at the sweep's fp32 tolerance."""
+    import jax.numpy as jnp
+
+    from repro.kernels.matmul.kernel import make_matmul
+
+    M, K_, N = shape
+    a_np, b_np = _ab(7, shape)
+    want = np.asarray(make_matmul(M, K_, N, 128, 128, 128, jnp.float32)(
+        jnp.asarray(a_np), jnp.asarray(b_np)))
+    got = matmul_split_tf32_ref(torch.from_numpy(a_np), torch.from_numpy(b_np))
+    np.testing.assert_allclose(got.numpy(), want, **_tol("float32"))
+
+
+def test_split_wrappers_run_their_plain_versions_on_the_cpu():
+    a_np, b_np = _ab(8, (48, 64, 40))
+    a, b = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    K.reset_launch_counts()
+    hi, lo = K.split_b(b)
+    want_hi, want_lo = split_tf32(b.mT)
+    assert hi.shape == lo.shape == (40, 64) and hi.is_contiguous()
+    assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+    for tile in K.TILES[4]:
+        assert torch.equal(K.split_tf32_gemm(a, hi, lo, tile), matmul_split_parts_ref(a, hi, lo))
+        assert torch.equal(K.matmul_tiled(a, b, *tile), matmul_ref(a, b))
+    assert K.LAUNCHES == {"matmul_tiled": 0, "matmul_split_b": 0}  # nothing launched
+    with pytest.raises(ValueError, match="not instantiated"):
+        K.split_tf32_gemm(a, hi, lo, (128, 128, 16))
+    with pytest.raises(ValueError, match=r"b_hi, b_lo \(N, K\)"):
+        K.split_tf32_gemm(a, hi[:, :32].contiguous(), lo[:, :32].contiguous(), K.TILES[4][0])
+    with pytest.raises(ValueError, match="float32"):
+        K.split_b(b.bfloat16())
 
 
 # ---------------------------------------------------------------------------
@@ -260,12 +356,14 @@ def test_card_every_tile_matches_plain_on_ragged_shapes(cuda, dtype, shape):
     a = torch.from_numpy(a_np).to(cuda).to(dtype)
     b = torch.from_numpy(b_np).to(cuda).to(dtype)
     want = matmul_ref(a, b)
+    route = K.ROUTE[a.element_size()]
     for tile in K.TILES[a.element_size()]:
-        before = K.LAUNCHES["matmul_tiled"]
+        before = dict(K.LAUNCHES)
         got = K.matmul_tiled(a, b, *tile)
         torch.cuda.synchronize()
-        assert K.LAUNCHES["matmul_tiled"] == before + 1
-        assert K.LAST_LAUNCH["matmul_tiled"] == tile
+        assert K.LAUNCHES == {"matmul_tiled": before["matmul_tiled"] + 1,
+                              "matmul_split_b": before["matmul_split_b"] + (dtype == torch.float32)}
+        assert K.LAST_LAUNCH["matmul_tiled"] == (route, tile)
         assert got.dtype == dtype and got.shape == (shape[0], shape[2])
         torch.testing.assert_close(got, want, **CARD_TOL[dtype], msg=str(tile))
 
@@ -303,7 +401,7 @@ def test_card_wgmma_matches_plain_on_the_layer_and_many_tiles(cuda, shape):
     for tile in K.TILES[2]:
         got = K.matmul_tiled(a, b, *tile)
         torch.cuda.synchronize()
-        assert K.LAST_LAUNCH["matmul_tiled"] == tile
+        assert K.LAST_LAUNCH["matmul_tiled"] == ("wgmma", tile)
         torch.testing.assert_close(got, want, **CARD_TOL[torch.bfloat16], msg=str(tile))
 
 
@@ -315,14 +413,125 @@ def test_card_entry_point_launches_the_default_tile(cuda):
     K.reset_launch_counts()
     got = tuned_matmul(a, b)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"matmul_tiled": 1}
+    assert K.LAUNCHES == {"matmul_tiled": 1, "matmul_split_b": 0}
     d = DEFAULT[2]
-    assert K.LAST_LAUNCH["matmul_tiled"] == (d["bm"], d["bn"], d["bk"]) == (128, 256, 64)
+    assert K.LAST_LAUNCH["matmul_tiled"] == ("wgmma", (d["bm"], d["bn"], d["bk"])) == (
+        "wgmma", (128, 256, 64))
     torch.testing.assert_close(got, matmul_ref(a, b), **CARD_TOL[torch.bfloat16])
     # a shape no tile fits runs the plain version, launching nothing
     odd = torch.ones((16, 30), device=cuda, dtype=torch.bfloat16)
     assert torch.equal(tuned_matmul(odd, odd.T.contiguous()),
                        matmul_ref(odd, odd.T.contiguous()))
-    assert K.LAUNCHES == {"matmul_tiled": 1}
+    assert K.LAUNCHES == {"matmul_tiled": 1, "matmul_split_b": 0}
+    # fp32 runs the split pass and the split-TF32 GEMM at its default tile
+    got = tuned_matmul(a.float(), b.float())
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"matmul_tiled": 2, "matmul_split_b": 1}
+    assert K.LAST_LAUNCH["matmul_tiled"] == ("split_tf32", (128, 128, 32))
+    torch.testing.assert_close(got, matmul_ref(a.float(), b.float()), **CARD_TOL[torch.float32])
     with pytest.raises(ValueError, match="aligned"):
         K.matmul_tiled(a.view(-1)[1:1 + 511 * 256].view(511, 256), b, *K.TILES[2][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 1028, 260), (70, 12, 4), (513, 100, 1000)])
+def test_card_split_tf32_on_k_tails(cuda, shape):
+    """K not a multiple of the 32-deep slab (a tail of 4, K below one slab,
+    a tail of 4 after three slabs): TMA zero-fills the tail of A, B_hi and
+    B_lo alike."""
+    a_np, b_np = _ab(10, shape, scale=shape[1] ** -0.5)
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    for tile in K.TILES[4]:
+        got = K.matmul_tiled(a, b, *tile)
+        torch.cuda.synchronize()
+        assert K.LAST_LAUNCH["matmul_tiled"] == ("split_tf32", tile)
+        torch.testing.assert_close(got, matmul_ref(a, b), **CARD_TOL[torch.float32],
+                                   msg=str(tile))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2048, 2048), (1028, 260), (12, 4), (100, 1000)])
+def test_card_split_b_matches_its_plain_version_bit_for_bit(cuda, shape):
+    rng = np.random.default_rng(11)
+    b_np = (rng.standard_normal(shape) * np.exp2(rng.integers(-30, 30, shape))).astype(np.float32)
+    b = torch.from_numpy(b_np).to(cuda)
+    before = K.LAUNCHES["matmul_split_b"]
+    hi, lo = K.split_b(b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["matmul_split_b"] == before + 1 and K.LAST_LAUNCH["matmul_split_b"] == shape
+    want_hi, want_lo = split_tf32(b.mT)
+    assert hi.shape == lo.shape == (shape[1], shape[0])
+    assert torch.equal(hi.view(torch.int32), want_hi.view(torch.int32))
+    assert torch.equal(lo.view(torch.int32), want_lo.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(128, 128, 32)])
+def test_card_split_tf32_fragments_exactly(cuda, tile):
+    """A single nonzero x in A at (i, k) and y in B at (k, j) must land on
+    C[i, j] alone, bit for bit, at positions across rows mod 16, both
+    consumer halves, k within and across slabs, and every output chunk.
+    x = 1 + 2^-12 and y = 1 + 2^-13 split into hi 1 and lo 2^-12, 2^-13, so
+    C[i, j] = 1 + 2^-12 + 2^-13 needs all three passes (one pass gives 1,
+    a missing term drops its own bit): the test pins the A fragment's
+    register layout, the ldmatrix swizzle, B's descriptors and the
+    epilogue's."""
+    assert tile in K.TILES[4]
+    M, K_, N = 2 * tile[0], 3 * tile[2], 2 * tile[1]
+    x, y, want = 1 + 2 ** -12, 1 + 2 ** -13, 1 + 2 ** -12 + 2 ** -13
+    rng = np.random.default_rng(12)
+    cases = [(0, 0, 0), (M - 1, K_ - 1, N - 1), (63, 31, 127), (64, 32, 128), (15, 7, 31),
+             (8, 4, 8), (71, 36, 33)]
+    cases += [tuple(int(v) for v in rng.integers(0, (M, K_, N))) for _ in range(25)]
+    a = torch.zeros((M, K_), device=cuda)
+    b = torch.zeros((K_, N), device=cuda)
+    for i, k, j in cases:
+        a[i, k], b[k, j] = x, y
+        got = K.matmul_tiled(a, b, *tile)
+        torch.cuda.synchronize()
+        nz = got.nonzero().tolist()
+        assert nz == [[i, j]] and float(got[i, j]) == want, (tile, (i, k, j), nz[:4],
+                                                            float(got[i, j]))
+        a[i, k], b[k, j] = 0.0, 0.0
+
+
+@pytest.mark.gpu
+def test_card_split_tf32_error_within_3x_of_torch_matmul(cuda):
+    """Against an fp64 product on fp32-drawn operands (K = 2048), the
+    kernel's RMS and max abs errors are each at most 3x those of
+    torch.matmul with TF32 off, a gate that one TF32 pass fails."""
+    a_np, b_np = _ab(13, (2048, 2048, 1024), scale=2048 ** -0.5)
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    exact = a.double() @ b.double()
+
+    def errors(x):
+        d = x.double() - exact
+        return float(d.pow(2).mean().sqrt()), float(d.abs().max())
+
+    off = errors(torch.matmul(a, b))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    one = errors(torch.matmul(a, b))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert one[0] > 3 * off[0] and one[1] > 3 * off[1]
+    for tile in K.TILES[4]:
+        got = errors(K.matmul_tiled(a, b, *tile))
+        assert got[0] <= 3 * off[0] and got[1] <= 3 * off[1], (tile, got, off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1000, 2056, 776), (129, 40, 264)])
+def test_card_cuda_core_comparator_matches_plain(cuda, shape):
+    """The fp32 CUDA-core kernel the split route replaced, which the
+    ablation reaches through the C entry point as its "before", is still
+    right."""
+    from repro_torch.kernels.matmul.ablate import CUDA_CORE_TILE
+
+    a_np, b_np = _ab(14, shape, scale=shape[1] ** -0.5)
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    got = torch.empty((shape[0], shape[2]), device=cuda)
+    rc = K._lib().matmul_tiled_launch(4, a.data_ptr(), b.data_ptr(), got.data_ptr(), shape[0],
+                                      shape[2], shape[1], *CUDA_CORE_TILE,
+                                      torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    torch.testing.assert_close(got, matmul_ref(a, b), **CARD_TOL[torch.float32])
