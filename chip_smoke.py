@@ -97,6 +97,7 @@ TRANSPOSE_EDGE_SHAPE = (2045, 1021)      # non-square, no side a multiple of 32
 TRANSPOSE_TILES = ({"bm": 32, "bn": 32}, {"bm": 128, "bn": 128})
 TRANSPOSE_SOURCE = "src/repro_torch/csrc/transpose_pad.cu"
 TRANSPOSE_REPLACES = "src/repro/kernels/transpose_pad/kernel.py:29"
+TRANSPOSE_ROUNDS = 30                    # rounds of the fp64 transpose and its library call in turns
 # the attention path at granite-3-2b's width (src/repro/configs/granite3_2b.py)
 T_TOKENS = 4 * 4096                      # tokens of the layer's GEMMs
 PREFILL = (4, 4096)                      # (B, S) of the prefill and of the layer
@@ -136,10 +137,16 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+PTXAS_TYPES = {"d": "double", "f": "float", "i": "int", "l": "long"}
+# "name<args>" of each compiled kernel -> its ptxas line on registers (and
+# spills), filled when main() builds the kernels
+REGISTERS: dict = {}
+
+
 def ptxas_kernel_name(line: str) -> str:
     """``name<args>`` of the kernel a ptxas "Compiling entry function" line
-    names: the last component of its mangled name and its integer template
-    arguments."""
+    names: the last component of its mangled name and its template
+    arguments (integers and the scalar types)."""
     m = re.search(r"_ZN(\w+)", line)
     if not m:
         return "?"
@@ -148,8 +155,25 @@ def ptxas_kernel_name(line: str) -> str:
         n = int(re.match(r"\d+", rest).group())
         digits = len(str(n))
         name, rest = rest[digits:digits + n], rest[digits + n:]
-    args = re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0]) if rest.startswith("I") else []
+    args = []
+    if rest.startswith("I"):
+        rest = rest[1:]
+        while rest and rest[0] != "E":
+            lit = re.match(r"L[ib](\d+)E", rest)
+            if lit:
+                args.append(lit.group(1))
+                rest = rest[lit.end():]
+            elif rest[0] in PTXAS_TYPES:
+                args.append(PTXAS_TYPES[rest[0]])
+                rest = rest[1:]
+            else:
+                break
     return name + (f"<{', '.join(args)}>" if args else "")
+
+
+def registers(kernel: str) -> str:
+    """ptxas's report for ``kernel`` (``name<args>``), or "not reported"."""
+    return REGISTERS.get(kernel, "not reported")
 
 
 def card_line() -> str:
@@ -318,7 +342,13 @@ def run_stencil(args, torch, dev) -> list:
     from repro_torch.kernels.stencil3d25 import kernel as K
     from repro_torch.kernels.stencil3d25.generator import best_config, rank_configs
     from repro_torch.kernels.stencil3d25.ops import star_stencil, zmarch_tile
-    from repro_torch.kernels.stencil3d25.ref import pad_input, star_stencil_ref, star_weights
+    from repro_torch.kernels.stencil3d25.ref import (
+        one_hot_points,
+        one_hot_stencil,
+        pad_input,
+        star_stencil_ref,
+        star_weights,
+    )
 
     # 3. the ranking: every launch priced on the H100, nothing run
     t0 = time.perf_counter()
@@ -350,15 +380,21 @@ def run_stencil(args, torch, dev) -> list:
     launches = dict(K.LAUNCHES)
     if launches["star_pointwise"] < 1:
         raise AssertionError(f"main path launched no star_pointwise: {launches}")
+    pw = dict(K.LAST_POINTWISE)
     ref64 = star_stencil_ref(padded, w64, R)
     err = check(torch, out, ref64, 8, "star_stencil(config=None) fp64")
+    pw_kernel = (f"star_pointwise_kernel<double, {R}, "
+                 f"{'int' if pw['offset_bits'] == 32 else 'long'}>")
     say(f"main path: star_stencil(src, r={R}) fp64 at block {best.launch.block} "
         f"folding {best.launch.folding}; launches {launches}; max abs error {err!r} "
-        f"(tolerance {TOL[8]}: FMA contraction, same tap order)")
+        f"(tolerance {TOL[8]}: FMA contraction, same tap order); {pw['offset_bits']}-bit "
+        f"offsets, weights in the constant bank; "
+        f"{pw_kernel}: {registers(pw_kernel)}")
     del out
     kernels.append({"name": "star_pointwise", "config": None,
                     "launches": launches["star_pointwise"], "max_abs_err": err,
-                    "replaces": REPLACES["replane"], "source": SOURCE})
+                    "replaces": REPLACES["replane"], "source": SOURCE,
+                    "offset_bits": pw["offset_bits"]})
 
     # 5. folding and edge coverage at pinned launches on a domain that no
     # block extent divides
@@ -387,17 +423,22 @@ def run_stencil(args, torch, dev) -> list:
         launches = dict(K.LAUNCHES)
         if launches["star_zmarch"] < 1:
             raise AssertionError(f"{cfg} launched no star_zmarch: {launches}")
+        zm = dict(K.LAST_ZMARCH)
         err = check(torch, out, ref64, 8, f"star_stencil({cfg}) fp64")
         tile = zmarch_tile(cfg, R, DOMAIN, 8)
-        say(f"z-march {cfg} fp64: tile {tile[0]}x{tile[1]}, "
-            f"{K.zmarch_smem_bytes(R, *tile, 8)} B shared memory; launches {launches}; "
-            f"max abs error {err!r}")
+        zm_kernel = f"star_zmarch_kernel<double, {R}, {K.zmarch_rows(*tile)}>"
+        say(f"z-march {cfg} fp64: LAST_ZMARCH {zm}; "
+            f"{K.zmarch_smem_bytes(R, *tile, 8, zm['stages'])} B shared memory; launches "
+            f"{launches}; max abs error {err!r} (tolerance {TOL[8]}: z taps summed as "
+            f"ref.star_stencil_zsum_ref orders them); {zm_kernel}: {registers(zm_kernel)}")
         del out
-        name = ("star_zmarch[ring]" if cfg["variant"] == "ring"
-                else f"star_zmarch[ytile_ring,ty={cfg['ty']}]")
+        name = (f"star_zmarch[ring,{zm['route']}]" if cfg["variant"] == "ring"
+                else f"star_zmarch[ytile_ring,ty={cfg['ty']},{zm['route']}]")
         kernels.append({"name": name, "config": cfg,
                         "launches": launches["star_zmarch"], "max_abs_err": err,
-                        "replaces": REPLACES[cfg["variant"]], "source": SOURCE})
+                        "replaces": REPLACES[cfg["variant"]], "source": SOURCE,
+                        "zmarch_route": zm["route"], "stages": zm["stages"],
+                        "threads": zm["threads"], "segments": zm["segments"]})
 
     # fp32: the main path and every z-march variant at the paper size
     src32 = src.float()
@@ -412,6 +453,30 @@ def run_stencil(args, torch, dev) -> list:
                if cfg is None else ""))
 
     del src_e, ref_e, src_e32, ref_e32, ref32, ref64
+
+    # one-hot: a 1 at the centre and r inside each face of the paper's field
+    # gives exactly the weights on each star, bit for bit, through the ranked
+    # launch and every z-march variant on both routes (the rows of the
+    # paper's field are 16-byte multiples, so cp.async is pinned)
+    pts = one_hot_points(DOMAIN, R)
+    for eb, w in ((8, w64), (4, w32)):
+        hot = torch.zeros_like(padded if eb == 8 else padded32)
+        for p in pts:
+            hot[p] = 1
+        want = one_hot_stencil(DOMAIN, R, w, pts)
+        runs = {"star_pointwise": lambda: K.star_pointwise(hot, w, R, best.launch)}
+        for cfg in ZMARCH_VARIANTS:
+            tile = zmarch_tile(cfg, R, DOMAIN, eb)
+            for route in K.ZMARCH_ROUTES:
+                runs[f"star_zmarch {cfg} {route}"] = (
+                    lambda tile=tile, route=route: K.star_zmarch(hot, w, R, *tile, route=route))
+        for what, run in runs.items():
+            if not torch.equal(run(), want):
+                raise AssertionError(f"one-hot fp{eb * 8}: {what} does not give the weights "
+                                     f"bit for bit")
+        say(f"one-hot fp{eb * 8} at {DOMAIN}, ones at {pts}: {len(runs)} runs "
+            f"({', '.join(runs)}) equal the weights on each star bit for bit")
+        del hot, want
 
     # 7. times at the paper size on the pre-padded input
     conv_w = {8: star_conv_weight(torch, w64, R), 4: star_conv_weight(torch, w32, R)}
@@ -940,6 +1005,15 @@ def run_transpose(args, torch, dev) -> list:
                          library_ms=plain)
         call_ms = cuda_ms(torch, lambda: transpose(x_x))
         say(f"time transpose(x) fp{eb * 8}: {call_ms:.4f} ms")
+    # rule 2 orders redesigns by kernel / library time, compared in turns
+    turns = interleaved_ms(torch, {
+        "kernel": lambda: TK.transpose_pointwise(x64, best64.launch),
+        "library": lambda: transpose_ref(x64)}, rounds=TRANSPOSE_ROUNDS)
+    say(f"transpose_pointwise fp64 at the kept top launch {best64.launch.block}/"
+        f"{best64.launch.folding} in turns ({TRANSPOSE_ROUNDS} rounds) against x.mT.contiguous(): "
+        f"{turns['kernel']:.4f} against {turns['library']:.4f} ms, factor "
+        f"{turns['kernel'] / turns['library']:.4f} (above 1: slower than the library)")
+    kernels[0].update(fp64_in_turns_ms=turns["kernel"], fp64_library_in_turns_ms=turns["library"])
     del x64
 
     # T6. the ranking against the card: all 168 launches of transpose_pointwise
@@ -1713,7 +1787,9 @@ def main(argv=None) -> int:
     # 2. build every kernel source, one nvcc each, in parallel
     t0 = time.perf_counter()
     libs = _build.build()
-    say(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    say(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s; each source's nvcc, "
+        f"all started together: "
+        + ", ".join(f"{n} {s:.2f} s" for n, s in sorted(_build.BUILD_SECONDS.items())))
     for name, lib in libs.items():
         log = lib.with_name(lib.name + ".log")
         kernel = ""
@@ -1721,7 +1797,10 @@ def main(argv=None) -> int:
             if "Compiling entry function" in line:
                 kernel = ptxas_kernel_name(line)
             elif "registers" in line or "spill" in line:
-                say(f"  ptxas[{name}] {kernel}: {line.strip()}")
+                REGISTERS[kernel] = (REGISTERS.get(kernel, "") + " " + line.strip()).strip()
+                # the stencil's instantiations for other ranges are not on any path
+                if name != "stencil3d25" or re.match(r"star_\w+<\w+, 4\b", kernel):
+                    say(f"  ptxas[{name}] {kernel}: {line.strip()}")
 
     kernels = run_stencil(args, torch, dev)
     torch.cuda.empty_cache()
@@ -1745,7 +1824,10 @@ def main(argv=None) -> int:
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "pass": True,
          **{key: k[key] for key in ("fwd_route", "decode_route", "splits", "in_turns_ms",
-                                    "library_in_turns_ms", "queued_ms", "library_queued_ms")
+                                    "library_in_turns_ms", "queued_ms", "library_queued_ms",
+                                    "offset_bits", "zmarch_route", "stages",
+                                    "threads", "segments", "fp64_in_turns_ms",
+                                    "fp64_library_in_turns_ms")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

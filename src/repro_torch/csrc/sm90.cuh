@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
-// (matmul.cu, flash_attention.cu): mbarriers, TMA loads and stores, the
-// 128-byte-swizzle wgmma shared-memory descriptor, wgmma fence / commit /
-// wait, and the host's tensor-map encoder.  Each kernel source includes it
+// Hopper (sm_90a) building blocks shared by the port's TMA kernels
+// (matmul.cu, flash_attention.cu, stencil3d25.cu): mbarriers, TMA loads and
+// stores, the 128-byte-swizzle wgmma shared-memory descriptor, wgmma fence /
+// commit / wait, and the host's tensor-map encoders.  Each kernel source includes it
 // and builds into its own library, so everything here has internal linkage.
 
 #pragma once
@@ -58,6 +58,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// one 3D box of the tensor map at coordinates (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
 
@@ -153,6 +163,24 @@ int encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_r
 // fp32 in (box_rows, 32) boxes
 int encode_f32(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
   return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows, cols, box_rows);
+}
+
+// a row-major (d2, d1, d0) array of `elem_bytes` elements (d0 innermost) in
+// (1, box1, box0) boxes, unswizzled, so a box lands in shared memory as
+// box1 rows of box0 elements; reads outside the array are zero-filled.
+// TMA needs box0 * elem_bytes and d0 * elem_bytes to be multiples of 16.
+int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+              int d0, int d1, int d2, int box0, int box1) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * elem_bytes, (cuuint64_t)d0 * d1 * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
 }  // namespace

@@ -15,6 +15,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -23,6 +24,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# source name -> seconds from the start of the last build() that compiled it
+# to the end of its nvcc (all sources start together)
+BUILD_SECONDS: dict = {}
 
 
 def nvcc_path() -> str:
@@ -53,9 +57,10 @@ def library_path(name: str) -> Path:
 def build(names=None) -> dict:
     """Compile the named sources (all of them by default) that have no
     library yet, every ``nvcc`` started at once; returns name -> library
-    path.  Raises with nvcc's stderr when a build fails.  nvcc's report
+    path.  Raises with nvcc's output when a build fails.  nvcc's report
     (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
-    library as ``<library>.log``."""
+    library as ``<library>.log``, and each source's seconds in
+    ``BUILD_SECONDS``."""
     names = sources() if names is None else list(names)
     out = {n: library_path(n) for n in names}
     todo = {n: p for n, p in out.items() if not p.is_file()}
@@ -64,20 +69,29 @@ def build(names=None) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
+    t0 = time.perf_counter()
     for name, lib in todo.items():
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        with tmp.with_name(tmp.name + ".log").open("w") as log:  # a file: a pipe could fill
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+    pending = set(procs)
+    while pending:
+        for name in [n for n in pending if procs[n][1].poll() is not None]:
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            pending.discard(name)
+        if pending:
+            time.sleep(0.05)
     failed = []
     for name, (tmp, proc) in procs.items():
-        stdout, stderr = proc.communicate()
+        log = tmp.with_name(tmp.name + ".log")
         lib = todo[name]
         if proc.returncode != 0:
             failed.append(f"nvcc failed on csrc/{name}.cu "
-                          f"(exit {proc.returncode}):\n{stderr}{stdout}")
+                          f"(exit {proc.returncode}):\n{log.read_text()}")
+            log.unlink()
             continue
-        lib.with_name(lib.name + ".log").write_text(stderr + stdout)
+        os.replace(log, lib.with_name(lib.name + ".log"))
         os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -90,14 +104,15 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([name])[name]))
 
 
-def build_variants(name: str, variants: dict) -> dict:
-    """Compile edited copies of ``csrc/<name>.cu`` for an ablation, every
+def build_variants(name: str, variants: dict, source: Path | None = None) -> dict:
+    """Compile edited copies of ``csrc/<name>.cu`` (or of ``source``, such
+    as an older version of it in another checkout) for an ablation, every
     ``nvcc`` started at once: ``variants`` maps a variant's name to a list of
     (old, new) textual edits (``[]`` for the source as it is).  The copies
     and their libraries go under ``.build/ablate/<name>/`` (the headers are
     found in ``csrc``); returns variant name -> library path.  Raises when
     an edit's text is missing or a build fails."""
-    src = (CSRC / f"{name}.cu").read_text()
+    src = Path(source or CSRC / f"{name}.cu").read_text()
     out = BUILD_DIR / "ablate" / name
     out.mkdir(parents=True, exist_ok=True)
     flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]

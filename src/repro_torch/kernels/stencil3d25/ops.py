@@ -49,6 +49,11 @@ def star_stencil(src: torch.Tensor, weights=None, r: int = 4,
     shared-memory z-march kernel.  The TPU's ``ytile_ring`` needs its input
     padded in y up to (Y/ty + 1)·ty rows; the CUDA kernel masks its own
     tile edge, so here every variant takes the same r-halo padding.
+
+    On the card both kernels read the weights from one constant bank per
+    library, filled on the current stream before each launch: calls with
+    different weights on two streams at once must be ordered by the caller
+    (r <= ``kernel.MAX_CARD_R`` there; the CPU takes any r).
     """
     if weights is None:
         weights = star_weights(r, src.dtype, src.device)
