@@ -6,7 +6,9 @@ with nvcc first (one nvcc per source, in parallel):
 
 * the §5.2 stencil (range-4 star, 25 points, domain (512, 512, 640), fp64):
   ranks all 168 launches of the per-point kernel analytically on the H100
-  and runs ``star_stencil`` at the winning launch;
+  and runs ``star_stencil`` at the winning launch; then stencils with two
+  sets of weights on two streams at once (the constant bank's guard) and
+  a range of 9, past the bank;
 * the §5.3 D3Q15 Allen-Cahn LBM (domain (256, 256, 256), fp64): ranks all
   168 launches of the per-point LBM kernel and runs ``lbm_step`` at the
   winning launch;
@@ -19,7 +21,8 @@ with nvcc first (one nvcc per source, in parallel):
   on the GEMMs of one layer at 16384 tokens (and on the out GEMM in fp32,
   three TF32 passes held to an fp64 product), ``flash_attention`` on a causal
   prefill (B 4, S 4096) and on one decode token against a 32k cache
-  (B 128, and B 8 with the cache split across the SMs), and
+  (B 128, and B 8 with the cache split across the SMs, in bf16 and, on
+  the CUDA-core decode, in fp32 and in bf16 at head dim 32), and
   ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
   the GEMMs are also timed in turns with ``torch.matmul``, and the prefill's
   two tiles in turns with ``F.scaled_dot_product_attention``, since the
@@ -55,6 +58,10 @@ ROOT = Path(__file__).resolve().parent
 R = 4
 DOMAIN = (512, 512, 640)          # (Z, Y, X), paper §5.2
 EDGE_DOMAIN = (509, 511, 637)     # no block extent divides it: edge guards run
+WIDE_R = 9                        # a range past the constant bank: the generic kernels
+WIDE_DOMAIN = (64, 128, 256)      # its field (Z, Y, X)
+WIDE_YTILE = {"variant": "ytile_ring", "ty": 32}  # ty >= 2r divides Y; fp64 ring fits 32x8
+STREAM_ROUNDS = 3                 # rounds of launches in turns on two streams
 ZMARCH_VARIANTS = ({"variant": "ring"},
                    {"variant": "ytile_ring", "ty": 8},
                    {"variant": "ytile_ring", "ty": 16})
@@ -388,13 +395,15 @@ def run_stencil(args, torch, dev) -> list:
     say(f"main path: star_stencil(src, r={R}) fp64 at block {best.launch.block} "
         f"folding {best.launch.folding}; launches {launches}; max abs error {err!r} "
         f"(tolerance {TOL[8]}: FMA contraction, same tap order); {pw['offset_bits']}-bit "
-        f"offsets, weights in the constant bank; "
+        f"offsets, weights from the {pw['weights']}; "
         f"{pw_kernel}: {registers(pw_kernel)}")
+    if pw["weights"] != "constant bank":
+        raise AssertionError(f"star_pointwise at r={R} took its weights from the {pw['weights']}")
     del out
     kernels.append({"name": "star_pointwise", "config": None,
                     "launches": launches["star_pointwise"], "max_abs_err": err,
                     "replaces": REPLACES["replane"], "source": SOURCE,
-                    "offset_bits": pw["offset_bits"]})
+                    "offset_bits": pw["offset_bits"], "weights": pw["weights"]})
 
     # 5. folding and edge coverage at pinned launches on a domain that no
     # block extent divides
@@ -453,6 +462,8 @@ def run_stencil(args, torch, dev) -> list:
                if cfg is None else ""))
 
     del src_e, ref_e, src_e32, ref_e32, ref32, ref64
+    run_stencil_streams(torch, padded, best.launch, gen)
+    run_stencil_wide_range(torch, dev, gen, best.launch)
 
     # one-hot: a 1 at the centre and r inside each face of the paper's field
     # gives exactly the weights on each star, bit for bit, through the ranked
@@ -518,6 +529,79 @@ def run_stencil(args, torch, dev) -> list:
         f"fp32: {cuda_ms(torch, lambda: star_stencil(src32, r=R)):.4f} ms")
 
     return kernels
+
+
+def run_stencil_streams(torch, padded, launch, gen) -> None:
+    """The constant bank's guard at the paper size: stencils with two sets of
+    weights launched in turns on two streams (the ranked per-point launch
+    and the ring z-march), each output against the plain version of its own
+    weights; every fill of the bank on the other stream waits for the
+    bank's last launch."""
+    from repro_torch.kernels.stencil3d25 import kernel as K
+    from repro_torch.kernels.stencil3d25.ref import star_stencil_ref
+
+    eb = padded.element_size()
+    ws = [torch.randn(6 * R + 1, dtype=padded.dtype, device=padded.device, generator=gen)
+          for _ in range(2)]
+    wants = [star_stencil_ref(padded, w, R) for w in ws]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    runs = {"star_pointwise": lambda w: K.star_pointwise(padded, w, R, launch),
+            "star_zmarch ring": lambda w: K.star_zmarch(padded, w, R, *K.ring_tile(R, eb))}
+    before = K.bank_counts()
+    errs = {}
+    for _ in range(STREAM_ROUNDS):
+        for name, run in runs.items():
+            outs = []
+            for j, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    outs.append(run(ws[j]))
+            torch.cuda.synchronize()
+            for j, out in enumerate(outs):
+                e = check(torch, out, wants[j], eb, f"{name} on stream {j} of 2")
+                errs[name] = max(errs.get(name, 0.0), e)
+            del outs
+    after = K.bank_counts()
+    n = STREAM_ROUNDS * len(runs) * len(streams)
+    fills, waits = after["fills"] - before["fills"], after["waits"] - before["waits"]
+    if fills != n or waits < n - 1:
+        raise AssertionError(f"{n} launches on two streams made {fills} bank fills and {waits} "
+                             f"waits")
+    say(f"two streams fp{eb * 8} at {DOMAIN}, different weights, {n} launches in turns "
+        f"({', '.join(runs)}): each output equals its own weights' plain version (max abs error "
+        + ", ".join(f"{k} {v!r}" for k, v in errs.items())
+        + f"); constant bank fills {fills}, of which {waits} waited for the other stream")
+    del wants
+
+
+def run_stencil_wide_range(torch, dev, gen, launch) -> None:
+    """A range past the constant bank through the entry point: the per-point
+    kernel at ``launch`` (r = 4's ranked one: ranking r = WIDE_R takes tens
+    of seconds on the host) and a y-tiled z-march at r = WIDE_R, whose
+    generic kernels read the weights tensor, against the plain version."""
+    from repro_torch.kernels.stencil3d25 import kernel as K
+    from repro_torch.kernels.stencil3d25.ops import star_stencil
+    from repro_torch.kernels.stencil3d25.ref import pad_input, star_stencil_ref, star_weights
+
+    r = WIDE_R
+    src = torch.randn(WIDE_DOMAIN, dtype=torch.float64, device=dev, generator=gen)
+    want = star_stencil_ref(pad_input(src, r), star_weights(r, torch.float64, dev), r)
+    fills = K.bank_counts()["fills"]
+    parts = []
+    for cfg in ({"block": launch.block, "folding": launch.folding}, WIDE_YTILE):
+        out = star_stencil(src, r=r, config=cfg)
+        torch.cuda.synchronize()
+        err = check(torch, out, want, 8, f"star_stencil(r={r}, config={cfg}) fp64")
+        last = K.LAST_POINTWISE if "block" in cfg else K.LAST_ZMARCH
+        if last["weights"] != "tensor":
+            raise AssertionError(f"r={r} {cfg}: weights from the {last['weights']}")
+        parts.append(f"config={cfg}: max abs error {err!r}, {dict(last)}")
+        del out
+    if K.bank_counts()["fills"] != fills:
+        raise AssertionError(f"r={r} filled the constant bank")
+    say(f"r={r} fp64 at {WIDE_DOMAIN} ({6 * r + 1} taps, past the constant bank's r <= "
+        f"{K.UNROLLED_R}): " + "; ".join(parts) + "; the bank was not filled")
 
 
 def lbm_bound(pdf_p, phase_p) -> tuple:
@@ -1006,14 +1090,19 @@ def run_transpose(args, torch, dev) -> list:
         call_ms = cuda_ms(torch, lambda: transpose(x_x))
         say(f"time transpose(x) fp{eb * 8}: {call_ms:.4f} ms")
     # rule 2 orders redesigns by kernel / library time, compared in turns
-    turns = interleaved_ms(torch, {
-        "kernel": lambda: TK.transpose_pointwise(x64, best64.launch),
-        "library": lambda: transpose_ref(x64)}, rounds=TRANSPOSE_ROUNDS)
-    say(f"transpose_pointwise fp64 at the kept top launch {best64.launch.block}/"
-        f"{best64.launch.folding} in turns ({TRANSPOSE_ROUNDS} rounds) against x.mT.contiguous(): "
-        f"{turns['kernel']:.4f} against {turns['library']:.4f} ms, factor "
-        f"{turns['kernel'] / turns['library']:.4f} (above 1: slower than the library)")
-    kernels[0].update(fp64_in_turns_ms=turns["kernel"], fp64_library_in_turns_ms=turns["library"])
+    turns = {}
+    for eb, (x_x, rc) in {8: (x64, best64), 4: (x, ranked[0])}.items():
+        turns[eb] = interleaved_ms(torch, {
+            "kernel": lambda: TK.transpose_pointwise(x_x, rc.launch),
+            "library": lambda: transpose_ref(x_x)}, rounds=TRANSPOSE_ROUNDS)
+        say(f"transpose_pointwise fp{eb * 8} at the kept top launch {rc.launch.block}/"
+            f"{rc.launch.folding} in turns ({TRANSPOSE_ROUNDS} rounds) against "
+            f"x.mT.contiguous(): {turns[eb]['kernel']:.4f} against {turns[eb]['library']:.4f} "
+            f"ms, factor {turns[eb]['kernel'] / turns[eb]['library']:.4f} (above 1: slower than "
+            f"the library); {card_line()}")
+    kernels[0].update(in_turns_ms=turns[4]["kernel"], library_in_turns_ms=turns[4]["library"],
+                      fp64_in_turns_ms=turns[8]["kernel"],
+                      fp64_library_in_turns_ms=turns[8]["library"])
     del x64
 
     # T6. the ranking against the card: all 168 launches of transpose_pointwise
@@ -1584,19 +1673,6 @@ def run_flash(args, torch, dev) -> list:
         f"abs {err32!r}, row relative {rel32!r} (the plain version's own bf16 rounding: "
         f"{floor!r})")
     say(blind)
-    q32, k32, v32 = q[:8].float(), k[:8].float(), v[:8].float()
-    e32, r32 = check_flash(torch, FK.flash_decode(q32, k32, v32, bk),
-                           attention_ref(q32, k32, v32, True), "flash_decode fp32 batch 0-7", 4)
-    route32 = FK.LAST_DECODE["route"]
-    if route32 != FK.decode_route(torch.float32, D) or route32 != "cuda_cores":
-        raise AssertionError(f"fp32 decode ran route {route32}")
-    ms32 = cuda_ms(torch, lambda: FK.flash_decode(q32, k32, v32, bk), warmup=1, reps=5)
-    b32_ms = (k32.numel() + v32.numel()) * 4 / HBM_BYTES_PER_S * 1e3
-    say(f"decode fp32 on batch 0-7 ({route32}): max abs error {e32!r} ({FLASH_TOL[4]}), row "
-        f"relative error {r32!r} (bound {FLASH_ROW_REL[4]}); bk {bk} "
-        f"{ms32:.4f} ms (median of 5), byte bound {b32_ms:.4f} ms")
-    sdpa_fp32(torch, q32, k32, v32, False, "decode fp32 on batch 0-7")
-    del q32, k32, v32
     plain = cuda_ms(torch, lambda: [attention_ref(q[i:i + DECODE_SLICE], k[i:i + DECODE_SLICE],
                                                   v[i:i + DECODE_SLICE], True)
                                     for i in range(0, B, DECODE_SLICE)], warmup=1, reps=3)
@@ -1623,6 +1699,7 @@ def run_flash(args, torch, dev) -> list:
                     "in_turns_ms": turns["flash_decode"], "library_in_turns_ms": turns["sdpa"],
                     "queued_ms": queued["flash_decode"], "library_queued_ms": queued["sdpa"]})
     kernels += run_small_decode(torch, q[:DECODE_SMALL_B], k[:DECODE_SMALL_B], v[:DECODE_SMALL_B])
+    kernels += run_core_decode(torch, q[:DECODE_SMALL_B], k[:DECODE_SMALL_B], v[:DECODE_SMALL_B])
     return kernels
 
 
@@ -1701,6 +1778,81 @@ def run_small_decode(torch, q, k, v) -> list:
              "launches": launches["flash_decode_combine"], "max_abs_err": c_err, "ms": c_ms,
              "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": "bytes", "library_ms": None,
              "queued_ms": c_queued, **common}]
+
+
+def run_core_decode(torch, q, k, v) -> list:
+    """F4. The CUDA-core decode route through ``flash_attention`` at a single
+    user's batch of the decode_32k cache: in fp32 (the sequences in fp32)
+    and in bf16 at head dim 32 (their first 32 dims).  Too few units fill
+    the card, so each splits the cache as ``decode_splits`` says and the
+    combine kernel merges the partials in the output's dtype.  Held to the
+    plain version, timed beside the bound, the plain version and SDPA (in
+    fp32 the math backend, the only one that takes fp32 with
+    ``enable_gqa``)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref, row_rel_err
+
+    B, Hq, _, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chosen = FK.decode_splits(B, Hkv, FK.decode_chunks("cuda_cores", Hq // Hkv), Skv, sms)
+    records = []
+    for label, qc, kc, vc in (("fp32", q.float(), k.float(), v.float()),
+                              ("bf16,D=32", *(t[..., :32].contiguous() for t in (q, k, v)))):
+        eb, d = qc.element_size(), qc.shape[-1]
+        reset_counts()
+        out = flash_attention(qc, kc, vc)
+        torch.cuda.synchronize()
+        launches, decode = dict(FK.LAUNCHES), dict(FK.LAST_DECODE)
+        if launches != {"flash_attention_fwd": 0, "flash_decode": 1, "flash_decode_combine": 1} \
+                or decode != {"route": "cuda_cores", "splits": chosen} or chosen < 2:
+            raise AssertionError(f"decode {label} B {B}: launches {launches}, {decode}, "
+                                 f"decode_splits {chosen}")
+        want = attention_ref(qc, kc, vc, False)
+        err, rel = check_flash(torch, out, want, f"flash_attention decode {label} B {B}", eb)
+        rel32 = row_rel_err(out, attention_ref(qc.float(), kc.float(), vc.float(), False))
+        del out, want
+        flops = 4.0 * d * B * Hq * Skv  # Q K^T and P V on the CUDA cores, f32 FFMAs
+        n_bytes = (2 * B * Hq * d + 2 * B * Hkv * Skv * d) * eb
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[4] * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        plain = cuda_ms(torch, lambda: attention_ref(qc, kc, vc, False), warmup=1, reps=3)
+        call = lambda: flash_attention(qc, kc, vc)
+        if eb == 4:
+            sdpa_fp32(torch, qc, kc, vc, False, f"decode fp32 B {B}")
+
+            def sdpa():
+                with sdpa_kernel([SDPBackend.MATH]):
+                    return F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True)
+        ms, lib = cuda_ms(torch, call), cuda_ms(torch, sdpa)
+        turns = interleaved_ms(torch, {"flash_decode": call, "sdpa": sdpa}, FLASH_ROUNDS)
+        queued = interleaved_ms(torch, {"flash_decode": call, "sdpa": sdpa}, 10, QUEUED_CALLS)
+        say(f"decode {label} B {B} x {Skv} (cuda_cores): flash_attention ran {chosen} splits "
+            f"(decode_splits on {sms} SMs) and the combine; launches {launches}; max abs error "
+            f"{err!r} ({FLASH_TOL[eb]}), row relative error {rel!r} (bound {FLASH_ROW_REL[eb]}; "
+            f"against the fp32 plain version {rel32!r}); {ms:.4f} ms ({b_ms / ms * 100:.1f}% of "
+            f"the {b_ms:.4f} ms bound, {b_by}; {kc.numel() * 2 * eb / (ms * 1e-3) / 1e9:.0f} "
+            f"GB/s); plain {plain:.4f} ms (median of 3); library "
+            f"F.scaled_dot_product_attention{' (math)' if eb == 4 else ''} {lib:.4f} ms; in turns "
+            f"({FLASH_ROUNDS} rounds) {turns['flash_decode']:.4f} against {turns['sdpa']:.4f} ms "
+            f"({turns['flash_decode'] / turns['sdpa']:.4f}x); queued ({QUEUED_CALLS} calls back "
+            f"to back, 10 rounds) {queued['flash_decode']:.4f} against {queued['sdpa']:.4f} ms "
+            f"({b_ms / queued['flash_decode'] * 100:.1f}% of bound); {card_line()}")
+        records.append({"name": f"flash_decode[{label},B={B}]", "decode_route": "cuda_cores",
+                        "splits": chosen, "launches": launches["flash_decode"],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib, "in_turns_ms": turns["flash_decode"],
+                        "library_in_turns_ms": turns["sdpa"], "queued_ms": queued["flash_decode"],
+                        "library_queued_ms": queued["sdpa"], "source": FLASH_SOURCE,
+                        "replaces": FLASH_REPLACES["decode"]})
+        del qc, kc, vc
+    return records
 
 
 def run_layer(args, torch, dev) -> None:
@@ -1825,7 +1977,7 @@ def main(argv=None) -> int:
          "library_ms": k["library_ms"], "pass": True,
          **{key: k[key] for key in ("fwd_route", "decode_route", "splits", "in_turns_ms",
                                     "library_in_turns_ms", "queued_ms", "library_queued_ms",
-                                    "offset_bits", "zmarch_route", "stages",
+                                    "offset_bits", "weights", "zmarch_route", "stages",
                                     "threads", "segments", "fp64_in_turns_ms",
                                     "fp64_library_in_turns_ms")
             if key in k}}

@@ -120,14 +120,34 @@
 //   whole blocks); Skv need not be a multiple of 128.  TMA row coordinates
 //   are 32-bit: B*Hkv*Skv above INT32_MAX is refused.
 //
-//   bf16 at D 32 and fp32 ("cuda_cores"): flash_decode_kernel.  One CTA per
-//   (b, KV head) serves up to 8 query heads of that KV head's group; it
-//   walks the cache in blocks of bk keys: the block's scores go to shared
-//   memory, the block max and sum are reduced over the CTA, and every
-//   thread accumulates p v for its keys.  Lanes read 16 B each, D/8 (bf16)
-//   or D/4 (fp32) lanes to a key row.  Six CTA barriers a block keep its
-//   loads from overlapping the softmax.  Every element offset is 64-bit:
-//   at B = 128, Skv = 32768, Hkv = 8, D = 64 K alone has 2^31 elements.
+//   bf16 at D 32 and fp32 at D 32, 64 and 128 ("cuda_cores"):
+//   flash_decode_core_kernel, the tensor-core kernel's shape on the CUDA
+//   cores.  The products stay f32 FFMAs (no TF32: the fp32 tolerance and p's
+//   f32 precision are kept); at about 2 FLOP a byte the kernel is bound by
+//   the bytes of K and V, so the design keeps every SM streaming them.
+//   - A unit is (b, KV head, chunk of up to G = 4 or 8 of its query heads,
+//     split); persistent CTAs (one per SM) walk the units, and the wrapper
+//     splits the cache (kernel.decode_splits, whole 128-key blocks) where
+//     the units would not fill the card, merged by the combine kernel.
+//   - One producer thread keeps bulk copies (cp.async.bulk) of 64-key K and
+//     V blocks in flight, into a K and a V ring of 3 to 12 stages (192 KB
+//     together), with full and empty mbarriers apart.  A unit's keys are
+//     one contiguous run of each tensor, so a block is one copy of 64·D
+//     elements: no tensor map, no 32-bit row coordinate.
+//   - n consumer warps (6 where the ring has 6 or 12 stages, 3 at fp32
+//     D 128; DecCore::kConsumers) take whole blocks in turn (warp w the
+//     blocks w, w + n, ...), each with its own running max, sum and O, with
+//     no CTA barrier in the key loop.  Scores: lane i holds keys i and
+//     i + 32 of the block and runs one FFMA chain per (head, key) over the
+//     16-byte chunks of the row, q from shared memory; each lane starts at
+//     another chunk, so the 8 lanes of a shared-memory phase read 8 bank
+//     groups.  The row max over the warp's shuffles, p to a per-warp
+//     buffer, then O += P V with lane i owning D/32 columns of every head.
+//   - At a unit's end the warps combine their (m, l, O) through shared
+//     memory (two barriers of the consumer warps a unit) and write o = O /
+//     max(l, 1e-30), or the f32 partials (m, l, unnormalised O).
+//   Offsets: a block's address is computed once in 64 bits by the
+//   producer; everything in the key loop indexes shared memory.
 //
 // Every launcher has a plain C interface for ctypes, launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() after the launch
@@ -1019,9 +1039,6 @@ flash_fwd_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 // ---------------------------------------------------------------------------
 // decode
 // ---------------------------------------------------------------------------
-constexpr int kDecThreads = 256;
-constexpr int kDecWarps = kDecThreads / 32;
-
 __device__ __forceinline__ void load_vec(const bf16* p, float (&x)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -1042,158 +1059,6 @@ __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ void from_float(float x, bf16* p) { *p = __float2bfloat16_rn(x); }
 __device__ __forceinline__ void from_float(float x, float* p) { *p = x; }
-
-// the CTA-wide max (or sum) of one value per thread for each of G heads;
-// every thread gets the results
-template <int G, bool kMax>
-__device__ __forceinline__ void block_reduce(float (&x)[G], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int w = 16; w >= 1; w >>= 1) {
-      const float y = __shfl_xor_sync(0xffffffffu, x[g], w);
-      x[g] = kMax ? fmaxf(x[g], y) : x[g] + y;
-    }
-    if (lane == 0) red[warp * G + g] = x[g];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float acc = red[g];
-#pragma unroll
-    for (int w = 1; w < kDecWarps; ++w) acc = kMax ? fmaxf(acc, red[w * G + g]) : acc + red[w * G + g];
-    x[g] = acc;
-  }
-  __syncthreads();  // red is reused by the next reduction
-}
-
-template <typename T, int D, int G>
-constexpr int decode_smem_bytes(int bk) {
-  return (G * bk + kDecWarps * G + kDecWarps * G * D) * 4;
-}
-
-// grid (B*Hkv, ceil(group / G)); CTA (b, kvh, chunk) serves query heads
-// kvh*group + chunk*G + g for g < min(G, group - chunk*G)
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(kDecThreads)
-flash_decode_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                    T* __restrict__ O, int Hq, int Hkv, int Skv, int bk, float scale) {
-  constexpr int VEC = 16 / sizeof(T);      // elements of one 16-byte load
-  constexpr int LANES = D / VEC;           // lanes to a key row
-  constexpr int WORKERS = kDecThreads / LANES;
-  static_assert(32 % LANES == 0, "a key row must fit a warp");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sc = reinterpret_cast<float*>(smem);  // [G][bk] scores, then p
-  float* red = sc + G * bk;                    // [warps][G]
-  float* part = red + kDecWarps * G;           // [warps][G][D]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int worker = tid / LANES, sub = tid % LANES;
-  const int bkv = blockIdx.x;  // b*Hkv + kvh
-  const int b = bkv / Hkv, kvh = bkv % Hkv;
-  const int group = Hq / Hkv;
-  const int g0 = blockIdx.y * G;
-  const int ng = min(G, group - g0);
-  const int h0 = kvh * group + g0;
-
-  float q[G][VEC], acc[G][VEC], m_run[G], l_run[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m_run[g] = kNegInf;
-    l_run[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      acc[g][e] = 0.f;
-      q[g][e] = g < ng ? to_float(Q[((int64_t)b * Hq + h0 + g) * D + sub * VEC + e]) : 0.f;
-    }
-  }
-  const T* kg = K + (int64_t)bkv * Skv * D + sub * VEC;
-  const T* vg = V + (int64_t)bkv * Skv * D + sub * VEC;
-
-  for (int k0 = 0; k0 < Skv; k0 += bk) {
-    // scores of the block's keys k0 + worker + WORKERS*i
-#pragma unroll 4
-    for (int j = worker; j < bk; j += WORKERS) {
-      float kv[VEC];
-      load_vec(kg + (int64_t)(k0 + j) * D, kv);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(q[g][e], kv[e], dot);
-#pragma unroll
-        for (int w = LANES / 2; w >= 1; w >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, w);
-        if (sub == 0) sc[g * bk + j] = dot * scale;
-      }
-    }
-    __syncthreads();
-
-    float mx[G], sum[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      mx[g] = kNegInf;
-      for (int j = tid; j < bk; j += kDecThreads) mx[g] = fmaxf(mx[g], sc[g * bk + j]);
-    }
-    block_reduce<G, true>(mx, red);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float m_new = fmaxf(m_run[g], mx[g]);
-      const float corr = __expf(m_run[g] - m_new);
-      sum[g] = 0.f;
-      for (int j = tid; j < bk; j += kDecThreads) {
-        const float p = __expf(sc[g * bk + j] - m_new);
-        sc[g * bk + j] = p;
-        sum[g] += p;
-      }
-      m_run[g] = m_new;
-      l_run[g] *= corr;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
-    }
-    block_reduce<G, false>(sum, red);  // its barriers also publish p
-#pragma unroll
-    for (int g = 0; g < G; ++g) l_run[g] += sum[g];
-
-#pragma unroll 4
-    for (int j = worker; j < bk; j += WORKERS) {
-      float vv[VEC];
-      load_vec(vg + (int64_t)(k0 + j) * D, vv);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float p = sc[g * bk + j];
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e]);
-      }
-    }
-    __syncthreads();  // sc is rewritten by the next block
-  }
-
-  // sum acc over the workers: first the workers of a warp (lanes that share
-  // ``sub``), then the warps through shared memory
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      float x = acc[g][e];
-#pragma unroll
-      for (int w = LANES; w < 32; w <<= 1) x += __shfl_xor_sync(0xffffffffu, x, w);
-      if (lane < LANES) part[(warp * G + g) * D + sub * VEC + e] = x;
-    }
-  if (tid == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) red[g] = fmaxf(l_run[g], kMinDenom);  // every thread holds l
-  }
-  __syncthreads();
-  for (int i = tid; i < ng * D; i += kDecThreads) {
-    const int g = i / D, d = i % D;
-    float x = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) x += part[(w * G + g) * D + d];
-    from_float(x / red[g], O + ((int64_t)b * Hq + h0 + g) * D + d);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // decode, bf16 at D 64 and 128: a TMA ring under warp-local mma.sync consumers
@@ -1517,11 +1382,12 @@ flash_decode_tma_kernel(const __grid_constant__ CUtensorMap tma_k,
   }
 }
 
-// o (rows, D) bf16 from the partials (rows, splits, D + 2) f32 of the
-// splits: m = max_s m_s, o = sum_s e^(m_s - m) O_s / max(sum_s e^(m_s - m)
-// l_s, 1e-30).  One warp a row, lanes along D.
+// o (rows, D) in OutT (bf16 or f32) from the partials (rows, splits, D + 2)
+// f32 of the splits: m = max_s m_s, o = sum_s e^(m_s - m) O_s /
+// max(sum_s e^(m_s - m) l_s, 1e-30).  One warp a row, lanes along D.
+template <typename OutT>
 __global__ void __launch_bounds__(128)
-flash_decode_combine_kernel(const float* __restrict__ part, bf16* __restrict__ O, int rows, int D,
+flash_decode_combine_kernel(const float* __restrict__ part, OutT* __restrict__ O, int rows, int D,
                             int splits) {
   const int row = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -1539,7 +1405,287 @@ flash_decode_combine_kernel(const float* __restrict__ part, bf16* __restrict__ O
   for (int d = lane; d < D; d += 32) {
     float acc = 0.f;
     for (int sp = 0; sp < splits; ++sp) acc += expf(p[sp * (D + 2) + D] - mx) * p[sp * (D + 2) + d];
-    O[(int64_t)row * D + d] = __float2bfloat16_rn(acc / denom);
+    from_float(acc / denom, O + (int64_t)row * D + d);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode on the CUDA cores (fp32 at D 32, 64 and 128; bf16 at D 32): a ring
+// of bulk copies under warp-local FFMA consumers
+// ---------------------------------------------------------------------------
+constexpr int kCoreBlock = 64;           // keys of a ring stage (Skv is a multiple of 64)
+constexpr int kCoreMaxConsumers = 6;     // consumer warps at most; warp 0 is the producer
+constexpr int kCoreRingBytes = 196608;   // the K and V rings together
+constexpr int kCoreMaxStages = 12;
+
+template <typename T, int D, int G>
+struct DecCore {
+  static constexpr int kVec = 16 / sizeof(T);   // elements of one 16-byte chunk
+  static constexpr int kChunks = D / kVec;      // chunks of a key row
+  static constexpr int kCols = D / 32;          // columns of O a lane owns in P V
+  static constexpr int kTileBytes = kCoreBlock * D * sizeof(T);  // one K or V block
+  static constexpr int kFit = kCoreRingBytes / (2 * kTileBytes);
+  static constexpr int kRing = kFit < kCoreMaxStages ? kFit : kCoreMaxStages;  // 3, 6 or 12
+  // small blocks (D 32: 4 or 8 KB) leave a warp more work per byte than
+  // large ones: as many consumers as divide the ring, up to kCoreMaxConsumers
+  static constexpr int kConsumers = kRing % kCoreMaxConsumers == 0 ? kCoreMaxConsumers
+                                    : kRing % 3 == 0 && kCoreMaxConsumers > 3 ? 3 : 1;
+  static constexpr int kStages = kRing / kConsumers * kConsumers;
+  static constexpr int kQFloats = G * D;                       // the unit's q, in f32
+  static constexpr int kPFloats = kConsumers * G * kCoreBlock;  // each warp's p of a block
+  static constexpr int kRedFloats = kConsumers * G * (D + 2);   // each warp's O, m, l
+  static constexpr int kBars = 4 * kStages;                    // K and V full and empty
+  static constexpr int kSmem =
+      2 * kStages * kTileBytes + 4 * (kQFloats + kPFloats + kRedFloats) + 8 * kBars;
+  static_assert(D % 32 == 0 && kChunks >= 4, "head dim");
+  // block it sits in stage it % kStages and goes to warp it % kConsumers, so
+  // each stage serves one warp, which waits on its phases in order
+  static_assert(kStages >= kConsumers && kStages % kConsumers == 0, "stages");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
+};
+
+// barrier 1 over the N consumer warps
+template <int N>
+__device__ __forceinline__ void core_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N * 32) : "memory");
+}
+
+// N consecutive f32 of shared memory, 16-byte aligned
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(p)[i];
+    x[4 * i] = v.x; x[4 * i + 1] = v.y; x[4 * i + 2] = v.z; x[4 * i + 3] = v.w;
+  }
+}
+
+// the N columns of a V row that a lane owns, as f32
+template <int N, typename T>
+__device__ __forceinline__ void load_cols(const T* p, float (&x)[N]) {
+  if constexpr (sizeof(T) == 4 && N % 4 == 0) {
+    load_f32<N>(reinterpret_cast<const float*>(p), x);
+  } else if constexpr (sizeof(T) == 4 && N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = to_float(p[j]);
+  }
+}
+
+// grid: at most one CTA per SM, each walking the units u = blockIdx.x,
+// + gridDim.x, ...; unit u is (b*Hkv + kvh, split, chunk), chunk fastest,
+// and covers query heads kvh*group + G*chunk .. (at most G) and the keys of
+// the split's 128-key blocks [sp*nb/splits, (sp+1)*nb/splits), in blocks of
+// 64.  splits 1: o is written; else part (B, Hq, splits, D + 2) f32 gets each
+// unit's unnormalised O, its max m of the scaled scores and its sum l.
+template <typename T, int D, int G>
+__global__ void __launch_bounds__((1 + DecCore<T, D, G>::kConsumers) * 32, 1)
+flash_decode_core_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
+                         T* __restrict__ O, float* __restrict__ part, int B, int Hq, int Hkv,
+                         int Skv, int splits, float c) {
+  using C = DecCore<T, D, G>;
+  constexpr int S = C::kStages;
+  constexpr int NC = C::kConsumers;
+  constexpr int KPL = kCoreBlock / 32;  // keys of a block each lane scores
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sk = reinterpret_cast<T*>(smem);              // [stages][64][D]
+  T* sv = sk + S * kCoreBlock * D;                      // [stages][64][D]
+  float* sq = reinterpret_cast<float*>(sv + S * kCoreBlock * D);  // [G][D]
+  float* sp = sq + C::kQFloats;                         // [warps][G][64]
+  float* red = sp + C::kPFloats;                        // [warps][G][D + 2]
+  const uint32_t bars = smem_u32(red + C::kRedFloats);
+  auto k_full = [&](int s) { return bars + 8u * s; };
+  auto v_full = [&](int s) { return bars + 8u * (S + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (2 * S + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (3 * S + s); };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = Hq / Hkv, chunks = (group + G - 1) / G;
+  const int nb = (Skv + 127) / 128;  // the 128-key blocks the splits are made of
+  const int units = B * Hkv * chunks * splits;
+  auto unit = [&](int u, int& bkv, int& spl, int& ch, int& kb0, int& kb1) {
+    ch = u % chunks;
+    spl = u / chunks % splits;
+    bkv = u / chunks / splits;
+    kb0 = min(Skv, (int)((int64_t)spl * nb / splits) * 128) / kCoreBlock;
+    kb1 = min(Skv, (int)((int64_t)(spl + 1) * nb / splits) * 128) / kCoreBlock;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);   // the producer's arrive.expect_tx
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 1);  // lane 0 of the warp that took the block
+      mbar_init(v_empty(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // every role walks the same units and counts the same blocks (it), which
+  // index the rings, give each mbarrier's phase and name the consumer warp
+  if (warp == 0) {
+    if (lane == 0) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        int bkv, spl, ch, kb0, kb1;
+        unit(u, bkv, spl, ch, kb0, kb1);
+        for (int kb = kb0; kb < kb1; ++kb, ++it) {
+          const int st = it % S, ph = (it / S) & 1;
+          const int64_t row = (int64_t)bkv * Skv + kb * kCoreBlock;
+          mbar_wait(k_empty(st), ph ^ 1);
+          mbar_arrive_expect_tx(k_full(st), C::kTileBytes);
+          bulk_load(smem_u32(sk + st * kCoreBlock * D), K + row * D, C::kTileBytes, k_full(st));
+          mbar_wait(v_empty(st), ph ^ 1);
+          mbar_arrive_expect_tx(v_full(st), C::kTileBytes);
+          bulk_load(smem_u32(sv + st * kCoreBlock * D), V + row * D, C::kTileBytes, v_full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = warp - 1;
+  float* pw = sp + cw * G * kCoreBlock;
+  // the chunk a lane reads first: the 8 lanes of a shared-memory phase then
+  // read 8 different bank groups of their 8 key rows
+  const int rot = C::kChunks >= 8 ? lane : lane / (8 / C::kChunks);
+  float s[G][KPL], o[G][C::kCols], m[G], l[G];
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int bkv, spl, ch, kb0, kb1;
+    unit(u, bkv, spl, ch, kb0, kb1);
+    const int b = bkv / Hkv, kvh = bkv % Hkv;
+    const int ng = min(G, group - ch * G);
+    const int64_t h0 = (int64_t)b * Hq + kvh * group + ch * G;  // the unit's first b*Hq + h
+    for (int i = threadIdx.x - 32; i < G * D; i += NC * 32)
+      sq[i] = i / D < ng ? to_float(Q[h0 * D + i]) : 0.f;
+    core_consumers_sync<NC>();  // q is in; the last unit's combine has read red
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < C::kCols; ++j) o[g][j] = 0.f;
+    }
+
+    for (int kb = kb0; kb < kb1; ++kb, ++it) {
+      if (it % NC != cw) continue;
+      const int st = it % S, ph = (it / S) & 1;
+      // scores of keys lane + 32 j, one FFMA chain per (head, key)
+      mbar_wait(k_full(st), ph);
+      const T* kt = sk + st * kCoreBlock * D;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) s[g][j] = 0.f;
+#pragma unroll
+      for (int t = 0; t < C::kChunks; ++t) {
+        const int cc = (t + rot) % C::kChunks;
+        float kv[KPL][C::kVec];
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) load_vec(kt + (lane + 32 * j) * D + cc * C::kVec, kv[j]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float qv[C::kVec];
+          load_f32<C::kVec>(sq + g * D + cc * C::kVec, qv);
+#pragma unroll
+          for (int j = 0; j < KPL; ++j)
+#pragma unroll
+            for (int e = 0; e < C::kVec; ++e) s[g][j] = fmaf(qv[e], kv[j][e], s[g][j]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty(st));
+      // the block's online softmax in the exp2 domain; p to this warp's buffer
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          s[g][j] *= c;
+          mx = fmaxf(mx, s[g][j]);
+        }
+#pragma unroll
+        for (int w = 16; w >= 1; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+        const float m_new = fmaxf(m[g], mx);
+        const float corr = ex2(m[g] - m_new);
+        m[g] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const float p = ex2(s[g][j] - m_new);
+          pw[g * kCoreBlock + lane + 32 * j] = p;
+          sum += p;
+        }
+        l[g] = l[g] * corr + sum;  // this lane's keys; summed over the warp at the unit's end
+#pragma unroll
+        for (int j = 0; j < C::kCols; ++j) o[g][j] *= corr;
+      }
+      __syncwarp();
+      // O += P V: lane owns columns kCols*lane .. of every head
+      mbar_wait(v_full(st), ph);
+      const T* vt = sv + st * kCoreBlock * D + lane * C::kCols;
+#pragma unroll 2
+      for (int k4 = 0; k4 < kCoreBlock; k4 += 4) {
+        float p4[G][4];
+#pragma unroll
+        for (int g = 0; g < G; ++g) load_f32<4>(pw + g * kCoreBlock + k4, p4[g]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float vv[C::kCols];
+          load_cols<C::kCols>(vt + (k4 + e) * D, vv);
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int j = 0; j < C::kCols; ++j) o[g][j] = fmaf(p4[g][e], vv[j], o[g][j]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty(st));
+    }
+
+    // the warps' (m, l, O) into shared memory, then merged: o = sum_w
+    // 2^(m_w - M) O_w / max(sum_w 2^(m_w - M) l_w, 1e-30)
+    float* mine = red + cw * G * (D + 2);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int w = 16; w >= 1; w >>= 1) l[g] += __shfl_xor_sync(0xffffffffu, l[g], w);
+#pragma unroll
+      for (int j = 0; j < C::kCols; ++j) mine[g * (D + 2) + lane * C::kCols + j] = o[g][j];
+      if (lane == 0) {
+        mine[g * (D + 2) + D] = m[g];
+        mine[g * (D + 2) + D + 1] = l[g];
+      }
+    }
+    core_consumers_sync<NC>();
+    for (int i = threadIdx.x - 32; i < ng * D; i += NC * 32) {
+      const int g = i / D, d = i % D;
+      float mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < NC; ++w) mx = fmaxf(mx, red[(w * G + g) * (D + 2) + D]);
+      float acc = 0.f, sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < NC; ++w) {
+        const float* src = red + (w * G + g) * (D + 2);
+        const float f = ex2(src[D] - mx);
+        acc += f * src[d];
+        sum += f * src[D + 1];
+      }
+      if (splits == 1) {
+        from_float(acc / fmaxf(sum, kMinDenom), O + (h0 + g) * D + d);
+      } else {
+        float* dst = part + ((h0 + g) * splits + spl) * (D + 2);
+        dst[d] = acc;
+        if (d == 0) {
+          dst[D] = mx * kLn2;  // the natural-log domain of the plain version
+          dst[D + 1] = sum;
+        }
+      }
+    }
   }
 }
 
@@ -1600,15 +1746,27 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, int B
 }
 
 template <typename T, int D, int G>
-int launch_decode(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                  int Skv, int bk, float scale, cudaStream_t s) {
-  const int smem = decode_smem_bytes<T, D, G>(bk);
-  auto kern = flash_decode_kernel<T, D, G>;
-  if (int err = set_smem(kern, smem)) return err;
+int launch_decode_core(const void* q, const void* k, const void* v, void* o, void* part, int B,
+                       int Hq, int Hkv, int Skv, int splits, float scale, cudaStream_t s) {
+  using C = DecCore<T, D, G>;
+  const int nb = (Skv + 127) / 128;
   const int chunks = (Hq / Hkv + G - 1) / G;
-  kern<<<dim3(B * Hkv, chunks), kDecThreads, smem, s>>>(
+  // whole 64-key blocks; each split holds at least one 128-key block
+  if (Skv % kCoreBlock || splits < 1 || splits > nb || (splits > 1 && part == nullptr) ||
+      (int64_t)B * Hkv * chunks * splits > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  auto kern = flash_decode_core_kernel<T, D, G>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int units = B * Hkv * chunks * splits;
+  const int ctas = units < sms ? units : sms;  // persistent: at most one CTA per SM
+  kern<<<ctas, (1 + C::kConsumers) * 32, C::kSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Skv, bk, scale);
+      static_cast<T*>(o), static_cast<float*>(part), B, Hq, Hkv, Skv, splits, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1650,14 +1808,13 @@ int dispatch_decode_tma(const void* q, const void* k, const void* v, void* o, vo
   return launch_decode_tma<D, 16>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
 }
 
+// units of up to 4 query heads where the group has at most 4, else of 8
 template <typename T, int D>
-int dispatch_decode(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                    int Skv, int bk, float scale, cudaStream_t s) {
-  const int group = Hq / Hkv;
-  if (group <= 1) return launch_decode<T, D, 1>(q, k, v, o, B, Hq, Hkv, Skv, bk, scale, s);
-  if (group <= 2) return launch_decode<T, D, 2>(q, k, v, o, B, Hq, Hkv, Skv, bk, scale, s);
-  if (group <= 4) return launch_decode<T, D, 4>(q, k, v, o, B, Hq, Hkv, Skv, bk, scale, s);
-  return launch_decode<T, D, 8>(q, k, v, o, B, Hq, Hkv, Skv, bk, scale, s);
+int dispatch_decode_core(const void* q, const void* k, const void* v, void* o, void* part, int B,
+                         int Hq, int Hkv, int Skv, int splits, float scale, cudaStream_t s) {
+  if (Hq / Hkv <= 4)
+    return launch_decode_core<T, D, 4>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
+  return launch_decode_core<T, D, 8>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
 }
 
 }  // namespace
@@ -1736,23 +1893,23 @@ int flash_decode_route(int elem_bytes, int D) {
   return kRouteNone;
 }
 
-// launches the kernel flash_decode_route names.  kRouteTmaMma: splits (1 up
-// to the cache's 128-key blocks) parts of the cache, bk unused; splits 1
-// writes o, more write part (B, Hq, splits, D + 2) f32 for
-// flash_decode_combine_launch.  kRouteCudaCores: splits 1, bk a multiple of
-// 64 that divides Skv.  Anything else returns cudaErrorInvalidValue without
-// launching.
+// launches the kernel flash_decode_route names on splits (1 up to the
+// cache's 128-key blocks) parts of the cache; splits 1 writes o, more write
+// part (B, Hq, splits, D + 2) f32 for flash_decode_combine_launch.  Both
+// kernels pick their own key blocks; kRouteCudaCores needs Skv a multiple
+// of 64.  Anything else returns
+// cudaErrorInvalidValue without launching.
 int flash_decode_launch(int elem_bytes, const void* q, const void* k, const void* v, void* o,
-                        void* part, int B, int Hq, int Hkv, int Skv, int D, int bk, int splits,
+                        void* part, int B, int Hq, int Hkv, int Skv, int D, int splits,
                         float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DEC(T, HD) return dispatch_decode<T, HD>(q, k, v, o, B, Hq, Hkv, Skv, bk, scale, s)
+#define DEC(T, HD) \
+  return dispatch_decode_core<T, HD>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s)
   switch (flash_decode_route(elem_bytes, D)) {
     case kRouteTmaMma:
       if (D == 64) return dispatch_decode_tma<64>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
       return dispatch_decode_tma<128>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
     case kRouteCudaCores:
-      if (splits != 1) break;
       if (elem_bytes == 2) DEC(bf16, 32);
       if (D == 32) DEC(float, 32);
       if (D == 64) DEC(float, 64);
@@ -1762,12 +1919,20 @@ int flash_decode_launch(int elem_bytes, const void* q, const void* k, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// o (rows, D) bf16 from part (rows, splits, D + 2) f32, all on the card
+// o (rows, D) from part (rows, splits, D + 2) f32, all on the card: o bf16
+// for out_bytes 2, f32 for 4; anything else returns cudaErrorInvalidValue
 int flash_decode_combine_launch(const void* part, void* o, int rows, int D, int splits,
-                                void* stream) {
-  if (rows < 1 || D < 1 || splits < 1) return (int)cudaErrorInvalidValue;
-  flash_decode_combine_kernel<<<(rows + 3) / 4, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<bf16*>(o), rows, D, splits);
+                                int out_bytes, void* stream) {
+  if (rows < 1 || D < 1 || splits < 1 || (out_bytes != 2 && out_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  const auto* p = static_cast<const float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_bytes == 2)
+    flash_decode_combine_kernel<bf16><<<(rows + 3) / 4, 128, 0, s>>>(p, static_cast<bf16*>(o), rows,
+                                                                      D, splits);
+  else
+    flash_decode_combine_kernel<float><<<(rows + 3) / 4, 128, 0, s>>>(p, static_cast<float*>(o),
+                                                                       rows, D, splits);
   return (int)cudaGetLastError();
 }
 

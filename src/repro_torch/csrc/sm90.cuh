@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA kernels
 // (matmul.cu, flash_attention.cu, stencil3d25.cu): mbarriers, TMA loads and
-// stores, the 128-byte-swizzle wgmma shared-memory descriptor, wgmma fence /
+// stores, bulk copies, the 128-byte-swizzle wgmma shared-memory descriptor, wgmma fence /
 // commit / wait, and the host's tensor-map encoders.  Each kernel source includes it
 // and builds into its own library, so everything here has internal linkage.
 
@@ -58,6 +58,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory; completion is counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

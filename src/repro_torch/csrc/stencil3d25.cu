@@ -8,17 +8,24 @@
 // contiguous; `w` holds the 6r+1 weights in the order of ref.py: centre, then
 // (z,-1), (z,+1), ..., (z,-r), (z,+r), then the same for y, then for x.
 //
-// Weights.  Both kernels read them from the constant bank (c_w64 / c_w32,
-// kMaxTaps values, so r <= kMaxRange on the card).  The launcher copies them
-// there from the weights tensor with cudaMemcpyToSymbolAsync on the launch
-// stream, right before the launch; the host never waits.  With r a
-// compile-time constant each multiply-add then takes its weight as a
-// constant-bank operand and no load is issued for it.  The bank is one per
-// library, not one per launch: launches on one stream are ordered, so each
-// sees its own weights, but two launches on two streams at once with
-// different weights race for the bank.  The wrappers launch on the current
-// stream; a caller that runs stencils on two streams at once must give them
-// the same weights or order the streams.
+// Weights.  For r = 1..4 (kBankRange, the unrolled instantiations) both
+// kernels read them from the constant bank (c_w64 / c_w32).  The launcher
+// copies them there from the weights tensor with cudaMemcpyToSymbolAsync on
+// the launch stream, right before the launch; the host never waits.  With r
+// a compile-time constant each multiply-add then takes its weight as a
+// constant-bank operand and no load is issued for it.  Any other r runs the
+// generic instantiation (RT = 0), which reads its weights from the weights
+// tensor through the read-only path (ld.global.nc), so the card takes every
+// r the reference takes.
+//
+// The bank is one per device and dtype, not one per launch, so it is
+// guarded (with_bank): each bank keeps the stream of the last launch that
+// read it and an event recorded on that stream after the launch.  A launch
+// on another stream first makes its own stream wait for that event
+// (cudaStreamWaitEvent), then fills the bank and launches; every launch then
+// records the event on its stream.  The host never waits, and launches on
+// one stream pay only the event record.  A host mutex keeps each wait, fill,
+// launch and record together when several host threads launch at once.
 //
 // star_pointwise
 //   Replaces the TPU kernel repro/kernels/stencil3d25/kernel.py:make_replane
@@ -37,8 +44,9 @@
 //   access stream is fixed: the points of each thread and the 6r+1 global
 //   loads of each point, in tap order.  The design changes only what lies
 //   around it:
-//   * weights from the constant bank: no shared load beside each global
-//     one on the load/store pipe, and no barrier;
+//   * weights from the constant bank (r = 1..4; the generic instantiation
+//     reads them from w): no shared load beside each global one on the
+//     load/store pipe, and no barrier;
 //   * for r = 1..4 (unrolled instantiations; any other r runs a generic
 //     one) all 6r+1 loads of a point are issued into a register array
 //     before the first multiply-add, then summed in tap order
@@ -71,8 +79,9 @@
 //     any row stride (kernel.zmarch_route names the route).
 //   * The consumers, all other threads (at most 256), own CY consecutive
 //     rows (2, 4 or 8, kernel.zmarch_rows) of one output column x of the
-//     tile.  The z taps
-//     stay in registers as 2r+1 partial sums a row: plane t adds its value
+//     tile.  For r = 1..4 the z taps stay in registers as 2r+1 partial sums
+//     a row (any other r reads all 6r+1 taps of an output from a ring of
+//     2r+2 planes, in tap order, with its weights from w): plane t adds its value
 //     at the column's centre to the sums of the outputs t-2r .. t (output
 //     planes, padded plane t is the centre of output t-r) with their z
 //     weights, and to output t-r the centre, y and x taps of that plane.
@@ -98,17 +107,21 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kMaxRange = 8;                 // the largest r the constant bank holds
-constexpr int kMaxTaps = 6 * kMaxRange + 1;
+constexpr int kBankRange = 4;                // r up to which the weights sit in the constant bank
+constexpr int kBankTaps = 6 * kBankRange + 1;
 
 // design switches that kernels/stencil3d25/ablate.py flips, one at a time.
 // star_pointwise's weights: false stages them in shared memory per block.
 constexpr bool kConstWeights = true;
+// both kernels' weights at r <= kBankRange: false reads them from w through
+// the read-only path, as the generic instantiations do, and fills no bank.
+constexpr bool kBankWeights = true;
 // star_zmarch's z taps: false reads all 6r+1 taps from the ring, in tap
 // order, which then holds the 2r+1 planes of an output (stages >= 2r+2).
 constexpr bool kZInRegisters = true;
@@ -119,8 +132,8 @@ constexpr int kRouteCpAsync = 1;
 // registers a thread (the register file's quarters hold 3 warps each)
 constexpr int kZmarchMaxThreads = 288;
 
-__constant__ double c_w64[kMaxTaps];
-__constant__ float c_w32[kMaxTaps];
+__constant__ double c_w64[kBankTaps];
+__constant__ float c_w32[kBankTaps];
 
 template <typename T>
 __device__ __forceinline__ T cweight(int k);
@@ -141,6 +154,47 @@ cudaError_t upload_weights<float>(const void* w, int n, cudaStream_t s) {
   return cudaMemcpyToSymbolAsync(c_w32, w, n * sizeof(float), 0, cudaMemcpyDeviceToDevice, s);
 }
 
+constexpr int kMaxDevices = 64;
+
+// One constant bank (one dtype on one device): the stream of the last launch
+// that read it, and an event recorded on that stream after that launch.
+struct BankGuard {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t done = nullptr;
+};
+BankGuard g_banks[kMaxDevices][2];
+std::mutex g_bank_mutex;
+long long g_bank_fills = 0;  // fills of a bank, for the tests and the smoke run
+long long g_bank_waits = 0;  // of which on another stream than the bank's last launch
+
+// Fill the bank of T on the current device with the n weights at w and call
+// launch() on stream s, ordered after the last launch that read the bank (on
+// whatever stream); returns launch()'s code or the first CUDA error.
+template <typename T, typename Launch>
+int with_bank(const void* w, int n, cudaStream_t s, Launch launch) {
+  std::lock_guard<std::mutex> lock(g_bank_mutex);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  BankGuard& g = g_banks[dev][sizeof(T) == 8];
+  if (g.done == nullptr) {
+    e = cudaEventCreateWithFlags(&g.done, cudaEventDisableTiming);
+  } else if (g.stream != s) {
+    e = cudaStreamWaitEvent(s, g.done, 0);
+    ++g_bank_waits;
+  }
+  if (e != cudaSuccess) return (int)e;
+  e = upload_weights<T>(w, n, s);
+  if (e != cudaSuccess) return (int)e;
+  ++g_bank_fills;
+  const int rc = launch();
+  // recorded even when the launch failed: the fill on s is queued all the same
+  e = cudaEventRecord(g.done, s);
+  g.stream = s;
+  return rc != 0 ? rc : (int)e;
+}
+
 // Copy the 6r+1 weights into shared memory (kConstWeights = false only).
 template <typename T>
 __device__ __forceinline__ void stage_weights(T* ws, const T* __restrict__ w,
@@ -149,9 +203,10 @@ __device__ __forceinline__ void stage_weights(T* ws, const T* __restrict__ w,
   __syncthreads();
 }
 
-// RT > 0: the range r = RT is a compile-time constant and every tap loop
-// unrolls; RT == 0 takes r from the runtime argument (any r <= kMaxRange).
-// Idx is the type of the element offsets (int below 2^31 elements).
+// RT > 0: the range r = RT is a compile-time constant, every tap loop
+// unrolls and the weights come from the constant bank; RT == 0 takes r from
+// the runtime argument (any r) and its weights from w.  Idx is the type of
+// the element offsets (int below 2^31 elements).
 template <typename T, int RT, typename Idx>
 __global__ void __launch_bounds__(1024)
 star_pointwise_kernel(const T* __restrict__ src, T* __restrict__ dst,
@@ -160,13 +215,15 @@ star_pointwise_kernel(const T* __restrict__ src, T* __restrict__ dst,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ws = reinterpret_cast<T*>(smem_raw);
   const int r = RT > 0 ? RT : r_arg;
-  if constexpr (!kConstWeights) {
+  if constexpr (RT > 0 && !kConstWeights) {
     const int tid = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
     stage_weights(ws, w, 6 * r + 1, tid, blockDim.x * blockDim.y * blockDim.z);
   }
   auto wt = [&](int k) -> T {
-    if constexpr (kConstWeights) return cweight<T>(k);
-    else return ws[k];
+    if constexpr (RT == 0) return __ldg(w + k);
+    else if constexpr (!kConstWeights) return ws[k];
+    else if constexpr (kBankWeights) return cweight<T>(k);
+    else return __ldg(w + k);
   };
   const Idx Xp = X + 2 * r;
   const Idx Yp = Y + 2 * r;
@@ -252,12 +309,14 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
-// RT as in star_pointwise_kernel (RT == 0 keeps its sums in local memory);
+// RT as in star_pointwise_kernel: RT > 0 keeps the z taps in registers
+// (kZInRegisters), RT == 0 reads every tap of an output from the ring, which
+// then holds its 2r+1 planes (stages >= 2r+2), with the weights from w.
 // CY output rows per consumer thread.
 template <typename T, int RT, int CY>
 __global__ void __launch_bounds__(kZmarchMaxThreads)
 star_zmarch_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict__ src,
-                   T* __restrict__ dst, const ZmarchArgs a) {
+                   T* __restrict__ dst, const T* __restrict__ w, const ZmarchArgs a) {
   extern __shared__ unsigned char smem_raw[];
   // TMA writes 128-byte-aligned boxes: the ring starts at the first such address
   T* ring = reinterpret_cast<T*>(smem_raw + ((128 - smem_u32(smem_raw) % 128) % 128));
@@ -322,9 +381,6 @@ star_zmarch_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict_
   }
 
   // the consumers
-  constexpr int NACC = RT > 0 ? 2 * RT + 1 : 2 * kMaxRange + 1;  // partial sums a row keeps
-  constexpr int NCOL = CY + 2 * (RT > 0 ? RT : kMaxRange);
-  constexpr int NX = 2 * (RT > 0 ? RT : kMaxRange);
   const int ncons = (a.ty + CY - 1) / CY * a.tx;
   const int i = min((int)threadIdx.x, ncons - 1);  // threads past the tile repeat its last column
   const int lx = i % a.tx, ly0 = i / a.tx * CY;
@@ -336,8 +392,15 @@ star_zmarch_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict_
   const int64_t plane_out = (int64_t)a.Y * a.X;
   T* out = dst + ((int64_t)z0 * a.Y + y) * a.X + x;
   const int col0 = ly0 * a.bw + xoff + lx + r;  // the column's top row in a slot
+  auto wt = [&](int k) -> T {
+    if constexpr (RT == 0 || !kBankWeights) return __ldg(w + k);
+    else return cweight<T>(k);
+  };
 
-  if constexpr (kZInRegisters) {
+  if constexpr (kZInRegisters && RT > 0) {
+    constexpr int NACC = 2 * RT + 1;  // partial sums a row keeps
+    constexpr int NCOL = CY + 2 * RT;
+    constexpr int NX = 2 * RT;
     T acc[CY][NACC];
 #pragma unroll
     for (int q = 0; q < CY; ++q)
@@ -346,7 +409,7 @@ star_zmarch_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict_
     // unrolled by NACC, so that the sum of the output begun at step k - m
     // sits in acc[.][(j - m) mod NACC], a register when r is a constant
     for (int kb = 0; kb < nplanes; kb += NACC) {
-#pragma unroll(RT > 0 ? NACC : 1)
+#pragma unroll
       for (int j = 0; j < NACC; ++j) {
         const int k = kb + j;
         if (k >= nplanes) break;
@@ -370,23 +433,23 @@ star_zmarch_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict_
           for (int m = 0; m <= 2 * r; ++m) {  // the output begun at step k - m: z tap m - r
             T& sum = acc[q][(j - m + NACC) % NACC];
             if (m == 0) {
-              sum = cweight<T>(2 * r - 1) * c;
+              sum = wt(2 * r - 1) * c;
             } else if (m < r) {
-              sum = sum + cweight<T>(2 * (r - m) - 1) * c;
+              sum = sum + wt(2 * (r - m) - 1) * c;
             } else if (m == r) {
-              sum = sum + cweight<T>(0) * c;
+              sum = sum + wt(0) * c;
 #pragma unroll
               for (int o = 1; o <= r; ++o) {
-                sum = sum + cweight<T>(2 * r + 2 * o - 1) * cv[q + r - o];
-                sum = sum + cweight<T>(2 * r + 2 * o) * cv[q + r + o];
+                sum = sum + wt(2 * r + 2 * o - 1) * cv[q + r - o];
+                sum = sum + wt(2 * r + 2 * o) * cv[q + r + o];
               }
 #pragma unroll
               for (int o = 1; o <= r; ++o) {
-                sum = sum + cweight<T>(4 * r + 2 * o - 1) * xv[q][2 * o - 2];
-                sum = sum + cweight<T>(4 * r + 2 * o) * xv[q][2 * o - 1];
+                sum = sum + wt(4 * r + 2 * o - 1) * xv[q][2 * o - 2];
+                sum = sum + wt(4 * r + 2 * o) * xv[q][2 * o - 1];
               }
             } else {
-              sum = sum + cweight<T>(2 * (m - r)) * c;
+              sum = sum + wt(2 * (m - r)) * c;
             }
           }
           if (k >= 2 * r && keep[q])
@@ -405,18 +468,18 @@ star_zmarch_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict_
 #pragma unroll
       for (int q = 0; q < CY; ++q) {
         const int ci = (q + r) * a.bw;
-        T sum = cweight<T>(0) * pc[ci];
+        T sum = wt(0) * pc[ci];
         for (int o = 1; o <= r; ++o) {
-          sum = sum + cweight<T>(2 * o - 1) * ring[(size_t)((k - r - o) % S) * a.slot_elems + col0 + ci];
-          sum = sum + cweight<T>(2 * o) * ring[(size_t)((k - r + o) % S) * a.slot_elems + col0 + ci];
+          sum = sum + wt(2 * o - 1) * ring[(size_t)((k - r - o) % S) * a.slot_elems + col0 + ci];
+          sum = sum + wt(2 * o) * ring[(size_t)((k - r + o) % S) * a.slot_elems + col0 + ci];
         }
         for (int o = 1; o <= r; ++o) {
-          sum = sum + cweight<T>(2 * r + 2 * o - 1) * pc[ci - o * a.bw];
-          sum = sum + cweight<T>(2 * r + 2 * o) * pc[ci + o * a.bw];
+          sum = sum + wt(2 * r + 2 * o - 1) * pc[ci - o * a.bw];
+          sum = sum + wt(2 * r + 2 * o) * pc[ci + o * a.bw];
         }
         for (int o = 1; o <= r; ++o) {
-          sum = sum + cweight<T>(4 * r + 2 * o - 1) * pc[ci - o];
-          sum = sum + cweight<T>(4 * r + 2 * o) * pc[ci + o];
+          sum = sum + wt(4 * r + 2 * o - 1) * pc[ci - o];
+          sum = sum + wt(4 * r + 2 * o) * pc[ci + o];
         }
         if (keep[q]) out[(int64_t)(k - 2 * r) * plane_out + q * a.X] = sum;
       }
@@ -429,17 +492,17 @@ star_zmarch_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict_
 template <typename T, int RT, typename Idx>
 int go_pointwise(const void* src, void* dst, const void* w, int r, int Z, int Y, int X, int bx,
                  int by, int bz, int fx, int fy, int fz, cudaStream_t stream) {
-  if (kConstWeights) {
-    const cudaError_t e = upload_weights<T>(w, 6 * r + 1, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
   const int ex = bx * fx, ey = by * fy, ez = bz * fz;
   const dim3 grid((X + ex - 1) / ex, (Y + ey - 1) / ey, (Z + ez - 1) / ez);
-  const size_t smem = kConstWeights ? 0 : (size_t)(6 * r + 1) * sizeof(T);
-  star_pointwise_kernel<T, RT, Idx><<<grid, dim3(bx, by, bz), smem, stream>>>(
-      static_cast<const T*>(src), static_cast<T*>(dst), static_cast<const T*>(w), r, Z, Y, X,
-      fx, fy, fz);
-  return (int)cudaGetLastError();
+  const size_t smem = RT > 0 && !kConstWeights ? (size_t)(6 * r + 1) * sizeof(T) : 0;
+  auto launch = [&]() {
+    star_pointwise_kernel<T, RT, Idx><<<grid, dim3(bx, by, bz), smem, stream>>>(
+        static_cast<const T*>(src), static_cast<T*>(dst), static_cast<const T*>(w), r, Z, Y, X,
+        fx, fy, fz);
+    return (int)cudaGetLastError();
+  };
+  if (RT > 0 && kConstWeights && kBankWeights) return with_bank<T>(w, 6 * r + 1, stream, launch);
+  return launch();
 }
 
 // wide: 64-bit offsets (the wrapper's size rule; the ablation forces them)
@@ -451,7 +514,8 @@ int launch_pointwise(const void* src, void* dst, const void* w, int r, int Z, in
   return go_pointwise<T, RT, int>(src, dst, w, r, Z, Y, X, bx, by, bz, fx, fy, fz, s);
 }
 
-// r = 1..4 run an unrolled instantiation, any other r the generic one
+// r = 1..4 (kBankRange) run an unrolled instantiation, any other r the
+// generic one
 template <typename T>
 int dispatch_pointwise(const void* src, void* dst, const void* w, int r, int Z, int Y, int X,
                        int bx, int by, int bz, int fx, int fy, int fz, int wide,
@@ -486,12 +550,14 @@ int launch_zmarch(const void* src, void* dst, const void* w, const ZmarchArgs& a
                              a.rows);
     if (rc != 0) return rc;
   }
-  e = upload_weights<T>(w, 6 * a.r + 1, stream);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.X + a.tx - 1) / a.tx, (a.Y + a.ty - 1) / a.ty, segments);
-  star_zmarch_kernel<T, RT, CY><<<grid, threads, smem, stream>>>(
-      map, static_cast<const T*>(src), static_cast<T*>(dst), a);
-  return (int)cudaGetLastError();
+  auto launch = [&]() {
+    star_zmarch_kernel<T, RT, CY><<<grid, threads, smem, stream>>>(
+        map, static_cast<const T*>(src), static_cast<T*>(dst), static_cast<const T*>(w), a);
+    return (int)cudaGetLastError();
+  };
+  if (RT > 0 && kBankWeights) return with_bank<T>(w, 6 * a.r + 1, stream, launch);
+  return launch();
 }
 
 template <typename T, int CY>
@@ -534,13 +600,13 @@ int blocks_per_sm(int r, int threads, int smem) {
 
 extern "C" {
 
-// elem_bytes selects float (4) or double (8); r above kMaxRange and any
-// other elem_bytes return cudaErrorInvalidValue without launching.
+// elem_bytes selects float (4) or double (8); r < 1 and any other
+// elem_bytes return cudaErrorInvalidValue without launching.
 int star_pointwise_launch(int elem_bytes, const void* src, void* dst, const void* w, int r, int Z,
                           int Y, int X, int bx, int by, int bz, int fx, int fy, int fz, int wide,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (r < 1 || r > kMaxRange) return (int)cudaErrorInvalidValue;
+  if (r < 1) return (int)cudaErrorInvalidValue;
   if (elem_bytes == 8)
     return dispatch_pointwise<double>(src, dst, w, r, Z, Y, X, bx, by, bz, fx, fy, fz, wide, s);
   if (elem_bytes == 4)
@@ -558,12 +624,12 @@ int star_zmarch_launch(int elem_bytes, const void* src, void* dst, const void* w
   const int groups = (ty + cy - 1) / cy;
   const int zlen = segments >= 1 ? (Z + segments - 1) / segments : 0;
   const bool ok =
-      (elem_bytes == 4 || elem_bytes == 8) && r >= 1 && r <= kMaxRange && ty >= 1 && tx >= 1 &&
+      (elem_bytes == 4 || elem_bytes == 8) && r >= 1 && ty >= 1 && tx >= 1 &&
       (cy == 2 || cy == 4 || cy == 8) && rows >= groups * cy + 2 * r &&
       bw >= tx + 2 * r + ((tx * elem_bytes) % 16 ? 16 / elem_bytes - 1 : 0) &&
       slot_elems >= rows * bw && (slot_elems * elem_bytes) % 128 == 0 &&
       threads >= groups * tx + 32 && threads % 32 == 0 && threads <= kZmarchMaxThreads &&
-      stages >= (kZInRegisters ? 2 : 2 * r + 2) && zlen >= 1 && (Z + zlen - 1) / zlen == segments &&
+      stages >= (kZInRegisters && r <= kBankRange ? 2 : 2 * r + 2) && zlen >= 1 && (Z + zlen - 1) / zlen == segments &&
       (route == kRouteCpAsync ||
        (route == kRouteTma && ((X + 2 * r) * elem_bytes) % 16 == 0 && (bw * elem_bytes) % 16 == 0 &&
         bw <= 256 && rows <= 256 && reinterpret_cast<uintptr_t>(src) % 16 == 0));
@@ -582,6 +648,18 @@ int star_zmarch_blocks_per_sm(int elem_bytes, int r, int cy, int threads, int sm
   return cy == 2 ? blocks_per_sm<float, 2>(r, threads, smem)
        : cy == 4 ? blocks_per_sm<float, 4>(r, threads, smem)
                  : blocks_per_sm<float, 8>(r, threads, smem);
+}
+
+// fills of the constant banks so far in this process, and of them those that
+// waited for a launch on another stream (with_bank)
+long long star_bank_fills() {
+  std::lock_guard<std::mutex> lock(g_bank_mutex);
+  return g_bank_fills;
+}
+
+long long star_bank_waits() {
+  std::lock_guard<std::mutex> lock(g_bank_mutex);
+  return g_bank_waits;
 }
 
 const char* star_error_string(int code) {

@@ -18,10 +18,27 @@
 //   bz > 1 only the tz = 0 threads have points; the GPU model does not price
 //   the idle ones (the reference's model, reproduced as it is).
 //   Bound on the H100: DRAM bytes (each element read once and written once,
-//   no arithmetic).  Design: none beyond the priced mapping — stores along
-//   x are coalesced, loads along x stride by N elements, and the ranked
-//   launch decides how much of each loaded line L1 and L2 keep for the
-//   neighbouring threads in y.
+//   no arithmetic).  Stores along x are coalesced, loads along x stride by
+//   N elements, and the ranked launch decides how much of each loaded line
+//   L1 and L2 keep for the neighbouring threads in y: a load takes 8 or 16
+//   bytes of a 32-byte sector, and the next y-block takes the rest.  That
+//   priced stream is fixed: the points of each thread, one load and one
+//   store a point, at the same addresses.  The design changes only what
+//   lies around it:
+//   * compile-time folds for those of the 168 priced launches (fx = 1,
+//     fy = 1 or 2; fz is 1 or 2, and on the depth-1 domain only a thread
+//     with z0 = 0 has points), with one generic instantiation for any other
+//     launch, so a thread's loads are all issued before its first store;
+//   * loads through the read-only path (ld.global.nc) and streaming stores
+//     (st.global.cs, evict first), so the output, written once, leaves L2
+//     to the input sectors that the neighbouring y-blocks still read.
+//   Offsets are 64-bit, so every size takes the one path.  The ablation
+//   (kernels/transpose_pad/ablate.py) finds the whole gain in the
+//   compile-time folds: 32-bit offsets and plain loads and stores each
+//   measured within 1 % of this build at the ranked launches (PERF.md), so
+//   neither has a path of its own.  A thread's two adjacent loads at fy = 2
+//   merged into one vector load (same bytes, same sectors, so the same
+//   priced stream) measured no gain and were left out.
 //
 // transpose_tiled
 //   Replaces the TPU kernel repro/kernels/transpose_pad/kernel.py:
@@ -47,22 +64,43 @@ namespace {
 constexpr int kTile = 32;      // sub-tile side
 constexpr int kTileRows = 8;   // threads of a CTA along the sub-tile's rows
 
-template <typename T>
+// the design switch that kernels/transpose_pad/ablate.py flips
+constexpr bool kFoldInstances = true;  // compile-time folds for the priced launches
+
+// FX, FY > 0: the folds are compile-time constants (fx = FX, fy = FY) and
+// every point's load is issued before the first store; FX = FY = 0 takes
+// them from the arguments.
+template <typename T, int FX, int FY>
 __global__ void __launch_bounds__(1024)
 transpose_pointwise_kernel(const T* __restrict__ x, T* __restrict__ xt, int M,
-                           int N, int fx, int fy, int fz) {
+                           int N, int fx_arg, int fy_arg, int fz) {
+  const int fx = FX > 0 ? FX : fx_arg;
+  const int fy = FY > 0 ? FY : fy_arg;
+  // the domain (1, N, M) has one plane: a thread has points only if its
+  // first z (fold jz = 0) is plane 0
+  if (blockIdx.z * (blockDim.z * fz) + threadIdx.z * fz != 0) return;
   const int x0 = blockIdx.x * (blockDim.x * fx) + threadIdx.x * fx;
   const int y0 = blockIdx.y * (blockDim.y * fy) + threadIdx.y * fy;
-  const int z0 = blockIdx.z * (blockDim.z * fz) + threadIdx.z * fz;
-  for (int jz = 0; jz < fz; ++jz) {
-    if (z0 + jz >= 1) break;  // the domain (1, N, M) has one plane
+  if constexpr (FX > 0) {
+    T v[FY][FX];
+#pragma unroll
+    for (int jy = 0; jy < FY; ++jy)
+#pragma unroll
+      for (int jx = 0; jx < FX; ++jx)
+        if (y0 + jy < N && x0 + jx < M) v[jy][jx] = __ldg(x + (int64_t)(x0 + jx) * N + (y0 + jy));
+#pragma unroll
+    for (int jy = 0; jy < FY; ++jy)
+#pragma unroll
+      for (int jx = 0; jx < FX; ++jx)
+        if (y0 + jy < N && x0 + jx < M) __stcs(xt + (int64_t)(y0 + jy) * M + (x0 + jx), v[jy][jx]);
+  } else {
     for (int jy = 0; jy < fy; ++jy) {
       const int y = y0 + jy;
       if (y >= N) break;
       for (int jx = 0; jx < fx; ++jx) {
         const int m = x0 + jx;
         if (m >= M) break;
-        xt[(int64_t)y * M + m] = x[(int64_t)m * N + y];
+        __stcs(xt + (int64_t)y * M + m, __ldg(x + (int64_t)m * N + y));
       }
     }
   }
@@ -95,14 +133,26 @@ transpose_tiled_kernel(const T* __restrict__ x, T* __restrict__ xt, int M,
   }
 }
 
-template <typename T>
-int launch_pointwise(const void* x, void* xt, int M, int N, int bx, int by,
-                     int bz, int fx, int fy, int fz, cudaStream_t stream) {
+template <typename T, int FX, int FY>
+int go_pointwise(const void* x, void* xt, int M, int N, int bx, int by, int bz, int fx, int fy,
+                 int fz, cudaStream_t stream) {
   const int ex = bx * fx, ey = by * fy, ez = bz * fz;
   const dim3 grid((M + ex - 1) / ex, (N + ey - 1) / ey, (1 + ez - 1) / ez);
-  transpose_pointwise_kernel<T><<<grid, dim3(bx, by, bz), 0, stream>>>(
+  transpose_pointwise_kernel<T, FX, FY><<<grid, dim3(bx, by, bz), 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(xt), M, N, fx, fy, fz);
   return (int)cudaGetLastError();
+}
+
+// the folds of the priced launches (fx 1, fy 1 or 2) unrolled, any other the
+// generic kernel
+template <typename T>
+int launch_pointwise(const void* x, void* xt, int M, int N, int bx, int by, int bz, int fx,
+                     int fy, int fz, cudaStream_t s) {
+  if (kFoldInstances && fx == 1 && fy == 1)
+    return go_pointwise<T, 1, 1>(x, xt, M, N, bx, by, bz, fx, fy, fz, s);
+  if (kFoldInstances && fx == 1 && fy == 2)
+    return go_pointwise<T, 1, 2>(x, xt, M, N, bx, by, bz, fx, fy, fz, s);
+  return go_pointwise<T, 0, 0>(x, xt, M, N, bx, by, bz, fx, fy, fz, s);
 }
 
 template <typename T>
@@ -128,7 +178,7 @@ int transpose_pointwise_launch(int elem_bytes, const void* x, void* xt, int M,
     case 1: return launch_pointwise<uint8_t>(x, xt, M, N, bx, by, bz, fx, fy, fz, s);
     case 2: return launch_pointwise<uint16_t>(x, xt, M, N, bx, by, bz, fx, fy, fz, s);
     case 4: return launch_pointwise<uint32_t>(x, xt, M, N, bx, by, bz, fx, fy, fz, s);
-    case 8: return launch_pointwise<uint64_t>(x, xt, M, N, bx, by, bz, fx, fy, fz, s);
+    case 8: return launch_pointwise<unsigned long long>(x, xt, M, N, bx, by, bz, fx, fy, fz, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

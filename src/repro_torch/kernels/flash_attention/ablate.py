@@ -37,21 +37,34 @@ sequences (split-KV):
 * ``decode: p rounded to bf16 once``: P·V on bf16(p) alone, without the
   low part (its row error against the fp32 plain version is printed);
 * ``decode: not persistent``: one CTA per unit instead of one per SM;
-* ``decode: CUDA-core kernel``: the route forced to ``"cuda_cores"`` at
-  bk 512, the kernel this one replaced;
+* ``decode: CUDA-core kernel``: the route forced to ``"cuda_cores"``,
+  ``flash_decode_core_kernel`` on bf16 at D 64, with no split;
 * at B 8 only, the kernel as built with its splits forced to 1, 2, 4, 8
   and 16 (each but ``kernel.decode_splits``'s choice);
 
 and the probes ``loads only`` (the producer's ring with consumers that
 only release the stages: the ring's own ceiling) and ``no softmax``.
+Then the CUDA-core kernel on the same cache's first 8 sequences in fp32,
+and in bf16 at head dim 32 (``run_core_decode``'s two cases), as built
+(its split count from ``kernel.decode_splits``) against
 
-    python -m repro_torch.kernels.flash_attention.ablate [--part all|fwd|decode] [--rounds 30] [--seed 0]
+* ``decode core: 3 consumer warps`` and ``decode core: one consumer
+  warp``, instead of 6 where the ring's stages allow;
+* ``decode core: not persistent``: one CTA per unit instead of one per SM;
+* its splits forced to 1, 2 and 4 (each but the chosen count);
+* ``old kernel``, with ``--base`` (a checkout of the commit before the
+  redesign, e.g. ``git archive 8a5a615`` unpacked): the previous
+  CUDA-core kernel from there, one CTA per (b, KV head) at bk 512;
+* the library call, ``F.scaled_dot_product_attention`` in fp32 under
+  the math backend, the only one that takes fp32 with ``enable_gqa``.
+
+    python -m repro_torch.kernels.flash_attention.ablate [--part all|fwd|decode] [--base DIR] [--rounds 30] [--seed 0]
 
 Needs a CUDA device and nvcc (exits nonzero without); prints the card's
 name and power limit and the median time of each variant.  Every variant
 is first held to the smoke's tolerances against the plain version (the
-forward on the first batch, the decode on batches 0-15).  The variants
-are built under ``repro_torch/.build/ablate``.
+forward on the first batch, the decode on batches 0-15, fp32 on batches
+0-7).  The variants are built under ``repro_torch/.build/ablate``.
 """
 from __future__ import annotations
 
@@ -60,6 +73,7 @@ import ctypes
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 VARIANTS = {
     "no ping-pong": [("constexpr bool kPingPong = true;", "constexpr bool kPingPong = false;")],
@@ -102,8 +116,19 @@ DECODE_VARIANTS = {
         ("      if (elem_bytes == 2) DEC(bf16, 32);\n",
          "      if (elem_bytes == 2 && D == 32) DEC(bf16, 32);\n"
          "      if (elem_bytes == 2 && D == 64) DEC(bf16, 64);\n"
-         "      if (elem_bytes == 2) DEC(bf16, 128);\n")],
+         "      if (elem_bytes == 2) break;\n")],
 }
+CORE_VARIANTS = {
+    "decode core: 3 consumer warps": [("constexpr int kCoreMaxConsumers = 6;",
+                                       "constexpr int kCoreMaxConsumers = 3;")],
+    "decode core: one consumer warp": [("constexpr int kCoreMaxConsumers = 6;",
+                                        "constexpr int kCoreMaxConsumers = 1;")],
+    "decode core: not persistent": [("const int ctas = units < sms ? units : sms;",
+                              "const int ctas = units;")],
+}
+OLD = "old kernel"
+CORE_FORCED_SPLITS = (1, 2, 4)        # at B 8 in fp32, beside decode_splits's choice
+ATOL32, ROW_REL32 = 2e-3, 1e-4        # chip_smoke.FLASH_TOL / FLASH_ROW_REL for fp32
 DECODE_PROBES = {
     "decode probe: loads only": [("      dec_qk<D>(s, qf, sk + st * T::kTileBytes);\n", ""),
                                  _DEC_SOFTMAX,
@@ -126,22 +151,41 @@ def variant_edits(part: str = "all") -> dict:
     if part in ("all", "fwd"):
         edits.update({**VARIANTS, **PROBES})
     if part in ("all", "decode"):
-        edits.update({**DECODE_VARIANTS, **DECODE_PROBES})
+        edits.update({**DECODE_VARIANTS, **DECODE_PROBES, **CORE_VARIANTS})
     return edits
 
 
-def build_variants(part: str = "all") -> dict:
+def old_source(base: Path) -> Path:
+    """The previous ``flash_attention.cu`` in the checkout ``base``;
+    FileNotFoundError when it is not a checkout of the repo, ValueError
+    when it does not hold the previous CUDA-core decode."""
+    path = Path(base) / "src" / "repro_torch" / "csrc" / "flash_attention.cu"
+    if not path.is_file():
+        raise FileNotFoundError(f"{path} not found: --base takes a checkout of the repo")
+    if "flash_decode_kernel(const T* __restrict__ Q" not in path.read_text():
+        raise ValueError(f"{path} does not hold the previous CUDA-core decode "
+                         f"(flash_decode_kernel)")
+    return path
+
+
+def build_variants(part: str = "all", base: Path | None = None) -> dict:
     """name -> ctypes library of each variant of ``part`` and "as built",
-    every nvcc started at once."""
+    and with a ``base`` checkout the old kernel, every nvcc started at
+    once."""
     from repro_torch.kernels import _build
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    paths = _build.build_variants("flash_attention", variant_edits(part))
+    if base is not None and part in ("all", "decode"):
+        paths[OLD] = _build.build_variants("flash_attention", {OLD: []}, old_source(base))[OLD]
     libs = {}
-    for name, so in _build.build_variants("flash_attention", variant_edits(part)).items():
+    for name, so in paths.items():
         lib = ctypes.CDLL(str(so))
         lib.flash_fwd_launch.argtypes = [I] + [P] * 4 + [I] * 8 + [F, I, P]
-        lib.flash_decode_launch.argtypes = [I] + [P] * 5 + [I] * 7 + [F, P]
-        lib.flash_decode_combine_launch.argtypes = [P, P, I, I, I, P]
+        # the old kernel's launcher took the block bk, its combine wrote bf16
+        # only and took no output width
+        lib.flash_decode_launch.argtypes = [I] + [P] * 5 + [I] * (7 if name == OLD else 6) + [F, P]
+        lib.flash_decode_combine_launch.argtypes = [P, P, I, I, I] + ([] if name == OLD else [I]) + [P]
         for fn in (lib.flash_fwd_launch, lib.flash_decode_launch, lib.flash_decode_combine_launch):
             fn.restype = I
         libs[name] = lib
@@ -245,7 +289,7 @@ def ablate_decode(torch, libs: dict, rounds: int, gen, dev) -> None:
         chosen = FK.decode_splits(b, Hkv, 1, Skv, sms)
         outs = {}
 
-        def dec(lib, splits, name, bk=DECODE_OLD_BK):
+        def dec(lib, splits, name):
             out = torch.empty_like(qb)
             part = (torch.empty((b, Hq, splits, D + 2), device=dev, dtype=torch.float32)
                     if splits > 1 else None)
@@ -254,10 +298,10 @@ def ablate_decode(torch, libs: dict, rounds: int, gen, dev) -> None:
             def run():
                 rc = lib.flash_decode_launch(2, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
                                              out.data_ptr(), None if part is None else part.data_ptr(),
-                                             b, Hq, Hkv, Skv, D, bk, splits, D ** -0.5, stream)
+                                             b, Hq, Hkv, Skv, D, splits, D ** -0.5, stream)
                 if rc == 0 and part is not None:
                     rc = lib.flash_decode_combine_launch(part.data_ptr(), out.data_ptr(), b * Hq, D,
-                                                         splits, stream)
+                                                         splits, 2, stream)
                 if rc:
                     raise RuntimeError(f"{name}: launch failed: {rc}")
             return run
@@ -299,11 +343,98 @@ def ablate_decode(torch, libs: dict, rounds: int, gen, dev) -> None:
                   f"{bound_bytes(b):.4f} ms, in turns ({n_rounds} rounds, order reversed every "
                   f"other round), {calls} call(s) back to back a run:")
             report(times, "as built")
+    del q, k, v
+    torch.cuda.empty_cache()
+    ablate_decode_f32(torch, libs, rounds, gen, dev)
+
+
+def ablate_decode_f32(torch, libs: dict, rounds: int, gen, dev) -> None:
+    """The CUDA-core decode at B 8 of ``decode_32k``'s cache, in fp32 and in
+    bf16 at head dim 32."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref, row_rel_err
+
+    Hq, Hkv, D = CONFIG.n_heads, CONFIG.n_kv, CONFIG.resolved_head_dim
+    B, Skv = DECODE_SMALL_B, SHAPES["decode_32k"].seq_len
+    q = torch.randn((B, Hq, 1, D), device=dev, generator=gen)
+    k = torch.randn((B, Hkv, Skv, D), device=dev, generator=gen)
+    v = torch.randn((B, Hkv, Skv, D), device=dev, generator=gen)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    chosen = FK.decode_splits(B, Hkv, FK.decode_chunks("cuda_cores", Hq // Hkv), Skv, sms)
+    for label, qc, kc, vc in (("fp32", q, k, v),
+                              ("bf16 D 32", *(t[..., :32].bfloat16().contiguous()
+                                              for t in (q, k, v)))):
+        eb, d = qc.element_size(), qc.shape[-1]
+        atol, row_rel = (ATOL32, ROW_REL32) if eb == 4 else (ATOL, ROW_REL)
+        outs = {}
+
+        def dec(lib, splits, name):
+            out = torch.empty_like(qc)
+            part = (torch.empty((B, Hq, splits, d + 2), device=dev, dtype=torch.float32)
+                    if splits > 1 else None)
+            outs[name] = out
+
+            bk = (DECODE_OLD_BK,) if name == OLD else ()  # the old kernel's block
+
+            def run():
+                rc = lib.flash_decode_launch(eb, qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                             out.data_ptr(),
+                                             None if part is None else part.data_ptr(), B, Hq,
+                                             Hkv, Skv, d, *bk, splits, d ** -0.5, stream)
+                if rc == 0 and part is not None:
+                    rc = lib.flash_decode_combine_launch(part.data_ptr(), out.data_ptr(), B * Hq,
+                                                         d, splits, eb, stream)
+                if rc:
+                    raise RuntimeError(f"{name}: launch failed: {rc}")
+            return run
+
+        fns = {"as built": dec(libs["as built"], chosen, "as built")}
+        for name in CORE_VARIANTS:
+            fns[name] = dec(libs[name], chosen, name)
+        for n in CORE_FORCED_SPLITS:
+            if n != chosen:
+                fns[f"splits {n}"] = dec(libs["as built"], n, f"splits {n}")
+        if OLD in libs:
+            fns[OLD] = dec(libs[OLD], 1, OLD)
+        want = attention_ref(qc, kc, vc, False)
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            err = float((outs[name].float() - want.float()).abs().max())
+            rel = row_rel_err(outs[name], want)
+            if err > atol or rel > row_rel:
+                raise AssertionError(f"{label} variant {name!r} disagrees with the plain "
+                                     f"version: max abs {err}, row relative {rel}")
+        del want
+
+        def sdpa(qc=qc, kc=kc, vc=vc):
+            if qc.dtype == torch.float32:  # the only backend that takes fp32 with enable_gqa
+                with sdpa_kernel([SDPBackend.MATH]):
+                    return F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True)
+            return F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True)
+
+        fns["F.scaled_dot_product_attention"] = sdpa
+        bound = 2 * kc.numel() * eb / 3.35e12 * 1e3
+        for calls, n_rounds in ((1, rounds), (QUEUED_CALLS, max(1, rounds // 3))):
+            times = in_turns(torch, fns, n_rounds, calls)
+            print(f"decode {label} B {B} x {Skv}, Hq {Hq}, Hkv {Hkv} (cuda_cores), splits chosen "
+                  f"{chosen} on {sms} SMs, byte bound {bound:.4f} ms, in turns ({n_rounds} "
+                  f"rounds), {calls} call(s) back to back a run:", flush=True)
+            report(times, "as built")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--part", choices=("all", "fwd", "decode"), default="all")
+    ap.add_argument("--base", type=Path, default=None,
+                    help="a checkout of the commit before the CUDA-core decode's redesign, whose "
+                         "kernel is timed as the old kernel (left out without it)")
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -313,7 +444,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ablate: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    libs = build_variants(args.part)
+    libs = build_variants(args.part, args.base)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()

@@ -12,12 +12,13 @@
 * ``flash_decode(q, k, v, bk, splits=None)`` — one query token against
   the KV cache.  Replaces ``make_flash_decode(B, Hq, Hkv, Skv, D, bk)``.
   ``decode_route`` names the kernel: bf16 at D 64 or 128 runs the
-  tensor-core kernel fed by a TMA ring (``"tma_mma"``), which ignores bk
-  and, where the (b, KV head) units would not fill the card, splits the
-  cache into ``decode_splits`` parts of whole 128-key blocks (``splits``
-  pins the count) whose partials the second kernel,
-  ``decode_combine``, merges; bf16 at D 32 and fp32 run the CUDA-core
-  kernel over blocks of bk keys (``"cuda_cores"``).
+  tensor-core kernel fed by a TMA ring (``"tma_mma"``), bf16 at D 32 and
+  fp32 the CUDA-core kernel fed by a ring of bulk copies
+  (``"cuda_cores"``).  Both walk their own blocks (bk is validated as the
+  reference's, not used) and, where their units would not fill the card,
+  split the cache into ``decode_splits`` parts of whole 128-key blocks
+  (``splits`` pins the count) whose partials the second kernel,
+  ``decode_combine``, merges.
 
 q is (B, Hq, Sq, D) (Sq = 1 for decode), k and v (B, Hkv, Skv, D), all
 contiguous and of one dtype; Hkv divides Hq.  On CPU tensors both compute
@@ -55,11 +56,12 @@ FWD_HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
 FWD_ROUTES = {"wgmma": 1, "mma_sync": 2, "cuda_cores": 3}
 WGMMA_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (32, 64, 128)
-DECODE_BK_MAX = 2048          # keys of a block's scores in shared memory (CUDA-core decode)
+DECODE_BK_MAX = 2048          # the largest bk flash_decode validates (no kernel reads bk)
 # the kernel of each decode route, as csrc/flash_attention.cu's flash_decode_route numbers them
 DECODE_ROUTES = {"tma_mma": 4, "cuda_cores": 3}
 TMA_DECODE_HEAD_DIMS = (64, 128)
 DECODE_ROWS = 16              # query heads of one tensor-core decode unit (an m16n8k16 A tile)
+CORE_DECODE_ROWS = (4, 8)     # query heads of one CUDA-core decode unit: 4 for groups of <= 4
 _GRID_Y_MAX = 65_535
 
 _P = ctypes.c_void_p
@@ -78,8 +80,8 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared."""
     lib = _build.load("flash_attention")
     lib.flash_fwd_launch.argtypes = [_I, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P]
-    lib.flash_decode_launch.argtypes = [_I, _P, _P, _P, _P, _P] + [_I] * 7 + [_F, _P]
-    lib.flash_decode_combine_launch.argtypes = [_P, _P, _I, _I, _I, _P]
+    lib.flash_decode_launch.argtypes = [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]
+    lib.flash_decode_combine_launch.argtypes = [_P, _P, _I, _I, _I, _I, _P]
     lib.flash_fwd_route.argtypes = [_I] * 4
     lib.flash_decode_route.argtypes = [_I] * 2
     lib.flash_pv_probe_launch.argtypes = [_P, _P, _P, _I, _P]
@@ -138,11 +140,19 @@ def decode_route(dtype: torch.dtype, D: int) -> str:
     return "tma_mma" if dtype == torch.bfloat16 and D in TMA_DECODE_HEAD_DIMS else "cuda_cores"
 
 
+def decode_chunks(route: str, group: int) -> int:
+    """Units a decode kernel makes of a KV head's ``group`` query heads:
+    chunks of DECODE_ROWS on ``"tma_mma"``, and on ``"cuda_cores"`` of 4
+    where the group has at most 4 heads, else of 8 (``CORE_DECODE_ROWS``)."""
+    rows = DECODE_ROWS if route == "tma_mma" else CORE_DECODE_ROWS[group > CORE_DECODE_ROWS[0]]
+    return -(-group // rows)
+
+
 @functools.cache
 def decode_splits(B: int, Hkv: int, chunks: int, Skv: int, sms: int) -> int:
-    """How many parts the tensor-core decode splits the cache into.  A unit
-    is (b, KV head, chunk of up to 16 query heads, split); persistent CTAs,
-    one per SM, walk the units.  1 where the B·Hkv·chunks units already
+    """How many parts either decode kernel splits the cache into.  A unit
+    is (b, KV head, chunk of the group's query heads (``decode_chunks``),
+    split); persistent CTAs, one per SM, walk the units.  1 where the B·Hkv·chunks units already
     fill the ``sms`` SMs; else the count, up to four times what gives each
     SM a unit, with the least modelled time: waves of units times (blocks
     of 128 keys a unit + 1, the unit's start and end; the ablation's split
@@ -198,11 +208,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: i
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 128,
                  splits: int | None = None) -> torch.Tensor:
     """One query token (B, Hq, 1, D) against the whole cache (no mask).
-    ``bk`` is the CUDA-core kernel's block (validated for every call, as the
-    reference's; the tensor-core kernel walks 128-key blocks and ignores
-    it).  ``splits`` pins the tensor-core kernel's split count (1 up to the
-    cache's 128-key blocks; 1 only on the CUDA-core route); by default
-    ``decode_splits`` chooses it from the card's SM count."""
+    ``bk`` is the reference's block, validated for every call as there (it
+    also makes Skv a multiple of 64, the CUDA-core kernel's block); neither
+    kernel uses it.  ``splits`` pins the split count (1 up to the cache's
+    128-key blocks); by default ``decode_splits`` chooses it from the
+    card's SM count."""
     B, Hq, Hkv, Sq, Skv, D = _check(q, k, v)
     bk = int(bk)
     if Sq != 1:
@@ -215,16 +225,13 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 12
     route = decode_route(q.dtype, D)
     if splits is not None:
         splits = int(splits)
-        if route == "cuda_cores" and splits != 1:
-            raise ValueError(f"the {route} decode does not split the cache (splits={splits})")
         decode_split_bounds(Skv, splits)  # 1 <= splits <= the cache's 128-key blocks
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=False)
     _aligned(q, k, v)
     if splits is None:
-        chunks = -(-(Hq // Hkv) // DECODE_ROWS)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits = decode_splits(B, Hkv, chunks, Skv, sms) if route == "tma_mma" else 1
+        splits = decode_splits(B, Hkv, decode_chunks(route, Hq // Hkv), Skv, sms)
     # one split writes the output, more write the partials for decode_combine
     if splits == 1:
         out, part = torch.empty_like(q), None
@@ -235,7 +242,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 12
         rc = _lib().flash_decode_launch(
             q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr() if part is None else None, None if part is None else part.data_ptr(),
-            B, Hq, Hkv, Skv, D, bk, splits, D ** -0.5, stream)
+            B, Hq, Hkv, Skv, D, splits, D ** -0.5, stream)
         _raise_on(rc, "flash_decode")
         LAUNCHES["flash_decode"] += 1
         LAST_LAUNCH["flash_decode"] = bk
@@ -244,19 +251,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 12
 
 
 def decode_combine(part: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """(B, Hq, 1, D) from the split decode's partials (B, Hq, splits, D + 2)
-    fp32 (each split's unnormalised O, its max m of the scaled scores, its
-    sum l; ``ref.decode_partials_ref``): on the card a bf16 output, D 64 or
-    128; on the CPU the plain version ``ref.combine_partials_ref``."""
+    """(B, Hq, 1, D) in ``dtype`` (bfloat16 or float32) from the split
+    decode's partials (B, Hq, splits, D + 2) fp32 (each split's
+    unnormalised O, its max m of the scaled scores, its sum l;
+    ``ref.decode_partials_ref``), D one of ``DECODE_HEAD_DIMS``: on the
+    card the combine kernel, on the CPU the plain version
+    ``ref.combine_partials_ref``."""
     if not isinstance(part, torch.Tensor) or part.dim() != 4 or part.dtype != torch.float32 \
-            or part.shape[-1] - 2 not in TMA_DECODE_HEAD_DIMS:
+            or part.shape[-1] - 2 not in DECODE_HEAD_DIMS:
         raise ValueError(f"expected partials fp32 (B, Hq, splits, D + 2) with D in "
-                         f"{TMA_DECODE_HEAD_DIMS}, got {getattr(part, 'dtype', type(part))} "
+                         f"{DECODE_HEAD_DIMS}, got {getattr(part, 'dtype', type(part))} "
                          f"{tuple(getattr(part, 'shape', ()))}")
+    if dtype not in FWD_HEAD_DIMS:
+        raise ValueError(f"the combine writes bfloat16 or float32, not {dtype}")
     if part.device.type == "cpu":
         return combine_partials_ref(part, dtype)
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the combine kernel writes bfloat16, not {dtype}")
     part = part.contiguous()
     with torch.cuda.device(part.device):
         return _combine(part, dtype, torch.cuda.current_stream().cuda_stream)
@@ -268,7 +277,7 @@ def _combine(part: torch.Tensor, dtype: torch.dtype, stream: int) -> torch.Tenso
     B, Hq, splits, D = part.shape[0], part.shape[1], part.shape[2], part.shape[3] - 2
     out = torch.empty((B, Hq, 1, D), device=part.device, dtype=dtype)
     rc = _lib().flash_decode_combine_launch(part.data_ptr(), out.data_ptr(), B * Hq, D, splits,
-                                            stream)
+                                            out.element_size(), stream)
     _raise_on(rc, "flash_decode_combine")
     LAUNCHES["flash_decode_combine"] += 1
     return out

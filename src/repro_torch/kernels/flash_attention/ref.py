@@ -8,7 +8,7 @@ against it on the card, and ``ops.flash_attention`` sends the shapes the
 kernels cannot tile to it, as the reference does.
 
 Split-KV decode, plainly: ``decode_split_bounds`` is the partition of the
-cache the tensor-core decode kernel uses, ``decode_partials_ref`` the
+cache both decode kernels use, ``decode_partials_ref`` the
 partial (O, m, l) of each split in the kernel's workspace layout,
 ``combine_partials_ref`` the combine kernel's plain version, and
 ``decode_combine_ref`` the two together.
@@ -93,6 +93,6 @@ def combine_partials_ref(part: torch.Tensor, dtype: torch.dtype = torch.bfloat16
 
 
 def decode_combine_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: int) -> torch.Tensor:
-    """Decode of one token (B, Hq, 1, D) with the cache split as the
-    tensor-core kernel splits it: each split's partials, then combined."""
+    """Decode of one token (B, Hq, 1, D) with the cache split as the decode
+    kernels split it: each split's partials, then combined."""
     return combine_partials_ref(decode_partials_ref(q, k, v, splits), q.dtype)

@@ -13,6 +13,9 @@ path of ``chip_smoke.py``'s ``run_stencil``):
 * ``weights in shared memory``: the weights staged per block in shared
   memory, one shared load beside each global one, instead of the
   constant bank;
+* ``weights by ldg``: the weights read from the weights tensor through
+  ``ld.global.nc``, as the generic (any r) kernels read them, instead of
+  the constant bank (no bank, so no guard);
 * ``64-bit offsets``: the build as it is, with the launcher's 64-bit
   path forced, instead of 32-bit offsets below 2^31 elements;
 * ``old kernel``: both, the loads interleaved with the sums and one
@@ -24,6 +27,7 @@ path of ``chip_smoke.py``'s ``run_stencil``):
 * ``2 stages`` and ``3 stages``;
 * ``cp.async``: the producer's element copies on these 16-byte rows too;
 * ``1 segment``: Z not split;
+* ``weights by ldg``: as for ``star_pointwise``;
 * ``all taps from shared memory``: the ring holds an output's 2r+1 planes
   (2r+3 stages) and the z taps come from it, in tap order;
 * ``old kernel``: the first version's synchronous (2r+1)-plane ring;
@@ -49,6 +53,8 @@ from pathlib import Path
 VARIANTS = {
     "weights in shared memory": [("constexpr bool kConstWeights = true;",
                                   "constexpr bool kConstWeights = false;")],
+    "weights by ldg": [("constexpr bool kBankWeights = true;",
+                        "constexpr bool kBankWeights = false;")],
     "all taps from shared memory": [("constexpr bool kZInRegisters = true;",
                                      "constexpr bool kZInRegisters = false;")],
 }
@@ -228,6 +234,7 @@ def ablate_zmarch(torch, libs: dict, rounds: int, seed: int) -> None:
                "3 stages": new(built, *ring, stages=3),
                "cp.async": new(built, *ring, route="cp_async"),
                "1 segment": new(built, *ring, segments=1),
+               "weights by ldg": new(libs["weights by ldg"], *ring),
                "all taps from shared memory": new(libs["all taps from shared memory"], *ring,
                                                   stages=2 * R + 3)}
         if OLD in libs:
@@ -235,6 +242,7 @@ def ablate_zmarch(torch, libs: dict, rounds: int, seed: int) -> None:
         for ty in (8, 16):
             tile = K.ytile_tile(R, ty, eb)
             fns[f"ytile {tile[0]}x{tile[1]}"] = new(built, *tile)
+            fns[f"ytile {tile[0]}x{tile[1]} weights by ldg"] = new(libs["weights by ldg"], *tile)
             if OLD in libs:
                 otx = old_ytile_tx(R, ty, eb)
                 fns[f"ytile {ty}x{otx} old kernel"] = old(ty, otx)

@@ -4,24 +4,28 @@
 * ``star_pointwise`` — the per-point kernel the GPU estimator prices, at a
   ``LaunchConfig`` (thread block x thread folding).  Replaces the TPU's
   ``make_replane``.  ``pointwise_offset_bits`` picks its offset width from
-  the field's size; ``LAST_POINTWISE`` records it for the last launch.
+  the field's size; ``LAST_POINTWISE`` records it and where the weights
+  came from for the last launch.
 * ``star_zmarch`` — the z-marching kernel per TY x TX tile: a producer warp
   keeps an S-stage ring of halo planes in flight (``zmarch_route``: TMA,
   or ``cp.async`` for rows that are not 16-byte multiples), and the
   consumer threads keep the z taps in registers.  Replaces ``make_ring``
   (``ring_tile``) and ``make_ytile_ring(ty)`` (``ytile_tile``).
-  ``LAST_ZMARCH`` records the route, tile, stages, threads and z segments
-  of the last launch.
+  ``LAST_ZMARCH`` records the route, tile, stages, threads, z segments and
+  weights of the last launch.
 
-Both take the halo-padded (Z+2r, Y+2r, X+2r) source and return (Z, Y, X).
-On a CPU tensor they compute the plain version (``ref.star_stencil_ref``)
-for any r; on a CUDA tensor they launch the kernel on the current stream
-or raise, and the card takes r <= ``MAX_CARD_R`` (the weights live in the
-constant bank).  The bank is one per library: launches on one stream see
-their own weights, but two stencil launches on two streams at once with
-different weights race for it, so a caller that runs stencils on several
-streams gives them the same weights or orders the streams.  ``LAUNCHES``
-counts kernel launches per wrapper.
+Both take the halo-padded (Z+2r, Y+2r, X+2r) source and return (Z, Y, X),
+for any r.  On a CPU tensor they compute the plain version
+(``ref.star_stencil_ref``); on a CUDA tensor they launch the kernel on the
+current stream or raise.  For r <= ``UNROLLED_R`` the kernels are unrolled
+and read their weights from the library's constant bank
+(``weights_in_bank``), filled on the launch stream before each launch; any
+other r runs the generic kernels, which read the weights tensor.  The bank
+is one per device and dtype and is guarded: a launch on another stream than
+the bank's last one makes its stream wait for that launch's event first,
+so stencils with different weights may run on several streams at once
+(``bank_counts`` counts the fills and those waits).  ``LAUNCHES`` counts
+kernel launches per wrapper.
 """
 from __future__ import annotations
 
@@ -35,15 +39,15 @@ from repro_torch.kernels import SMEM_PER_BLOCK, _build
 from repro_torch.kernels.stencil3d25.ref import star_stencil_ref
 
 LAUNCHES = {"star_pointwise": 0, "star_zmarch": 0}
-LAST_POINTWISE: dict = {}          # {"offset_bits"} of the last star_pointwise launch
-LAST_ZMARCH: dict = {}             # {"route", "tile", "stages", "threads", "segments"}
+LAST_POINTWISE: dict = {}          # {"offset_bits", "weights"} of the last star_pointwise launch
+LAST_ZMARCH: dict = {}             # {"route", "tile", "stages", "threads", "segments", "weights"}
 
-MAX_CARD_R = 8                     # the constant bank holds 6*8+1 weights (kMaxRange)
+UNROLLED_R = 4                     # r = 1..UNROLLED_R: unrolled kernels, weights in the bank (kBankRange)
 WIDE_AT = 2**31                    # padded elements from which offsets are 64-bit
 RING_TILE = (16, 32)               # (TY, TX) of the ring variant
 YTILE_TX = (128, 64, 32, 16, 8, 4, 2, 1)  # TX choices of ytile_ring, largest first
 ZMARCH_ROUTES = ("tma", "cp_async")
-ZMARCH_STAGES = 4                  # ring slots of the z-march (2 or 3 in the ablation)
+ZMARCH_STAGES = 4                  # ring slots of the z-march at r <= UNROLLED_R (2 or 3 in the ablation)
 ZMARCH_CONSUMERS = 256             # consumer threads of a z-march block at most
 ZMARCH_MAX_SEGMENTS = 8            # z segments per tile at most (zmarch_segments)
 _TMA_BOX_MAX = 256                 # elements on each side of a TMA box
@@ -72,6 +76,9 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     lib.star_error_string.argtypes = [ctypes.c_int]
     lib.star_error_string.restype = ctypes.c_char_p
+    for fn in (lib.star_bank_fills, lib.star_bank_waits):
+        fn.argtypes = []
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -99,14 +106,30 @@ def _check(src_padded: torch.Tensor, weights: torch.Tensor, r: int) -> tuple:
     return domain
 
 
-def check_card_range(r: int) -> None:
-    """Raise unless the card's kernels take range ``r``: their 6r+1 weights
-    live in the constant bank, which holds 6·MAX_CARD_R+1 (the plain
-    version on the CPU takes any r)."""
-    if r > MAX_CARD_R:
-        raise ValueError(
-            f"r={r} needs {6 * r + 1} weights; the CUDA kernels keep at most "
-            f"{6 * MAX_CARD_R + 1} in the constant bank (r <= {MAX_CARD_R})")
+def weights_in_bank(r: int) -> bool:
+    """Whether the card's kernels at range ``r`` read their weights from the
+    constant bank (the unrolled instantiations, r <= UNROLLED_R) rather
+    than from the weights tensor (the generic ones, any other r)."""
+    return r <= UNROLLED_R
+
+
+def bank_counts() -> dict:
+    """{"fills", "waits"}: the constant-bank fills of this process's
+    stencil launches on the card, and of them those that first waited for
+    the bank's last launch on another stream."""
+    lib = _lib()
+    return {"fills": lib.star_bank_fills(), "waits": lib.star_bank_waits()}
+
+
+def zmarch_stages(r: int) -> int:
+    """The z-march's default ring slots: ZMARCH_STAGES where the z taps stay
+    in registers (r <= UNROLLED_R), else the 2r+1 planes of an output and
+    one more, from which the generic kernel reads every tap."""
+    return ZMARCH_STAGES if r <= UNROLLED_R else 2 * r + 2
+
+
+def _min_stages(r: int) -> int:
+    return 2 if r <= UNROLLED_R else 2 * r + 2
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -127,9 +150,9 @@ def star_pointwise(src_padded: torch.Tensor, weights: torch.Tensor, r: int,
     """Range-r star stencil, one thread per (point x fold iteration) at
     ``launch`` (the mapping of ``core.gridwalk.block_points``).  ``wide_at``
     moves the 64-bit offsets' threshold (tests reach that path on a small
-    field with it).  On the card the weights go to the constant bank on the
-    current stream: stencils with other weights on another stream at the
-    same time must be ordered against this one."""
+    field with it).  On the card, for r <= UNROLLED_R, the weights go to
+    the constant bank on the current stream, ordered after the bank's last
+    launch on any stream."""
     Z, Y, X = _check(src_padded, weights, r)
     (bx, by, bz), (fx, fy, fz) = launch.block, launch.folding
     if min(bx, by, bz, fx, fy, fz) < 1 or launch.threads > 1024 or bz > 64:
@@ -139,7 +162,6 @@ def star_pointwise(src_padded: torch.Tensor, weights: torch.Tensor, r: int,
         raise ValueError(f"grid {(gx, gy, gz)} exceeds CUDA's y/z grid limit")
     if src_padded.device.type == "cpu":
         return star_stencil_ref(src_padded, weights, r)
-    check_card_range(r)
     bits = pointwise_offset_bits(src_padded.numel(), wide_at)
     out = torch.empty((Z, Y, X), dtype=src_padded.dtype, device=src_padded.device)
     with torch.cuda.device(src_padded.device):
@@ -150,7 +172,8 @@ def star_pointwise(src_padded: torch.Tensor, weights: torch.Tensor, r: int,
     _raise_on(rc, "star_pointwise")
     LAUNCHES["star_pointwise"] += 1
     LAST_POINTWISE.clear()
-    LAST_POINTWISE.update(offset_bits=bits)
+    LAST_POINTWISE.update(offset_bits=bits,
+                          weights="constant bank" if weights_in_bank(r) else "tensor")
     return out
 
 
@@ -196,10 +219,11 @@ def zmarch_layout(r: int, ty: int, tx: int, elem_bytes: int) -> dict:
 
 
 def zmarch_smem_bytes(r: int, ty: int, tx: int, elem_bytes: int,
-                      stages: int = ZMARCH_STAGES) -> int:
-    """Shared memory of the z-march kernel: ``stages`` ring slots, a full
-    and an empty mbarrier (8 bytes each) per slot, and 128 bytes of room to
-    align the ring as TMA needs."""
+                      stages: int | None = None) -> int:
+    """Shared memory of the z-march kernel: ``stages`` ring slots
+    (``zmarch_stages`` by default), a full and an empty mbarrier (8 bytes
+    each) per slot, and 128 bytes of room to align the ring as TMA needs."""
+    stages = zmarch_stages(r) if stages is None else stages
     return stages * (zmarch_layout(r, ty, tx, elem_bytes)["slot_elems"] * elem_bytes + 16) + 128
 
 
@@ -251,13 +275,16 @@ def _zmarch_slots(device_index: int, elem_bytes: int, r: int, cy: int, threads: 
     return n * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _kernel_fits(r: int, ty: int, tx: int, elem_bytes: int, stages: int = ZMARCH_STAGES) -> bool:
-    """Whether the z-march kernel takes a ty x tx tile with ``stages`` slots."""
+def _kernel_fits(r: int, ty: int, tx: int, elem_bytes: int, stages: int | None = None) -> bool:
+    """Whether the z-march kernel takes a ty x tx tile with ``stages`` slots
+    (``zmarch_stages`` by default)."""
     try:
         zmarch_rows(ty, tx)
     except ValueError:
         return False
-    return stages >= 2 and zmarch_smem_bytes(r, ty, tx, elem_bytes, stages) <= SMEM_PER_BLOCK
+    stages = zmarch_stages(r) if stages is None else stages
+    return (stages >= _min_stages(r)
+            and zmarch_smem_bytes(r, ty, tx, elem_bytes, stages) <= SMEM_PER_BLOCK)
 
 
 def _zmarch_fits(r: int, ty: int, tx: int, elem_bytes: int) -> bool:
@@ -290,17 +317,18 @@ def ytile_tile(r: int, ty: int, elem_bytes: int) -> tuple:
 
 
 def star_zmarch(src_padded: torch.Tensor, weights: torch.Tensor, r: int, ty: int, tx: int, *,
-                route: str | None = None, stages: int = ZMARCH_STAGES,
+                route: str | None = None, stages: int | None = None,
                 segments: int | None = None) -> torch.Tensor:
     """Range-r star stencil marching over z per ty x tx output tile.
-    ``route`` (``zmarch_route`` by default), ``stages`` and ``segments``
-    (``zmarch_segments`` by default) pin the kernel's choices, for tests
-    and the ablation.  On the card the weights go to the constant bank on
-    the current stream, as for ``star_pointwise``: one stream at a time."""
+    ``route`` (``zmarch_route`` by default), ``stages`` (``zmarch_stages``
+    by default) and ``segments`` (``zmarch_segments`` by default) pin the
+    kernel's choices, for tests and the ablation.  On the card the weights
+    reach the kernel as for ``star_pointwise``."""
     Z, Y, X = _check(src_padded, weights, r)
     eb = src_padded.element_size()
     if ty < 1 or tx < 1:
         raise ValueError(f"tile {ty}x{tx} is empty")
+    stages = zmarch_stages(r) if stages is None else stages
     if not _kernel_fits(r, ty, tx, eb, stages):
         raise ValueError(
             f"a {ty}x{tx} tile at r={r} with {stages} stages needs at most "
@@ -315,7 +343,6 @@ def star_zmarch(src_padded: torch.Tensor, weights: torch.Tensor, r: int, ty: int
         raise ValueError(f"{segments} z segments for Z={Z}")
     if src_padded.device.type == "cpu":
         return star_stencil_ref(src_padded, weights, r)
-    check_card_range(r)
     route = route or rule
     smem = zmarch_smem_bytes(r, ty, tx, eb, stages)
     tiles = -(-X // tx) * -(-Y // ty)
@@ -333,5 +360,6 @@ def star_zmarch(src_padded: torch.Tensor, weights: torch.Tensor, r: int, ty: int
     LAUNCHES["star_zmarch"] += 1
     LAST_ZMARCH.clear()
     LAST_ZMARCH.update(route=route, tile=(ty, tx), stages=stages, threads=lay["threads"],
-                       segments=segments)
+                       segments=segments,
+                       weights="constant bank" if weights_in_bank(r) else "tensor")
     return out

@@ -50,10 +50,12 @@ def star_stencil(src: torch.Tensor, weights=None, r: int = 4,
     padded in y up to (Y/ty + 1)·ty rows; the CUDA kernel masks its own
     tile edge, so here every variant takes the same r-halo padding.
 
-    On the card both kernels read the weights from one constant bank per
-    library, filled on the current stream before each launch: calls with
-    different weights on two streams at once must be ordered by the caller
-    (r <= ``kernel.MAX_CARD_R`` there; the CPU takes any r).
+    On the card, for r <= ``kernel.UNROLLED_R``, both kernels read the
+    weights from a constant bank per device and dtype, filled on the
+    current stream before each launch and ordered after the bank's last
+    launch on any other stream, so calls with different weights may run on
+    several streams at once; any other r reads them from the weights
+    tensor.  Every r runs on the card as on the CPU.
     """
     if weights is None:
         weights = star_weights(r, src.dtype, src.device)

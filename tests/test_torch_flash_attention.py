@@ -400,18 +400,84 @@ def test_combine_of_a_single_split_is_the_plain_division():
 
 
 def test_decode_wrapper_validates_splits():
+    """Both routes take 1 up to the cache's 128-key blocks of splits (the
+    CUDA-core route as well as the tensor-core one), and nothing else."""
     q1, k = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16), torch.zeros(1, 2, 256, 64,
                                                                          dtype=torch.bfloat16)
-    for bad in (0, 3):  # 256 keys are two blocks
-        with pytest.raises(ValueError, match="splits"):
-            K.flash_decode(q1, k, k, 128, splits=bad)
     q32, k32 = q1.float(), k.float()
-    with pytest.raises(ValueError, match="does not split"):
-        K.flash_decode(q32, k32, k32, 128, splits=2)
-    assert K.flash_decode(q32, k32, k32, 128, splits=1).shape == (1, 2, 1, 64)
-    assert K.flash_decode(q1, k, k, 128, splits=2).shape == (1, 2, 1, 64)  # the plain version
+    assert K.decode_route(q32.dtype, 64) == "cuda_cores"
+    for q, kv in ((q1, k), (q32, k32)):
+        for bad in (0, 3):  # 256 keys are two blocks
+            with pytest.raises(ValueError, match="splits"):
+                K.flash_decode(q, kv, kv, 128, splits=bad)
+        for splits in (1, 2):  # the plain version
+            assert K.flash_decode(q, kv, kv, 128, splits=splits).shape == (1, 2, 1, 64)
     with pytest.raises(ValueError, match="partials"):
-        K.decode_combine(torch.zeros(1, 2, 2, 34))
+        K.decode_combine(torch.zeros(1, 2, 2, 18))  # D 16 is not instantiated
+    with pytest.raises(ValueError, match="float32"):
+        K.decode_combine(torch.zeros(1, 2, 2, 34), torch.float16)
+    part = decode_partials_ref(*_port(*_qkv(9, 1, 2, 1, 1, 256, 32)), 2)  # D 32 combines too
+    assert K.decode_combine(part, torch.float32).shape == (1, 2, 1, 32)
+
+
+@pytest.mark.parametrize("route,group,want", [
+    ("cuda_cores", 1, 1), ("cuda_cores", 4, 1), ("cuda_cores", 5, 1), ("cuda_cores", 8, 1),
+    ("cuda_cores", 12, 2), ("cuda_cores", 17, 3), ("tma_mma", 4, 1), ("tma_mma", 16, 1),
+    ("tma_mma", 17, 2)])
+def test_decode_chunks_follow_each_routes_unit(route, group, want):
+    """The CUDA-core unit holds 4 query heads where the group has at most 4
+    (granite-3-2b's), else 8; the tensor-core unit 16."""
+    assert K.decode_chunks(route, group) == want
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Skv", [(8, 32, 8, 32768), (1, 4, 1, 1024), (2, 12, 1, 4096 + 64),
+                                          (3, 5, 1, 192), (32, 32, 8, 32768)])
+def test_core_decode_splits_fill_the_card_and_cover_every_key_once(B, Hq, Hkv, Skv):
+    """On the CUDA-core route the split count fills the card where the units
+    leave half of it idle (granite-3-2b's decode at B 8: 64 units, 128 once
+    split), and its splits cover every key once in whole 64-key blocks, the
+    kernel's own (``Skv`` is a multiple of 64 there)."""
+    sms, nb = 132, -(-Skv // 128)
+    units = B * Hkv * K.decode_chunks("cuda_cores", Hq // Hkv)
+    chosen = K.decode_splits(B, Hkv, K.decode_chunks("cuda_cores", Hq // Hkv), Skv, sms)
+    assert 1 <= chosen <= nb
+    if units <= sms // 2:
+        assert chosen > 1 or nb == 1
+        assert units * chosen >= min(sms // 2, units * nb)
+    else:
+        assert chosen == 1 or units * chosen <= 4 * sms
+    if (B, Hq, Hkv, Skv) == (8, 32, 8, 32768):
+        assert (units, chosen) == (64, 2)
+    for splits in sorted({1, 2, chosen, nb}):
+        bounds = decode_split_bounds(Skv, splits)
+        assert [k for k0, k1 in bounds for k in range(k0, k1)] == list(range(Skv))
+        assert all(k0 % 64 == 0 and k1 % 64 == 0 and k1 > k0 for k0, k1 in bounds)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("gqa", [(8, 2), (12, 1)])
+def test_core_decode_combine_ref_matches_pallas_kernel_at_d32(splits, gqa):
+    """The CUDA-core route's split decode in fp32 at D 32, plainly (each
+    split's partials, then combined, also by ``decode_combine`` with an
+    fp32 output), against the reference's ``make_flash_decode`` in
+    interpret mode (fp32 2e-3)."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.kernel import make_flash_decode
+
+    Hq, Hkv = gqa
+    B, S, D = 2, 384, 32
+    q, k, v = _qkv(10, B, Hq, Hkv, 1, S, D)
+    want = np.asarray(make_flash_decode(B, Hq, Hkv, S, D, 128)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    tq, tk, tv = _port(q, k, v)
+    got = decode_combine_ref(tq, tk, tv, splits)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3)
+    combined = K.decode_combine(decode_partials_ref(tq, tk, tv, splits), torch.float32)
+    np.testing.assert_allclose(combined.numpy(), want, atol=2e-3)
+    np.testing.assert_allclose(K.flash_decode(tq, tk, tv, 128, splits=splits).numpy(), want,
+                               atol=2e-3)
 
 
 def _ablation_cases():
@@ -705,3 +771,78 @@ def test_card_decode_combine_matches_plain(cuda, D, splits):
     want = combine_partials_ref(part, torch.bfloat16)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=1e-2)
     assert row_rel_err(got, combine_partials_ref(part, torch.float32)) <= 4e-3
+
+
+CORE_ROUTES = [(torch.float32, 32), (torch.float32, 64), (torch.float32, 128), (torch.bfloat16, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D", CORE_ROUTES)
+@pytest.mark.parametrize("B,Hq,Hkv,Skv", [(2, 8, 2, 1024 + 64), (1, 5, 1, 2048), (3, 24, 2, 512)])
+def test_card_core_decode_split_counts(cuda, dtype, D, B, Hq, Hkv, Skv):
+    """The CUDA-core decode at split counts 1, 2, the chosen count and one
+    128-key block a split (the last one cut to 64 keys where Skv is 1088),
+    groups of 4 (one unit of 4), 5 (of 8) and 12 (8 and 4), against the
+    plain version; more than one split runs the combine in the output's
+    dtype."""
+    q, k, v = _card_qkv(cuda, dtype, B, Hq, Hkv, 1, Skv, D, seed=12)
+    assert K.decode_route(dtype, D) == "cuda_cores"
+    assert K._lib().flash_decode_route(q.element_size(), D) == K.DECODE_ROUTES["cuda_cores"]
+    nb = -(-Skv // 128)
+    for splits in (1, 2, None, nb):
+        K.reset_launch_counts()
+        got = K.flash_decode(q, k, v, 64, splits=splits)
+        torch.cuda.synchronize()
+        n = K.LAST_DECODE["splits"]
+        assert K.LAST_DECODE["route"] == "cuda_cores" and (splits is None or n == splits)
+        assert K.LAUNCHES["flash_decode"] == 1 and K.LAUNCHES["flash_decode_combine"] == (n > 1)
+        _check_decode(got, q, k, v, f"splits={splits} ({n})")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D", CORE_ROUTES)
+@pytest.mark.parametrize("splits", [1, 3])
+def test_card_core_decode_picks_exactly(cuda, dtype, D, splits):
+    """As ``test_card_tma_decode_fragments_exactly`` on the CUDA-core route:
+    one key a query head outweighs every other by more than e^100, so p is
+    exactly one-hot in fp32 and the output is that key's V row exactly; a
+    lane reading the wrong key, chunk or column, or a block taken twice,
+    shows as a wrong value."""
+    B, Hq, Hkv, Skv = 3, 12, 2, 1024 + 64
+    group = Hq // Hkv
+    rng = np.random.default_rng(13)
+    k = rng.integers(-4, 5, (B, Hkv, Skv, D)).astype(np.float32)
+    v = rng.integers(-8, 9, (B, Hkv, Skv, D)).astype(np.float32)
+    q = np.zeros((B, Hq, 1, D), np.float32)
+    picks = {}
+    for b in range(B):
+        for h in range(Hq):
+            kvh = h // group
+            d = (7 * h + 5 * b + 3) % D
+            key = (389 * h + 127 * b + 61) % Skv if (b, h) != (0, 0) else Skv - 1
+            q[b, h, 0, d] = 1.0
+            k[b, kvh, key, d] = 2048.0
+            picks[b, h] = (kvh, key)
+    want = np.stack([np.stack([v[b, picks[b, h][0], picks[b, h][1]] for h in range(Hq)])
+                     for b in range(B)])[:, :, None]
+    tq, tk, tv = (torch.from_numpy(a).to(cuda).to(dtype) for a in (q, k, v))
+    got = K.flash_decode(tq, tk, tv, 64, splits=splits).float().cpu().numpy()
+    assert K.LAST_DECODE == {"route": "cuda_cores", "splits": splits}
+    bad = np.argwhere(got != want)
+    if len(bad):
+        b, h, _, d = bad[0]
+        pytest.fail(f"{len(bad)} wrong elements; o[{b}, {h}, {d}] = {got[b, h, 0, d]}, want "
+                    f"{want[b, h, 0, d]} (key {picks[b, h][1]} of KV head {picks[b, h][0]})")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_card_decode_combine_writes_fp32(cuda, D):
+    """The combine kernel with an fp32 output, on the plain version's
+    partials, at every decode head dim."""
+    q, k, v = _card_qkv(cuda, torch.float32, 3, 12, 3, 1, 40 * 128, D, seed=14)
+    part = decode_partials_ref(q, k, v, 5)
+    got = K.decode_combine(part, torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, combine_partials_ref(part, torch.float32), rtol=0, atol=1e-5)

@@ -261,14 +261,39 @@ def test_zsum_order_matches_plain_version_and_pallas_ring(r, dtype):
 
 
 def test_card_range_is_the_constant_bank_and_the_cpu_takes_any_r():
-    K.check_card_range(K.MAX_CARD_R)
-    with pytest.raises(ValueError, match="constant bank"):
-        K.check_card_range(K.MAX_CARD_R + 1)
-    r = K.MAX_CARD_R + 1
-    src = pad_input(torch.zeros((2, 3, 4), dtype=torch.float64), r)
-    w = star_weights(r, torch.float64)
-    assert K.star_pointwise(src, w, r, LaunchConfig((32, 4, 8))).shape == (2, 3, 4)
-    assert K.star_zmarch(src, w, r, 3, 5).shape == (2, 3, 4)
+    """The constant bank holds only the weights of the unrolled kernels
+    (r <= UNROLLED_R, the source's kBankRange); any other r runs the
+    generic kernels, which read the weights tensor, so the card refuses no
+    r that the reference takes, and neither does the CPU."""
+    src_cu = (_build.CSRC / "stencil3d25.cu").read_text()
+    assert f"constexpr int kBankRange = {K.UNROLLED_R};" in src_cu
+    assert "kMaxRange" not in src_cu and not hasattr(K, "MAX_CARD_R")
+    assert K.weights_in_bank(4) and K.weights_in_bank(1)
+    assert not K.weights_in_bank(5) and not K.weights_in_bank(9) and not K.weights_in_bank(12)
+    # the generic z-march reads every tap from the ring: 2r+1 planes and one more
+    assert [K.zmarch_stages(r) for r in (1, 4, 5, 9, 12)] == [K.ZMARCH_STAGES] * 2 + [12, 20, 26]
+    for r in (9, 12):
+        src = pad_input(torch.zeros((2, 3, 4), dtype=torch.float64), r)
+        w = star_weights(r, torch.float64)
+        assert K.star_pointwise(src, w, r, LaunchConfig((32, 4, 8))).shape == (2, 3, 4)
+        assert K.star_zmarch(src, w, r, 3, 5).shape == (2, 3, 4)
+        with pytest.raises(ValueError, match="stages"):
+            K.star_zmarch(src, w, r, 3, 5, stages=2 * r + 1)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("r", [9, 12])
+def test_plain_version_above_the_bank_matches_pallas_replane(r, dtype):
+    """Ranges past the constant bank: the wrappers' plain path (what the
+    generic card kernels are held to) against the reference's
+    ``make_replane`` in interpret mode."""
+    src_np = _source(r, dtype)
+    want = _jax_stencil(src_np, r, "replane", None)
+    padded = pad_input(convert.from_numpy(src_np, "cpu"), r)
+    w = star_weights(r, padded.dtype)
+    for got in (K.star_pointwise(padded, w, r, LaunchConfig((16, 4, 2), (1, 2, 1))),
+                K.star_zmarch(padded, w, r, 3, 5)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL[dtype])
 
 
 def test_pointwise_rules_pick_cap_and_offsets():
@@ -513,7 +538,7 @@ def test_card_pointwise_offsets_of_both_widths(cuda, dtype):
         for bits, wide_at in ((32, K.WIDE_AT), (64, padded.numel())):
             got[bits] = K.star_pointwise(padded, w, r, launch, wide_at=wide_at)
             torch.cuda.synchronize()
-            assert K.LAST_POINTWISE == {"offset_bits": bits}
+            assert K.LAST_POINTWISE == {"offset_bits": bits, "weights": "constant bank"}
             torch.testing.assert_close(got[bits], want, **GPU_TOL[dtype], msg=str(launch))
         assert torch.equal(got[32], got[64])
     assert K.pointwise_offset_bits(520 * 520 * 648) == 32  # the paper's padded field
@@ -545,3 +570,70 @@ def test_card_one_hot_gives_the_weights_bit_for_bit(cuda, dtype, r):
                 assert torch.equal(got, want), (p, tile, route, stages, segments)
         got = K.star_pointwise(padded, w, r, LaunchConfig((16, 2, 32)))
         assert torch.equal(got, want), (p, "star_pointwise")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_card_two_streams_with_different_weights(cuda, dtype):
+    """Stencils with different weights on two streams at once, launched in
+    turns on both: each output is its own weights' stencil, since every
+    fill of the constant bank waits for the bank's last launch on the other
+    stream (``bank_counts`` shows the fills and the waits)."""
+    r = 4
+    _, padded, _, _ = _card_case(cuda, dtype, (64, 96, 128), r)
+    rng = np.random.default_rng(11)
+    ws = [torch.from_numpy(rng.standard_normal(6 * r + 1)).to(cuda, dtype) for _ in range(2)]
+    wants = [star_stencil_ref(padded, w, r) for w in ws]
+    eb = padded.element_size()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    runs = [lambda w: K.star_pointwise(padded, w, r, LaunchConfig((64, 2, 8), (1, 1, 2))),
+            lambda w: K.star_zmarch(padded, w, r, *K.ring_tile(r, eb))]
+    before = K.bank_counts()
+    outs = []
+    for _ in range(6):
+        for run in runs:
+            for j, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    outs.append((j, run(ws[j])))
+    torch.cuda.synchronize()
+    after = K.bank_counts()
+    assert after["fills"] - before["fills"] == len(outs)  # r = 4 fills the bank every launch
+    assert after["waits"] - before["waits"] >= len(outs) - 1
+    for i, (j, got) in enumerate(outs):
+        torch.testing.assert_close(got, wants[j], **GPU_TOL[dtype], msg=f"launch {i}, stream {j}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r", [9, 12])
+def test_card_ranges_above_the_bank_match_plain(cuda, dtype, r):
+    """r = 9 and 12 run the generic kernels, weights from the tensor and
+    never the bank: the per-point kernel at launches of every folding, and
+    the z-march on every tile that fits, on both routes."""
+    _, padded, w, want = _card_case(cuda, dtype, (13, 37, 70), r)
+    eb = padded.element_size()
+    fills = K.bank_counts()["fills"]
+    for launch in (LaunchConfig((16, 2, 32)), LaunchConfig((32, 8, 2), (1, 2, 1)),
+                   LaunchConfig((8, 4, 8), (1, 1, 2)), LaunchConfig((1024, 1, 1))):
+        got = K.star_pointwise(padded, w, r, launch)
+        torch.cuda.synchronize()
+        assert K.LAST_POINTWISE["weights"] == "tensor"
+        torch.testing.assert_close(got, want, **GPU_TOL[dtype], msg=str(launch))
+    tiles = {(3, 5)}
+    for ty in (8, 16):
+        try:
+            tiles.add(K.ytile_tile(r, ty, eb))
+        except ValueError:
+            pass  # no tile of ty rows fits this range's ring
+    for tile in tiles:
+        for route in K.ZMARCH_ROUTES:
+            if route == "tma" and K.zmarch_route(r, *tile, 70 + 2 * r, eb, padded.data_ptr()) != "tma":
+                continue
+            got = K.star_zmarch(padded, w, r, *tile, route=route)
+            torch.cuda.synchronize()
+            assert K.LAST_ZMARCH["weights"] == "tensor"
+            assert K.LAST_ZMARCH["stages"] == 2 * r + 2
+            torch.testing.assert_close(got, want, **GPU_TOL[dtype], msg=f"{tile} {route}")
+    assert K.bank_counts()["fills"] == fills

@@ -8,6 +8,8 @@ exactly.  Every shape is non-square, so that an M/N swap shows.  On the CPU
 the port's wrappers run their plain version; the CUDA kernels themselves are
 compared with it by the ``gpu``-marked tests, which skip without a card.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -18,7 +20,8 @@ from repro_torch.core.access import LaunchConfig
 from repro_torch.core.machines import H100
 from repro_torch.core.selector import enumerate_gpu_configs, rank_gpu_configs
 from repro_torch.core.specs import transpose_pad
-from repro_torch.kernels import DEPTH_REASON, SCRATCH_REASON, dtype_for, fills_depth, get_generator
+from repro_torch.kernels import DEPTH_REASON, SCRATCH_REASON, _build, dtype_for, fills_depth, get_generator
+from repro_torch.kernels.transpose_pad import ablate
 from repro_torch.kernels.transpose_pad import kernel as K
 from repro_torch.kernels.transpose_pad.generator import (
     generate,
@@ -186,6 +189,60 @@ def test_wrappers_validate_their_operands():
         transpose(x[None])
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float16, torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 129), (129, 1), (33, 1025)])
+def test_pointwise_on_the_cpu_is_the_plain_version_and_launches_nothing(dtype, shape):
+    """On a CPU tensor the wrapper returns the plain transpose at the edge
+    shapes the card tests use, and counts no launch."""
+    x = torch.from_numpy(_x(4, np.float32, shape) * 40).to(dtype)
+    before = dict(K.LAUNCHES)
+    assert torch.equal(K.transpose_pointwise(x, LaunchConfig((32, 4, 1), (1, 2, 1))), x.T)
+    assert K.LAUNCHES == before
+
+
+def test_pointwise_unrolls_the_folds_of_every_priced_launch():
+    """The compile-time folds of the source cover every priced launch: fx 1
+    and fy 1 or 2 (fz only decides whether a thread has points)."""
+    src = (_build.CSRC / "transpose_pad.cu").read_text()
+    folds = {(launch.folding[0], launch.folding[1]) for launch in enumerate_gpu_configs()}
+    assert folds == {(1, 1), (1, 2)}
+    for fx, fy in folds:
+        assert f"go_pointwise<T, {fx}, {fy}>" in src
+
+
+@pytest.mark.parametrize("fn", sorted(K._SIGNATURES))
+def test_ctypes_signatures_match_the_c_launchers(fn):
+    """Each ctypes declaration has the C prototype's parameters, pointers
+    where it takes pointers."""
+    import re
+
+    src = (_build.CSRC / "transpose_pad.cu").read_text()
+    params = " ".join(re.search(rf"\nint {fn}\(([^)]*)\)", src).group(1).split()).split(",")
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert K._SIGNATURES[fn] == want, (fn, params)
+
+
+@pytest.mark.parametrize("name", sorted(ablate.VARIANTS))
+def test_ablation_edits_find_their_text_once(name):
+    src = (_build.CSRC / "transpose_pad.cu").read_text()
+    for old, new in ablate.VARIANTS[name]:
+        assert src.count(old) == 1 and old != new
+
+
+def test_ablation_old_kernel_comes_from_a_checkout(tmp_path):
+    """The old kernel comes from a checkout of the commit before the
+    redesign (``--base``), not from a copy in the package."""
+    csrc = tmp_path / "src" / "repro_torch" / "csrc"
+    with pytest.raises(FileNotFoundError, match="checkout"):
+        ablate.old_source(tmp_path)
+    csrc.mkdir(parents=True)
+    (csrc / "transpose_pad.cu").write_text((_build.CSRC / "transpose_pad.cu").read_text())
+    with pytest.raises(ValueError, match="previous"):
+        ablate.old_source(tmp_path)
+    (csrc / "transpose_pad.cu").write_text("xt[(int64_t)y * M + m] = x[(int64_t)m * N + y];\n")
+    assert ablate.old_source(tmp_path) == csrc / "transpose_pad.cu"
+
+
 # ---------------------------------------------------------------------------
 # On the card: every CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -240,3 +297,18 @@ def test_card_entry_point_runs_the_ranked_launch(cuda):
     assert torch.equal(kern(x), x.T)
     with pytest.raises(ValueError):
         kern(x.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float16, torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 129), (129, 1), (33, 1025), (64, 96)])
+def test_card_pointwise_edge_shapes(cuda, dtype, shape):
+    """The pointwise kernel, bit for bit, at every launch, every element
+    width and edge shapes (one row, one column, odd sides, where a thread's
+    pair of points is cut at the edge)."""
+    x = torch.from_numpy(_x(4, np.float32, shape) * 40).to(cuda).to(dtype)
+    want = transpose_ref(x)
+    for launch in enumerate_gpu_configs():
+        got = K.transpose_pointwise(x, launch)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), launch
