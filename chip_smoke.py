@@ -20,7 +20,9 @@ with nvcc first (one nvcc per source, in parallel):
 * the attention path at granite-3-2b's full width (bf16): ``tuned_matmul``
   on the GEMMs of one layer at 16384 tokens (and on the out GEMM in fp32,
   three TF32 passes held to an fp64 product), ``flash_attention`` on a causal
-  prefill (B 4, S 4096) and on one decode token against a 32k cache
+  prefill (B 4, S 4096; in fp32 at B 1, three TF32 passes held to an fp64
+  attention; and the head dims 80, 96 and 128 of the repo's other configs
+  in both dtypes) and on one decode token against a 32k cache
   (B 128, and B 8 with the cache split across the SMs, in bf16 and, on
   the CUDA-core decode, in fp32 and in bf16 at head dim 32), and
   ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
@@ -133,6 +135,14 @@ FLASH_TOL = {2: dict(rtol=0.0, atol=3e-2), 4: dict(rtol=0.0, atol=2e-3)}
 # and run_flash shows that an output missing one KV block fails it
 FLASH_ROW_REL = {2: 2e-2, 4: 1e-4}
 FLASH_ROUNDS = 30                        # rounds of the prefill's tiles and SDPA in turns
+# the head dims of the repo's configs beyond granite-3-2b's 64 (src/repro/configs:
+# d_model / n_heads), with their query and KV heads: checked in both dtypes
+HEAD_DIM_CONFIGS = (("zamba2-2.7b", 32, 32, 80), ("phi3-mini-3.8b", 32, 32, 96),
+                    ("mixtral-8x7b", 32, 8, 128))
+# timed at full width, B 1 x 4096 causal: the fp32 forward at D 128, the bf16
+# mma.sync forward at D 80 and 96
+HEAD_DIM_TIMED = (("mixtral-8x7b", 32, 8, 128, "float32"), ("zamba2-2.7b", 32, 32, 80, "bfloat16"),
+                  ("phi3-mini-3.8b", 32, 32, 96, "bfloat16"))
 MATMUL_SOURCE = "src/repro_torch/csrc/matmul.cu"
 MATMUL_REPLACES = "src/repro/kernels/matmul/kernel.py:42"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
@@ -1328,10 +1338,12 @@ def gemm_errors(torch, got, exact) -> tuple:
 
 def tf32_matmul(torch, a, b):
     """``torch.matmul`` with TF32 allowed (one TF32 pass), the flag restored."""
+    was = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
-    out = torch.matmul(a, b)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return out
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
 
 
 def run_matmul_fp32(args, torch, dev) -> list:
@@ -1614,21 +1626,11 @@ def run_flash(args, torch, dev) -> list:
         f"causal triangle has {triangle}) / (16 a clock x {sms} SMs x SM clock): "
         f"{floors[0]:.4f} ms at the clock read now ({mhz[0]:.0f} MHz), {floors[1]:.4f} ms at the "
         f"maximum ({mhz[1]:.0f} MHz); the tensor-core bound is {b_ms:.4f} ms")
-    # fp32 (CUDA cores) on the first batch, both tiles
-    q32, k32, v32 = q[:1].float(), k[:1].float(), v[:1].float()
-    want32 = attention_ref(q32, k32, v32, True)
-    b32_ms = attention_bound(1, Hq, Hkv, S, S, D, True, 4)[2] / PEAK_FLOPS[4] * 1e3
-    for bq, bk in FK.FWD_TILES:
-        err, rel = check_flash(torch, FK.flash_attention_fwd(q32, k32, v32, bq, bk, True),
-                               want32, f"flash_attention_fwd fp32 ({bq}, {bk})", 4)
-        ms = cuda_ms(torch, lambda: FK.flash_attention_fwd(q32, k32, v32, bq, bk, True),
-                     warmup=1, reps=5)
-        say(f"prefill fp32 B=1 (bq, bk) ({bq}, {bk}): max abs error {err!r} ({FLASH_TOL[4]}), "
-            f"row relative error {rel!r} (bound {FLASH_ROW_REL[4]}); "
-            f"{ms:.4f} ms (median of 5), operation bound {b32_ms:.4f} ms at "
-            f"{PEAK_FLOPS[4] / 1e12:.0f} TFLOP/s fp32")
-    sdpa_fp32(torch, q32, k32, v32, True, "prefill fp32 B=1")
-    del q, k, v, q32, k32, v32, want32
+    del q, k, v
+    torch.cuda.empty_cache()
+    kernels += run_prefill_fp32(torch, dev, gen)
+    torch.cuda.empty_cache()
+    kernels += run_head_dims(torch, dev, gen)
     torch.cuda.empty_cache()
 
     # F2. decode: one token against a decode_32k cache, the main path
@@ -1701,6 +1703,211 @@ def run_flash(args, torch, dev) -> list:
     kernels += run_small_decode(torch, q[:DECODE_SMALL_B], k[:DECODE_SMALL_B], v[:DECODE_SMALL_B])
     kernels += run_core_decode(torch, q[:DECODE_SMALL_B], k[:DECODE_SMALL_B], v[:DECODE_SMALL_B])
     return kernels
+
+
+def f32_attention_bounds(B, Hq, Hkv, S, D) -> tuple:
+    """(bound ms, bound_by, the CUDA cores' one-pass ms, flops) of a causal
+    fp32 prefill: three TF32 passes at the tensor cores' rate against q, k,
+    v and o moved once at the HBM rate; beside it one fp32 pass on the CUDA
+    cores."""
+    flops = attention_bound(B, Hq, Hkv, S, S, D, True, 4)[2]
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = (2 * B * Hq * S * D + 2 * B * Hkv * S * D) * 4 / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return b_ms, b_by, flops / PEAK_FLOPS[4] * 1e3, flops
+
+
+def sdpa_math(torch, q, k, v, causal: bool = True, tf32: bool = False):
+    """``F.scaled_dot_product_attention`` under the math backend, the only
+    one that takes fp32 with ``enable_gqa``; ``tf32`` allows TF32 in its
+    products (one TF32 pass each), the flag restored."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        with sdpa_kernel([SDPBackend.MATH]):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def run_prefill_fp32(torch, dev, gen) -> list:
+    """F1b. The causal prefill in fp32 at granite-3-2b's width, B 1 × 4096,
+    through ``flash_attention`` at both tiles (three TF32 passes,
+    ``flash_fwd_tf32_kernel``), operands drawn in fp32: a value drawn in
+    bf16 is exact in TF32, so one TF32 pass would pass a check on it.  Held
+    to ``attention_ref`` (FLASH_TOL, FLASH_ROW_REL) and to an fp64 attention
+    within F32_GATE times the error of SDPA's math backend with TF32 off, a
+    gate shown to reject that backend with TF32 on (one TF32 pass a
+    product); timed (median of 20 after 3 warm-ups) beside both bounds, the
+    plain version and the math backend, and in turns with it."""
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.generator import DEFAULT
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_fp64_ref, attention_ref
+
+    Hq, Hkv, D = CONFIG.n_heads, CONFIG.n_kv, CONFIG.resolved_head_dim
+    S = PREFILL[1]
+    q = torch.randn((1, Hq, S, D), device=dev, generator=gen)
+    k = torch.randn((1, Hkv, S, D), device=dev, generator=gen)
+    v = torch.randn((1, Hkv, S, D), device=dev, generator=gen)
+    b_ms, b_by, cc_ms, flops = f32_attention_bounds(1, Hq, Hkv, S, D)
+    say(f"prefill fp32: flash_attention(q, k, v, causal=True) at B=1, Hq={Hq}, Hkv={Hkv}, S={S}, "
+        f"D={D}, operands drawn in fp32: {flops / 1e9:.2f} GFLOP of the causal triangle; bound "
+        f"{b_ms:.4f} ms ({b_by}: three TF32 passes at {PEAK_TF32_FLOPS / 1e12:.1f} TFLOP/s); one "
+        f"fp32 pass on the CUDA cores at {PEAK_FLOPS[4] / 1e12:.0f} TFLOP/s: {cc_ms:.4f} ms")
+    want, exact = attention_ref(q, k, v, True), attention_fp64_ref(q, k, v, True)
+    off = gemm_errors(torch, sdpa_math(torch, q, k, v), exact)
+    one = gemm_errors(torch, sdpa_math(torch, q, k, v, tf32=True), exact)
+    gate = tuple(F32_GATE * e for e in off)
+    if one[0] <= gate[0] and one[1] <= gate[1]:
+        raise AssertionError(f"the {F32_GATE}x error gate {gate} passes one TF32 pass (RMS, max "
+                             f"abs {one})")
+    default = (DEFAULT["bq"], DEFAULT["bk"])
+    records = []
+    for tile in FK.FWD_TILES:
+        cfg = None if tile == default else {"bq": tile[0], "bk": tile[1]}
+        reset_counts()
+        out = flash_attention(q, k, v, causal=True, config=cfg)
+        torch.cuda.synchronize()
+        launches = dict(FK.LAUNCHES)
+        if launches != {"flash_attention_fwd": 1, "flash_decode": 0, "flash_decode_combine": 0} \
+                or FK.LAST_LAUNCH["flash_attention_fwd"] != (*tile, True):
+            raise AssertionError(f"prefill fp32 {cfg}: launches {launches}, last "
+                                 f"{FK.LAST_LAUNCH['flash_attention_fwd']}")
+        err, rel = check_flash(torch, out, want, f"flash_attention prefill fp32 {cfg}", 4)
+        errs = gemm_errors(torch, out, exact)
+        del out
+        if errs[0] > gate[0] or errs[1] > gate[1]:
+            raise AssertionError(f"flash_attention_fwd fp32 {tile}: error against fp64 (RMS, max "
+                                 f"abs) {errs} exceeds {F32_GATE}x the math backend's {off}")
+        route = FK.fwd_route(torch.float32, D, *tile)
+        say(f"prefill fp32 flash_attention(config={cfg}) at (bq, bk) {tile} ({route}): launches "
+            f"{launches}; max abs error {err!r} ({FLASH_TOL[4]}), row relative error {rel!r} "
+            f"(bound {FLASH_ROW_REL[4]}); against fp64, RMS and max abs: kernel {errs[0]!r}, "
+            f"{errs[1]!r}; SDPA math TF32 off {off[0]!r}, {off[1]!r} ({errs[0] / off[0]:.3f}x, "
+            f"{errs[1] / off[1]:.3f}x; the gate is {F32_GATE}x); one TF32 pass (the math backend, "
+            f"allow_tf32=True) {one[0]!r}, {one[1]!r} ({one[0] / off[0]:.1f}x, "
+            f"{one[1] / off[1]:.1f}x: the gate rejects it)")
+        records.append({"name": f"flash_attention_fwd[fp32,bq={tile[0]},bk={tile[1]}]",
+                        "config": {"bq": tile[0], "bk": tile[1]}, "tile": tile, "fwd_route": route,
+                        "launches": launches["flash_attention_fwd"], "max_abs_err": err,
+                        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["fwd"]})
+    del want, exact
+    plain = cuda_ms(torch, lambda: attention_ref(q, k, v, True), warmup=1, reps=5)
+    math = lambda: sdpa_math(torch, q, k, v)
+    lib = cuda_ms(torch, math)
+    fwd = {rec["name"]: (lambda t=rec["tile"]: FK.flash_attention_fwd(q, k, v, *t, True))
+           for rec in records}
+    turns = interleaved_ms(torch, {**fwd, "sdpa math": math}, FLASH_ROUNDS)
+    for rec in records:
+        rec.pop("tile")
+        ms = cuda_ms(torch, fwd[rec["name"]])
+        rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                   in_turns_ms=turns[rec["name"]],
+                   library_in_turns_ms=turns["sdpa math"])
+        say(f"time {rec['name']} prefill fp32 ({rec['fwd_route']}): {ms:.4f} ms (median of 20; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s of fp32 product, {b_ms / ms * 100:.1f}% of the "
+            f"three-pass bound {b_ms:.4f}, {cc_ms / ms:.2f}x the CUDA cores' ceiling rate); in turns "
+            f"({FLASH_ROUNDS} rounds) {rec['in_turns_ms']:.4f} against SDPA math "
+            f"{turns['sdpa math']:.4f} ms ({rec['in_turns_ms'] / turns['sdpa math']:.4f}x); plain "
+            f"{plain:.4f} ms (median of 5); library SDPA math (allow_tf32=False) {lib:.4f} ms; "
+            f"{card_line()}")
+    sdpa_fp32(torch, q, k, v, True, "prefill fp32 B=1")
+    return records
+
+
+def run_head_dims(torch, dev, gen) -> list:
+    """F1c. The head dims of the repo's configs beyond granite-3-2b's 64
+    (``HEAD_DIM_CONFIGS``), through ``flash_attention``: on small shapes
+    the forward at both tiles (causal, Sq < Skv) and the decode, in bf16
+    and fp32, each against the plain version; then at full width, B 1 ×
+    4096 causal, the fp32 forward at D 128 against SDPA's math backend and
+    the bf16 forward at D 80 and 96 (``mma.sync``) against SDPA, in turns,
+    beside their bounds and the plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def qkv(B, Hq, Hkv, Sq, Skv, D, dtype):
+        return [torch.randn(shape, device=dev, generator=gen).to(dtype)
+                for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+
+    for name, Hq, Hkv, D in HEAD_DIM_CONFIGS:
+        for dtype in (torch.bfloat16, torch.float32):
+            eb, parts = torch.tensor([], dtype=dtype).element_size(), []
+            q, k, v = qkv(2, Hq, Hkv, 256, 384, D, dtype)
+            want = attention_ref(q, k, v, True)
+            for tile in FK.FWD_TILES:
+                reset_counts()
+                got = flash_attention(q, k, v, causal=True, config={"bq": tile[0], "bk": tile[1]})
+                torch.cuda.synchronize()
+                if dict(FK.LAUNCHES) != {"flash_attention_fwd": 1, "flash_decode": 0,
+                                         "flash_decode_combine": 0}:
+                    raise AssertionError(f"{name} D {D} {dtype} {tile}: launches {FK.LAUNCHES}")
+                err, rel = check_flash(torch, got, want, f"{name} forward {dtype} {tile}", eb)
+                parts.append(f"forward {tile} ({FK.fwd_route(dtype, D, *tile)}) max abs {err:.3e}, "
+                             f"row relative {rel:.3e}")
+            q, k, v = qkv(2, Hq, Hkv, 1, 1024, D, dtype)
+            reset_counts()
+            got = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            if FK.LAUNCHES["flash_decode"] != 1:
+                raise AssertionError(f"{name} D {D} {dtype} decode: launches {FK.LAUNCHES}")
+            err, rel = check_flash(torch, got, attention_ref(q, k, v, False),
+                                   f"{name} decode {dtype}", eb)
+            parts.append(f"decode ({FK.LAST_DECODE['route']}, {FK.LAST_DECODE['splits']} splits) "
+                         f"max abs {err:.3e}, row relative {rel:.3e}")
+            say(f"head dim {D} ({name}: Hq {Hq}, Hkv {Hkv}) {dtype}: " + "; ".join(parts))
+            del q, k, v, got, want
+
+    records = []
+    for name, Hq, Hkv, D, dtype in HEAD_DIM_TIMED:
+        dtype = getattr(torch, dtype)
+        S, eb = PREFILL[1], torch.tensor([], dtype=dtype).element_size()
+        q, k, v = qkv(1, Hq, Hkv, S, S, D, dtype)
+        if eb == 4:
+            b_ms, b_by, _, flops = f32_attention_bounds(1, Hq, Hkv, S, D)
+            lib_fn = lambda: sdpa_math(torch, q, k, v)  # noqa: E731
+        else:
+            b_ms, b_by, flops = attention_bound(1, Hq, Hkv, S, S, D, True, 2)
+            lib_fn = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                            enable_gqa=True)
+        reset_counts()
+        out = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launches = dict(FK.LAUNCHES)
+        tile = FK.LAST_LAUNCH["flash_attention_fwd"][:2]
+        if launches["flash_attention_fwd"] != 1:
+            raise AssertionError(f"{name} D {D}: launches {launches}")
+        err, rel = check_flash(torch, out, attention_ref(q, k, v, True), f"{name} B 1 x {S}", eb)
+        del out
+        route = FK.fwd_route(dtype, D, *tile)
+        plain = cuda_ms(torch, lambda: attention_ref(q, k, v, True), warmup=1, reps=5)
+        call = lambda: FK.flash_attention_fwd(q, k, v, *tile, True)  # noqa: E731
+        ms, lib = cuda_ms(torch, call), cuda_ms(torch, lib_fn)
+        turns = interleaved_ms(torch, {"kernel": call, "library": lib_fn}, FLASH_ROUNDS)
+        label = "SDPA math (allow_tf32=False)" if eb == 4 else "SDPA"
+        say(f"time head dim {D} ({name}: Hq {Hq}, Hkv {Hkv}) {dtype} causal B 1 x {S} through "
+            f"flash_attention at (bq, bk) {tile} ({route}): launches {launches}; max abs error "
+            f"{err!r}, row relative {rel!r}; {ms:.4f} ms ({b_ms / ms * 100:.1f}% of the {b_ms:.4f} "
+            f"ms bound, {b_by}); in turns ({FLASH_ROUNDS} rounds) {turns['kernel']:.4f} against "
+            f"{label} {turns['library']:.4f} ms ({turns['kernel'] / turns['library']:.4f}x); plain "
+            f"{plain:.4f} ms; library {lib:.4f} ms; {card_line()}")
+        records.append({"name": f"flash_attention_fwd[{'fp32' if eb == 4 else 'bf16'},D={D},"
+                                f"bq={tile[0]},bk={tile[1]}]", "fwd_route": route,
+                        "launches": launches["flash_attention_fwd"], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                        "in_turns_ms": turns["kernel"], "library_in_turns_ms": turns["library"],
+                        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["fwd"]})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
 
 
 def run_small_decode(torch, q, k, v) -> list:

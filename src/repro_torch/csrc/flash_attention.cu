@@ -10,10 +10,15 @@
 // p = exp(s - m'), l = l e^(m - m') + sum p, acc = acc e^(m - m') + p v,
 // and o = acc / max(l, 1e-30).  Two departures from the reference's f32
 // arithmetic: exp is ex2.approx based (__expf, or 2^x of a log2 e-scaled
-// argument in the wgmma kernel; a few ulp), and
+// argument; a few ulp), and
 // the bf16 forward rounds p to bf16 for the tensor-core P V product while l
 // sums the unrounded p.  The fp32 kernels and the decode kernels keep p in
-// f32 (the tensor-core decode as the sum of two bf16 parts).
+// f32 (the tensor-core decode as the sum of two bf16 parts, the fp32
+// forward as the sum of two TF32 parts).
+//
+// Head dims: 32, 64, 80, 96 and 128 in both dtypes, forward and decode (the
+// repo's configs: 64 mostly, 128 mixtral-8x7b, qwen1.5 and others, 96
+// phi3-mini-3.8b, 80 zamba2-2.7b; 32 their reduced forms).
 //
 // flash_attention_fwd
 //   Replaces repro/kernels/flash_attention/kernel.py:
@@ -65,8 +70,9 @@
 //     cut), the others run without mask code.  The epilogue divides by
 //     max(l, 1e-30) and stores bf16 pairs from registers.
 //
-//   bf16 at D 32, and at (64, 64): tensor cores through mma.sync.m16n8k16
-//   (FA2 form).  BQ/16 warps,
+//   bf16 at D 32, 80 and 96, and at (64, 64): tensor cores through
+//   mma.sync.m16n8k16 (FA2 form; the wgmma kernel's 64-column TMA boxes do
+//   not tile 80 or 96).  BQ/16 warps,
 //   each owning 16 query rows: S = Q K^T and O += P V as m16n8k16 tiles, Q
 //   fragments in registers, K and V blocks double-buffered in shared memory
 //   by cp.async (rows padded by 8 elements against bank conflicts), P reused
@@ -74,8 +80,52 @@
 //   error of at most 2^-9 on each p).  Bound at the model's
 //   prefill: tensor-core operations.
 //
-//   fp32: CUDA-core FMAs (no TF32).  256 threads as 16 x 16; S and O in
-//   registers, Q^T, K^T, V and P^T in shared memory.
+//   fp32 (both tiles, every head dim): flash_fwd_tf32_kernel, fp32-accurate
+//   products on the TF32 tensor cores in three passes, S = Qhi Khi + Qhi Klo
+//   + Qlo Khi and O += Phi Vhi + Phi Vlo + Plo Vhi, each operand split in
+//   registers: hi = tf32(x), the nearest TF32 value (cvt.rna.tf32.f32's
+//   bits, by two integer operations: the cvt on hi measured 11 % slower),
+//   and lo = x - hi, whose TF32 bits the MMA reads.  Bound at the model's fp32
+//   prefill by those passes: 3 x 4·D flops a kept (query, key) pair at
+//   494.7 TFLOP/s, 0.41x one fp32 pass on the CUDA cores at 67 (whose
+//   FFMAs, and a transposed K and P in shared memory, the kernel before
+//   this one used).  It reads about a third of that bound: the passes
+//   themselves take most of the time (without the splits the kernel still
+//   takes 0.82-0.84x its time, with one pass 0.49x), on mma.sync, which is not
+//   Hopper's full-rate wgmma path.  The design:
+//   - One CTA a tile (b*Hq + h, 16 x n query rows), heavy causal tiles
+//     first (persistent CTAs, one per SM, were 0.8-12.5 % slower in every
+//     ablation run, PERF.md).  One producer thread (its warpgroup's
+//     registers go to the consumers) keeps TMA loads of fp32 K and V
+//     blocks of 64 keys in flight into a ring of 2 stages (4 were 0.4-3.6 %
+//     slower), (64 x 32) boxes, 128-byte swizzled, with full and
+//     empty mbarriers for K and V apart.  K and V sit in shared memory
+//     once, in fp32, key x D: nothing is transposed or split in memory.
+//   - n consumer warps (8; 4 at D 128, where their Q would not fit), each
+//     owning 16 query rows (FA2), all on the same blocks, with no CTA
+//     barrier in the key loop.  mma.sync.m16n8k8 tf32: Q's A fragments are
+//     split once a tile into the warp's own slots of shared memory (two
+//     16-byte loads a k step); a K B fragment (K[key][d], d = t, t + 4)
+//     is one 32-bit load, the swizzle's chunk ^ row keeping the 32 lanes
+//     on 32 banks; P comes from the S accumulators, whose columns 2t and
+//     2t + 1 serve as the A fragment's k = t and t + 4 when V's B fragment
+//     takes rows 2t and 2t + 1 (again conflict-free under the swizzle).
+//   - The tensor cores' sums truncate, so the small products (lo·hi +
+//     hi·lo) go into an accumulator of their own, a block's P V into a
+//     fresh one, and both are added in fp32 on the CUDA cores
+//     (kT32SmallApart): O = O·corr + (hi sum + small sum), the
+//     reference's order.
+//   - Each warp stops at its own last row's diagonal, in 64-key blocks,
+//     within the reference's KV blocks of its q block at (bq, bk): the
+//     keys past it are masked to NEG_INF and add exactly nothing.  A row
+//     that sees no key at all (Skv < Sq) reads the reference's blocks.
+//   - Offsets: 32-bit TMA coordinates and shared-memory indices; Q and O
+//     from a 64-bit tile base.
+//
+//   The ablation (kernels/flash_attention/ablate.py --part fwd32) times one
+//   pass, 4 consumer warps, 4 stages, the small products summed in, lo
+//   rounded, hi by cvt.rna, probes that drop a piece, and the kernel before
+//   this one from --base.
 //
 // flash_decode
 //   Replaces repro/kernels/flash_attention/kernel.py:
@@ -120,7 +170,7 @@
 //   whole blocks); Skv need not be a multiple of 128.  TMA row coordinates
 //   are 32-bit: B*Hkv*Skv above INT32_MAX is refused.
 //
-//   bf16 at D 32 and fp32 at D 32, 64 and 128 ("cuda_cores"):
+//   bf16 at D 32, 80 and 96 and fp32 at every head dim ("cuda_cores"):
 //   flash_decode_core_kernel, the tensor-core kernel's shape on the CUDA
 //   cores.  The products stay f32 FFMAs (no TF32: the fp32 tolerance and p's
 //   f32 precision are kept); at about 2 FLOP a byte the kernel is bound by
@@ -130,19 +180,21 @@
 //     splits the cache (kernel.decode_splits, whole 128-key blocks) where
 //     the units would not fill the card, merged by the combine kernel.
 //   - One producer thread keeps bulk copies (cp.async.bulk) of 64-key K and
-//     V blocks in flight, into a K and a V ring of 3 to 12 stages (192 KB
-//     together), with full and empty mbarriers apart.  A unit's keys are
+//     V blocks in flight, into a K and a V ring of 3, 6 or 12 stages (at
+//     most 192 KB together), with full and empty mbarriers apart.  A unit's keys are
 //     one contiguous run of each tensor, so a block is one copy of 64·D
 //     elements: no tensor map, no 32-bit row coordinate.
 //   - n consumer warps (6 where the ring has 6 or 12 stages, 3 at fp32
-//     D 128; DecCore::kConsumers) take whole blocks in turn (warp w the
+//     D 80, 96 and 128; DecCore::kConsumers) take whole blocks in turn (warp w the
 //     blocks w, w + n, ...), each with its own running max, sum and O, with
 //     no CTA barrier in the key loop.  Scores: lane i holds keys i and
 //     i + 32 of the block and runs one FFMA chain per (head, key) over the
 //     16-byte chunks of the row, q from shared memory; each lane starts at
 //     another chunk, so the 8 lanes of a shared-memory phase read 8 bank
 //     groups.  The row max over the warp's shuffles, p to a per-warp
-//     buffer, then O += P V with lane i owning D/32 columns of every head.
+//     buffer, then O += P V with lane i owning columns D/32 i .. D/32 i +
+//     D/32 - 1 of every head, or, where 32 does not divide D (80), columns
+//     i + 32 j, those at or past D masked.
 //   - At a unit's end the warps combine their (m, l, O) through shared
 //     memory (two barriers of the consumer warps a unit) and write o = O /
 //     max(l, 1e-30), or the f32 partials (m, l, unnormalised O).
@@ -590,21 +642,22 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
     for (int i = 0; i < 4; ++i) p[t][i] = pack_bf16(s[8 * t + 2 * i], s[8 * t + 2 * i + 1]);
 }
 
-// One block's online softmax in the exp2 domain, in place: s (raw Q K^T)
-// becomes p = 2^(s c - m) with c = scale * log2 e and m the running row max
+// One block's online softmax in the exp2 domain, in place: s (raw Q K^T,
+// N/4 n8 tiles of an m16 accumulator, register 4j+e holding row e >> 1,
+// key 8j + 2*(lane%4) + (e&1)) becomes p = 2^(s c - m) with c = scale * log2 e and m the running row max
 // of s c; l keeps the thread's partial row sums of the unrounded p (summed
 // over a row's four lanes once, in the epilogue); corr is each row's
 // 2^(m_old - m).  kMask: keys past key_lim[r] get the reference's finite
 // NEG_INF (a row that sees no key then averages the block, as the mma.sync
 // kernel and the TPU kernel do).
-template <bool kMask>
-__device__ __forceinline__ void softmax_block(float (&s)[64], float (&m)[2], float (&l)[2],
+template <bool kMask, int N>
+__device__ __forceinline__ void softmax_block(float (&s)[N], float (&m)[2], float (&l)[2],
                                               float (&corr)[2], float c, int key0,
                                               const int (&key_lim)[2]) {
   const int lane = threadIdx.x & 31;
   if constexpr (kMask) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + 8 * j + 2 * (lane & 3) + (e & 1);
@@ -613,7 +666,7 @@ __device__ __forceinline__ void softmax_block(float (&s)[64], float (&m)[2], flo
   }
   float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
 #pragma unroll
@@ -625,7 +678,7 @@ __device__ __forceinline__ void softmax_block(float (&s)[64], float (&m)[2], flo
     m[r] = m_new;
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float& x = s[4 * j + e];
@@ -911,128 +964,320 @@ flash_pv_probe_kernel(const __grid_constant__ CUtensorMap tma_v, const float* __
     for (int e = 0; e < 4; ++e) O[(row + 8 * (e >> 1)) * D + 8 * j + col + (e & 1)] = o[4 * j + e];
 }
 
-template <int BQ, int BK, int D>
-constexpr int fwd_f32_smem_bytes() {
-  return (D * (BQ + 1) + D * (BK + 1) + BK * D + BK * (BQ + 1)) * 4;
+// ---------------------------------------------------------------------------
+// fp32: three TF32 passes on the tensor cores (mma.sync), a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int kT32Block = 64;         // keys of a ring stage
+constexpr int kT32Rows = 16;          // query rows of a consumer warp: one m16n8k8 A tile
+constexpr int kT32MaxConsumers = 8;   // consumer warps of a CTA where their Q fits (4 at D 128)
+constexpr int kT32MaxStages = 2;      // K and V stages of the ring at most
+constexpr int kT32Passes = 3;         // 3: lo·hi + hi·lo + hi·hi; 1: hi·hi alone (one TF32 pass)
+constexpr bool kT32SmallApart = true; // the small products in an accumulator of their own
+constexpr bool kT32LoRound = false;   // lo rounded to TF32 (false: the MMA reads its TF32 bits)
+constexpr int kF32BoxBytes = kT32Block * 128;  // one (64 keys x 32 fp32) swizzled TMA box
+constexpr int kT32ProducerThreads = 128;       // warpgroup 0: one thread issues the loads
+
+template <int D>
+struct FwdTf32 {
+  static constexpr int kBoxes = (D + 31) / 32;              // 32-column boxes of a block
+  static constexpr int kTileBytes = kBoxes * kF32BoxBytes;  // one K or V block
+  static constexpr int kKSteps = D / 8;                     // k8 steps of Q K^T, n8 tiles of O
+  // a warp's Q: TF32 hi and lo A fragments, 8 floats a lane a k step
+  static constexpr int kQWarpBytes = kKSteps * 32 * 32;
+  // the alignment slack, the consumers' Q, two stages and their mbarriers
+  static constexpr int kConsumers =
+      1024 + kT32MaxConsumers * kQWarpBytes + 2 * (2 * kTileBytes + 32) <= kSmemLimit
+          ? kT32MaxConsumers
+          : kT32MaxConsumers / 2;
+  static constexpr int kFit = (kSmemLimit - 1024 - kConsumers * kQWarpBytes) / (2 * kTileBytes + 32);
+  static constexpr int kStages = kFit < kT32MaxStages ? kFit : kT32MaxStages;
+  static constexpr int kBars = 4 * kStages;  // K and V full and empty
+  static constexpr int kSmem = 1024 + 2 * kStages * kTileBytes + kConsumers * kQWarpBytes + 8 * kBars;
+  static constexpr int kThreads = kT32ProducerThreads + 32 * kConsumers;
+  // with two consumer warpgroups the producer's gives its registers to them
+  // (setmaxnreg: 168 a thread at launch, 40 and 232 after; at 168 the
+  // kernel spilled); with one, a thread has 255 from the start
+  static constexpr bool kMoveRegs = kConsumers == 8;
+  // P V in parts of at most 8 n8 tiles of O (the part's accumulators in
+  // registers beside O)
+  static constexpr int kPvParts = (kKSteps + 7) / 8;
+  static constexpr int kPvTiles = kKSteps / kPvParts;
+  static_assert(D % 8 == 0 && kPvTiles * kPvParts == kKSteps, "head dim");
+  static_assert(kStages >= 2 && kSmem <= kSmemLimit, "shared memory");
+};
+
+// the TF32 value nearest x (ties away from zero), as fp32 bits with the low
+// 13 mantissa bits zero: cvt.rna.tf32.f32's result for every finite x, by
+// two integer operations (half a TF32 unit added to the magnitude's bits,
+// then cut; ref.tf32_round's formula).  kT32CvtRna: by the cvt instruction
+constexpr bool kT32CvtRna = false;
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  if constexpr (kT32CvtRna)
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  else
+    r = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return r;
 }
 
-template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(256)
-flash_fwd_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                     const float* __restrict__ V, float* __restrict__ O, int Hq, int Hkv,
-                     int Sq, int Skv, float scale, int causal) {
-  constexpr int TM = BQ / 16;  // rows of a thread: ty + 16 r
-  constexpr int TN = BK / 16;  // S columns of a thread: tx + 16 c
-  constexpr int TD = D / 16;   // O columns of a thread: tx + 16 e
-  constexpr int QS = BQ + 1, KS = BK + 1;
+// x = hi + lo: hi = tf32(x) and lo = x - hi exactly, whose TF32 bits the
+// MMA reads (its low 13 bits ignored: lo to 2^-10 of itself, the pair x to
+// about 2^-21 of |x|; kT32LoRound rounds lo to TF32 first, 2^-22, at the
+// cost of two more integer operations)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  const float rest = x - __uint_as_float(hi);
+  lo = kT32Passes != 3 ? 0u : kT32LoRound ? tf32_rna(rest) : __float_as_uint(rest);
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qt = reinterpret_cast<float*>(smem);  // [D][QS]  Q transposed
-  float* Kt = Qt + D * QS;                     // [D][KS]  K transposed
-  float* Vs = Kt + D * KS;                     // [BK][D]
-  float* Pt = Vs + BK * D;                     // [BK][QS] P transposed
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.x;
-  const int qb = gridDim.y - 1 - blockIdx.y;
-  const int b = bh / Hq, h = bh % Hq;
-  const int kvh = h / (Hq / Hkv);
+// one k8 step of the three passes: the small products lo·hi and hi·lo into
+// `small`, hi·hi into `big` (the same array where they are not kept apart)
+__device__ __forceinline__ void mma_3pass(float (&big)[4], float (&small)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                          uint32_t bl0, uint32_t bl1) {
+  if constexpr (kT32Passes == 3) {
+    mma_tf32(small, al, bh0, bh1);
+    mma_tf32(small, ah, bl0, bl1);
+  }
+  mma_tf32(big, ah, bh0, bh1);
+}
+
+// S (16 rows x 64 keys: register 4j+e holds row g + 8(e>>1), key 8j + 2t +
+// (e&1), with g = lane/4, t = lane%4) = Q K^T for one warp.  Q's TF32 hi
+// and lo A fragments of k step i come from the warp's slots (i, hi or lo,
+// lane), 16 bytes each; K from its stage, key x D in 32-column boxes of
+// 128-byte rows, 16-byte chunk c of row r at chunk c ^ (r % 8): the B
+// fragment of keys 8j.. is K[8j + g][8i + t] and K[8j + g][8i + t + 4],
+// chunks 2i % 8 and 2i % 8 + 1 of row g of the group, which puts the 32
+// lanes on 32 banks
+template <int D>
+__device__ __forceinline__ void qk_tf32(float (&s)[32], const float4* qw, const float* k, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float big[8][4], small[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) big[j][e] = small[j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const float4 h = qw[64 * i + lane], l = qw[64 * i + 32 + lane];
+    const uint32_t ah[4] = {__float_as_uint(h.x), __float_as_uint(h.y), __float_as_uint(h.z),
+                            __float_as_uint(h.w)};
+    const uint32_t al[4] = {__float_as_uint(l.x), __float_as_uint(l.y), __float_as_uint(l.z),
+                            __float_as_uint(l.w)};
+    const float* kr = k + (i / 4) * (kF32BoxBytes / 4) + g * 32 + t;
+    const int c0 = ((2 * i) % 8 ^ g) * 4, c1 = ((2 * i) % 8 + 1 ^ g) * 4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(kr[j * 256 + c0], bh0, bl0);
+      split_tf32(kr[j * 256 + c1], bh1, bl1);
+      mma_3pass(big[j], kT32SmallApart ? small[j] : big[j], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * j + e] = kT32SmallApart && kT32Passes == 3 ? big[j][e] + small[j][e] : big[j][e];
+}
+
+// O = O corr + P V for one warp and a block of 64 keys.  P (the softmax's
+// s) is the A operand, split into TF32 hi and lo as it is used: S's
+// columns 2t and 2t + 1 of n8 tile j serve as k = t and t + 4 of k step j,
+// so V's B fragment is V[8j + 2t][8n + g] and V[8j + 2t + 1][8n + g] (row
+// 2t or 2t + 1 of the group: chunk ^ 2t keeps the lanes on 32 banks).  The
+// block's product goes into fresh accumulators (its small products apart)
+// and is added to O in fp32, in parts of kPvTiles n8 tiles of O
+// (registers).
+template <int D>
+__device__ __forceinline__ void pv_tf32(float (&o)[D / 2], const float (&p)[32],
+                                        const float (&corr)[2], const float* v, int lane) {
+  using T = FwdTf32<D>;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int part = 0; part < T::kPvParts; ++part) {
+    float big[T::kPvTiles][4], small[T::kPvTiles][4];
+#pragma unroll
+    for (int n = 0; n < T::kPvTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[n][e] = small[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ah[4], al[4];
+      split_tf32(p[4 * j], ah[0], al[0]);      // row g, key 8j + 2t: k = t
+      split_tf32(p[4 * j + 2], ah[1], al[1]);  // row g + 8, the same key
+      split_tf32(p[4 * j + 1], ah[2], al[2]);  // row g, key 8j + 2t + 1: k = t + 4
+      split_tf32(p[4 * j + 3], ah[3], al[3]);
+      const float* vr = v + (8 * j + 2 * t) * 32 + (g & 3);
+#pragma unroll
+      for (int n = 0; n < T::kPvTiles; ++n) {
+        const int nt = part * T::kPvTiles + n;  // the n8 tile of O: columns 8 nt ..
+        const int ch = 2 * (nt % 4) + (g >> 2);  // column 8 nt + g's chunk in its box
+        const float* vb = vr + (nt / 4) * (kF32BoxBytes / 4);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(vb[(ch ^ 2 * t) * 4], bh0, bl0);
+        split_tf32(vb[32 + (ch ^ (2 * t + 1)) * 4], bh1, bl1);
+        mma_3pass(big[n], kT32SmallApart ? small[n] : big[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < T::kPvTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = o[4 * (part * T::kPvTiles + n) + e];
+        x = fmaf(x, corr[e >> 1], kT32SmallApart ? big[n][e] + small[n][e] : big[n][e]);
+      }
+  }
+}
+
+// The 64-key blocks that query rows r0 .. r0+15 read: the reference's KV
+// blocks of their q block at the tile (bq, bk), cut at the last row's
+// diagonal where every row sees a key (the keys past it would add exactly
+// nothing); none for rows past Sq
+__device__ __forceinline__ int tf32_warp_blocks(int r0, int Sq, int Skv, int bq, int bk,
+                                                int causal) {
+  if (r0 >= Sq) return 0;
   const int off = Skv - Sq;
-  const int last = last_kv_block(causal, qb, BQ, BK, Skv / BK, off);
-  const float* qg = Q + ((int64_t)bh * Sq + (int64_t)qb * BQ) * D;
-  const float* kg = K + ((int64_t)b * Hkv + kvh) * Skv * D;
-  const float* vg = V + ((int64_t)b * Hkv + kvh) * Skv * D;
+  int end = (last_kv_block(causal, r0 / bq, bq, bk, Skv / bk, off) + 1) * bk;
+  if (causal && r0 + off >= 0) end = min(end, r0 + kT32Rows + off);
+  return end > 0 ? (end + kT32Block - 1) / kT32Block : 0;
+}
 
-  for (int i = tid; i < BQ * D; i += 256) Qt[(i % D) * QS + i / D] = qg[i];
+// grid: one CTA per tile, CTA i taking tile i in fwd_tile's order (heavy
+// causal q blocks first); tile (b*Hq + h, qt) holds query rows qt·16n ..
+// of n consumer warps, consumer warp w rows 16w ..  The producer loads the
+// tile's most blocks any warp reads; a warp past its own still waits on
+// each block and releases it.
+template <int D>
+__global__ void __launch_bounds__(FwdTf32<D>::kThreads, 1)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tma_k,
+                      const __grid_constant__ CUtensorMap tma_v, const float* __restrict__ Q,
+                      float* __restrict__ O, int B, int Hq, int Hkv, int Sq, int Skv, int bq,
+                      int bk, float c, int causal) {
+  using T = FwdTf32<D>;
+  constexpr int NC = T::kConsumers, S = T::kStages, TR = NC * kT32Rows;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const float* sk = reinterpret_cast<const float*>(smem);  // [stages][boxes][64][32], swizzled
+  const float* sv = sk + S * T::kTileBytes / 4;            // the same
+  float4* sq = reinterpret_cast<float4*>(smem + 2 * S * T::kTileBytes);  // [warps][steps][2][32]
+  const uint32_t bars = base + 2 * S * T::kTileBytes + NC * T::kQWarpBytes;
+  auto k_full = [&](int s) { return bars + 8u * s; };
+  auto v_full = [&](int s) { return bars + 8u * (S + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (2 * S + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (3 * S + s); };
 
-  float o[TM][TD], m_run[TM], l_run[TM];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nqt = (Sq + TR - 1) / TR;
+  int bh, qt;
+  fwd_tile(blockIdx.x, B * Hq, nqt, bh, qt);
+  int n = 0;  // the tile's most blocks any warp reads
+  for (int w = 0; w < NC; ++w)
+    n = max(n, tf32_warp_blocks(qt * TR + w * kT32Rows, Sq, Skv, bq, bk, causal));
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);    // the producer's arrive.expect_tx
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), NC);  // lane 0 of each consumer warp
+      mbar_init(v_empty(s), NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // block j sits in stage j % S; its mbarriers' phase is (j / S) & 1
+  if (threadIdx.x < kT32ProducerThreads) {
+    if constexpr (T::kMoveRegs)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const int b = bh / Hq, kvh = (bh % Hq) / (Hq / Hkv);
+      const int kv_row = (b * Hkv + kvh) * Skv;
+      for (int j = 0; j < n; ++j) {
+        const int st = j % S, ph = (j / S) & 1;
+        const uint32_t kdst = base + st * T::kTileBytes, vdst = base + (S + st) * T::kTileBytes;
+        mbar_wait(k_empty(st), ph ^ 1);
+        mbar_arrive_expect_tx(k_full(st), T::kTileBytes);
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    m_run[r] = kNegInf;
-    l_run[r] = 0.f;
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_2d(kdst + x * kF32BoxBytes, &tma_k, x * 32, kv_row + j * kT32Block, k_full(st));
+        mbar_wait(v_empty(st), ph ^ 1);
+        mbar_arrive_expect_tx(v_full(st), T::kTileBytes);
 #pragma unroll
-    for (int e = 0; e < TD; ++e) o[r][e] = 0.f;
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_2d(vdst + x * kF32BoxBytes, &tma_v, x * 32, kv_row + j * kT32Block, v_full(st));
+      }
+    }
+    return;
   }
 
-  for (int kb = 0; kb <= last; ++kb) {
-    __syncthreads();  // the previous block's K, V and P are consumed
-    const int64_t base = (int64_t)kb * BK * D;
-    for (int i = tid; i < BK * D; i += 256) {
-      Kt[(i % D) * KS + i / D] = kg[base + i];
-      Vs[i] = vg[base + i];
-    }
-    __syncthreads();
-
-    float s[TM][TN];
+  if constexpr (T::kMoveRegs)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = warp - kT32ProducerThreads / 32, g = lane >> 2, tq = lane & 3;
+  const int off = Skv - Sq;
+  float4* qw = sq + cw * (T::kQWarpBytes / 16);
+  const int r0 = qt * TR + cw * kT32Rows;
+  const int nw = tf32_warp_blocks(r0, Sq, Skv, bq, bk, causal);
+  const int key_lim[2] = {r0 + g + off, r0 + g + 8 + off};
+  float o[D / 2], s[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
-    for (int r = 0; r < TM; ++r)
+  for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+  if (nw > 0) {  // Q's A fragments, split once into this lane's own slots
+    const float* qg = Q + ((int64_t)bh * Sq + r0 + g) * D + tq;
 #pragma unroll
-      for (int c = 0; c < TN; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[TM], k[TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = Qt[d * QS + ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) k[c] = Kt[d * KS + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) s[r][c] = fmaf(a[r], k[c], s[r][c]);
-    }
-
-    const bool mask = causal && (kb * BK + BK - 1 > qb * BQ + off);
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int row = qb * BQ + ty + 16 * r + off;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        float v = s[r][c] * scale;
-        if (mask && kb * BK + tx + 16 * c > row) v = kNegInf;
-        s[r][c] = v;
-        mx = fmaxf(mx, v);
-      }
-#pragma unroll
-      for (int w = 1; w < 16; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m_run[r], mx);
-      const float corr = __expf(m_run[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const float p = __expf(s[r][c] - m_new);
-        Pt[(tx + 16 * c) * QS + ty + 16 * r] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int w = 1; w < 16; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      l_run[r] = l_run[r] * corr + sum;
-      m_run[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < TD; ++e) o[r][e] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float p[TM], v[TD];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) p[r] = Pt[j * QS + ty + 16 * r];
-#pragma unroll
-      for (int e = 0; e < TD; ++e) v[e] = Vs[j * D + tx + 16 * e];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int e = 0; e < TD; ++e) o[r][e] = fmaf(p[r], v[e], o[r][e]);
+    for (int x = 0; x < D / 8; ++x) {
+      uint32_t h[4], lo[4];
+      split_tf32(qg[8 * x], h[0], lo[0]);              // row g, d = 8x + t
+      split_tf32(qg[8 * D + 8 * x], h[1], lo[1]);      // row g + 8
+      split_tf32(qg[8 * x + 4], h[2], lo[2]);          // row g, d = 8x + t + 4
+      split_tf32(qg[8 * D + 8 * x + 4], h[3], lo[3]);  // row g + 8
+      qw[64 * x + lane] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                                      __uint_as_float(h[2]), __uint_as_float(h[3]));
+      qw[64 * x + 32 + lane] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                                           __uint_as_float(lo[2]), __uint_as_float(lo[3]));
     }
   }
-
-  float* og = O + ((int64_t)bh * Sq + (int64_t)qb * BQ) * D;
+  for (int j = 0; j < n; ++j) {
+    const int st = j % S, ph = (j / S) & 1;
+    const bool work = j < nw;
+    mbar_wait(k_full(st), ph);
+    if (work) qk_tf32<D>(s, qw, sk + st * (T::kTileBytes / 4), lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty(st));
+    if (work) {  // the mask only where the block crosses a row's diagonal
+      if (causal && j * kT32Block + kT32Block - 1 > r0 + off)
+        softmax_block<true>(s, m, l, corr, c, j * kT32Block, key_lim);
+      else
+        softmax_block<false>(s, m, l, corr, c, j * kT32Block, key_lim);
+    }
+    mbar_wait(v_full(st), ph);
+    if (work) pv_tf32<D>(o, s, corr, sv + st * (T::kTileBytes / 4), lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty(st));
+  }
+  if (r0 < Sq) {  // o / max(l, 1e-30); a row that read no block writes zeros
+    float* og = O + ((int64_t)bh * Sq + r0 + g) * D + 2 * tq;
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const float denom = fmaxf(l_run[r], kMinDenom);
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float denom = fmaxf(l[r], kMinDenom);
 #pragma unroll
-    for (int e = 0; e < TD; ++e) og[(int64_t)(ty + 16 * r) * D + tx + 16 * e] = o[r][e] / denom;
+      for (int x = 0; x < D / 8; ++x)
+        *reinterpret_cast<float2*>(og + r * 8 * D + 8 * x) =
+            make_float2(o[4 * x + 2 * r] / denom, o[4 * x + 2 * r + 1] / denom);
+    }
   }
 }
 
@@ -1410,7 +1655,7 @@ flash_decode_combine_kernel(const float* __restrict__ part, OutT* __restrict__ O
 }
 
 // ---------------------------------------------------------------------------
-// decode on the CUDA cores (fp32 at D 32, 64 and 128; bf16 at D 32): a ring
+// decode on the CUDA cores (fp32 at every head dim; bf16 at D 32, 80 and 96): a ring
 // of bulk copies under warp-local FFMA consumers
 // ---------------------------------------------------------------------------
 constexpr int kCoreBlock = 64;           // keys of a ring stage (Skv is a multiple of 64)
@@ -1422,10 +1667,17 @@ template <typename T, int D, int G>
 struct DecCore {
   static constexpr int kVec = 16 / sizeof(T);   // elements of one 16-byte chunk
   static constexpr int kChunks = D / kVec;      // chunks of a key row
-  static constexpr int kCols = D / 32;          // columns of O a lane owns in P V
+  static constexpr int kCols = (D + 31) / 32;   // columns of O a lane owns in P V
+  // lane i owns columns kCols i .., or, where 32 does not divide D, columns
+  // i + 32 j, those at or past D masked
+  static constexpr bool kStrided = D % 32 != 0;
   static constexpr int kTileBytes = kCoreBlock * D * sizeof(T);  // one K or V block
   static constexpr int kFit = kCoreRingBytes / (2 * kTileBytes);
-  static constexpr int kRing = kFit < kCoreMaxStages ? kFit : kCoreMaxStages;  // 3, 6 or 12
+  // 3, 6 or 12 stages, so 3 or 6 consumer warps divide them
+  static constexpr int kRing = kFit >= kCoreMaxStages ? kCoreMaxStages
+                               : kFit >= 6           ? kFit / 6 * 6
+                               : kFit >= 3           ? 3
+                                                     : kFit;
   // small blocks (D 32: 4 or 8 KB) leave a warp more work per byte than
   // large ones: as many consumers as divide the ring, up to kCoreMaxConsumers
   static constexpr int kConsumers = kRing % kCoreMaxConsumers == 0 ? kCoreMaxConsumers
@@ -1437,7 +1689,9 @@ struct DecCore {
   static constexpr int kBars = 4 * kStages;                    // K and V full and empty
   static constexpr int kSmem =
       2 * kStages * kTileBytes + 4 * (kQFloats + kPFloats + kRedFloats) + 8 * kBars;
-  static_assert(D % 32 == 0 && kChunks >= 4, "head dim");
+  static_assert(D % 16 == 0 && kChunks >= 4, "head dim");
+  // the column of O that slot j of lane `lane` holds (D or more: none)
+  __device__ static int col(int lane, int j) { return kStrided ? lane + 32 * j : kCols * lane + j; }
   // block it sits in stage it % kStages and goes to warp it % kConsumers, so
   // each stage serves one warp, which waits on its phases in order
   static_assert(kStages >= kConsumers && kStages % kConsumers == 0, "stages");
@@ -1625,9 +1879,9 @@ flash_decode_core_kernel(const T* __restrict__ Q, const T* __restrict__ K, const
         for (int j = 0; j < C::kCols; ++j) o[g][j] *= corr;
       }
       __syncwarp();
-      // O += P V: lane owns columns kCols*lane .. of every head
+      // O += P V: lane owns columns C::col(lane, j) of every head
       mbar_wait(v_full(st), ph);
-      const T* vt = sv + st * kCoreBlock * D + lane * C::kCols;
+      const T* vt = sv + st * kCoreBlock * D + C::col(lane, 0);
 #pragma unroll 2
       for (int k4 = 0; k4 < kCoreBlock; k4 += 4) {
         float p4[G][4];
@@ -1636,7 +1890,13 @@ flash_decode_core_kernel(const T* __restrict__ Q, const T* __restrict__ K, const
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float vv[C::kCols];
-          load_cols<C::kCols>(vt + (k4 + e) * D, vv);
+          if constexpr (C::kStrided) {
+#pragma unroll
+            for (int j = 0; j < C::kCols; ++j)
+              vv[j] = C::col(lane, j) < D ? to_float(vt[(k4 + e) * D + 32 * j]) : 0.f;
+          } else {
+            load_cols<C::kCols>(vt + (k4 + e) * D, vv);
+          }
 #pragma unroll
           for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -1655,7 +1915,8 @@ flash_decode_core_kernel(const T* __restrict__ Q, const T* __restrict__ K, const
 #pragma unroll
       for (int w = 16; w >= 1; w >>= 1) l[g] += __shfl_xor_sync(0xffffffffu, l[g], w);
 #pragma unroll
-      for (int j = 0; j < C::kCols; ++j) mine[g * (D + 2) + lane * C::kCols + j] = o[g][j];
+      for (int j = 0; j < C::kCols; ++j)
+        if (!C::kStrided || C::col(lane, j) < D) mine[g * (D + 2) + C::col(lane, j)] = o[g][j];
       if (lane == 0) {
         mine[g * (D + 2) + D] = m[g];
         mine[g * (D + 2) + D + 1] = l[g];
@@ -1706,15 +1967,25 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-template <int BQ, int BK, int D>
-int launch_fwd_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                   int Sq, int Skv, float scale, int causal, cudaStream_t s) {
-  constexpr int smem = fwd_f32_smem_bytes<BQ, BK, D>();
-  auto kern = flash_fwd_f32_kernel<BQ, BK, D>;
-  if (int err = set_smem(kern, smem)) return err;
-  kern<<<dim3(B * Hq, Sq / BQ), 256, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Hq, Hkv, Sq, Skv, scale, causal);
+template <int D>
+int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+                    int Sq, int Skv, int bq, int bk, float scale, int causal, cudaStream_t s) {
+  using T = FwdTf32<D>;
+  // TMA row coordinates are 32-bit
+  if ((int64_t)B * Hkv * Skv > INT32_MAX) return (int)cudaErrorInvalidValue;
+  // k and v as row-major (B*Hkv*Skv, D) fp32 matrices in (64 rows, 32 columns) boxes
+  CUtensorMap mk, mv;
+  int rc = encode_f32(&mk, k, B * Hkv * Skv, D, kT32Block);
+  if (rc == 0) rc = encode_f32(&mv, v, B * Hkv * Skv, D, kT32Block);
+  if (rc != 0) return rc;
+  auto kern = flash_fwd_tf32_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = T::kConsumers * kT32Rows;  // query rows of a tile
+  const int tiles = B * Hq * ((Sq + rows - 1) / rows);
+  kern<<<tiles, T::kThreads, T::kSmem, s>>>(
+      mk, mv, static_cast<const float*>(q), static_cast<float*>(o), B, Hq, Hkv, Sq, Skv, bq, bk,
+      scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1817,27 +2088,28 @@ int dispatch_decode_core(const void* q, const void* k, const void* v, void* o, v
   return launch_decode_core<T, D, 8>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
 }
 
+// the head dims of the repo's configs, which every route serves
+constexpr bool head_dim(int D) { return D == 32 || D == 64 || D == 80 || D == 96 || D == 128; }
+
 }  // namespace
 
 extern "C" {
 
 // The forward kernel for elem_bytes 2 (bf16) or 4 (fp32), head dim D and
 // tile (bq, bk): kRouteWgmma for bf16 (128, 128) at D 64 and 128,
-// kRouteMmaSync for the other bf16 kernels (D 32 at both tiles, D 64 and
-// 128 at (64, 64)), kRouteCudaCores for fp32 (D 32 or 64, both tiles),
-// kRouteNone for anything not instantiated.
-enum { kRouteNone = 0, kRouteWgmma = 1, kRouteMmaSync = 2, kRouteCudaCores = 3, kRouteTmaMma = 4 };
+// kRouteMmaSync for the other bf16 kernels (D 32, 80 and 96 at both tiles,
+// D 64 and 128 at (64, 64)), kRouteSplitTf32 for fp32 (every head dim, both
+// tiles), kRouteNone for anything not instantiated.
+enum {
+  kRouteNone = 0, kRouteWgmma = 1, kRouteMmaSync = 2, kRouteCudaCores = 3, kRouteTmaMma = 4,
+  kRouteSplitTf32 = 5
+};
 
 int flash_fwd_route(int elem_bytes, int D, int bq, int bk) {
   const bool big = bq == 128 && bk == 128, small = bq == 64 && bk == 64;
-  if (!big && !small) return kRouteNone;
-  if (elem_bytes == 2) {
-    if (big && (D == 64 || D == 128)) return kRouteWgmma;
-    if (D == 32 || D == 64 || D == 128) return kRouteMmaSync;
-  } else if (elem_bytes == 4 && (D == 32 || D == 64)) {
-    return kRouteCudaCores;
-  }
-  return kRouteNone;
+  if ((!big && !small) || !head_dim(D)) return kRouteNone;
+  if (elem_bytes == 2) return big && (D == 64 || D == 128) ? kRouteWgmma : kRouteMmaSync;
+  return elem_bytes == 4 ? kRouteSplitTf32 : kRouteNone;
 }
 
 // launches the kernel flash_fwd_route names; a combination it does not
@@ -1848,16 +2120,25 @@ int flash_fwd_launch(int elem_bytes, const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool big = bq == 128;
 #define FWD(KERN, ...) KERN<__VA_ARGS__>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, s)
+#define MMA(HD) return big ? FWD(launch_fwd_bf16, 128, 128, HD) : FWD(launch_fwd_bf16, 64, 64, HD)
+#define SPLIT(HD) return launch_fwd_tf32<HD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, bq, bk, scale, causal, s)
   switch (flash_fwd_route(elem_bytes, D, bq, bk)) {
     case kRouteWgmma:
       return D == 64 ? FWD(launch_fwd_wgmma, 64) : FWD(launch_fwd_wgmma, 128);
     case kRouteMmaSync:
-      if (D == 32) return big ? FWD(launch_fwd_bf16, 128, 128, 32) : FWD(launch_fwd_bf16, 64, 64, 32);
+      if (D == 32) MMA(32);
+      if (D == 80) MMA(80);
+      if (D == 96) MMA(96);
       return D == 64 ? FWD(launch_fwd_bf16, 64, 64, 64) : FWD(launch_fwd_bf16, 64, 64, 128);
-    case kRouteCudaCores:
-      if (D == 32) return big ? FWD(launch_fwd_f32, 128, 128, 32) : FWD(launch_fwd_f32, 64, 64, 32);
-      return big ? FWD(launch_fwd_f32, 128, 128, 64) : FWD(launch_fwd_f32, 64, 64, 64);
+    case kRouteSplitTf32:
+      if (D == 32) SPLIT(32);
+      if (D == 64) SPLIT(64);
+      if (D == 80) SPLIT(80);
+      if (D == 96) SPLIT(96);
+      SPLIT(128);
   }
+#undef SPLIT
+#undef MMA
 #undef FWD
   return (int)cudaErrorInvalidValue;
 }
@@ -1884,13 +2165,13 @@ int flash_pv_probe_launch(const void* p, const void* v, void* o, int D, void* st
 }
 
 // The decode kernel for elem_bytes 2 (bf16) or 4 (fp32) and head dim D:
-// kRouteTmaMma for bf16 at D 64 and 128, kRouteCudaCores for bf16 at D 32
-// and fp32 at D 32, 64 and 128, kRouteNone for anything not instantiated.
+// kRouteTmaMma for bf16 at D 64 and 128, kRouteCudaCores for bf16 at D 32,
+// 80 and 96 and fp32 at every head dim, kRouteNone for anything not
+// instantiated.
 int flash_decode_route(int elem_bytes, int D) {
+  if (!head_dim(D) || (elem_bytes != 2 && elem_bytes != 4)) return kRouteNone;
   if (elem_bytes == 2 && (D == 64 || D == 128)) return kRouteTmaMma;
-  if ((elem_bytes == 2 || elem_bytes == 4) && (D == 32 || D == 64 || D == 128))
-    return kRouteCudaCores;
-  return kRouteNone;
+  return kRouteCudaCores;
 }
 
 // launches the kernel flash_decode_route names on splits (1 up to the
@@ -1910,9 +2191,16 @@ int flash_decode_launch(int elem_bytes, const void* q, const void* k, const void
       if (D == 64) return dispatch_decode_tma<64>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
       return dispatch_decode_tma<128>(q, k, v, o, part, B, Hq, Hkv, Skv, splits, scale, s);
     case kRouteCudaCores:
-      if (elem_bytes == 2) DEC(bf16, 32);
+      if (elem_bytes == 2) {
+        if (D == 32) DEC(bf16, 32);
+        if (D == 80) DEC(bf16, 80);
+        if (D == 96) DEC(bf16, 96);
+        break;
+      }
       if (D == 32) DEC(float, 32);
       if (D == 64) DEC(float, 64);
+      if (D == 80) DEC(float, 80);
+      if (D == 96) DEC(float, 96);
       DEC(float, 128);
   }
 #undef DEC

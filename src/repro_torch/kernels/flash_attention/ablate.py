@@ -58,13 +58,46 @@ and in bf16 at head dim 32 (``run_core_decode``'s two cases), as built
 * the library call, ``F.scaled_dot_product_attention`` in fp32 under
   the math backend, the only one that takes fp32 with ``enable_gqa``.
 
-    python -m repro_torch.kernels.flash_attention.ablate [--part all|fwd|decode] [--base DIR] [--rounds 30] [--seed 0]
+The fp32 forward (``--part fwd32``), ``flash_fwd_tf32_kernel`` at
+granite-3-2b's causal prefill in fp32 (B 1 × S 4096, Hq 32, Hkv 8, D 64,
+operands drawn in fp32: ``chip_smoke.py``'s fp32 prefill), at the tile
+(128, 128), beside (64, 64):
+
+* ``fwd32: one TF32 pass``: both products on hi parts alone; timed, and
+  shown to fail the error gate (its error against an fp64 attention
+  beyond 3× that of SDPA's math backend);
+* ``fwd32: 4 consumer warps``: 64 query rows a CTA instead of 128;
+* ``fwd32: 4 stages``: a ring of four K and V stages instead of two;
+* ``fwd32: small products summed in``: lo·hi and hi·lo added into the
+  hi·hi accumulator on the tensor cores (its error is printed);
+* ``fwd32: lo rounded``: lo = x - hi rounded to TF32 (two more integer
+  operations a split) instead of handed to the MMA as it is;
+* ``fwd32: hi by cvt.rna``: hi rounded by ``cvt.rna.tf32.f32`` instead
+  of its two integer operations (the same bits; lo as built);
+* ``old kernel``, with ``--base`` (a checkout of the parent commit,
+  e.g. ``git archive 2c181c5`` unpacked): the CUDA-core
+  ``flash_fwd_f32_kernel`` from there;
+* the library call, SDPA under the math backend;
+
+and the probes ``fwd32 probe: no split`` (hi the raw fp32 bits, lo zero,
+the three passes still run), ``no softmax``, ``no P V`` and ``no Q K^T``.
+
+Each variant's RMS and max abs error against an fp64 attention is
+printed beside the math backend's (TF32 off).
+
+    python -m repro_torch.kernels.flash_attention.ablate [--part all|fwd|decode|fwd32] [--base DIR] [--rounds 30] [--seed 0]
+
+``--base`` takes a checkout that holds the old kernel of each part asked
+for: the CUDA-core decode before its redesign for ``decode`` (e.g. ``git
+archive 8a5a615``, which holds the old fp32 forward too, so it serves
+``all``), the CUDA-core fp32 forward for ``fwd32``.
 
 Needs a CUDA device and nvcc (exits nonzero without); prints the card's
 name and power limit and the median time of each variant.  Every variant
-is first held to the smoke's tolerances against the plain version (the
-forward on the first batch, the decode on batches 0-15, fp32 on batches
-0-7).  The variants are built under ``repro_torch/.build/ablate``.
+(but the one-pass forward) is first held to the smoke's tolerances
+against the plain version (the forward on the first batch, the decode on
+batches 0-15, fp32 on batches 0-7).  The variants are built under
+``repro_torch/.build/ablate``.
 """
 from __future__ import annotations
 
@@ -111,12 +144,10 @@ DECODE_VARIANTS = {
                                         "constexpr int kDecPSplit = 0;")],
     "decode: not persistent": [("const int grid = units < sms ? units : sms;",
                                 "const int grid = units;")],
-    "decode: CUDA-core kernel": [  # the route, and the bf16 instantiations it needs back
+    "decode: CUDA-core kernel": [  # the route, and the bf16 instantiation it needs back
         ("  if (elem_bytes == 2 && (D == 64 || D == 128)) return kRouteTmaMma;\n", ""),
-        ("      if (elem_bytes == 2) DEC(bf16, 32);\n",
-         "      if (elem_bytes == 2 && D == 32) DEC(bf16, 32);\n"
-         "      if (elem_bytes == 2 && D == 64) DEC(bf16, 64);\n"
-         "      if (elem_bytes == 2) break;\n")],
+        ("        if (D == 32) DEC(bf16, 32);\n",
+         "        if (D == 32) DEC(bf16, 32);\n        if (D == 64) DEC(bf16, 64);\n")],
 }
 CORE_VARIANTS = {
     "decode core: 3 consumer warps": [("constexpr int kCoreMaxConsumers = 6;",
@@ -126,7 +157,39 @@ CORE_VARIANTS = {
     "decode core: not persistent": [("const int ctas = units < sms ? units : sms;",
                               "const int ctas = units;")],
 }
+FWD32_VARIANTS = {
+    "fwd32: one TF32 pass": [("constexpr int kT32Passes = 3;", "constexpr int kT32Passes = 1;")],
+    "fwd32: 4 consumer warps": [("constexpr int kT32MaxConsumers = 8;",
+                                 "constexpr int kT32MaxConsumers = 4;")],
+    "fwd32: 4 stages": [("constexpr int kT32MaxStages = 2;", "constexpr int kT32MaxStages = 4;")],
+    "fwd32: small products summed in": [("constexpr bool kT32SmallApart = true;",
+                                         "constexpr bool kT32SmallApart = false;")],
+    "fwd32: lo rounded": [("constexpr bool kT32LoRound = false;", "constexpr bool kT32LoRound = true;")],
+    "fwd32: hi by cvt.rna": [("constexpr bool kT32CvtRna = false;", "constexpr bool kT32CvtRna = true;")],
+}
+# timing probes of the fp32 forward: each drops a piece of the work, so its
+# output is wrong and not checked
+FWD32_PROBES = {
+    "fwd32 probe: no split": [("  hi = tf32_rna(x);\n  const float rest = x - __uint_as_float(hi);\n"
+                               "  lo = kT32Passes != 3 ? 0u : kT32LoRound ? tf32_rna(rest) : "
+                               "__float_as_uint(rest);\n", "  hi = __float_as_uint(x);\n  lo = 0u;\n")],
+    "fwd32 probe: no softmax": [
+        ("        softmax_block<true>(s, m, l, corr, c, j * kT32Block, key_lim);\n",
+         "        corr[0] = corr[1] = 1.f;\n"),
+        ("        softmax_block<false>(s, m, l, corr, c, j * kT32Block, key_lim);\n",
+         "        corr[0] = corr[1] = 1.f;\n")],
+    "fwd32 probe: no P V": [
+        ("    if (work) pv_tf32<D>(o, s, corr, sv + st * (T::kTileBytes / 4), lane);\n", "")],
+    "fwd32 probe: no Q K^T": [
+        ("    if (work) qk_tf32<D>(s, qw, sk + st * (T::kTileBytes / 4), lane);\n",
+         "    if (work) for (float& x : s) x = 0.f;\n")],
+}
+ONE_PASS = "fwd32: one TF32 pass"   # fails the error gate by design: timed, not checked
+F32_GATE = 3.0                      # chip_smoke.F32_GATE: error within 3x SDPA math's (TF32 off)
 OLD = "old kernel"
+# the text that marks each part's old kernel in a --base checkout
+OLD_MARKERS = {"decode": "flash_decode_kernel(const T* __restrict__ Q",
+               "fwd32": "flash_fwd_f32_kernel("}
 CORE_FORCED_SPLITS = (1, 2, 4)        # at B 8 in fp32, beside decode_splits's choice
 ATOL32, ROW_REL32 = 2e-3, 1e-4        # chip_smoke.FLASH_TOL / FLASH_ROW_REL for fp32
 DECODE_PROBES = {
@@ -146,25 +209,28 @@ ATOL, ROW_REL = 3e-2, 2e-2  # chip_smoke.FLASH_TOL / FLASH_ROW_REL for bf16
 
 def variant_edits(part: str = "all") -> dict:
     """name -> textual edits of each variant and probe of ``part`` ("fwd",
-    "decode" or "all"), and "as built" (no edit)."""
+    "decode", "fwd32" or "all"), and "as built" (no edit)."""
     edits = {"as built": []}
     if part in ("all", "fwd"):
         edits.update({**VARIANTS, **PROBES})
     if part in ("all", "decode"):
         edits.update({**DECODE_VARIANTS, **DECODE_PROBES, **CORE_VARIANTS})
+    if part in ("all", "fwd32"):
+        edits.update({**FWD32_VARIANTS, **FWD32_PROBES})
     return edits
 
 
-def old_source(base: Path) -> Path:
+def old_source(base: Path, part: str = "decode") -> Path:
     """The previous ``flash_attention.cu`` in the checkout ``base``;
     FileNotFoundError when it is not a checkout of the repo, ValueError
-    when it does not hold the previous CUDA-core decode."""
+    when it does not hold the old kernel of ``part`` (of both for "all")."""
     path = Path(base) / "src" / "repro_torch" / "csrc" / "flash_attention.cu"
     if not path.is_file():
         raise FileNotFoundError(f"{path} not found: --base takes a checkout of the repo")
-    if "flash_decode_kernel(const T* __restrict__ Q" not in path.read_text():
-        raise ValueError(f"{path} does not hold the previous CUDA-core decode "
-                         f"(flash_decode_kernel)")
+    text = path.read_text()
+    for name, marker in OLD_MARKERS.items():
+        if part in ("all", name) and marker not in text:
+            raise ValueError(f"{path} does not hold the old kernel of --part {name} ({marker!r})")
     return path
 
 
@@ -176,16 +242,20 @@ def build_variants(part: str = "all", base: Path | None = None) -> dict:
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     paths = _build.build_variants("flash_attention", variant_edits(part))
-    if base is not None and part in ("all", "decode"):
-        paths[OLD] = _build.build_variants("flash_attention", {OLD: []}, old_source(base))[OLD]
+    old_decode = False
+    if base is not None and part in ("all", "decode", "fwd32"):
+        src = old_source(base, part)
+        old_decode = OLD_MARKERS["decode"] in src.read_text()
+        paths[OLD] = _build.build_variants("flash_attention", {OLD: []}, src)[OLD]
     libs = {}
     for name, so in paths.items():
         lib = ctypes.CDLL(str(so))
         lib.flash_fwd_launch.argtypes = [I] + [P] * 4 + [I] * 8 + [F, I, P]
-        # the old kernel's launcher took the block bk, its combine wrote bf16
+        # the old decode's launcher took the block bk, its combine wrote bf16
         # only and took no output width
-        lib.flash_decode_launch.argtypes = [I] + [P] * 5 + [I] * (7 if name == OLD else 6) + [F, P]
-        lib.flash_decode_combine_launch.argtypes = [P, P, I, I, I] + ([] if name == OLD else [I]) + [P]
+        old = name == OLD and old_decode
+        lib.flash_decode_launch.argtypes = [I] + [P] * 5 + [I] * (7 if old else 6) + [F, P]
+        lib.flash_decode_combine_launch.argtypes = [P, P, I, I, I] + ([] if old else [I]) + [P]
         for fn in (lib.flash_fwd_launch, lib.flash_decode_launch, lib.flash_decode_combine_launch):
             fn.restype = I
         libs[name] = lib
@@ -429,12 +499,87 @@ def ablate_decode_f32(torch, libs: dict, rounds: int, gen, dev) -> None:
             report(times, "as built")
 
 
+def ablate_fwd32(torch, libs: dict, rounds: int, gen, dev) -> None:
+    """The fp32 forward at granite-3-2b's causal prefill, B 1 × 4096,
+    operands drawn in fp32 (a value drawn in bf16 is exact in TF32, so one
+    pass would pass a check on it)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.kernels.flash_attention.ref import attention_fp64_ref, attention_ref, row_rel_err
+
+    Hq, Hkv, D = CONFIG.n_heads, CONFIG.n_kv, CONFIG.resolved_head_dim
+    S = PREFILL[1]
+    q = torch.randn((1, Hq, S, D), device=dev, generator=gen)
+    k = torch.randn((1, Hkv, S, D), device=dev, generator=gen)
+    v = torch.randn((1, Hkv, S, D), device=dev, generator=gen)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs, fns = {}, {}
+
+    def fwd(name, lib, tile):
+        out = outs[name] = torch.empty_like(q)
+
+        def run():
+            rc = lib.flash_fwd_launch(4, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      1, Hq, Hkv, S, S, D, *tile, D ** -0.5, 1, stream)
+            if rc:
+                raise RuntimeError(f"{name}: launch failed: {rc}")
+        fns[name] = run
+
+    for name in ("as built", *FWD32_VARIANTS, *FWD32_PROBES, *((OLD,) if OLD in libs else ())):
+        fwd(name, libs[name], (128, 128))
+    fwd("as built (64, 64)", libs["as built"], (64, 64))
+
+    def sdpa():  # the only backend that takes fp32 with enable_gqa
+        with sdpa_kernel([SDPBackend.MATH]):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    want, exact = attention_ref(q, k, v, True), attention_fp64_ref(q, k, v, True)
+
+    def errors(x):
+        d = x.double() - exact
+        return float(d.pow(2).mean().sqrt()), float(d.abs().max())
+
+    lib_err = errors(sdpa())
+    gate = (F32_GATE * lib_err[0], F32_GATE * lib_err[1])
+    print(f"fp32 prefill B 1 x S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, causal: error against an fp64 "
+          f"attention, RMS and max abs: SDPA math (TF32 off) {lib_err[0]:.4e}, {lib_err[1]:.4e}; "
+          f"the gate is {F32_GATE}x", flush=True)
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        err = errors(outs[name])
+        passes = err[0] <= gate[0] and err[1] <= gate[1]
+        if name in FWD32_PROBES:
+            continue
+        if name == ONE_PASS and passes:
+            raise AssertionError(f"the {F32_GATE}x error gate passes a one-pass TF32 product {err}")
+        if name != ONE_PASS:
+            atol, rel = float((outs[name] - want).abs().max()), row_rel_err(outs[name], want)
+            if atol > ATOL32 or rel > ROW_REL32:
+                raise AssertionError(f"variant {name!r} disagrees with the plain version: max abs "
+                                     f"{atol}, row relative {rel}")
+        print(f"  {name}: RMS {err[0]:.4e} ({err[0] / lib_err[0]:.3f}x), max abs {err[1]:.4e} "
+              f"({err[1] / lib_err[1]:.3f}x): the gate {'passes' if passes else 'rejects'} it",
+              flush=True)
+    del want, exact, outs
+    fns["F.scaled_dot_product_attention (math)"] = sdpa
+    flops = 4.0 * D * Hq * S * (S + 1) / 2  # the causal triangle's Q K^T and P V
+    times = in_turns(torch, fns, rounds)
+    print(f"fp32 prefill in turns ({rounds} rounds, order reversed every other round); bounds: "
+          f"three TF32 passes {3 * flops / 494.7e12 * 1e3:.4f} ms at 494.7 TFLOP/s, one fp32 pass "
+          f"on the CUDA cores {flops / 67e12 * 1e3:.4f} ms at 67:")
+    report(times, "as built")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=("all", "fwd", "decode"), default="all")
+    ap.add_argument("--part", choices=("all", "fwd", "decode", "fwd32"), default="all")
     ap.add_argument("--base", type=Path, default=None,
-                    help="a checkout of the commit before the CUDA-core decode's redesign, whose "
-                         "kernel is timed as the old kernel (left out without it)")
+                    help="a checkout that holds the old kernel of the part (the CUDA-core decode "
+                         "before its redesign, the CUDA-core fp32 forward), timed as the old "
+                         "kernel (left out without it)")
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -456,6 +601,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if args.part in ("all", "decode"):
         ablate_decode(torch, libs, args.rounds, gen, dev)
+        torch.cuda.empty_cache()
+    if args.part in ("all", "fwd32"):
+        ablate_fwd32(torch, libs, args.rounds, gen, dev)
     return 0
 
 

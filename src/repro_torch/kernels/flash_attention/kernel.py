@@ -5,15 +5,17 @@
   forward with online softmax, one CTA per (b·Hq + h, q block of bq rows)
   streaming KV blocks of bk rows.  Replaces the TPU's
   ``make_flash_attention(B, Hq, Hkv, Sq, Skv, D, bq, bk, causal)``; bq | Sq
-  and bk | Skv, as there.  ``fwd_route`` names the kernel a call runs:
+  and bk | Skv, as there.  Head dims 32, 64, 80, 96 and 128 (the repo's
+  configs) in both dtypes.  ``fwd_route`` names the kernel a call runs:
   bf16 at (128, 128) with D 64 or 128 runs the warp-specialised wgmma + TMA
   kernel (``"wgmma"``), the other bf16 calls the ``mma.sync`` kernel
-  (``"mma_sync"``), fp32 the CUDA cores (``"cuda_cores"``).
+  (``"mma_sync"``), fp32 three TF32 passes on the tensor cores
+  (``"split_tf32"``, plain emulation ``ref.attention_split_tf32_ref``).
 * ``flash_decode(q, k, v, bk, splits=None)`` — one query token against
   the KV cache.  Replaces ``make_flash_decode(B, Hq, Hkv, Skv, D, bk)``.
   ``decode_route`` names the kernel: bf16 at D 64 or 128 runs the
-  tensor-core kernel fed by a TMA ring (``"tma_mma"``), bf16 at D 32 and
-  fp32 the CUDA-core kernel fed by a ring of bulk copies
+  tensor-core kernel fed by a TMA ring (``"tma_mma"``), bf16 at D 32, 80
+  and 96 and fp32 the CUDA-core kernel fed by a ring of bulk copies
   (``"cuda_cores"``).  Both walk their own blocks (bk is validated as the
   reference's, not used) and, where their units would not fill the card,
   split the cache into ``decode_splits`` parts of whole 128-key blocks
@@ -50,12 +52,15 @@ LAST_LAUNCH = {"flash_attention_fwd": None, "flash_decode": None}
 LAST_DECODE = {"route": None, "splits": None}
 
 # the instantiated forward kernels: (bq, bk) tiles, and head dims per dtype
+# (the repo's model configs: 64, 80 zamba2-2.7b, 96 phi3-mini-3.8b, 128 mixtral-8x7b
+# and others; 32 their reduced forms)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 FWD_TILES = ((128, 128), (64, 64))
-FWD_HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
+FWD_HEAD_DIMS = {torch.bfloat16: HEAD_DIMS, torch.float32: HEAD_DIMS}
 # the kernel of each forward route, as csrc/flash_attention.cu's flash_fwd_route numbers them
-FWD_ROUTES = {"wgmma": 1, "mma_sync": 2, "cuda_cores": 3}
+FWD_ROUTES = {"wgmma": 1, "mma_sync": 2, "split_tf32": 5}
 WGMMA_HEAD_DIMS = (64, 128)
-DECODE_HEAD_DIMS = (32, 64, 128)
+DECODE_HEAD_DIMS = HEAD_DIMS
 DECODE_BK_MAX = 2048          # the largest bk flash_decode validates (no kernel reads bk)
 # the kernel of each decode route, as csrc/flash_attention.cu's flash_decode_route numbers them
 DECODE_ROUTES = {"tma_mma": 4, "cuda_cores": 3}
@@ -118,22 +123,22 @@ def _check(q, k, v) -> tuple:
 def fwd_route(dtype: torch.dtype, D: int, bq: int, bk: int) -> str:
     """The forward kernel that a call with ``dtype``, head dim ``D`` and tile
     (bq, bk) runs on the card: ``"wgmma"``, ``"mma_sync"`` or
-    ``"cuda_cores"``; raises ValueError for a combination not instantiated."""
+    ``"split_tf32"``; raises ValueError for a combination not instantiated."""
     if (bq, bk) not in FWD_TILES:
         raise ValueError(f"(bq, bk) = {(bq, bk)} is not instantiated; choose from {FWD_TILES}")
     if dtype not in FWD_HEAD_DIMS or D not in FWD_HEAD_DIMS[dtype]:
         raise ValueError(f"head dim {D} is not instantiated for {dtype}; "
                          f"choose from {FWD_HEAD_DIMS.get(dtype, ())}")
     if dtype == torch.float32:
-        return "cuda_cores"
+        return "split_tf32"
     return "wgmma" if (bq, bk) == (128, 128) and D in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def decode_route(dtype: torch.dtype, D: int) -> str:
     """The decode kernel that a call with ``dtype`` and head dim ``D`` runs
     on the card: ``"tma_mma"`` (bf16 at D 64 and 128) or ``"cuda_cores"``
-    (bf16 at D 32, fp32); raises ValueError for a combination not
-    instantiated."""
+    (bf16 at D 32, 80 and 96; fp32); raises ValueError for a combination
+    not instantiated."""
     if dtype not in FWD_HEAD_DIMS or D not in DECODE_HEAD_DIMS:
         raise ValueError(f"decode at head dim {D} is not instantiated for {dtype}; choose "
                          f"bfloat16 or float32 and a head dim from {DECODE_HEAD_DIMS}")

@@ -7,6 +7,12 @@ and the decode-convention causal mask (query i attends keys
 against it on the card, and ``ops.flash_attention`` sends the shapes the
 kernels cannot tile to it, as the reference does.
 
+``attention_split_tf32_ref`` emulates the fp32 forward kernel's three TF32
+passes in its order (blocks of 64 keys, the online softmax, p split into
+TF32 hi and lo, ``split_tf32_mma``), so the tests can show what the passes
+keep of fp32's accuracy; no main path uses it.  ``attention_fp64_ref`` is
+the exact answer an fp32 output's error is measured against.
+
 Split-KV decode, plainly: ``decode_split_bounds`` is the partition of the
 cache both decode kernels use, ``decode_partials_ref`` the
 partial (O, m, l) of each split in the kernel's workspace layout,
@@ -15,7 +21,15 @@ partial (O, m, l) of each split in the kernel's workspace layout,
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.kernels.matmul.ref import tf32_round
+
+NEG_INF = -1e30  # the reference's finite mask value
+SPLIT_BLOCK = 64  # keys of the fp32 forward kernel's ring stage
+_TF32_MASK = -(1 << 13)  # clears the 13 mantissa bits TF32 drops
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
@@ -36,6 +50,76 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     e = torch.exp(s - m)
     p = e / e.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)
+
+
+def split_tf32_mma(x: torch.Tensor) -> tuple:
+    """(hi, lo) of fp32 ``x`` as the fp32 forward kernel hands it to the
+    tensor cores: hi = tf32(x) (``tf32_round``: nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``) and lo = x - hi (exact in fp32) as the
+    MMA reads it, its low 13 mantissa bits dropped (towards zero)."""
+    x = x.float().contiguous()
+    hi = tf32_round(x)
+    lo = ((x - hi).view(torch.int32) & _TF32_MASK).view(torch.float32)
+    return hi, lo
+
+
+def attention_split_tf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = True) -> torch.Tensor:
+    """Attention in fp32 as ``flash_fwd_tf32_kernel`` sums it: q, k, v
+    split into TF32 hi and lo (``split_tf32_mma``), and
+    for each block of 64 keys S = q_hi k_hi + (q_lo k_hi + q_hi k_lo), the
+    online softmax in the exp2 domain (x = S·scale·log2 e, masked keys the
+    reference's finite NEG_INF), p split likewise and O = O·corr + (p_hi
+    v_hi + (p_lo v_hi + p_hi v_lo)); o = O / max(l, 1e-30), in q's dtype.
+    Each product is an fp32 matmul here, so only the split and the order
+    are emulated, not the tensor cores' own rounding.  Rows that see no key
+    (Sq > Skv) are out of its scope."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    c = torch.tensor(D ** -0.5, dtype=torch.float32) * torch.tensor(math.log2(math.e),
+                                                                    dtype=torch.float32)
+    qh, ql = split_tf32_mma(q)
+    kh, kl = split_tf32_mma(k.repeat_interleave(group, dim=1))
+    vh, vl = split_tf32_mma(v.repeat_interleave(group, dim=1))
+    m = torch.full((B, Hq, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hq, Sq, 1), device=q.device)
+    o = torch.zeros((B, Hq, Sq, D), device=q.device)
+    rows = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    for k0 in range(0, Skv, SPLIT_BLOCK):
+        blk = slice(k0, min(Skv, k0 + SPLIT_BLOCK))
+        s = qh @ kh[:, :, blk].mT + (ql @ kh[:, :, blk].mT + qh @ kl[:, :, blk].mT)
+        x = s * c
+        if causal:
+            keys = torch.arange(blk.start, blk.stop, device=q.device)[None, :]
+            x = x.masked_fill(keys > rows, NEG_INF)
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr, p = torch.exp2(m - m_new), torch.exp2(x - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        ph, pl = split_tf32_mma(p)
+        o = o * corr + (ph @ vh[:, :, blk] + (pl @ vh[:, :, blk] + ph @ vl[:, :, blk]))
+        m = m_new
+    return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def attention_fp64_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True) -> torch.Tensor:
+    """``attention_ref``'s function computed in fp64 and returned in fp64,
+    one (b, query head) at a time so the scores stay small: the exact
+    answer an fp32 output's error is measured against."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    out = torch.empty((B, Hq, Sq, D), dtype=torch.float64, device=q.device)
+    keys = torch.arange(Skv, device=q.device)[None, :]
+    masked = keys > torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    for b in range(B):
+        for h in range(Hq):
+            s = q[b, h].double() @ k[b, h // group].double().mT * D ** -0.5
+            if causal:
+                s = s.masked_fill(masked, float("-inf"))
+            out[b, h] = torch.softmax(s, dim=-1) @ v[b, h // group].double()
+    return out
 
 
 def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -26,12 +26,15 @@ from repro_torch.kernels.flash_attention.generator import (
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (
+    attention_fp64_ref,
     attention_ref,
+    attention_split_tf32_ref,
     combine_partials_ref,
     decode_combine_ref,
     decode_partials_ref,
     decode_split_bounds,
     row_rel_err,
+    split_tf32_mma,
 )
 
 
@@ -92,6 +95,111 @@ def test_flash_bf16_matches_pallas_kernel():
     got = flash_attention(*_port(q, k, v), causal=True)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)
+
+
+HEAD_DIMS_REPAIRED = [80, 96, 128]  # refused before for fp32 at 128, bf16 at 80 and 96
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS_REPAIRED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_every_config_head_dim_matches_pallas_kernel(dtype, D):
+    """Head dims 80 (zamba2-2.7b), 96 (phi3-mini-3.8b) and 128 (mixtral-8x7b
+    and others) through the entry point, GQA and causal with Sq < Skv, in
+    both dtypes, against ``make_flash_attention`` in interpret mode: the
+    port refused fp32 at 128 and bf16 at 80 and 96 before
+    ("not instantiated"), on the CPU too."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.kernel import make_flash_attention
+
+    B, Hq, Hkv, Sq, Skv = 1, 4, 2, 128, 256
+    jdt = getattr(jnp, dtype)
+    q, k, v = (jnp.asarray(a).astype(jdt) for a in _qkv(20 + D, B, Hq, Hkv, Sq, Skv, D))
+    want = np.asarray(make_flash_attention(B, Hq, Hkv, Sq, Skv, D, 128, 128, True, jdt)(q, k, v),
+                      np.float32)
+    atol = 2e-3 if dtype == "float32" else 3e-2
+    for config in (None, *TILES):
+        got = flash_attention(*_port(q, k, v), causal=True, config=config)
+        assert got.shape == (B, Hq, Sq, D) and got.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(got.float().numpy(), want, atol=atol)
+    for tile in K.FWD_TILES:
+        assert K.fwd_route(getattr(torch, dtype), D, *tile) in K.FWD_ROUTES
+
+
+@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_at_new_head_dims_matches_pallas_kernel(dtype, D):
+    """Decode at head dims 80 and 96 (refused before in either dtype), with
+    a group of 4, against ``make_flash_decode`` in interpret mode; both run
+    the CUDA-core decode on the card."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.kernel import make_flash_decode
+
+    B, Hq, Hkv, Skv = 2, 8, 2, 512
+    jdt = getattr(jnp, dtype)
+    q, k, v = (jnp.asarray(a).astype(jdt) for a in _qkv(30 + D, B, Hq, Hkv, 1, Skv, D))
+    want = np.asarray(make_flash_decode(B, Hq, Hkv, Skv, D, 128, jdt)(q, k, v), np.float32)
+    got = flash_attention(*_port(q, k, v))
+    assert got.shape == (B, Hq, 1, D) and got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-3 if dtype == "float32" else 3e-2)
+    assert K.decode_route(getattr(torch, dtype), D) == "cuda_cores"
+
+
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_tf32_ref_matches_pallas_kernel(D, causal):
+    """The fp32 kernel's three TF32 passes, emulated in its order, against
+    ``make_flash_attention`` in interpret mode (fp32 atol 2e-3 and each
+    row within a relative L2 error of 1e-4), with a group of 3 and Sq <
+    Skv; one pass (every operand rounded to TF32 once) misses the row
+    bound by far more than the three do."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.kernel import make_flash_attention
+    from repro_torch.kernels.matmul.ref import tf32_round
+
+    B, Hq, Hkv, Sq, Skv = 1, 3, 1, 128, 256
+    q, k, v = _qkv(40 + D, B, Hq, Hkv, Sq, Skv, D)
+    want = np.asarray(make_flash_attention(B, Hq, Hkv, Sq, Skv, D, 128, 128, causal)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    tq, tk, tv = _port(q, k, v)
+    got = attention_split_tf32_ref(tq, tk, tv, causal)
+    assert got.shape == (B, Hq, Sq, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3)
+    want = torch.tensor(want)
+    rel = row_rel_err(got, want)
+    one = row_rel_err(attention_ref(tf32_round(tq), tf32_round(tk), tf32_round(tv), causal), want)
+    assert rel <= ROW_REL[torch.float32] and one > 10 * rel
+
+
+def test_split_tf32_mma_is_what_the_tensor_cores_read():
+    """hi is the nearest TF32 value (``tf32_round``, the bits of
+    ``cvt.rna.tf32.f32``) and lo = x - hi cut to its TF32 bits towards
+    zero, as the MMA reads it: both carry no low mantissa bits, and hi + lo
+    is x to 2^-21 of |x|."""
+    from repro_torch.kernels.matmul.ref import tf32_round
+
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal(8192).astype(np.float32) * 7)
+    hi, lo = split_tf32_mma(x)
+    assert torch.equal(hi, tf32_round(x))
+    for part in (hi, lo):
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool((lo.abs() <= (x - hi).abs()).all())
+    rel = ((hi.double() + lo.double() - x.double()).abs() / x.double().abs()).max()
+    assert 0 < rel <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_fp64_ref_is_attention_ref_in_fp64(causal):
+    """The exact answer of the fp32 error gates: the plain version's
+    function (GQA, the decode-convention mask) in fp64."""
+    q, k, v = _port(*_qkv(17, 2, 6, 2, 48, 80, 16))
+    got = attention_fp64_ref(q, k, v, causal)
+    assert got.dtype == torch.float64 and got.shape == q.shape
+    torch.testing.assert_close(got, attention_ref(q.double(), k.double(), v.double(), causal).double(),
+                               rtol=0, atol=2e-6)
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, causal), rtol=0, atol=2e-6)
 
 
 def test_causal_offset_when_the_cache_is_longer():
@@ -203,8 +311,8 @@ def test_row_bound_rejects_an_output_missing_a_kv_block():
      ValueError, "must divide"),
     ((torch.zeros(1, 2, 128, 48), torch.zeros(1, 2, 128, 48), torch.zeros(1, 2, 128, 48)),
      ValueError, "head dim 48"),
-    ((torch.zeros(1, 2, 128, 128), torch.zeros(1, 2, 128, 128), torch.zeros(1, 2, 128, 128)),
-     ValueError, "head dim 128"),  # fp32 has no D = 128 forward
+    ((torch.zeros(1, 2, 128, 256), torch.zeros(1, 2, 128, 256), torch.zeros(1, 2, 128, 256)),
+     ValueError, "head dim 256"),  # no config has D = 256
 ])
 def test_forward_wrapper_validates_its_operands(args, exc, match):
     with pytest.raises(exc, match=match):
@@ -230,14 +338,20 @@ def test_wrappers_validate_tiles_and_decode_blocks():
 ROUTES = [(torch.bfloat16, 32, (128, 128), "mma_sync"), (torch.bfloat16, 32, (64, 64), "mma_sync"),
           (torch.bfloat16, 64, (128, 128), "wgmma"), (torch.bfloat16, 64, (64, 64), "mma_sync"),
           (torch.bfloat16, 128, (128, 128), "wgmma"), (torch.bfloat16, 128, (64, 64), "mma_sync"),
-          (torch.float32, 32, (128, 128), "cuda_cores"), (torch.float32, 32, (64, 64), "cuda_cores"),
-          (torch.float32, 64, (128, 128), "cuda_cores"), (torch.float32, 64, (64, 64), "cuda_cores")]
+          (torch.float32, 32, (128, 128), "split_tf32"), (torch.float32, 32, (64, 64), "split_tf32"),
+          (torch.float32, 64, (128, 128), "split_tf32"), (torch.float32, 64, (64, 64), "split_tf32"),
+          (torch.bfloat16, 80, (128, 128), "mma_sync"), (torch.bfloat16, 80, (64, 64), "mma_sync"),
+          (torch.bfloat16, 96, (128, 128), "mma_sync"), (torch.bfloat16, 96, (64, 64), "mma_sync"),
+          (torch.float32, 80, (128, 128), "split_tf32"), (torch.float32, 80, (64, 64), "split_tf32"),
+          (torch.float32, 96, (128, 128), "split_tf32"), (torch.float32, 96, (64, 64), "split_tf32"),
+          (torch.float32, 128, (128, 128), "split_tf32"), (torch.float32, 128, (64, 64), "split_tf32")]
 
 
 @pytest.mark.parametrize("dtype,D,tile,route", ROUTES)
 def test_fwd_route_names_the_kernel_of_every_instantiation(dtype, D, tile, route):
     """bf16 at (128, 128) with D 64 or 128 runs the wgmma kernel; every other
-    bf16 call mma.sync, fp32 the CUDA cores."""
+    bf16 call mma.sync (D 80 and 96 too: the wgmma kernel's 64-column boxes
+    do not tile them), fp32 three TF32 passes at every head dim."""
     assert K.fwd_route(dtype, D, *tile) == route
     assert route in K.FWD_ROUTES
 
@@ -250,7 +364,7 @@ def test_fwd_route_covers_exactly_the_instantiated_kernels():
 
 @pytest.mark.parametrize("dtype,D,tile", [
     (torch.bfloat16, 48, (128, 128)), (torch.bfloat16, 256, (128, 128)),
-    (torch.float32, 128, (128, 128)), (torch.float16, 64, (128, 128)),
+    (torch.float32, 256, (128, 128)), (torch.float16, 64, (128, 128)),
     (torch.bfloat16, 64, (128, 64)), (torch.bfloat16, 64, (64, 128)),
     (torch.bfloat16, 64, (256, 256)), (torch.float32, 64, (32, 32)),
 ])
@@ -293,13 +407,15 @@ def test_pv_probe_runs_only_on_the_card():
 
 DECODE_ROUTES = [(torch.bfloat16, 32, "cuda_cores"), (torch.bfloat16, 64, "tma_mma"),
                  (torch.bfloat16, 128, "tma_mma"), (torch.float32, 32, "cuda_cores"),
-                 (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores")]
+                 (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+                 (torch.bfloat16, 80, "cuda_cores"), (torch.bfloat16, 96, "cuda_cores"),
+                 (torch.float32, 80, "cuda_cores"), (torch.float32, 96, "cuda_cores")]
 
 
 @pytest.mark.parametrize("dtype,D,route", DECODE_ROUTES)
 def test_decode_route_names_the_kernel_of_every_instantiation(dtype, D, route):
-    """bf16 at D 64 and 128 runs the TMA-fed tensor-core decode; bf16 at D 32
-    and fp32 the CUDA-core kernel (fp32 stays off TF32)."""
+    """bf16 at D 64 and 128 runs the TMA-fed tensor-core decode; bf16 at D
+    32, 80 and 96 and fp32 the CUDA-core kernel (fp32 stays off TF32)."""
     assert K.decode_route(dtype, D) == route
     assert route in K.DECODE_ROUTES
 
@@ -484,20 +600,44 @@ def _ablation_cases():
     from repro_torch.kernels.flash_attention import ablate
 
     return [*ablate.VARIANTS.items(), *ablate.PROBES.items(), *ablate.DECODE_VARIANTS.items(),
-            *ablate.DECODE_PROBES.items()]
+            *ablate.DECODE_PROBES.items(), *ablate.CORE_VARIANTS.items(),
+            *ablate.FWD32_VARIANTS.items(), *ablate.FWD32_PROBES.items()]
 
 
 @pytest.mark.parametrize("part,want", [
     ("fwd", {"as built", "no ping-pong", "probe: no Q K^T"}),
     ("decode", {"as built", "decode: one consumer warp", "decode probe: loads only"}),
-    ("all", {"no ping-pong", "decode: CUDA-core kernel"}),
+    ("all", {"no ping-pong", "decode: CUDA-core kernel", "fwd32: one TF32 pass"}),
+    ("fwd32", {"as built", "fwd32: one TF32 pass", "fwd32: 4 consumer warps", "fwd32: 4 stages",
+               "fwd32: hi by cvt.rna"}),
 ])
 def test_ablation_builds_the_variants_of_each_part(part, want):
     from repro_torch.kernels.flash_attention import ablate
 
     edits = ablate.variant_edits(part)
     assert want <= set(edits) and edits["as built"] == []
-    assert all(name.startswith("decode") for name in edits if name != "as built") == (part == "decode")
+    for prefix in ("decode", "fwd32"):
+        assert all(name.startswith(prefix) for name in edits if name != "as built") == (part == prefix)
+
+
+def test_ablation_base_must_hold_the_parts_old_kernel(tmp_path):
+    """``--base`` names a checkout whose ``flash_attention.cu`` holds the old
+    kernel of the part asked for: this tree's source holds neither."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ablate
+
+    csrc = tmp_path / "src" / "repro_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    with pytest.raises(FileNotFoundError):
+        ablate.old_source(tmp_path, "fwd32")
+    (csrc / "flash_attention.cu").write_text((_build.CSRC / "flash_attention.cu").read_text())
+    for part in ("fwd32", "decode", "all"):
+        with pytest.raises(ValueError, match="old kernel"):
+            ablate.old_source(tmp_path, part)
+    (csrc / "flash_attention.cu").write_text(ablate.OLD_MARKERS["fwd32"])
+    assert ablate.old_source(tmp_path, "fwd32") == csrc / "flash_attention.cu"
+    with pytest.raises(ValueError, match="decode"):
+        ablate.old_source(tmp_path, "all")
 
 
 @pytest.mark.parametrize("name,edits", _ablation_cases())
@@ -570,19 +710,24 @@ def test_card_wgmma_pv_fragment_layout(cuda, D, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 32), (torch.bfloat16, 64),
                                      (torch.bfloat16, 128), (torch.float32, 32),
-                                     (torch.float32, 64)])
+                                     (torch.float32, 64), (torch.bfloat16, 80),
+                                     (torch.bfloat16, 96), (torch.float32, 80),
+                                     (torch.float32, 96), (torch.float32, 128)])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [(3, 5, 5, 128, 128), (1, 6, 2, 256, 384),
                                              (3, 3, 1, 384, 384), (1, 2, 2, 128, 128),
-                                             (1, 4, 2, 128, 512), (2, 32, 8, 2048, 2048)])
+                                             (1, 4, 2, 128, 512), (2, 32, 8, 2048, 2048),
+                                             (3, 5, 1, 128, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq, Skv, causal):
-    """Odd B·Hq, GQA groups of 1, 3, 4 and 5, Sq < Skv (the causal offset,
-    up to three blocks), a single diagonal block, and more tiles than two
-    waves of 132 SMs (each persistent CTA of the wgmma kernel walks
-    several); bf16 (128, 128) at D 64 and 128 runs the wgmma kernel, and
-    the library's route table agrees with ``fwd_route``."""
+    """Odd B·Hq, GQA groups of 1 to 5, Sq < Skv (the causal offset, up to
+    three blocks), a single diagonal block, and more tiles than two
+    waves of 132 SMs (each persistent wgmma CTA walks several); bf16 (128, 128)
+    at D 64 and 128 runs the wgmma kernel, and the library's route table
+    agrees with ``fwd_route``.  fp32 (three TF32 passes) is also held to
+    the plain emulation of its passes, ``attention_split_tf32_ref``."""
     q, k, v = _card_qkv(cuda, dtype, B, Hq, Hkv, Sq, Skv, D)
     want = attention_ref(q, k, v, causal).float()
+    split = attention_split_tf32_ref(q, k, v, causal) if dtype == torch.float32 else None
     for bq, bk in K.FWD_TILES:
         route = K.fwd_route(dtype, D, bq, bk)
         if dtype == torch.bfloat16 and (bq, bk) == (128, 128) and D in (64, 128):
@@ -597,11 +742,53 @@ def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq,
         torch.testing.assert_close(got.float(), want, rtol=0, atol=ATOL[dtype],
                                    msg=f"bq={bq} bk={bk} ({route})")
         assert row_rel_err(got, want) <= ROW_REL[dtype], f"bq={bq} bk={bk} ({route})"
+        if split is not None:
+            torch.testing.assert_close(got, split, rtol=0, atol=ATOL[dtype])
+            assert row_rel_err(got, split) <= ROW_REL[dtype], f"bq={bq} bk={bk} split"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_card_tf32_forward_picks_exactly(cuda, D, causal):
+    """The fp32 forward with one-hot scores: q row i of head h is one-hot at
+    column d = (i + 3h) % D, and for each KV head and column one key holds
+    2048 there (visible to every row that reads the column), the other K
+    and V entries small integers, all exact in TF32.  The winning score
+    outweighs the rest by more than 2^200 after the scale, so p is exactly
+    one-hot and every output row must be its key's V row exactly: a
+    misplaced Q, K, V or P fragment, a swizzle read from the wrong chunk,
+    or a block taken twice shows as a wrong value."""
+    B, Hq, Hkv, Sq, Skv = 2, 6, 2, 128, 384
+    group, off = Hq // Hkv, Skv - Sq
+    rng = np.random.default_rng(15)
+    k = rng.integers(-4, 5, (B, Hkv, Skv, D)).astype(np.float32)
+    v = rng.integers(-8, 9, (B, Hkv, Skv, D)).astype(np.float32)
+    q = np.zeros((B, Hq, Sq, D), np.float32)
+    pick = (np.arange(D)[None, None, :] * 37 + 11 * np.arange(Hkv)[None, :, None]
+            + 5 * np.arange(B)[:, None, None]) % (off + 1)  # keys every row sees
+    for b in range(B):
+        for kvh in range(Hkv):
+            k[b, kvh, pick[b, kvh], np.arange(D)] = 2048.0
+    want = np.zeros_like(q)
+    for b in range(B):
+        for h in range(Hq):
+            d = (np.arange(Sq) + 3 * h) % D
+            q[b, h, np.arange(Sq), d] = 1.0
+            want[b, h] = v[b, h // group, pick[b, h // group, d]]
+    tq, tk, tv = (torch.from_numpy(a).to(cuda) for a in (q, k, v))
+    for tile in K.FWD_TILES:
+        got = K.flash_attention_fwd(tq, tk, tv, *tile, causal).cpu().numpy()
+        bad = np.argwhere(got != want)
+        if len(bad):
+            b, h, i, d = bad[0]
+            pytest.fail(f"{tile}: {len(bad)} wrong elements; o[{b}, {h}, {i}, {d}] = "
+                        f"{got[b, h, i, d]}, want {want[b, h, i, d]}")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("B,Hq,Hkv", [(3, 5, 1), (1, 32, 8), (2, 12, 1), (5, 3, 3)])
 def test_card_decode_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv):
     """Groups of 1, 3, 4, 5 and 12 (two CTAs of query heads per KV head)."""
