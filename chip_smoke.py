@@ -140,7 +140,7 @@ FLASH_ROUNDS = 30                        # rounds of the prefill's tiles and SDP
 HEAD_DIM_CONFIGS = (("zamba2-2.7b", 32, 32, 80), ("phi3-mini-3.8b", 32, 32, 96),
                     ("mixtral-8x7b", 32, 8, 128))
 # timed at full width, B 1 x 4096 causal: the fp32 forward at D 128, the bf16
-# mma.sync forward at D 80 and 96
+# wgmma forward at D 80 and 96 (D padded to 128 columns in shared memory)
 HEAD_DIM_TIMED = (("mixtral-8x7b", 32, 8, 128, "float32"), ("zamba2-2.7b", 32, 32, 80, "bfloat16"),
                   ("phi3-mini-3.8b", 32, 32, 96, "bfloat16"))
 MATMUL_SOURCE = "src/repro_torch/csrc/matmul.cu"
@@ -1826,8 +1826,9 @@ def run_head_dims(torch, dev, gen) -> list:
     the forward at both tiles (causal, Sq < Skv) and the decode, in bf16
     and fp32, each against the plain version; then at full width, B 1 ×
     4096 causal, the fp32 forward at D 128 against SDPA's math backend and
-    the bf16 forward at D 80 and 96 (``mma.sync``) against SDPA, in turns,
-    beside their bounds and the plain version."""
+    the bf16 forward at D 80 and 96 (the wgmma kernel, which must be the
+    route) against SDPA, in turns, beside their bounds and the plain
+    version."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -1888,6 +1889,8 @@ def run_head_dims(torch, dev, gen) -> list:
         err, rel = check_flash(torch, out, attention_ref(q, k, v, True), f"{name} B 1 x {S}", eb)
         del out
         route = FK.fwd_route(dtype, D, *tile)
+        if eb == 2 and route != "wgmma":
+            raise AssertionError(f"{name} D {D} bf16 at {tile} ran {route}, not the wgmma kernel")
         plain = cuda_ms(torch, lambda: attention_ref(q, k, v, True), warmup=1, reps=5)
         call = lambda: FK.flash_attention_fwd(q, k, v, *tile, True)  # noqa: E731
         ms, lib = cuda_ms(torch, call), cuda_ms(torch, lib_fn)

@@ -30,21 +30,35 @@
 //   when kb*BK > qb*BQ + BQ - 1 + (Skv - Sq), as the reference's pl.when does.
 //   Heavy (late) query blocks are scheduled first.
 //
-//   bf16 at (128, 128), D 64 and 128: flash_fwd_wgmma_kernel, Hopper's own
-//   form (FA3).  Bound at the model's prefill by the tensor cores (4·D
+//   bf16 at (128, 128), every head dim: flash_fwd_wgmma_kernel, Hopper's
+//   own form (FA3).  Bound at the model's prefill by the tensor cores (4·D
 //   flops a kept (query, key) pair at 989 TFLOP/s) and, at D = 64, as much
 //   by the exponentials: the MUFU unit does 16 ex2 a clock per SM, about
 //   as long as the tensor-core bound.  So the design keeps both busy at
 //   once.  Persistent CTAs (one per SM) of three warpgroups walk the tiles
-//   (b*Hq + h, q block of 128 rows), heavy causal q blocks first; the
-//   producer loads the next tile's Q and K while the consumers finish the
-//   last one.
+//   (b*Hq + h, q block of 128 rows), heavy causal q blocks first, in
+//   rounds of a tile a CTA that alternate direction (so every CTA's KV
+//   blocks come out level); the producer loads the next tile's Q and K
+//   while the consumers finish the last one.
 //   - Warpgroup 0 is the producer: one thread issues TMA loads of the Q
 //     block (once a tile) and of K and V blocks of 128 keys into a ring of
 //     kFaStages stages, each tensor viewed as a row-major (B*H*S, D) matrix
 //     in (128 x 64) boxes, 128-byte swizzled.  K and V have full and empty
 //     mbarriers of their own, so Q K^T starts before V lands.  It drops to
 //     40 registers (setmaxnreg); the consumers rise to 232.
+//   - D that 64 does not divide (32, 80, 96) is padded to whole boxes in
+//     shared memory only (FwdWgmma::kWidth: 64 at D 32, 128 at 80 and 96):
+//     the tensor maps keep the true width D, so TMA zero-fills the columns
+//     past it, and each box's full bytes still count toward its mbarrier's
+//     transaction.  Q K^T runs only the D / 16 k steps of real columns, and
+//     P V is wgmma at N = D (kPvExactWidth; m64n32k16, m64n80k16,
+//     m64n96k16), whose transpose-B read takes the second 64-column box in
+//     its first D - 64 columns only (the 128-byte MN-major atom is 64
+//     columns wide; the card's P V probe and tests check that a partial
+//     one reads right).  Over the padded width instead, the zero columns of V
+//     give zero columns of O at 1.6x the P V work at D 80, 1.33x at 96:
+//     3-4 % slower in the ablation (PERF.md).  The epilogue stores the D
+//     columns, row stride D.
 //   - Warpgroups 1 and 2 are consumers, 64 query rows each.  S = Q K^T is
 //     wgmma m64n128k16 with Q from registers (kQInRegs: its A fragments
 //     loaded once a tile by ldmatrix, which frees the Q buffer at once and
@@ -70,9 +84,8 @@
 //     cut), the others run without mask code.  The epilogue divides by
 //     max(l, 1e-30) and stores bf16 pairs from registers.
 //
-//   bf16 at D 32, 80 and 96, and at (64, 64): tensor cores through
-//   mma.sync.m16n8k16 (FA2 form; the wgmma kernel's 64-column TMA boxes do
-//   not tile 80 or 96).  BQ/16 warps,
+//   bf16 at (64, 64), every head dim: tensor cores through
+//   mma.sync.m16n8k16 (FA2 form).  BQ/16 warps,
 //   each owning 16 query rows: S = Q K^T and O += P V as m16n8k16 tiles, Q
 //   fragments in registers, K and V blocks double-buffered in shared memory
 //   by cp.async (rows padded by 8 elements against bank conflicts), P reused
@@ -447,18 +460,25 @@ constexpr bool kPingPong = true;      // the consumers take turns on the tensor 
 constexpr bool kIntraOverlap = true;  // a block's softmax overlaps the previous block's P V
 constexpr bool kRescaleInTurn = true; // O's correction runs under the next Q K^T
 constexpr bool kQInRegs = true;       // Q K^T takes Q from registers, not shared memory
+constexpr bool kPvExactWidth = true;  // P V at N = D, not over D padded to whole boxes
+constexpr bool kSnakeTiles = true;    // the persistent CTAs' tile rounds alternate direction
 constexpr int kSmemLimit = 232448;    // dynamic shared memory a CTA may opt into
 constexpr float kLog2e = 1.4426950408889634f;
 
+// D is padded to whole 64-column boxes in shared memory only: the tensor
+// maps keep the true width, so TMA zero-fills the columns past D (and the
+// transaction still counts each box's full bytes)
 template <int D>
 struct FwdWgmma {
-  static constexpr int kBoxes = D / kSwizzleCols;        // TMA boxes of a row block
+  static constexpr int kBoxes = (D + kSwizzleCols - 1) / kSwizzleCols;  // TMA boxes of a row block
+  static constexpr int kWidth = kBoxes * kSwizzleCols;   // D padded to whole boxes
+  static constexpr int kN = kPvExactWidth ? D : kWidth;   // P V's N, O's columns
   static constexpr int kTileBytes = kBoxes * kFaBoxBytes;  // Q, or one K or V block
   static constexpr int kBars = 2 + 4 * kFaStages;        // Q full and empty; K and V full and empty
   // Q, the rings, 1024 bytes of slack to align them to the swizzle's period,
   // the mbarriers
   static constexpr int kSmem = (1 + 2 * kFaStages) * kTileBytes + 1024 + 8 * kBars;
-  static_assert(D == 64 || D == 128, "wgmma forward head dim");
+  static_assert(D % 16 == 0 && D <= 128, "wgmma forward head dim");
   static_assert(kFaStages >= 2 && kSmem <= kSmemLimit, "shared memory");
 };
 
@@ -550,6 +570,80 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
 }
 
+// d (64 x 32 fp32 fragment, 16 registers a thread) += A (registers) * B
+// (smem), as wgmma_rs_n64: P V at N = D 32 (kPvExactWidth)
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// d (64 x 80 fp32 fragment, 40 registers a thread) += A (registers) * B
+// (smem), as wgmma_rs_n64: P V at N = D 80 (kPvExactWidth)
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// d (64 x 96 fp32 fragment, 48 registers a thread) += A (registers) * B
+// (smem), as wgmma_rs_n64: P V at N = D 96 (kPvExactWidth)
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
 // barrier `id` over the 256 consumer threads: wait, or arrive without waiting
 __device__ __forceinline__ void consumers_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(256) : "memory");
@@ -579,8 +673,9 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // S = Q K^T for one consumer's 64 query rows and a block of 128 keys: Q and
-// K both K-major, D/64 swizzled boxes of 128 rows (16 KB) each; a k16 step
-// is 32 bytes along a swizzled row
+// K both K-major, in swizzled boxes of 128 rows (16 KB) each; a k16 step
+// is 32 bytes along a swizzled row, and only the D / 16 steps of real
+// columns run (the zero padding past D is never read)
 template <int D>
 __device__ __forceinline__ void qk_gemm(float (&s)[64], uint32_t q, uint32_t k) {
 #pragma unroll
@@ -617,14 +712,24 @@ __device__ __forceinline__ void load_q(uint32_t (&qf)[D / 16][4], uint32_t sq, i
 
 // O += P V: P in registers (pack_p), V MN-major through the transpose-B
 // mode, its 64-wide column boxes 16 KB apart (leading offset), 8-key groups
-// 1024 bytes apart; a k16 step is 16 keys, 2048 bytes
+// 1024 bytes apart; a k16 step is 16 keys, 2048 bytes.  N is FwdWgmma::kN:
+// D, or D padded to whole boxes (V's zero columns give O zero columns, never
+// stored)
 template <int D>
-__device__ __forceinline__ void pv_gemm(float (&o)[D / 2], const uint32_t (&p)[8][4], uint32_t v) {
+__device__ __forceinline__ void pv_gemm(float (&o)[FwdWgmma<D>::kN / 2], const uint32_t (&p)[8][4],
+                                        uint32_t v) {
+  constexpr int N = FwdWgmma<D>::kN;
 #pragma unroll
   for (int t = 0; t < kFaBlock / 16; ++t) {
     const uint64_t db = smem_desc(v + t * 2048, kFaBoxBytes, 1024);
-    if constexpr (D == 64)
+    if constexpr (N == 32)
+      wgmma_rs_n32<1>(o, p[t], db, 1);
+    else if constexpr (N == 64)
       wgmma_rs_n64<1>(o, p[t], db, 1);
+    else if constexpr (N == 80)
+      wgmma_rs_n80<1>(o, p[t], db, 1);
+    else if constexpr (N == 96)
+      wgmma_rs_n96<1>(o, p[t], db, 1);
     else
       wgmma_rs_n128<1>(o, p[t], db, 1);
   }
@@ -704,6 +809,17 @@ __device__ __forceinline__ void fwd_tile(int t, int bh_count, int nqb, int& bh, 
   bh = t % bh_count;
 }
 
+// The i-th tile (in fwd_tile's order) of this persistent CTA: round i of
+// gridDim.x tiles, taken in reverse every other round (kSnakeTiles), so
+// that with heavy tiles first each CTA's KV blocks come out level (a
+// stride of gridDim.x left the busiest CTA 12.5 % over the mean at B 1 x
+// 32 heads, 3 % at 4 x 32).  Past the last tile once it returns one >= the
+// tile count.
+__device__ __forceinline__ int cta_tile(int i) {
+  const bool back = kSnakeTiles && (i & 1);
+  return i * gridDim.x + (back ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kFaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
@@ -747,13 +863,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
 
   // one if/else on the warpgroup for the whole kernel: the roles never
   // reconverge, so setmaxnreg takes effect.  Every role walks the same
-  // tiles (t = blockIdx.x, + gridDim.x, ...) and counts the same KV blocks
-  // (it), which index the ring and give each mbarrier's phase.
+  // tiles (cta_tile) and counts the same KV blocks (it), which index the
+  // ring and give each mbarrier's phase.
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 0) {
       int it = 0, ti = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      for (int i = 0, t = cta_tile(0); t < tiles; t = cta_tile(++i)) {
         int bh, qb;
         fwd_tile(t, bh_count, nqb, bh, qb);
         const int n = kv_blocks(qb);
@@ -792,7 +908,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     const uint32_t q = sq + cons * 64 * 128;  // this consumer's 64 rows of each Q box
     // named barriers 1 and 2: consumer 0's and consumer 1's turn to issue
     const int mine = 1 + cons, theirs = 2 - cons;
-    float o[D / 2], s[64], m[2], l[2], corr[2];
+    float o[T::kN / 2], s[64], m[2], l[2], corr[2];
     uint32_t p[8][4], qf[D / 16][4];
     int it = 0, ti = 0;
     bool started = false;
@@ -811,7 +927,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
   else                                                 \
     qk_gemm<D>(s, q, sk + (stage) * T::kTileBytes)
 
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int i = 0, t = cta_tile(0); t < tiles; t = cta_tile(++i)) {
       int bh, qb;
       fwd_tile(t, bh_count, nqb, bh, qb);
       const int n = kv_blocks(qb);
@@ -820,7 +936,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       m[0] = m[1] = kNegInf;
       l[0] = l[1] = 0.f;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < T::kN / 2; ++i) o[i] = 0.f;
 
       if (n > 0) {
         if (kPingPong && cons == 1 && !started) consumers_arrive(1);  // consumer 0 goes first
@@ -896,7 +1012,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       }
 
       // o / max(l, 1e-30), rounded to bf16, stored from registers while the
-      // producer already loads the next tile
+      // producer already loads the next tile: the D / 8 n8 tiles of real
+      // columns, row stride D
       bf16* og = O + ((int64_t)bh * Sq + row) * D + 2 * (lane & 3);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -919,8 +1036,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
 }
 
 // One consumer's P V for a given P (fp32 64 x 128, row-major) and V (one
-// TMA block of 128 keys), through the kernel's own pack_p and pv_gemm;
-// O (fp32 64 x D) from the accumulator's registers.  A card check of the
+// TMA block of 128 keys, D columns zero-padded to whole boxes), through the
+// kernel's own pack_p and pv_gemm; O (fp32 64 x D) from the accumulator's
+// registers, its D real columns.  A card check of the
 // register-A (RS) fragment layout, not part of any entry point.
 template <int D>
 __global__ void __launch_bounds__(128)
@@ -942,14 +1060,14 @@ flash_pv_probe_kernel(const __grid_constant__ CUtensorMap tma_v, const float* __
       tma_load_2d(sv + x * kFaBoxBytes, &tma_v, x * kSwizzleCols, 0, bar);
   }
   const int row = warp * 16 + lane / 4, col = 2 * (lane & 3);
-  float s[64], o[D / 2];
+  float s[64], o[T::kN / 2];
   uint32_t p[8][4];
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[4 * j + e] = P[(row + 8 * (e >> 1)) * kFaBlock + 8 * j + col + (e & 1)];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < T::kN / 2; ++i) o[i] = 0.f;
   pack_p(s, p);
   mbar_wait(bar, 0);
   wgmma_fence();
@@ -2096,10 +2214,9 @@ constexpr bool head_dim(int D) { return D == 32 || D == 64 || D == 80 || D == 96
 extern "C" {
 
 // The forward kernel for elem_bytes 2 (bf16) or 4 (fp32), head dim D and
-// tile (bq, bk): kRouteWgmma for bf16 (128, 128) at D 64 and 128,
-// kRouteMmaSync for the other bf16 kernels (D 32, 80 and 96 at both tiles,
-// D 64 and 128 at (64, 64)), kRouteSplitTf32 for fp32 (every head dim, both
-// tiles), kRouteNone for anything not instantiated.
+// tile (bq, bk): kRouteWgmma for bf16 at (128, 128), kRouteMmaSync for bf16
+// at (64, 64), kRouteSplitTf32 for fp32 (both tiles), each at every head
+// dim; kRouteNone for anything not instantiated.
 enum {
   kRouteNone = 0, kRouteWgmma = 1, kRouteMmaSync = 2, kRouteCudaCores = 3, kRouteTmaMma = 4,
   kRouteSplitTf32 = 5
@@ -2108,7 +2225,7 @@ enum {
 int flash_fwd_route(int elem_bytes, int D, int bq, int bk) {
   const bool big = bq == 128 && bk == 128, small = bq == 64 && bk == 64;
   if ((!big && !small) || !head_dim(D)) return kRouteNone;
-  if (elem_bytes == 2) return big && (D == 64 || D == 128) ? kRouteWgmma : kRouteMmaSync;
+  if (elem_bytes == 2) return big ? kRouteWgmma : kRouteMmaSync;
   return elem_bytes == 4 ? kRouteSplitTf32 : kRouteNone;
 }
 
@@ -2118,18 +2235,23 @@ int flash_fwd_launch(int elem_bytes, const void* q, const void* k, const void* v
                      int Hq, int Hkv, int Sq, int Skv, int D, int bq, int bk, float scale,
                      int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool big = bq == 128;
 #define FWD(KERN, ...) KERN<__VA_ARGS__>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, s)
-#define MMA(HD) return big ? FWD(launch_fwd_bf16, 128, 128, HD) : FWD(launch_fwd_bf16, 64, 64, HD)
+#define WGMMA(HD) return FWD(launch_fwd_wgmma, HD)
+#define MMA(HD) return FWD(launch_fwd_bf16, 64, 64, HD)
 #define SPLIT(HD) return launch_fwd_tf32<HD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, bq, bk, scale, causal, s)
   switch (flash_fwd_route(elem_bytes, D, bq, bk)) {
     case kRouteWgmma:
-      return D == 64 ? FWD(launch_fwd_wgmma, 64) : FWD(launch_fwd_wgmma, 128);
+      if (D == 32) WGMMA(32);
+      if (D == 64) WGMMA(64);
+      if (D == 80) WGMMA(80);
+      if (D == 96) WGMMA(96);
+      WGMMA(128);
     case kRouteMmaSync:
       if (D == 32) MMA(32);
+      if (D == 64) MMA(64);
       if (D == 80) MMA(80);
       if (D == 96) MMA(96);
-      return D == 64 ? FWD(launch_fwd_bf16, 64, 64, 64) : FWD(launch_fwd_bf16, 64, 64, 128);
+      MMA(128);
     case kRouteSplitTf32:
       if (D == 32) SPLIT(32);
       if (D == 64) SPLIT(64);
@@ -2139,28 +2261,28 @@ int flash_fwd_launch(int elem_bytes, const void* q, const void* k, const void* v
   }
 #undef SPLIT
 #undef MMA
+#undef WGMMA
 #undef FWD
   return (int)cudaErrorInvalidValue;
 }
 
 // the RS fragment probe: p fp32 (64, 128), v bf16 (128, D), o fp32 (64, D),
-// D 64 or 128, all contiguous on the card
+// D one of the head dims, all contiguous on the card
 int flash_pv_probe_launch(const void* p, const void* v, void* o, int D, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (!head_dim(D)) return (int)cudaErrorInvalidValue;
   CUtensorMap mv;
   if (int rc = encode_bf16(&mv, v, kFaBlock, D, kFaBlock)) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* pp = static_cast<const float*>(p);
   auto* po = static_cast<float*>(o);
-  if (D == 64) {
-    constexpr int smem = FwdWgmma<64>::kTileBytes + 1024 + 8;
-    if (int err = set_smem(flash_pv_probe_kernel<64>, smem)) return err;
-    flash_pv_probe_kernel<64><<<1, 128, smem, s>>>(mv, pp, po);
-  } else {
-    constexpr int smem = FwdWgmma<128>::kTileBytes + 1024 + 8;
-    if (int err = set_smem(flash_pv_probe_kernel<128>, smem)) return err;
-    flash_pv_probe_kernel<128><<<1, 128, smem, s>>>(mv, pp, po);
+#define PROBE(HD)                                                         \
+  if (D == HD) {                                                          \
+    constexpr int smem = FwdWgmma<HD>::kTileBytes + 1024 + 8;             \
+    if (int err = set_smem(flash_pv_probe_kernel<HD>, smem)) return err;  \
+    flash_pv_probe_kernel<HD><<<1, 128, smem, s>>>(mv, pp, po);           \
   }
+  PROBE(32) PROBE(64) PROBE(80) PROBE(96) PROBE(128)
+#undef PROBE
   return (int)cudaGetLastError();
 }
 

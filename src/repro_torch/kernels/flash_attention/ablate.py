@@ -19,11 +19,29 @@ causal prefill (B 4 × S 4096, Hq 32, Hkv 8, D 64, bf16: the main path of
   on the critical path, instead of under the next Q·K^T;
 * ``3-stage ring``: three K and V stages instead of two;
 * ``not persistent``: one CTA per tile instead of one per SM;
+* ``stride tile order``: CTA i takes tiles i, i + n, i + 2n, ... (n CTAs)
+  instead of rounds that alternate direction;
 
 and, as timing probes whose output is wrong and not checked, the kernel
 without its exponentials, without its softmax, without P·V or without
 Q·K^T: the time each saves (or adds) shows how far that piece sits on
-the critical path.
+the critical path.  Then the same kernel at the head dims it pads in
+shared memory, zamba2-2.7b's D 80 and phi3-mini-3.8b's D 96 (32 query and
+32 KV heads each, causal B 1 × 4096, bf16, (128, 128): ``chip_smoke.py``'s
+``run_head_dims``), and at mixtral-8x7b's D 128 (32 and 8), as built
+against
+
+* ``fwd: mma.sync route``: ``flash_fwd_route`` sends D 80 and 96 at
+  (128, 128) back to the ``mma.sync`` kernel (its route before the wgmma
+  kernel took them);
+* ``fwd: P V over the padded width``: P·V over the 128 columns of the two
+  boxes (V's zero columns giving O's zero columns) instead of at N = D
+  (wgmma m64n80k16, m64n96k16);
+
+(those two at D 80 and 96 only), ``stride tile order``, SDPA and, with
+``--base`` (a checkout of the commit before, e.g. ``git archive b905bb3``
+unpacked), the ``old kernel``: the forward from there, at granite's D 64
+too.
 
 The decode (``--part decode``), ``flash_decode_tma_kernel`` at
 granite-3-2b's ``decode_32k`` (B 128, a 32768-token cache, bf16: the
@@ -89,8 +107,11 @@ printed beside the math backend's (TF32 off).
 
 ``--base`` takes a checkout that holds the old kernel of each part asked
 for: the CUDA-core decode before its redesign for ``decode`` (e.g. ``git
-archive 8a5a615``, which holds the old fp32 forward too, so it serves
-``all``), the CUDA-core fp32 forward for ``fwd32``.
+archive 8a5a615``, which holds the old fp32 forward and the wgmma forward
+at D 64 and 128 only too, so it serves ``all``), the CUDA-core fp32
+forward for ``fwd32``, the wgmma forward at D 64 and 128 only for
+``fwd`` (at the head dims its library does not route to that kernel it
+is timed on what it runs there).
 
 Needs a CUDA device and nvcc (exits nonzero without); prints the card's
 name and power limit and the median time of each variant.  Every variant
@@ -117,7 +138,22 @@ VARIANTS = {
                               "constexpr bool kRescaleInTurn = false;")],
     "3-stage ring": [("constexpr int kFaStages = 2;", "constexpr int kFaStages = 3;")],
     "not persistent": [("const int grid = tiles < sms ? tiles : sms;", "const int grid = tiles;")],
+    "stride tile order": [("constexpr bool kSnakeTiles = true;", "constexpr bool kSnakeTiles = false;")],
 }
+STRIDE = "stride tile order"  # timed at the head dims too
+# the forward at the head dims the wgmma kernel pads (ablate_head_dims)
+HEAD_DIM_VARIANTS = {
+    "fwd: mma.sync route": [
+        ("  if (elem_bytes == 2) return big ? kRouteWgmma : kRouteMmaSync;",
+         "  if (elem_bytes == 2) return big && D % 64 == 0 ? kRouteWgmma : kRouteMmaSync;"),
+        ("#define MMA(HD) return FWD(launch_fwd_bf16, 64, 64, HD)",
+         "#define MMA(HD) return bq == 128 ? FWD(launch_fwd_bf16, 128, 128, HD) "
+         ": FWD(launch_fwd_bf16, 64, 64, HD)")],
+    "fwd: P V over the padded width": [("constexpr bool kPvExactWidth = true;",
+                                        "constexpr bool kPvExactWidth = false;")],
+}
+HEAD_DIMS_TIMED = (("zamba2-2.7b", 32, 32, 80), ("phi3-mini-3.8b", 32, 32, 96),
+                   ("mixtral-8x7b", 32, 8, 128))
 # timing probes: each drops one piece of the work, so its output is wrong
 # and not checked; the time saved bounds what that piece costs in the
 # kernel as built
@@ -189,7 +225,8 @@ F32_GATE = 3.0                      # chip_smoke.F32_GATE: error within 3x SDPA 
 OLD = "old kernel"
 # the text that marks each part's old kernel in a --base checkout
 OLD_MARKERS = {"decode": "flash_decode_kernel(const T* __restrict__ Q",
-               "fwd32": "flash_fwd_f32_kernel("}
+               "fwd32": "flash_fwd_f32_kernel(",
+               "fwd": 'static_assert(D == 64 || D == 128, "wgmma forward head dim");'}
 CORE_FORCED_SPLITS = (1, 2, 4)        # at B 8 in fp32, beside decode_splits's choice
 ATOL32, ROW_REL32 = 2e-3, 1e-4        # chip_smoke.FLASH_TOL / FLASH_ROW_REL for fp32
 DECODE_PROBES = {
@@ -212,7 +249,7 @@ def variant_edits(part: str = "all") -> dict:
     "decode", "fwd32" or "all"), and "as built" (no edit)."""
     edits = {"as built": []}
     if part in ("all", "fwd"):
-        edits.update({**VARIANTS, **PROBES})
+        edits.update({**VARIANTS, **PROBES, **HEAD_DIM_VARIANTS})
     if part in ("all", "decode"):
         edits.update({**DECODE_VARIANTS, **DECODE_PROBES, **CORE_VARIANTS})
     if part in ("all", "fwd32"):
@@ -243,7 +280,7 @@ def build_variants(part: str = "all", base: Path | None = None) -> dict:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     paths = _build.build_variants("flash_attention", variant_edits(part))
     old_decode = False
-    if base is not None and part in ("all", "decode", "fwd32"):
+    if base is not None:
         src = old_source(base, part)
         old_decode = OLD_MARKERS["decode"] in src.read_text()
         paths[OLD] = _build.build_variants("flash_attention", {OLD: []}, src)[OLD]
@@ -251,12 +288,14 @@ def build_variants(part: str = "all", base: Path | None = None) -> dict:
     for name, so in paths.items():
         lib = ctypes.CDLL(str(so))
         lib.flash_fwd_launch.argtypes = [I] + [P] * 4 + [I] * 8 + [F, I, P]
+        lib.flash_fwd_route.argtypes = [I] * 4
         # the old decode's launcher took the block bk, its combine wrote bf16
         # only and took no output width
         old = name == OLD and old_decode
         lib.flash_decode_launch.argtypes = [I] + [P] * 5 + [I] * (7 if old else 6) + [F, P]
         lib.flash_decode_combine_launch.argtypes = [P, P, I, I, I] + ([] if old else [I]) + [P]
-        for fn in (lib.flash_fwd_launch, lib.flash_decode_launch, lib.flash_decode_combine_launch):
+        for fn in (lib.flash_fwd_launch, lib.flash_fwd_route, lib.flash_decode_launch,
+                   lib.flash_decode_combine_launch):
             fn.restype = I
         libs[name] = lib
     return libs
@@ -312,7 +351,7 @@ def ablate_fwd(torch, libs: dict, rounds: int, gen, dev) -> None:
                 raise RuntimeError(f"launch failed: {rc}")
         return run
 
-    names = ["as built", *VARIANTS, *PROBES]
+    names = ["as built", *VARIANTS, *PROBES, *((OLD,) if OLD in libs else ())]
     fns = {name: fwd(libs[name], (128, 128)) for name in names}
     fns["mma.sync (64, 64)"] = fwd(libs["as built"], (64, 64))
     fns["F.scaled_dot_product_attention"] = lambda: F.scaled_dot_product_attention(
@@ -334,6 +373,65 @@ def ablate_fwd(torch, libs: dict, rounds: int, gen, dev) -> None:
     print(f"causal prefill B {B} x S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, tile (128, 128), in "
           f"turns ({rounds} rounds, order reversed every other round):")
     report(times, "as built")
+
+
+def ablate_head_dims(torch, libs: dict, rounds: int, gen, dev) -> None:
+    """The bf16 forward at (128, 128) at zamba2-2.7b's D 80,
+    phi3-mini-3.8b's D 96 and mixtral-8x7b's D 128, causal B 1 × 4096: as
+    built (wgmma; D 80 and 96 padded to 128 columns in shared memory),
+    ``HEAD_DIM_VARIANTS`` (at D 80 and 96, where they differ), the stride
+    tile order, the old kernel where ``--base`` gave one, and SDPA in turns,
+    each variant first held to the smoke's tolerances."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import FWD_ROUTES
+    from repro_torch.kernels.flash_attention.ref import attention_ref, row_rel_err
+
+    route_names = {number: name for name, number in FWD_ROUTES.items()}
+    S = PREFILL[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    for cfg, Hq, Hkv, D in HEAD_DIMS_TIMED:
+        q = torch.randn((1, Hq, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+        k = torch.randn((1, Hkv, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+        v = torch.randn((1, Hkv, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+        outs, fns = {}, {}
+        names = ["as built", *(HEAD_DIM_VARIANTS if D % 64 else ()), STRIDE]
+        old_route = route_names.get(libs[OLD].flash_fwd_route(2, D, 128, 128)) if OLD in libs else None
+        if old_route:  # an old library that serves this head dim
+            names.append(OLD)
+        for name in names:
+            out = outs[name] = torch.empty_like(q)
+
+            def run(lib=libs[name], out=out, name=name):
+                rc = lib.flash_fwd_launch(2, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), 1, Hq, Hkv, S, S, D, 128, 128,
+                                          D ** -0.5, 1, stream)
+                if rc:
+                    raise RuntimeError(f"{name}: launch failed: {rc}")
+            fns[name] = run
+        want = attention_ref(q, k, v, True).float()
+        errs = []
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            err, rel = float((outs[name].float() - want).abs().max()), row_rel_err(outs[name], want)
+            if err > ATOL or rel > ROW_REL:
+                raise AssertionError(f"{cfg} D {D} variant {name!r} disagrees with the plain "
+                                     f"version: max abs {err}, row relative {rel}")
+            errs.append(f"{name} {err:.3e} / {rel:.3e}")
+        del want, outs
+        fns["F.scaled_dot_product_attention"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        flops = 4.0 * D * Hq * S * (S + 1) / 2  # the causal triangle's Q K^T and P V
+        times = in_turns(torch, fns, rounds)
+        print(f"{cfg} causal prefill B 1 x S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, (128, 128)"
+              f"{f' (the old kernel: {old_route})' if old_route else ''}: max "
+              f"abs / row relative error against the plain version: {'; '.join(errs)}; in turns "
+              f"({rounds} rounds, order reversed every other round), operation bound "
+              f"{flops / 989e12 * 1e3:.4f} ms at 989 TFLOP/s:", flush=True)
+        report(times, "as built")
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def ablate_decode(torch, libs: dict, rounds: int, gen, dev) -> None:
@@ -578,8 +676,8 @@ def main(argv=None) -> int:
     ap.add_argument("--part", choices=("all", "fwd", "decode", "fwd32"), default="all")
     ap.add_argument("--base", type=Path, default=None,
                     help="a checkout that holds the old kernel of the part (the CUDA-core decode "
-                         "before its redesign, the CUDA-core fp32 forward), timed as the old "
-                         "kernel (left out without it)")
+                         "before its redesign, the CUDA-core fp32 forward, the wgmma forward at D "
+                         "64 and 128 only), timed as the old kernel (left out without it)")
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -599,6 +697,7 @@ def main(argv=None) -> int:
     if args.part in ("all", "fwd"):
         ablate_fwd(torch, libs, args.rounds, gen, dev)
         torch.cuda.empty_cache()
+        ablate_head_dims(torch, libs, args.rounds, gen, dev)
     if args.part in ("all", "decode"):
         ablate_decode(torch, libs, args.rounds, gen, dev)
         torch.cuda.empty_cache()

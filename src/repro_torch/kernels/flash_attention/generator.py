@@ -24,7 +24,7 @@ from repro_torch.kernels import pow2_tiles
 from repro_torch.kernels.flash_attention.kernel import FWD_TILES
 
 TILES = tuple({"bq": bq, "bk": bk} for bq, bk in FWD_TILES)
-DEFAULT = {"bq": 128, "bk": 128}  # the wgmma kernel's tile for bf16 at D 64 and 128
+DEFAULT = {"bq": 128, "bk": 128}  # the wgmma kernel's tile for bf16, every head dim
 
 
 def tpu_space(Sq: int, Skv: int):

@@ -7,10 +7,11 @@
   ``make_flash_attention(B, Hq, Hkv, Sq, Skv, D, bq, bk, causal)``; bq | Sq
   and bk | Skv, as there.  Head dims 32, 64, 80, 96 and 128 (the repo's
   configs) in both dtypes.  ``fwd_route`` names the kernel a call runs:
-  bf16 at (128, 128) with D 64 or 128 runs the warp-specialised wgmma + TMA
-  kernel (``"wgmma"``), the other bf16 calls the ``mma.sync`` kernel
-  (``"mma_sync"``), fp32 three TF32 passes on the tensor cores
-  (``"split_tf32"``, plain emulation ``ref.attention_split_tf32_ref``).
+  bf16 at (128, 128) runs the warp-specialised wgmma + TMA kernel
+  (``"wgmma"``; D 32, 80 and 96 padded to whole 64-column boxes in shared
+  memory only), bf16 at (64, 64) the ``mma.sync`` kernel (``"mma_sync"``),
+  fp32 three TF32 passes on the tensor cores (``"split_tf32"``, plain
+  emulation ``ref.attention_split_tf32_ref``), each at every head dim.
 * ``flash_decode(q, k, v, bk, splits=None)`` — one query token against
   the KV cache.  Replaces ``make_flash_decode(B, Hq, Hkv, Skv, D, bk)``.
   ``decode_route`` names the kernel: bf16 at D 64 or 128 runs the
@@ -59,7 +60,6 @@ FWD_TILES = ((128, 128), (64, 64))
 FWD_HEAD_DIMS = {torch.bfloat16: HEAD_DIMS, torch.float32: HEAD_DIMS}
 # the kernel of each forward route, as csrc/flash_attention.cu's flash_fwd_route numbers them
 FWD_ROUTES = {"wgmma": 1, "mma_sync": 2, "split_tf32": 5}
-WGMMA_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = HEAD_DIMS
 DECODE_BK_MAX = 2048          # the largest bk flash_decode validates (no kernel reads bk)
 # the kernel of each decode route, as csrc/flash_attention.cu's flash_decode_route numbers them
@@ -122,8 +122,9 @@ def _check(q, k, v) -> tuple:
 
 def fwd_route(dtype: torch.dtype, D: int, bq: int, bk: int) -> str:
     """The forward kernel that a call with ``dtype``, head dim ``D`` and tile
-    (bq, bk) runs on the card: ``"wgmma"``, ``"mma_sync"`` or
-    ``"split_tf32"``; raises ValueError for a combination not instantiated."""
+    (bq, bk) runs on the card: ``"wgmma"`` (bf16 at (128, 128)),
+    ``"mma_sync"`` (bf16 at (64, 64)) or ``"split_tf32"`` (fp32); raises
+    ValueError for a combination not instantiated."""
     if (bq, bk) not in FWD_TILES:
         raise ValueError(f"(bq, bk) = {(bq, bk)} is not instantiated; choose from {FWD_TILES}")
     if dtype not in FWD_HEAD_DIMS or D not in FWD_HEAD_DIMS[dtype]:
@@ -131,7 +132,7 @@ def fwd_route(dtype: torch.dtype, D: int, bq: int, bk: int) -> str:
                          f"choose from {FWD_HEAD_DIMS.get(dtype, ())}")
     if dtype == torch.float32:
         return "split_tf32"
-    return "wgmma" if (bq, bk) == (128, 128) and D in WGMMA_HEAD_DIMS else "mma_sync"
+    return "wgmma" if (bq, bk) == (128, 128) else "mma_sync"
 
 
 def decode_route(dtype: torch.dtype, D: int) -> str:
@@ -174,6 +175,14 @@ def decode_splits(B: int, Hkv: int, chunks: int, Skv: int, sms: int) -> int:
     return min(range(1, min(nb, 4 * -(-sms // units)) + 1), key=lambda s: (cost(s), s))
 
 
+def _stream(index: int) -> int:
+    """The handle of CUDA device ``index``'s current stream: what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without building
+    a ``Stream`` object on every launch (host time that a single call on an
+    idle card waits out before its kernel starts)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _aligned(*tensors) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k and v must be 16-byte aligned")
@@ -199,11 +208,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: i
         return attention_ref(q, k, v, causal)
     _aligned(q, k, v)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    index = q.get_device()
+    with torch.cuda.device(index):
         rc = _lib().flash_fwd_launch(
             q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D, bq, bk, D ** -0.5, int(causal),
-            torch.cuda.current_stream().cuda_stream)
+            B, Hq, Hkv, Sq, Skv, D, bq, bk, D ** -0.5, int(causal), _stream(index))
     _raise_on(rc, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
     LAST_LAUNCH["flash_attention_fwd"] = (bq, bk, causal)
@@ -242,8 +251,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 12
         out, part = torch.empty_like(q), None
     else:
         out, part = None, torch.empty((B, Hq, splits, D + 2), device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    index = q.get_device()
+    with torch.cuda.device(index):
+        stream = _stream(index)
         rc = _lib().flash_decode_launch(
             q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr() if part is None else None, None if part is None else part.data_ptr(),
@@ -272,8 +282,9 @@ def decode_combine(part: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> t
     if part.device.type == "cpu":
         return combine_partials_ref(part, dtype)
     part = part.contiguous()
-    with torch.cuda.device(part.device):
-        return _combine(part, dtype, torch.cuda.current_stream().cuda_stream)
+    index = part.get_device()
+    with torch.cuda.device(index):
+        return _combine(part, dtype, _stream(index))
 
 
 def _combine(part: torch.Tensor, dtype: torch.dtype, stream: int) -> torch.Tensor:
@@ -292,19 +303,21 @@ def wgmma_pv_probe(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """One consumer warpgroup's O = P·V in the wgmma kernel, alone: p fp32
     (64, 128) goes into the S accumulator's registers, is rounded to bf16 A
     fragments as the kernel rounds them and multiplied with v bf16
-    (128, D), D 64 or 128, loaded by TMA; returns O fp32 (64, D).  A card
+    (128, D), D one of ``HEAD_DIMS``, loaded by TMA (zero-padded to whole
+    64-column boxes, as in the kernel); returns O fp32 (64, D).  A card
     check of the register-A fragment layout; it has no plain version."""
     if p.shape != (64, 128) or p.dtype != torch.float32 or v.dtype != torch.bfloat16 \
-            or v.dim() != 2 or v.shape[0] != 128 or v.shape[1] not in WGMMA_HEAD_DIMS:
-        raise ValueError(f"expected p fp32 (64, 128) and v bf16 (128, 64 or 128), got "
+            or v.dim() != 2 or v.shape[0] != 128 or v.shape[1] not in HEAD_DIMS:
+        raise ValueError(f"expected p fp32 (64, 128) and v bf16 (128, D in {HEAD_DIMS}), got "
                          f"{p.dtype} {tuple(p.shape)}, {v.dtype} {tuple(v.shape)}")
     if p.device.type != "cuda" or v.device != p.device:
         raise ValueError("wgmma_pv_probe runs only on the card")
     p, v = p.contiguous(), v.contiguous()
     _aligned(p, v)
     out = torch.empty((64, v.shape[1]), device=p.device, dtype=torch.float32)
-    with torch.cuda.device(p.device):
+    index = p.get_device()
+    with torch.cuda.device(index):
         rc = _lib().flash_pv_probe_launch(p.data_ptr(), v.data_ptr(), out.data_ptr(), v.shape[1],
-                                          torch.cuda.current_stream().cuda_stream)
+                                          _stream(index))
     _raise_on(rc, "wgmma_pv_probe")
     return out

@@ -335,13 +335,13 @@ def test_wrappers_validate_tiles_and_decode_blocks():
         K.flash_decode(torch.zeros(1, 2, 1, 16), *(torch.zeros(1, 2, 256, 16),) * 2, 128)
 
 
-ROUTES = [(torch.bfloat16, 32, (128, 128), "mma_sync"), (torch.bfloat16, 32, (64, 64), "mma_sync"),
+ROUTES = [(torch.bfloat16, 32, (128, 128), "wgmma"), (torch.bfloat16, 32, (64, 64), "mma_sync"),
           (torch.bfloat16, 64, (128, 128), "wgmma"), (torch.bfloat16, 64, (64, 64), "mma_sync"),
           (torch.bfloat16, 128, (128, 128), "wgmma"), (torch.bfloat16, 128, (64, 64), "mma_sync"),
           (torch.float32, 32, (128, 128), "split_tf32"), (torch.float32, 32, (64, 64), "split_tf32"),
           (torch.float32, 64, (128, 128), "split_tf32"), (torch.float32, 64, (64, 64), "split_tf32"),
-          (torch.bfloat16, 80, (128, 128), "mma_sync"), (torch.bfloat16, 80, (64, 64), "mma_sync"),
-          (torch.bfloat16, 96, (128, 128), "mma_sync"), (torch.bfloat16, 96, (64, 64), "mma_sync"),
+          (torch.bfloat16, 80, (128, 128), "wgmma"), (torch.bfloat16, 80, (64, 64), "mma_sync"),
+          (torch.bfloat16, 96, (128, 128), "wgmma"), (torch.bfloat16, 96, (64, 64), "mma_sync"),
           (torch.float32, 80, (128, 128), "split_tf32"), (torch.float32, 80, (64, 64), "split_tf32"),
           (torch.float32, 96, (128, 128), "split_tf32"), (torch.float32, 96, (64, 64), "split_tf32"),
           (torch.float32, 128, (128, 128), "split_tf32"), (torch.float32, 128, (64, 64), "split_tf32")]
@@ -349,9 +349,9 @@ ROUTES = [(torch.bfloat16, 32, (128, 128), "mma_sync"), (torch.bfloat16, 32, (64
 
 @pytest.mark.parametrize("dtype,D,tile,route", ROUTES)
 def test_fwd_route_names_the_kernel_of_every_instantiation(dtype, D, tile, route):
-    """bf16 at (128, 128) with D 64 or 128 runs the wgmma kernel; every other
-    bf16 call mma.sync (D 80 and 96 too: the wgmma kernel's 64-column boxes
-    do not tile them), fp32 three TF32 passes at every head dim."""
+    """bf16 at (128, 128) runs the wgmma kernel at every head dim (32, 80
+    and 96 padded to whole 64-column boxes in shared memory), bf16 at
+    (64, 64) mma.sync, fp32 three TF32 passes at every head dim."""
     assert K.fwd_route(dtype, D, *tile) == route
     assert route in K.FWD_ROUTES
 
@@ -402,7 +402,7 @@ def test_pv_probe_runs_only_on_the_card():
     with pytest.raises(ValueError, match="only on the card"):
         K.wgmma_pv_probe(torch.zeros(64, 128), torch.zeros(128, 64, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="expected p fp32"):
-        K.wgmma_pv_probe(torch.zeros(64, 128), torch.zeros(128, 32, dtype=torch.bfloat16))
+        K.wgmma_pv_probe(torch.zeros(64, 128), torch.zeros(128, 48, dtype=torch.bfloat16))
 
 
 DECODE_ROUTES = [(torch.bfloat16, 32, "cuda_cores"), (torch.bfloat16, 64, "tma_mma"),
@@ -599,13 +599,15 @@ def test_core_decode_combine_ref_matches_pallas_kernel_at_d32(splits, gqa):
 def _ablation_cases():
     from repro_torch.kernels.flash_attention import ablate
 
-    return [*ablate.VARIANTS.items(), *ablate.PROBES.items(), *ablate.DECODE_VARIANTS.items(),
+    return [*ablate.VARIANTS.items(), *ablate.PROBES.items(), *ablate.HEAD_DIM_VARIANTS.items(),
+            *ablate.DECODE_VARIANTS.items(),
             *ablate.DECODE_PROBES.items(), *ablate.CORE_VARIANTS.items(),
             *ablate.FWD32_VARIANTS.items(), *ablate.FWD32_PROBES.items()]
 
 
 @pytest.mark.parametrize("part,want", [
-    ("fwd", {"as built", "no ping-pong", "probe: no Q K^T"}),
+    ("fwd", {"as built", "no ping-pong", "probe: no Q K^T", "fwd: mma.sync route",
+             "fwd: P V over the padded width"}),
     ("decode", {"as built", "decode: one consumer warp", "decode probe: loads only"}),
     ("all", {"no ping-pong", "decode: CUDA-core kernel", "fwd32: one TF32 pass"}),
     ("fwd32", {"as built", "fwd32: one TF32 pass", "fwd32: 4 consumer warps", "fwd32: 4 stages",
@@ -631,7 +633,7 @@ def test_ablation_base_must_hold_the_parts_old_kernel(tmp_path):
     with pytest.raises(FileNotFoundError):
         ablate.old_source(tmp_path, "fwd32")
     (csrc / "flash_attention.cu").write_text((_build.CSRC / "flash_attention.cu").read_text())
-    for part in ("fwd32", "decode", "all"):
+    for part in ("fwd32", "decode", "fwd", "all"):
         with pytest.raises(ValueError, match="old kernel"):
             ablate.old_source(tmp_path, part)
     (csrc / "flash_attention.cu").write_text(ablate.OLD_MARKERS["fwd32"])
@@ -673,14 +675,15 @@ def _card_qkv(cuda, dtype, *shape, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("case", ["permutation", "random"])
 def test_card_wgmma_pv_fragment_layout(cuda, D, case):
     """One consumer's P·V of the wgmma kernel, alone: P goes into the S
     accumulator's registers and leaves as register-A fragments.  With P a
     permutation (row i picks key 37 i + 5 mod 128) and V small integers
     (exact in bf16), O must be V's rows in that order exactly; an element
-    taken from the wrong fragment names the key it came from."""
+    taken from the wrong fragment names the key it came from.  At D 32, 80
+    and 96 V is zero-padded to whole 64-column boxes, as in the kernel."""
     keys = torch.arange(128, device=cuda)
     V = ((keys[:, None] + 3 * torch.arange(D, device=cuda)[None, :]) % 251).float()
     if case == "permutation":
@@ -722,7 +725,7 @@ def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq,
     """Odd B·Hq, GQA groups of 1 to 5, Sq < Skv (the causal offset, up to
     three blocks), a single diagonal block, and more tiles than two
     waves of 132 SMs (each persistent wgmma CTA walks several); bf16 (128, 128)
-    at D 64 and 128 runs the wgmma kernel, and the library's route table
+    runs the wgmma kernel at every head dim, and the library's route table
     agrees with ``fwd_route``.  fp32 (three TF32 passes) is also held to
     the plain emulation of its passes, ``attention_split_tf32_ref``."""
     q, k, v = _card_qkv(cuda, dtype, B, Hq, Hkv, Sq, Skv, D)
@@ -730,7 +733,7 @@ def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq,
     split = attention_split_tf32_ref(q, k, v, causal) if dtype == torch.float32 else None
     for bq, bk in K.FWD_TILES:
         route = K.fwd_route(dtype, D, bq, bk)
-        if dtype == torch.bfloat16 and (bq, bk) == (128, 128) and D in (64, 128):
+        if dtype == torch.bfloat16 and (bq, bk) == (128, 128):
             assert route == "wgmma"
         assert K._lib().flash_fwd_route(q.element_size(), D, bq, bk) == K.FWD_ROUTES[route]
         before = K.LAUNCHES["flash_attention_fwd"]
@@ -745,6 +748,56 @@ def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq,
         if split is not None:
             torch.testing.assert_close(got, split, rtol=0, atol=ATOL[dtype])
             assert row_rel_err(got, split) <= ROW_REL[dtype], f"bq={bq} bk={bk} split"
+
+
+@pytest.mark.gpu
+def test_card_stream_handle_is_the_current_stream(cuda):
+    """The wrappers launch on the stream ``torch.cuda.current_stream``
+    names, inside a stream context too."""
+    index = torch.cuda.current_device()
+    assert K._stream(index) == torch.cuda.current_stream(index).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert K._stream(index) == side.cuda_stream
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_card_wgmma_padded_columns_do_not_leak(cuda, D, causal):
+    """The wgmma forward pads D 80 and 96 to 128 columns in shared memory
+    only.  V's last D % 64 columns (16 at D 80, 32 at 96: those of the
+    second, zero-padded box) hold values 1024 times the others, and Q's
+    and K's are doubled there, so that a missed k step moves every score.
+    Each output column must match the plain version at its own scale, and
+    the kernel writes nothing past the output: a padded column, a column
+    shifted into a neighbouring row or a box landing in the wrong place
+    shows as a wrong value or a changed guard."""
+    B, Hq, Hkv, S = 2, 4, 2, 256
+    wide, big = D % 64, 1024.0
+    q, k, v = _card_qkv(cuda, torch.float32, B, Hq, Hkv, S, S, D, seed=4)
+    q[..., D - wide:] *= 2
+    k[..., D - wide:] *= 2
+    v[..., D - wide:] *= big
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    assert K.fwd_route(torch.bfloat16, D, 128, 128) == "wgmma"
+    want = attention_ref(q.float(), k.float(), v.float(), causal)
+    got = K.flash_attention_fwd(q, k, v, 128, 128, causal)
+    n = got.numel()
+    guarded = torch.full((n + 4096,), float("nan"), device=cuda, dtype=torch.bfloat16)
+    rc = K._lib().flash_fwd_launch(2, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   guarded.data_ptr(), B, Hq, Hkv, S, S, D, 128, 128, D ** -0.5,
+                                   int(causal), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert bool(torch.isnan(guarded[n:]).all()), "the kernel wrote past its output"
+    assert torch.equal(guarded[:n].view_as(got), got)
+    scale = torch.ones(D, device=cuda)
+    scale[D - wide:] = big
+    err = ((got.float() - want).abs() / scale).amax(dim=(0, 1, 2))
+    bad = (err > ATOL[torch.bfloat16]).nonzero().flatten().tolist()
+    assert not bad, f"columns {bad} off by up to {float(err.max()):.3e} of their scale"
+    assert row_rel_err(got, want) <= ROW_REL[torch.bfloat16]
 
 
 @pytest.mark.gpu
