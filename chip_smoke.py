@@ -631,6 +631,18 @@ def lbm_bound(pdf_p, phase_p) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ytile_line(LK, ring: dict, eb: int) -> str:
+    """An ``lbm_ytile`` launch (``LAST_YTILE``) in words: tile, route, ring
+    stages and their shared memory, points a thread, CTAs and the output
+    planes each marches at most."""
+    ty, tx = ring["tile"]
+    return (f"tile {ty}x{tx}, route {ring['route']}, {ring['stages']} ring stages "
+            f"({LK.ytile_smem_bytes(ty, tx, eb, ring['stages'], ring['route'])} B shared "
+            f"memory), "
+            f"{ring['points']} points a thread, {ring['ctas']} CTAs of {LK.YTILE_THREADS} "
+            f"threads, at most {LK.ytile_slab(LBM_DOMAIN, ty, tx, ring['ctas'])} planes a CTA")
+
+
 def run_lbm(args, torch, dev) -> list:
     """The LBM path: rank, main path (``lbm_step(config=None)``), edges,
     y-tile variants, fp32, times and the ranking against the card.  Returns
@@ -718,8 +730,7 @@ def run_lbm(args, torch, dev) -> list:
         del pdf_e, phase_e, pdf_t, phase_t, want
 
     # L4. the y-tile variants, each through the entry point with its own
-    # launch count
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # launch count; then the other route on the same input
     for cfg in LBM_YTILE_VARIANTS:
         reset_counts()
         out, out_phase = lbm_step(pdf, phase, config=cfg)
@@ -727,17 +738,22 @@ def run_lbm(args, torch, dev) -> list:
         launches = {**K.LAUNCHES, **LK.LAUNCHES}
         if launches["lbm_ytile"] < 1:
             raise AssertionError(f"{cfg} launched no lbm_ytile: {launches}")
+        ring = dict(LK.LAST_YTILE)
         err = check(torch, out, ref_pdf, 8, f"lbm_step({cfg}) fp64 PDFs")
         err_phase = check(torch, out_phase, ref_phase, 8, f"lbm_step({cfg}) fp64 phase")
-        ty, tx = LK.LAST_LAUNCH["lbm_ytile"]
-        say(f"lbm y-tile {cfg} fp64: tile {ty}x{tx}, {LK.ytile_smem_bytes(ty, tx, 8)} B "
-            f"shared memory, z slab {LK.ytile_slab(LBM_DOMAIN, ty, tx, sms)} on {sms} SMs; "
-            f"launches {launches}; "
-            f"max abs error PDFs {err!r}, phase {err_phase!r}")
         del out, out_phase
+        ty, tx = ring["tile"]
+        say(f"lbm y-tile {cfg} fp64: {ytile_line(LK, ring, 8)}; launches {launches}; "
+            f"max abs error PDFs {err!r}, phase {err_phase!r}")
+        other = "cp_async" if ring["route"] == "tma" else "tma"
+        if LK.ytile_route(ty, tx, LBM_DOMAIN[2] + 2, 8, phase_p.data_ptr()) == "tma":
+            e2 = check(torch, LK._ytile(pdf_p, phase_p, ty, tx, route=other), ref_pdf, 8,
+                       f"lbm_ytile {ty}x{tx} fp64 route {other}")
+            say(f"lbm y-tile {cfg} fp64 route {other}: max abs error PDFs {e2!r}")
         kernels.append({"name": f"lbm_ytile[ty={cfg['ty']}]", "config": cfg,
                         "source": LBM_SOURCE, "launches": launches["lbm_ytile"],
-                        "max_abs_err": err, "replaces": LBM_REPLACES["ytile"]})
+                        "max_abs_err": err, "replaces": LBM_REPLACES["ytile"],
+                        "ytile_fp64": ring})
 
     # L5. fp32: the main path and both y-tile variants at the paper size
     pdf32, phase32 = pdf.float(), phase.float()
@@ -750,7 +766,11 @@ def run_lbm(args, torch, dev) -> list:
         err_phase = check(torch, got_phase, ref32[1], 4, f"lbm_step({cfg}) fp32 phase")
         say(f"fp32 lbm_step(config={cfg}): max abs error PDFs {err!r}, phase {err_phase!r}"
             + (f"; launch block {best32.launch.block} folding {best32.launch.folding}"
-               if cfg is None else ""))
+               if cfg is None else f"; {ytile_line(LK, LK.LAST_YTILE, 4)}"))
+        if cfg is not None:
+            for k in kernels:
+                if k["config"] == cfg:
+                    k["ytile_fp32"] = dict(LK.LAST_YTILE)
     del got, got_phase, ref32, ref_pdf, ref_phase
 
     # L6. times at the paper size on the pre-padded input
@@ -770,12 +790,15 @@ def run_lbm(args, torch, dev) -> list:
             else:
                 tile = LK.ytile_tile(k["config"]["ty"], eb)
                 ms = cuda_ms(torch, lambda: LK.lbm_ytile(pdf_xp, phase_xp, *tile))
-                pred = f"; not priced by the GPU model (tile {tile[0]}x{tile[1]})"
+                pred = (f"; {ytile_line(LK, LK.LAST_YTILE, eb)}; not priced by the GPU "
+                        f"model")
             say(f"time {k['name']} fp{eb * 8}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"{b_ms / ms * 100:.1f}% of bound; plain {plain:.4f} ms (median of 5); "
                 f"library none{pred}")
             if eb == 8:
                 k.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            else:
+                k.update(fp32_ms=ms, fp32_bound_ms=b_ms, fp32_plain_ms=plain)
         new_pdf = lbm_step(pdf_x, phase_x)[0]
         call_ms = cuda_ms(torch, lambda: lbm_step(pdf_x, phase_x))
         pad_ms = cuda_ms(torch, lambda: pad_inputs(pdf_x, phase_x))
@@ -2189,7 +2212,8 @@ def main(argv=None) -> int:
                                     "library_in_turns_ms", "queued_ms", "library_queued_ms",
                                     "offset_bits", "weights", "zmarch_route", "stages",
                                     "threads", "segments", "fp64_in_turns_ms",
-                                    "fp64_library_in_turns_ms")
+                                    "fp64_library_in_turns_ms", "fp32_ms", "fp32_bound_ms",
+                                    "fp32_plain_ms", "ytile_fp64", "ytile_fp32")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

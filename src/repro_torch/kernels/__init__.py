@@ -112,6 +112,14 @@ def dtype_for(elem_bytes: int) -> torch.dtype:
     return _DTYPES[elem_bytes]
 
 
+def raw_stream(index: int) -> int:
+    """The handle of CUDA device ``index``'s current stream: what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without building
+    a ``Stream`` object on every launch (host time that a single call on an
+    idle card waits out before its kernel starts)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU.  A CUDA device without a card raises; nothing falls back."""

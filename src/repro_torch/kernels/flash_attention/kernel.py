@@ -40,7 +40,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, raw_stream
 from repro_torch.kernels.flash_attention.ref import (
     DECODE_BLOCK,
     attention_ref,
@@ -175,14 +175,6 @@ def decode_splits(B: int, Hkv: int, chunks: int, Skv: int, sms: int) -> int:
     return min(range(1, min(nb, 4 * -(-sms // units)) + 1), key=lambda s: (cost(s), s))
 
 
-def _stream(index: int) -> int:
-    """The handle of CUDA device ``index``'s current stream: what
-    ``torch.cuda.current_stream(index).cuda_stream`` gives, without building
-    a ``Stream`` object on every launch (host time that a single call on an
-    idle card waits out before its kernel starts)."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
 def _aligned(*tensors) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k and v must be 16-byte aligned")
@@ -212,7 +204,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: i
     with torch.cuda.device(index):
         rc = _lib().flash_fwd_launch(
             q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D, bq, bk, D ** -0.5, int(causal), _stream(index))
+            B, Hq, Hkv, Sq, Skv, D, bq, bk, D ** -0.5, int(causal), raw_stream(index))
     _raise_on(rc, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
     LAST_LAUNCH["flash_attention_fwd"] = (bq, bk, causal)
@@ -253,7 +245,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bk: int = 12
         out, part = None, torch.empty((B, Hq, splits, D + 2), device=q.device, dtype=torch.float32)
     index = q.get_device()
     with torch.cuda.device(index):
-        stream = _stream(index)
+        stream = raw_stream(index)
         rc = _lib().flash_decode_launch(
             q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr() if part is None else None, None if part is None else part.data_ptr(),
@@ -284,7 +276,7 @@ def decode_combine(part: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> t
     part = part.contiguous()
     index = part.get_device()
     with torch.cuda.device(index):
-        return _combine(part, dtype, _stream(index))
+        return _combine(part, dtype, raw_stream(index))
 
 
 def _combine(part: torch.Tensor, dtype: torch.dtype, stream: int) -> torch.Tensor:
@@ -318,6 +310,6 @@ def wgmma_pv_probe(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     index = p.get_device()
     with torch.cuda.device(index):
         rc = _lib().flash_pv_probe_launch(p.data_ptr(), v.data_ptr(), out.data_ptr(), v.shape[1],
-                                          _stream(index))
+                                          raw_stream(index))
     _raise_on(rc, "wgmma_pv_probe")
     return out

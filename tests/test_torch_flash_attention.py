@@ -754,11 +754,13 @@ def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq,
 def test_card_stream_handle_is_the_current_stream(cuda):
     """The wrappers launch on the stream ``torch.cuda.current_stream``
     names, inside a stream context too."""
+    from repro_torch.kernels import raw_stream
+
     index = torch.cuda.current_device()
-    assert K._stream(index) == torch.cuda.current_stream(index).cuda_stream
+    assert raw_stream(index) == torch.cuda.current_stream(index).cuda_stream
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
-        assert K._stream(index) == side.cuda_stream
+        assert raw_stream(index) == side.cuda_stream
 
 
 @pytest.mark.gpu
