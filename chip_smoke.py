@@ -97,6 +97,7 @@ JACOBI_YTILE_EDGE_DOMAIN = (1008, 2043)  # 8 | Y and 16 | Y, and no tile width d
 JACOBI_WEIGHTS = (0.5, 0.125)
 JACOBI_YTILE_VARIANTS = ({"variant": "ytile", "ty": 8}, {"variant": "ytile", "ty": 16})
 JACOBI_SOURCE = "src/repro_torch/csrc/jacobi2d.cu"
+JACOBI_ROUNDS = 20                       # rounds of the Jacobi kernels, F.conv2d, a copy in turns
 JACOBI_REPLACES = {
     "rowstream": "src/repro/kernels/jacobi2d/kernel.py:49",
     "ytile": "src/repro/kernels/jacobi2d/kernel.py:81",
@@ -849,6 +850,26 @@ def jacobi_conv_weight(torch, dtype, device):
     return k.view(1, 1, 3, 3)
 
 
+def jacobi_instance(JK, k: dict, eb: int, launch) -> str:
+    """``name<args>`` of the instantiation the Jacobi kernel record ``k``
+    runs on ``eb``-byte elements: ``jacobi_pointwise`` at ``launch`` (its
+    fold rows), or the y-tile at the columns a consumer its launch recorded."""
+    T = "double" if eb == 8 else "float"
+    if k["config"] is None:
+        return f"jacobi_pointwise_kernel<{T}, {JK.pointwise_fold_rows(launch)}>"
+    ring = k["ytile_fp64" if eb == 8 else "ytile_fp32"]
+    return f"jacobi_ytile_kernel<{T}, {ring['columns']}>"
+
+
+def jacobi_ring_line(ring: dict) -> str:
+    """A ``jacobi_ytile`` launch (``LAST_YTILE``) in words: tile, route, ring
+    depth and CTAs."""
+    ty, tx = ring["tile"]
+    return (f"tile {ty}x{tx}, route {ring['route']}, ring {ring['stages']} slots of "
+            f"{ring['rows']} rows ({ring['ring_bytes']} B), {ring['columns']} column(s) a "
+            f"consumer, {ring['ctas']} CTAs of {ring['threads']} threads")
+
+
 def run_jacobi(args, torch, dev) -> list:
     """The Jacobi path: rank, main path (``jacobi_step(src)``), edges, y-tile
     variants, fp32, times and the ranking against the card.  Returns the
@@ -896,9 +917,12 @@ def run_jacobi(args, torch, dev) -> list:
         raise AssertionError(f"jacobi_pointwise ran at {ran_at}, the top-ranked launch is "
                              f"{ranked[0].launch}")
     err = check(torch, out, ref64, 8, "jacobi_step(src) fp64")
+    pw = dict(JK.LAST_POINTWISE)
+    if pw["fold_rows"] != ran_at.folding[1]:
+        raise AssertionError(f"the ranked launch {ran_at} ran the fold instance {pw}")
     say(f"jacobi main path: jacobi_step(src) fp64 at block {ran_at.block} folding "
         f"{ran_at.folding} (top-ranked of {len(ranked)}); launches {launches}; max abs "
-        f"error {err!r} (tolerance {TOL[8]})")
+        f"error {err!r} (tolerance {TOL[8]}); compile-time fold of {pw['fold_rows']} rows")
     del out
     kernels.append({"name": "jacobi_pointwise", "config": None, "source": JACOBI_SOURCE,
                     "launches": launches["jacobi_pointwise"], "max_abs_err": err,
@@ -929,54 +953,87 @@ def run_jacobi(args, torch, dev) -> list:
         if launches["jacobi_ytile"] < 1:
             raise AssertionError(f"{cfg} launched no jacobi_ytile: {launches}")
         err = check(torch, out, ref64, 8, f"jacobi_step({cfg}) fp64")
-        ty, tx = JK.LAST_LAUNCH["jacobi_ytile"]
-        say(f"jacobi y-tile {cfg} fp64: tile {ty}x{tx}, {JK.ytile_smem_bytes(ty, tx, 8)} B "
-            f"shared memory; launches {launches}; max abs error {err!r}")
+        ring = dict(JK.LAST_YTILE)
+        say(f"jacobi y-tile {cfg} fp64: {jacobi_ring_line(ring)}; launches {launches}; max "
+            f"abs error {err!r}")
         del out
         kernels.append({"name": f"jacobi_ytile[ty={cfg['ty']}]", "config": cfg,
                         "source": JACOBI_SOURCE, "launches": launches["jacobi_ytile"],
-                        "max_abs_err": err, "replaces": JACOBI_REPLACES["ytile"]})
+                        "max_abs_err": err, "replaces": JACOBI_REPLACES["ytile"],
+                        "ytile_fp64": ring})
     src32 = src.float()
     padded32 = pad_input(src32)
     ref32 = jacobi_padded_ref(padded32, JACOBI_WEIGHTS)
     best32 = best_config(JACOBI_DOMAIN, 4, H100)
-    for cfg in (None,) + JACOBI_YTILE_VARIANTS:
+    for i, cfg in enumerate((None,) + JACOBI_YTILE_VARIANTS):
         err = check(torch, jacobi_step(src32, JACOBI_WEIGHTS, cfg), ref32, 4,
                     f"jacobi_step({cfg}) fp32")
-        say(f"fp32 jacobi_step(config={cfg}): max abs error {err!r}"
-            + (f"; launch block {best32.launch.block} folding {best32.launch.folding}"
-               if cfg is None else ""))
+        if cfg is None:
+            pw = JK.LAST_POINTWISE
+            what = (f"launch block {best32.launch.block} folding {best32.launch.folding}, "
+                    f"compile-time fold of {pw['fold_rows']} rows")
+        else:
+            kernels[-3 + i]["ytile_fp32"] = dict(JK.LAST_YTILE)
+            what = jacobi_ring_line(JK.LAST_YTILE)
+        say(f"fp32 jacobi_step(config={cfg}): max abs error {err!r}; {what}")
     del ref32, ref64
 
-    # J5. times at the paper size on the pre-padded input
+    # J5. times at the paper size on the pre-padded input, three ways: single
+    # calls on an idle card (the wrapper's host time before the launch
+    # included), in turns, and queued (QUEUED_CALLS back to back: the card's
+    # time alone), beside F.conv2d and a copy of the same bytes
     inputs = {8: (src, padded, ranked[0]), 4: (src32, padded32, best32)}
     for eb, (src_x, pad_x, rc) in inputs.items():
         x4 = pad_x.view(1, 1, *pad_x.shape)
         weight = jacobi_conv_weight(torch, pad_x.dtype, dev)
         conv_err = float((F.conv2d(x4, weight)[0, 0]
                           - jacobi_padded_ref(pad_x, JACOBI_WEIGHTS)).abs().max())
-        lib = cuda_ms(torch, lambda: F.conv2d(x4, weight), warmup=1, reps=5)
         plain = cuda_ms(torch, lambda: jacobi_padded_ref(pad_x, JACOBI_WEIGHTS), warmup=1, reps=5)
         b_ms, b_by = jacobi_bound(pad_x)
-        say(f"jacobi library F.conv2d (3x3 weight, zero corners) fp{eb * 8}: {lib:.4f} ms "
-            f"(median of 5), max abs diff to the plain version {conv_err!r} "
-            f"(cudnn.allow_tf32=False)")
+        # a copy of a (Y, X) field: what the bound counts, read once and written once
+        copy_src = torch.empty(JACOBI_DOMAIN, dtype=pad_x.dtype, device=dev).uniform_()
+        copy_dst = torch.empty_like(copy_src)
+        launch = rc.launch
+        fns = {"jacobi_pointwise": lambda: JK.jacobi_pointwise(pad_x, launch, JACOBI_WEIGHTS)}
+        for k in kernels[-2:]:
+            tile = JK.ytile_tile(k["config"]["ty"], eb)
+            fns[k["name"]] = lambda tile=tile: JK.jacobi_ytile(pad_x, *tile, JACOBI_WEIGHTS)
+        fns["F.conv2d"] = lambda: F.conv2d(x4, weight)
+        fns["copy"] = lambda: copy_dst.copy_(copy_src)
+        single = {name: cuda_ms(torch, fn) for name, fn in fns.items()}
+        turns = interleaved_ms(torch, fns, JACOBI_ROUNDS)
+        queued = interleaved_ms(torch, fns, JACOBI_ROUNDS, QUEUED_CALLS)
+        say(f"jacobi fp{eb * 8} {JACOBI_DOMAIN}: bound {b_ms:.4f} ms ({b_by}); single call / in "
+            f"turns ({JACOBI_ROUNDS} rounds) / queued ({QUEUED_CALLS} calls back to back, "
+            f"{JACOBI_ROUNDS} rounds); plain {plain:.4f} ms (median of 5); F.conv2d (3x3 weight, "
+            f"zero corners, cudnn.allow_tf32=False) max abs diff to the plain version "
+            f"{conv_err!r}; {card_line()}")
+        for name in fns:
+            ms3 = (single[name], turns[name], queued[name])
+            say(f"  time {name} fp{eb * 8}: {ms3[0]:.4f} / {ms3[1]:.4f} / {ms3[2]:.4f} ms, "
+                + " / ".join(f"{b_ms / t * 100:.1f}" for t in ms3) + "% of bound; queued "
+                f"{queued[name] / queued['F.conv2d']:.4f}x F.conv2d, "
+                f"{queued[name] / queued['copy']:.4f}x the copy")
         for k in kernels[-3:]:
+            ran = jacobi_instance(JK, k, eb, launch)
+            if ran not in REGISTERS:
+                raise AssertionError(f"ptxas reported no registers for {ran}, the instantiation "
+                                     f"{k['name']} fp{eb * 8} ran; it reported "
+                                     f"{sorted(n for n in REGISTERS if n.startswith('jacobi'))}")
             if k["config"] is None:
-                launch = rc.launch
-                ms = cuda_ms(torch, lambda: JK.jacobi_pointwise(pad_x, launch, JACOBI_WEIGHTS))
-                pred = (f"; predicted {n_pts / rc.perf * 1e3:.4f} ms at block "
-                        f"{launch.block} folding {launch.folding} "
-                        f"({rc.estimate.limiter}-limited)")
+                pred = (f"predicted {n_pts / rc.perf * 1e3:.4f} ms at block {launch.block} "
+                        f"folding {launch.folding} ({rc.estimate.limiter}-limited)")
             else:
-                tile = JK.ytile_tile(k["config"]["ty"], eb)
-                ms = cuda_ms(torch, lambda: JK.jacobi_ytile(pad_x, *tile, JACOBI_WEIGHTS))
-                pred = f"; not priced by the GPU model (tile {tile[0]}x{tile[1]})"
-            say(f"time {k['name']} fp{eb * 8}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"{b_ms / ms * 100:.1f}% of bound; plain {plain:.4f} ms (median of 5); "
-                f"library {lib:.4f} ms{pred}")
-            if eb == 8:
-                k.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                pred = "not priced by the GPU model"
+            say(f"  {k['name']} fp{eb * 8}: {pred}; {ran}: {registers(ran)}")
+            rec = dict(ms=single[k["name"]], in_turns_ms=turns[k["name"]],
+                       queued_ms=queued[k["name"]], plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=single["F.conv2d"],
+                       library_in_turns_ms=turns["F.conv2d"],
+                       library_queued_ms=queued["F.conv2d"], copy_queued_ms=queued["copy"])
+            k.update(rec if eb == 8 else {"fp32_" + key: v for key, v in rec.items()
+                                          if key != "bound_by"})
+        del copy_src, copy_dst
         call_ms = cuda_ms(torch, lambda: jacobi_step(src_x, JACOBI_WEIGHTS))
         pad_ms = cuda_ms(torch, lambda: pad_input(src_x))
         say(f"time jacobi_step(src) fp{eb * 8} incl. pad: {call_ms:.4f} ms; of which "
@@ -2213,7 +2270,10 @@ def main(argv=None) -> int:
                                     "offset_bits", "weights", "zmarch_route", "stages",
                                     "threads", "segments", "fp64_in_turns_ms",
                                     "fp64_library_in_turns_ms", "fp32_ms", "fp32_bound_ms",
-                                    "fp32_plain_ms", "ytile_fp64", "ytile_fp32")
+                                    "fp32_plain_ms", "copy_queued_ms", "fp32_in_turns_ms",
+                                    "fp32_queued_ms", "fp32_library_ms",
+                                    "fp32_library_in_turns_ms", "fp32_library_queued_ms",
+                                    "fp32_copy_queued_ms", "ytile_fp64", "ytile_fp32")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ wrappers run their plain versions; the CUDA kernels themselves are compared
 with those plain versions by the ``gpu``-marked tests, which skip without a
 card.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -227,6 +229,149 @@ def test_ytile_tiles_respect_shared_memory():
         K.ytile_tile(20_000, 8)
 
 
+@pytest.mark.parametrize("dtype,X,tx,data_ptr,route", [
+    (torch.float32, 4096, 256, 0, "cp_async"),   # 16,392-byte rows: 8 bytes off 16
+    (torch.float64, 4096, 256, 0, "tma"),        # 32,784-byte rows
+    (torch.float64, 4096, 256, 8, "cp_async"),   # the field's address off 16 bytes
+    (torch.float64, 4096, 5, 0, "cp_async"),     # strips start 40 bytes apart
+    (torch.float64, 2043, 256, 0, "cp_async"),   # odd X: 16,360-byte rows
+    (torch.float32, 2043, 256, 0, "cp_async"),   # 8,180-byte rows
+    (torch.float32, 4094, 256, 0, "tma"),        # 16,384-byte rows
+    (torch.float32, 4094, 5, 0, "cp_async"),     # strips start 20 bytes apart
+])
+def test_ytile_route_sends_unaligned_rows_and_strips_to_cp_async(dtype, X, tx, data_ptr, route):
+    eb = torch.empty((), dtype=dtype).element_size()
+    assert K.ytile_route(tx, X + 2, eb, data_ptr) == route
+    # a slot row keeps its field row's alignment modulo 16, with room for the
+    # 16-byte pieces around the strip's tx + 2 columns
+    pitch = K.ytile_row_bytes(tx, eb, X + 2)
+    assert (pitch - (X + 2) * eb) % 16 == 0 and pitch % eb == 0
+    assert (tx + 2) * eb + 16 <= pitch < (tx + 2) * eb + 48
+
+
+@pytest.mark.parametrize("domain,ty,tx,ctas", [
+    ((4096, 4096), 8, 256, 264), ((4096, 4096), 16, 256, 132), ((37, 70), 8, 256, 2),
+    ((37, 70), 8, 256, 5), ((1008, 2043), 16, 256, 7), ((48, 300), 3, 5, 13),
+    ((16, 1000), 128, 128, 1)])
+def test_ytile_ranges_cover_every_tile_once(domain, ty, tx, ctas):
+    Y, X = domain
+    steps = K.ytile_steps(domain, ty, tx)
+    assert steps == -(-Y // ty) * -(-X // tx)
+    ranges = K.ytile_ranges(steps, ctas)
+    assert len(ranges) == ctas and ranges[0][0] == 0 and ranges[-1][1] == steps
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))  # contiguous
+    sizes = [e - b for b, e in ranges]
+    assert max(sizes) - min(sizes) <= 1  # equal, to a step
+    seen = []
+    for b, e in ranges:
+        segs = K.ytile_segments(domain, ty, tx, b, e)
+        assert sum(-(-n // ty) for _, _, n in segs) == e - b
+        assert len(segs) <= 1 + (e - b) // -(-Y // ty) + 1
+        for x0, y0, n in segs:
+            assert x0 % tx == 0 and y0 % ty == 0 and 1 <= n and y0 + n <= Y
+            seen += [(x0, y) for y in range(y0, y0 + n)]
+    assert sorted(seen) == [(x0, y) for x0 in range(0, X, tx) for y in range(Y)]
+
+
+def test_ytile_strips_are_at_most_256_columns():
+    assert [K.ytile_strip(tx) for tx in (1, 5, 256, 257, 300, 512, 513, 1000)] == [
+        1, 5, 256, 129, 150, 256, 171, 250]
+
+
+def test_ytile_ctas_and_threads():
+    # a multiple of the strips, so that the CTAs of a y-range run side by side
+    assert K.ytile_ctas(8192, 264, 16) == 256 and K.ytile_ctas(4096, 264, 16) == 256
+    assert K.ytile_ctas(5, 264, 1) == 5 and K.ytile_ctas(1, 0, 1) == 1
+    assert K.ytile_ctas(100, 264, 20) == 100 and K.ytile_ctas(9000, 264, 300) == 264
+    # then CTA j of each strip starts at the same row: the strips' CTAs go side by side
+    starts = [K.ytile_segments((4096, 4096), 8, 256, b, e) for b, e in K.ytile_ranges(8192, 256)]
+    assert all(len(seg) == 1 for seg in starts)
+    assert [[seg[0][:2] for seg in starts[j::16]] for j in range(16)] == [
+        [(x0, 256 * j) for x0 in range(0, 4096, 256)] for j in range(16)]
+    assert [K.ytile_threads(tx) for tx in (1, 5, 32, 33, 128, 256)] == [64, 64, 64, 96, 160, 288]
+    assert [K.ytile_threads(tx, 2) for tx in (2, 64, 66, 256)] == [64, 64, 96, 160]
+
+
+@pytest.mark.parametrize("tx,X,eb,data_ptr,columns", [
+    (256, 4096, 4, 0, 2), (256, 4096, 8, 0, 2),  # the paper size: pairs of 8 and 16 bytes
+    (256, 2043, 4, 0, 1),                         # odd X: a row's last column has no pair
+    (5, 4096, 8, 0, 1),                           # odd strips
+    (256, 4096, 4, 4, 1), (256, 4096, 8, 8, 1),   # the field one element off a pair
+    (150, 300, 8, 16, 2)])
+def test_ytile_columns_pairs_only_aligned_fields(tx, X, eb, data_ptr, columns):
+    assert K.ytile_columns(tx, X, eb, data_ptr) == columns
+
+
+def test_ytile_plan_keeps_ty_rows_a_slot_where_the_ring_fits():
+    two_ctas = K.SMEM_PER_SM // K.YTILE_CTAS_PER_SM - K.SMEM_RESERVED
+    # the paper size's tiles: ty rows a slot, two CTAs an SM
+    assert K.ytile_plan(8, 256, 4, 4098) == (8, 4) and K.ytile_plan(16, 256, 4, 4098) == (16, 4)
+    assert K.ytile_plan(8, 256, 8, 4098) == (8, 4) and K.ytile_plan(16, 256, 8, 4098) == (16, 3)
+    assert K.ytile_row_bytes(256, 8, 4098) == 2080 and K.ytile_row_bytes(256, 4, 4098) == 1064
+    assert K.ytile_ring_bytes(16, 256, 8, 3, 4098) == 3 * (16 * 2080 + 32 + 16) <= two_ctas
+    # (128, 128) in fp64 fits one staged tile but not two ring slots of 128 rows
+    rows, stages = K.ytile_plan(*K.ytile_tile(128, 8), 8, 130)
+    assert (rows, stages) == (27, K.YTILE_STAGES)
+    for ty in (1, 2, 3, 4, 8, 16, 32, 64, 128, 256, 512):
+        for eb in (4, 8):
+            for xp in (130, 2045, 4096, 4098):
+                ty_, tx = K.ytile_tile(ty, eb)
+                rows, stages = K.ytile_plan(ty, tx, eb, xp)
+                assert 2 <= rows <= max(2, ty)  # a slot holds a centre row and the row above
+                assert K.YTILE_MIN_STAGES <= stages <= K.YTILE_MAX_STAGES
+                assert K.ytile_ring_bytes(rows, tx, eb, stages, xp) <= two_ctas
+                assert rows == max(2, ty) or K.ytile_ring_bytes(
+                    ty, tx, eb, K.YTILE_MIN_STAGES, xp) > two_ctas
+
+
+def test_pointwise_offset_width_and_fold_instances():
+    # one offset width, 64 bits, in every instantiation; the ablation's edits
+    # (32-bit offsets among them) each find their text once in the source
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.jacobi2d import ablate
+
+    text = (_build.CSRC / "jacobi2d.cu").read_text()
+    assert text.count("using PointOffset = int64_t;") == 1
+    assert K._SIGNATURES["jacobi_pointwise_launch"][5:13] == [ctypes.c_int] * 8
+    for name, (edits, _) in ablate.source_variants().items():
+        assert all(text.count(old) == 1 for old, _ in edits), name
+    rows = {f: K.pointwise_fold_rows(LaunchConfig((32, 4, 1), f))
+            for f in [(1, 1, 1), (1, 2, 1), (1, 1, 2), (2, 1, 1), (1, 3, 1), (2, 2, 2), (1, 2, 2)]}
+    assert rows == {(1, 1, 1): 1, (1, 2, 1): 2, (1, 1, 2): 1, (2, 1, 1): 0, (1, 3, 1): 0,
+                    (2, 2, 2): 0, (1, 2, 2): 2}
+    # every priced launch runs a compile-time fold
+    assert all(K.pointwise_fold_rows(launch) for launch in enumerate_gpu_configs())
+
+
+def test_wrappers_validate_the_new_arguments():
+    padded = pad_input(torch.zeros((37, 70), dtype=torch.float64))
+    launch = LaunchConfig((1024, 1, 1), (1, 2, 1))
+    with pytest.raises(ValueError, match="route"):
+        K._ytile(padded, 8, 256, route="bogus")
+    odd = pad_input(torch.zeros((37, 69), dtype=torch.float32))  # 284-byte rows: not TMA
+    with pytest.raises(ValueError, match="does not take this field"):
+        K._ytile(odd, 8, 256, route="tma")
+    for stages in (1, K.YTILE_MAX_STAGES + 1):
+        with pytest.raises(ValueError, match="ring slots"):
+            K._ytile(padded, 8, 256, stages=stages)
+    with pytest.raises(ValueError, match="ring slots"):  # 8 slots of 16 fp64 rows: 264,320 B
+        K._ytile(padded, 16, 256, stages=K.YTILE_MAX_STAGES)
+    for ctas in (0, K.ytile_steps((37, 70), 8, 256) + 1):
+        with pytest.raises(ValueError, match="CTAs"):
+            K._ytile(padded, 8, 256, ctas=ctas)
+    for columns in (0, 3):
+        with pytest.raises(ValueError, match="columns"):
+            K._ytile(padded, 8, 256, columns=columns)
+    with pytest.raises(ValueError, match="columns"):  # odd X: no pairs
+        K._ytile(pad_input(torch.zeros((37, 69), dtype=torch.float64)), 8, 256, columns=2)
+    # pinned choices that the field takes run (the plain version on the CPU)
+    want = jacobi_padded_ref(padded)
+    for kw in ({"route": "cp_async"}, {"stages": 2}, {"ctas": 5}, {"route": None, "ctas": 1},
+               {"columns": 1}, {"columns": 2}):
+        torch.testing.assert_close(K._ytile(padded, 8, 256, **kw), want, rtol=0, atol=0)
+    torch.testing.assert_close(K.jacobi_pointwise(padded, launch), want, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # On the card: every CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -289,3 +434,84 @@ def test_card_entry_point_runs_the_ranked_launch(cuda):
     torch.testing.assert_close(kern(padded), want, **GPU_TOL[torch.float64])
     with pytest.raises(ValueError):
         kern(padded.cpu())
+
+
+# launches of every jacobi_pointwise instantiation: the compile-time folds
+# (fy 1 and 2, fz 1 and 2) and the generic one
+FOLD_LAUNCHES = [LaunchConfig((1024, 1, 1), (1, 2, 1)), LaunchConfig((32, 32, 1), (1, 1, 1)),
+                 LaunchConfig((16, 8, 8), (1, 1, 2)), LaunchConfig((8, 16, 8), (1, 2, 2)),
+                 LaunchConfig((64, 16, 1), (2, 1, 1)), LaunchConfig((32, 4, 2), (1, 3, 1)),
+                 LaunchConfig((128, 2, 2), (2, 2, 2))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(37, 70), (1, 2043), (100, 1)])
+def test_card_pointwise_fold_instances_and_offsets(cuda, dtype, shape):
+    _, padded, want = _card_case(cuda, dtype, shape, seed=3)
+    for launch in FOLD_LAUNCHES:
+        got = K.jacobi_pointwise(padded, launch, (0.4, 0.15))
+        torch.cuda.synchronize()
+        assert K.LAST_POINTWISE == {"fold_rows": K.pointwise_fold_rows(launch)}
+        torch.testing.assert_close(got, want, **GPU_TOL[dtype], msg=str(launch))
+
+
+@pytest.mark.gpu
+def test_card_past_2_31_elements(cuda):
+    """A field of more than 2^31 padded elements: both kernels agree with the
+    plain version on the first and the last rows (the last lie past a 32-bit
+    offset)."""
+    Y = X = 46_341  # padded 46,343^2 = 2,147,673,649 elements
+    torch.manual_seed(0)
+    padded = torch.randn((Y + 2, X + 2), dtype=torch.float32, device=cuda)
+    assert padded.numel() > 2**31
+    launch = rank_configs((4096, 4096), 4, H100)[0].launch
+    for run in (lambda: K.jacobi_pointwise(padded, launch, (0.4, 0.15)),
+                lambda: K.jacobi_ytile(padded, *K.ytile_tile(8, 4), (0.4, 0.15))):
+        got = run()
+        torch.cuda.synchronize()
+        for rows in (slice(0, 66), slice(Y - 64, Y + 2)):
+            want = jacobi_padded_ref(padded[rows], (0.4, 0.15))
+            band = got[rows.start:rows.start + want.shape[0]]
+            torch.testing.assert_close(band, want, **GPU_TOL[torch.float32])
+        del got
+    assert K.LAST_POINTWISE == {"fold_rows": K.pointwise_fold_rows(launch)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,ty,pins", [
+    ((37, 70), 8, {"ctas": 2}),        # 5 tiles on 2 CTAs; a strip narrower than tx
+    ((37, 70), 8, {"ctas": 5}),        # a range of one tile each
+    ((1008, 2043), 16, {}),            # odd X; the field's own CTA count
+    ((1008, 2043), 8, {"ctas": 7}),    # ranges that cross strips
+    ((64, 512), 8, {"stages": 2}),
+    ((64, 512), 16, {"stages": 6, "ctas": 3}),
+    ((64, 512), 8, {"route": "cp_async"}),
+    ((300, 96), 128, {}),              # the generic ring: slots of fewer rows than ty
+    ((37, 69), 8, {"offset": 1}),      # a field one element off 16 bytes, its end too
+    ((37, 700), (4, 300), {}),         # a tile wider than a CTA's 256 consumers: two strips
+    ((64, 512), 8, {"columns": 1}),    # one column a consumer on a field that takes pairs
+    ((1, 2), 8, {}),                   # one pair, one row
+])
+def test_card_ytile_march_matches_plain(cuda, dtype, shape, ty, pins):
+    _, padded, want = _card_case(cuda, dtype, shape, seed=5)
+    if pins.get("offset"):  # the same field at an address one element further on
+        pins = {k: v for k, v in pins.items() if k != "offset"}
+        buf = torch.empty(padded.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:].copy_(padded.flatten())
+        padded = buf[1:].view(padded.shape)
+        assert padded.data_ptr() % 16 and padded.is_contiguous()
+    eb = torch.empty((), dtype=dtype).element_size()
+    tile = ty if isinstance(ty, tuple) else K.ytile_tile(ty, eb)
+    got = K._ytile(padded, *tile, (0.4, 0.15), **pins)
+    torch.cuda.synchronize()
+    ring = dict(K.LAST_YTILE)
+    strip = K.ytile_strip(tile[1])
+    assert ring["tile"] == tile and ring["strip"] == strip and ring["route"] == pins.get(
+        "route", K.ytile_route(strip, shape[1] + 2, eb, padded.data_ptr()))
+    assert ring["ctas"] == pins.get("ctas", ring["ctas"]) and ring["stages"] == pins.get(
+        "stages", K.ytile_plan(tile[0], strip, eb, shape[1] + 2)[1])
+    assert ring["columns"] == pins.get(
+        "columns", K.ytile_columns(strip, shape[1], eb, padded.data_ptr()))
+    torch.testing.assert_close(got, want, **GPU_TOL[dtype], msg=str((tile, ring)))
