@@ -20,9 +20,12 @@ with nvcc first (one nvcc per source, in parallel):
 * the attention path at granite-3-2b's full width (bf16): ``tuned_matmul``
   on the GEMMs of one layer at 16384 tokens (and on the out GEMM in fp32,
   three TF32 passes held to an fp64 product), ``flash_attention`` on a causal
-  prefill (B 4, S 4096; in fp32 at B 1, three TF32 passes held to an fp64
-  attention; and the head dims 80, 96 and 128 of the repo's other configs
-  in both dtypes) and on one decode token against a 32k cache
+  prefill (B 4, S 4096, also at two configs of the reference's space, which
+  run the kernel's own tile; causal Sq > Skv, whose rows that see no key
+  take the reference kernel's value at each config; in fp32 at B 1, three
+  TF32 passes held to an fp64 attention; and the head dims 80, 96 and 128
+  of the repo's other configs in both dtypes) and on one decode token
+  against a 32k cache
   (B 128, and B 8 with the cache split across the SMs, in bf16 and, on
   the CUDA-core decode, in fp32 and in bf16 at head dim 32), and
   ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
@@ -136,6 +139,17 @@ FLASH_TOL = {2: dict(rtol=0.0, atol=3e-2), 4: dict(rtol=0.0, atol=2e-3)}
 # and run_flash shows that an output missing one KV block fails it
 FLASH_ROW_REL = {2: 2e-2, 4: 1e-4}
 FLASH_ROUNDS = 30                        # rounds of the prefill's tiles and SDPA in turns
+# configs of the reference's space (not the kernel's tiles): they run the
+# kernel at its default tile
+FLASH_REFERENCE_CONFIGS = ({"bq": 256, "bk": 128}, {"bq": 128, "bk": 512})
+MATMUL_REFERENCE_CONFIG = {"bm": 128, "bk": 128, "bn": 128}
+# causal with Sq > Skv (B, Hq, Hkv, Sq, Skv): rows 0-127 see no key; each
+# config's blocks decide their value (0 at the kernel's tiles, the mean of V
+# over keys 0-127 at (256, 128), over all 384 at (512, 128))
+NO_KEY_SHAPE = (1, 32, 8, 512, 384)
+NO_KEY_CONFIGS = ({"bq": 128, "bk": 128}, {"bq": 64, "bk": 64}, {"bq": 256, "bk": 128},
+                  {"bq": 512, "bk": 128})
+NO_KEY_FP32_TOL = 1e-6  # fp32 no-key rows: V summed on the tensor cores in their own order
 # the head dims of the repo's configs beyond granite-3-2b's 64 (src/repro/configs:
 # d_model / n_heads), with their query and KV heads: checked in both dtypes
 HEAD_DIM_CONFIGS = (("zamba2-2.7b", 32, 32, 80), ("phi3-mini-3.8b", 32, 32, 96),
@@ -1328,6 +1342,24 @@ def run_matmuls(args, torch, dev) -> list:
         records[tile] = {"name": f"matmul_tiled[{'x'.join(map(str, tile))}]",
                          "launches": launches["matmul_tiled"], "max_abs_err": err}
 
+    # M2b. a config of the reference's space runs the dtype's default tile
+    a, b, _ = operands["out"]
+    for dtype in (torch.bfloat16, torch.float32):
+        ad, bd = a.to(dtype), b.to(dtype)
+        eb = ad.element_size()
+        ran = (MK.ROUTE[eb], tuple(DEFAULT[eb][key] for key in ("bm", "bn", "bk")))
+        reset_counts()
+        got = tuned_matmul(ad, bd, MATMUL_REFERENCE_CONFIG)
+        torch.cuda.synchronize()
+        if MK.LAUNCHES["matmul_tiled"] != 1 or MK.LAST_LAUNCH["matmul_tiled"] != ran:
+            raise AssertionError(f"reference config {MATMUL_REFERENCE_CONFIG} {dtype}: launches "
+                                 f"{dict(MK.LAUNCHES)}, ran {MK.LAST_LAUNCH['matmul_tiled']}")
+        err = check_close(torch, got, matmul_ref(ad, bd), f"tuned_matmul out {dtype} "
+                          f"{MATMUL_REFERENCE_CONFIG}", **GEMM_TOL[eb])
+        say(f"matmul reference config {MATMUL_REFERENCE_CONFIG} on out {tuple(ad.shape)} x "
+            f"{tuple(bd.shape)} {dtype}: ran {ran}; max abs error {err!r} ({GEMM_TOL[eb]})")
+        del ad, bd, got
+
     # M3. both dtypes on ragged shapes (the fp32 main path is run_matmul_fp32)
     for shape in MATMUL_EDGE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1626,6 +1658,7 @@ def run_flash(args, torch, dev) -> list:
     from repro_torch.configs import SHAPES
     from repro_torch.configs.granite3_2b import CONFIG
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.flash_attention.generator import DEFAULT, TILES
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref, row_rel_err
@@ -1660,9 +1693,11 @@ def run_flash(args, torch, dev) -> list:
         launches = dict(FK.LAUNCHES)
         tile = default if cfg is None else (cfg["bq"], cfg["bk"])
         if launches != {"flash_attention_fwd": 1, "flash_decode": 0, "flash_decode_combine": 0} \
-                or FK.LAST_LAUNCH["flash_attention_fwd"] != (*tile, True):
+                or FK.LAST_LAUNCH["flash_attention_fwd"] != (*tile, True) \
+                or FK.fwd_route(torch.bfloat16, D, *tile) != "wgmma":
             raise AssertionError(f"prefill {cfg}: launches {launches}, last "
-                                 f"{FK.LAST_LAUNCH['flash_attention_fwd']}")
+                                 f"{FK.LAST_LAUNCH['flash_attention_fwd']}, route "
+                                 f"{FK.fwd_route(torch.bfloat16, D, *tile)} (want wgmma)")
         err, rel = check_flash(torch, out, want, f"flash_attention prefill {cfg}", 2)
         err32, rel32 = float((out.float() - want32).abs().max()), row_rel_err(out, want32)
         del out
@@ -1676,6 +1711,22 @@ def run_flash(args, torch, dev) -> list:
                         "fwd_route": FK.fwd_route(torch.bfloat16, D, *tile),
                         "launches": launches["flash_attention_fwd"], "max_abs_err": err,
                         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["fwd"]})
+    # configs of the reference's space run the kernel at the default tile
+    for cfg in FLASH_REFERENCE_CONFIGS:
+        reset_counts()
+        out = flash_attention(q, k, v, causal=True, config=cfg)
+        torch.cuda.synchronize()
+        if FK.LAUNCHES["flash_attention_fwd"] != 1 or \
+                FK.LAST_LAUNCH["flash_attention_fwd"] != (*default, True) or \
+                FO.LAST_CONFIG != {"config": cfg, "tile": default}:
+            raise AssertionError(f"prefill reference config {cfg}: launches {dict(FK.LAUNCHES)}, "
+                                 f"last {FK.LAST_LAUNCH['flash_attention_fwd']}, {FO.LAST_CONFIG}")
+        err, rel = check_flash(torch, out, want, f"flash_attention prefill {cfg}", 2)
+        del out
+        say(f"prefill flash_attention(config={cfg}), a config of the reference's space: asked "
+            f"{FO.LAST_CONFIG['config']}, ran (bq, bk) {FO.LAST_CONFIG['tile']} "
+            f"({FK.fwd_route(torch.bfloat16, D, *default)}); max abs error {err!r} "
+            f"({FLASH_TOL[2]}), row relative error {rel!r} (bound {FLASH_ROW_REL[2]})")
     # the row bound's reach: the last query block without KV block 0
     n = DEFAULT["bk"]
     wrong = want.clone()
@@ -1708,6 +1759,7 @@ def run_flash(args, torch, dev) -> list:
         f"maximum ({mhz[1]:.0f} MHz); the tensor-core bound is {b_ms:.4f} ms")
     del q, k, v
     torch.cuda.empty_cache()
+    run_no_key(torch, dev, gen)
     kernels += run_prefill_fp32(torch, dev, gen)
     torch.cuda.empty_cache()
     kernels += run_head_dims(torch, dev, gen)
@@ -1783,6 +1835,50 @@ def run_flash(args, torch, dev) -> list:
     kernels += run_small_decode(torch, q[:DECODE_SMALL_B], k[:DECODE_SMALL_B], v[:DECODE_SMALL_B])
     kernels += run_core_decode(torch, q[:DECODE_SMALL_B], k[:DECODE_SMALL_B], v[:DECODE_SMALL_B])
     return kernels
+
+
+def run_no_key(torch, dev, gen) -> None:
+    """Causal attention with Sq > Skv (``NO_KEY_SHAPE``) through
+    ``flash_attention`` in bf16 and fp32 at each of ``NO_KEY_CONFIGS``: the
+    rows that see no key hold the reference kernel's value at the config
+    (``ref.attention_blocks_ref``: the mean of V over the keys of the KV
+    blocks it computes, or 0), exactly in bf16 and to ``NO_KEY_FP32_TOL``
+    in fp32; the other rows within the flash tolerances."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_blocks_ref, no_key_keys
+
+    B, Hq, Hkv, Sq, Skv = NO_KEY_SHAPE
+    D, n = 64, Sq - Skv
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((B, h, s, D), device=dev, generator=gen, dtype=dtype)
+                   for h, s in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+        parts = []
+        for cfg in NO_KEY_CONFIGS:
+            reset_counts()
+            out = flash_attention(q, k, v, causal=True, config=cfg)
+            torch.cuda.synchronize()
+            tile = FO.LAST_CONFIG["tile"]
+            if FK.LAUNCHES["flash_attention_fwd"] != 1 or \
+                    FK.LAST_LAUNCH["flash_attention_fwd"] != (*tile, True):
+                raise AssertionError(f"no-key rows {cfg} {dtype}: launches {dict(FK.LAUNCHES)}")
+            want = attention_blocks_ref(q, k, v, True, cfg["bq"], cfg["bk"])
+            what = f"flash_attention Sq {Sq} > Skv {Skv} {dtype} {cfg}"
+            check_close(torch, out, want, what, **FLASH_TOL[q.element_size()])
+            nk = float((out[:, :, :n].float() - want[:, :, :n].float()).abs().max())
+            if nk > (0.0 if dtype == torch.bfloat16 else NO_KEY_FP32_TOL):
+                raise AssertionError(f"{what}: rows that see no key differ by {nk!r}")
+            err, rel = check_flash(torch, out[:, :, n:], want[:, :, n:], what, q.element_size())
+            keys = sorted(set(no_key_keys(Sq, Skv, cfg["bq"], cfg["bk"])[:n].tolist()))
+            parts.append(f"{cfg} ran {tile} ({FK.fwd_route(dtype, D, *tile)}): no-key rows "
+                         f"(the mean of V over the first {keys} keys) "
+                         f"{'exact' if nk == 0 else f'within {nk!r}'}, others max abs {err!r}, "
+                         f"row relative {rel!r}")
+            del out, want
+        say(f"rows that see no key, B {B}, Hq {Hq}, Hkv {Hkv}, Sq {Sq}, Skv {Skv}, D {D}, causal, "
+            f"{dtype}, against attention_blocks_ref at each config: " + "; ".join(parts))
+        del q, k, v
 
 
 def f32_attention_bounds(B, Hq, Hkv, S, D) -> tuple:

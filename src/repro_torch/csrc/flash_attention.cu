@@ -23,12 +23,18 @@
 // flash_attention_fwd
 //   Replaces repro/kernels/flash_attention/kernel.py:
 //   make_flash_attention(B, Hq, Hkv, Sq, Skv, D, bq, bk, causal) (grid
-//   (B*Hq, Sq/bq, Skv/bk), KV blocks innermost, f32 scratch).  One CTA per
-//   (b*Hq + h, q block of BQ rows); the TPU's sequential KV axis becomes a
-//   loop inside the CTA over KV blocks of BK rows.  Causal: the mask keeps
-//   key j for query i when j <= i + (Skv - Sq), and KV block kb is skipped
-//   when kb*BK > qb*BQ + BQ - 1 + (Skv - Sq), as the reference's pl.when does.
-//   Heavy (late) query blocks are scheduled first.
+//   (B*Hq, Sq/bq, Skv/bk), KV blocks innermost, f32 scratch).  The TPU's
+//   sequential KV axis becomes a loop inside the CTA over KV blocks of BK
+//   rows.  Causal: the mask keeps key j for query i when j <= i + (Skv -
+//   Sq), and KV block kb is skipped when kb*BK > qb*BQ + BQ - 1 + (Skv -
+//   Sq), as the reference's pl.when does.  Heavy (late) query blocks are
+//   scheduled first.  A row that sees no key (Skv < Sq) gets the
+//   reference's value at the tile (rbq, rbk) the caller asked for, which
+//   need not be the tile that runs: the mean of V over the keys of the KV
+//   blocks the reference computes for its q block, or 0 where it computes
+//   none (every key of those blocks masked to the finite NEG_INF, so p = 1).
+//   (rbq, rbk) must be multiples of the tile that runs, as every config of
+//   the reference's space is of (128, 128).
 //
 //   bf16 at (128, 128), every head dim: flash_fwd_wgmma_kernel, Hopper's
 //   own form (FA3).  Bound at the model's prefill by the tensor cores (4·D
@@ -84,14 +90,21 @@
 //     cut), the others run without mask code.  The epilogue divides by
 //     max(l, 1e-30) and stores bf16 pairs from registers.
 //
-//   bf16 at (64, 64), every head dim: tensor cores through
-//   mma.sync.m16n8k16 (FA2 form).  BQ/16 warps,
-//   each owning 16 query rows: S = Q K^T and O += P V as m16n8k16 tiles, Q
-//   fragments in registers, K and V blocks double-buffered in shared memory
-//   by cp.async (rows padded by 8 elements against bank conflicts), P reused
-//   from the S accumulators as the A operand, rounded to bf16 (a relative
-//   error of at most 2^-9 on each p).  Bound at the model's
-//   prefill: tensor-core operations.
+//   bf16 at (64, 64), every head dim: the same kernel at KV blocks of 64
+//   keys (FwdWgmma<D, 64>).  The two
+//   consumers of a CTA take two adjacent 64-row q blocks of one (b, h), so
+//   both read one ring of 64-key K and V blocks in (64 x 64) boxes
+//   (kFa64Stages deep: a stage is half the bytes); consumer 0 stops a
+//   block before consumer 1 on the causal diagonal and takes its turns
+//   with nothing to issue while consumer 1 finishes, so both keep the same
+//   number of turns, and each masks only its own last block.  S is wgmma
+//   m64n64k16 (32 accumulators a thread), P V m64nDk16 over 4 k steps; a
+//   block's row max and sum are trees (kTreeReduce).  Halving the block
+//   halves the masked work on the diagonal and doubles the per-block
+//   costs (waits, turns, row reductions): at the model's prefill the
+//   per-block costs win: the kernel is slower than the (128, 128) one
+//   (PERF.md, section 6 row 10).  kFa64Pair off gives each CTA one consumer and a
+//   ring of its own, two CTAs an SM, for the ablation.
 //
 //   fp32 (both tiles, every head dim): flash_fwd_tf32_kernel, fp32-accurate
 //   products on the TF32 tensor cores in three passes, S = Qhi Khi + Qhi Klo
@@ -233,17 +246,6 @@ using bf16 = __nv_bfloat16;
 constexpr float kNegInf = -1e30f;  // the reference's finite mask value
 constexpr float kMinDenom = 1e-30f;
 
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -279,207 +281,60 @@ __device__ __forceinline__ int last_kv_block(int causal, int qb, int bq, int bk,
   return lim < 0 ? -1 : min(nk - 1, lim / bk);
 }
 
-template <int BQ, int BK, int D>
-constexpr int fwd_bf16_smem_bytes() {
-  return (BQ + 4 * BK) * (D + 8) * 2;
-}
-
-template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(BQ * 2)
-flash_fwd_bf16_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
-                      const bf16* __restrict__ V, bf16* __restrict__ O, int Hq, int Hkv,
-                      int Sq, int Skv, float scale, int causal) {
-  constexpr int THREADS = BQ * 2;  // BQ / 16 warps
-  constexpr int DS = D + 8;        // shared row stride (elements), padded
-  constexpr int NS = BK / 8;       // n8 tiles of a warp's S
-  constexpr int NO = D / 8;        // n8 tiles of a warp's O
-  static_assert(BQ % 16 == 0 && BK % 16 == 0 && D % 16 == 0, "bad tile");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ][DS]
-  bf16* Ks = Qs + BQ * DS;                   // [2][BK][DS]
-  bf16* Vs = Ks + 2 * BK * DS;               // [2][BK][DS]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.x;                      // b*Hq + h
-  const int qb = gridDim.y - 1 - blockIdx.y;      // heavy causal blocks first
-  const int b = bh / Hq, h = bh % Hq;
-  const int kvh = h / (Hq / Hkv);
-  const int off = Skv - Sq;
-  const int last = last_kv_block(causal, qb, BQ, BK, Skv / BK, off);
-  const bf16* qg = Q + ((int64_t)bh * Sq + (int64_t)qb * BQ) * D;
-  const bf16* kg = K + ((int64_t)b * Hkv + kvh) * Skv * D;
-  const bf16* vg = V + ((int64_t)b * Hkv + kvh) * Skv * D;
-
-  for (int c = tid; c < BQ * D / 8; c += THREADS) {
-    const int r = c / (D / 8), ch = c % (D / 8);
-    cp_async_16(smem_u32(Qs + r * DS + ch * 8), qg + (int64_t)r * D + ch * 8);
-  }
-  auto load_kv = [&](int buf, int kb) {
-    const int64_t base = (int64_t)kb * BK * D;
-    for (int c = tid; c < BK * D / 8; c += THREADS) {
-      const int r = c / (D / 8), ch = c % (D / 8);
-      const int64_t g = base + (int64_t)r * D + ch * 8;
-      cp_async_16(smem_u32(Ks + (buf * BK + r) * DS + ch * 8), kg + g);
-      cp_async_16(smem_u32(Vs + (buf * BK + r) * DS + ch * 8), vg + g);
-    }
-  };
-  if (last >= 0) load_kv(0, 0);
-  cp_async_commit();
-
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix.x4 lane -> row
-  const int lcol = (lane >> 4) * 8;                      //                 -> column
-  // the two query rows of this thread: row0 and row0 + 8 of the q block
-  const int row0 = warp * 16 + (lane >> 2);
-
-  uint32_t qf[D / 16][4];
-  float o[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int kb = 0; kb <= last; ++kb) {
-    if (kb + 1 <= last) load_kv((kb + 1) & 1, kb + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // block kb (and Q) have landed
-    __syncthreads();
-    if (kb == 0) {
-#pragma unroll
-      for (int t = 0; t < D / 16; ++t)
-        ldmatrix_x4(qf[t], smem_u32(Qs + (warp * 16 + lrow) * DS + t * 16 + lcol));
-    }
-    const bf16* ks = Ks + (kb & 1) * BK * DS;
-    const bf16* vs = Vs + (kb & 1) * BK * DS;
-
-    // S = Q K^T: K rows (keys) are the B operand's columns, so ldmatrix
-    // without .trans; the x4 matrices are (keys 0-7, d 0-7), (keys 0-7,
-    // d 8-15), (keys 8-15, d 0-7), (keys 8-15, d 8-15)
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
-#pragma unroll
-      for (int j = 0; j < NS / 2; ++j) {
-        uint32_t kf[4];
-        const int key = j * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int d = t * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(kf, smem_u32(ks + key * DS + d));
-        mma_bf16(s[2 * j], qf[t], kf[0], kf[1]);
-        mma_bf16(s[2 * j + 1], qf[t], kf[2], kf[3]);
-      }
-    }
-
-    // scale, mask, online softmax; s[j][0..1] belong to row0, s[j][2..3] to row0 + 8
-    const bool mask = causal && (kb * BK + BK - 1 > qb * BQ + off);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = s[j][e] * scale;
-        if (mask) {
-          const int col = kb * BK + j * 8 + (lane & 3) * 2 + (e & 1);
-          const int row = qb * BQ + row0 + (e >> 1) * 8 + off;
-          if (col > row) v = kNegInf;
-        }
-        s[j][e] = v;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx);
-      const float corr = __expf(m_run[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        s[j][2 * r] = __expf(s[j][2 * r] - m_new);
-        s[j][2 * r + 1] = __expf(s[j][2 * r + 1] - m_new);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[r] = l_run[r] * corr + sum;
-      m_run[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        o[j][2 * r] *= corr;
-        o[j][2 * r + 1] *= corr;
-      }
-    }
-
-    // O += P V: the S accumulators of n8 tiles 2t and 2t+1 are the A
-    // fragment of k step t; V rows (keys) are the B operand's k, so .trans
-#pragma unroll
-    for (int t = 0; t < BK / 16; ++t) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
-                              pack_bf16(s[2 * t][2], s[2 * t][3]),
-                              pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-                              pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NO / 2; ++j) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, smem_u32(vs + (t * 16 + lrow) * DS + j * 16 + lcol));
-        mma_bf16(o[2 * j], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * j + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // buffer kb & 1 is free for block kb + 2
-  }
-  cp_async_wait<0>();
-
-  bf16* og = O + ((int64_t)bh * Sq + (int64_t)qb * BQ) * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float denom = fmaxf(l_run[r], kMinDenom);
-    bf16* orow = og + (int64_t)(row0 + r * 8) * D + (lane & 3) * 2;
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o[j][2 * r] / denom, o[j][2 * r + 1] / denom);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 at (128, 128), D 64 and 128: wgmma + TMA, warp-specialised
+// bf16 at (128, 128) and (64, 64), every head dim: wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kFaThreads = 384;       // a producer and two consumer warpgroups
-constexpr int kFaBlock = 128;         // query rows of a CTA (64 a consumer), keys of a KV block
-constexpr int kFaBoxBytes = kFaBlock * kSwizzleCols * 2;  // one swizzled (128 x 64) TMA box
-constexpr int kFaStages = 2;          // depth of the K and V rings
+constexpr int kFaStages = 2;          // depth of the K and V rings at (128, 128)
+constexpr int kFa64Stages = 3;        // at (64, 64), whose stages are half the bytes
+constexpr bool kFa64Pair = true;      // at (64, 64) a CTA's two consumers share one ring
 constexpr bool kPingPong = true;      // the consumers take turns on the tensor cores
 constexpr bool kIntraOverlap = true;  // a block's softmax overlaps the previous block's P V
 constexpr bool kRescaleInTurn = true; // O's correction runs under the next Q K^T
 constexpr bool kQInRegs = true;       // Q K^T takes Q from registers, not shared memory
 constexpr bool kPvExactWidth = true;  // P V at N = D, not over D padded to whole boxes
 constexpr bool kSnakeTiles = true;    // the persistent CTAs' tile rounds alternate direction
+constexpr bool kTreeReduce = true;    // at (64, 64) a block's row max and sum as trees, not chains
 constexpr int kSmemLimit = 232448;    // dynamic shared memory a CTA may opt into
+constexpr int kSmemPerSm = 233472;    // shared memory of an SM (1 KB of it reserved a CTA)
 constexpr float kLog2e = 1.4426950408889634f;
 
-// D is padded to whole 64-column boxes in shared memory only: the tensor
+// The forward at KV blocks of BK keys (128 or 64).  A CTA is a producer
+// warpgroup and kCons consumer warpgroups of 64 query rows each, which take
+// the kRows = 64 kCons rows of a tile (its q block at (128, 128), its two
+// adjacent q blocks at (64, 64)) and share one ring of K and V blocks.  D
+// is padded to whole 64-column boxes in shared memory only: the tensor
 // maps keep the true width, so TMA zero-fills the columns past D (and the
-// transaction still counts each box's full bytes)
-template <int D>
+// transaction still counts each box's full bytes).  kFa64Pair off: one
+// consumer a CTA at (64, 64), two CTAs an SM, each with its own ring.
+template <int D, int BK>
 struct FwdWgmma {
+  static constexpr int kCons = BK == 128 || kFa64Pair ? 2 : 1;
+  static constexpr int kCtasPerSm = 3 - kCons;
+  static constexpr int kThreads = 128 * (1 + kCons);
+  static constexpr int kRows = 64 * kCons;                // query rows of a tile
+  static constexpr bool kTurns = kPingPong && kCons == 2;  // ping-pong between the consumers
+  // the consumers' registers after setmaxnreg (the producer keeps 40)
+  static constexpr int kConsRegs = kCons == 2 ? 232 : 216;
   static constexpr int kBoxes = (D + kSwizzleCols - 1) / kSwizzleCols;  // TMA boxes of a row block
   static constexpr int kWidth = kBoxes * kSwizzleCols;   // D padded to whole boxes
   static constexpr int kN = kPvExactWidth ? D : kWidth;   // P V's N, O's columns
-  static constexpr int kTileBytes = kBoxes * kFaBoxBytes;  // Q, or one K or V block
-  static constexpr int kBars = 2 + 4 * kFaStages;        // Q full and empty; K and V full and empty
-  // Q, the rings, 1024 bytes of slack to align them to the swizzle's period,
-  // the mbarriers
-  static constexpr int kSmem = (1 + 2 * kFaStages) * kTileBytes + 1024 + 8 * kBars;
+  static constexpr int kQBoxBytes = kRows * 128;          // one swizzled (kRows x 64) box
+  static constexpr int kKvBoxBytes = BK * 128;            // one swizzled (BK x 64) box
+  static constexpr int kQBytes = kBoxes * kQBoxBytes;     // Q
+  static constexpr int kKvBytes = kBoxes * kKvBoxBytes;   // one K or V block
+  // Q, 1024 bytes of slack to align the boxes to the swizzle's period, the
+  // Q mbarriers, and as many stages (with their mbarriers) as are asked
+  // for and fit kCtasPerSm CTAs an SM
+  static constexpr int kCap = kCtasPerSm == 1 ? kSmemLimit : kSmemPerSm / 2 - 1024;
+  static constexpr int kWant = BK == 128 ? kFaStages : kFa64Stages;
+  static constexpr int kFit = (kCap - kQBytes - 1024 - 16) / (2 * kKvBytes + 32);
+  static constexpr int kStages = kWant < kFit ? kWant : kFit;
+  static constexpr int kBars = 2 + 4 * kStages;  // Q full and empty; K and V full and empty
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKvBytes + 1024 + 8 * kBars;
   static_assert(D % 16 == 0 && D <= 128, "wgmma forward head dim");
-  static_assert(kFaStages >= 2 && kSmem <= kSmemLimit, "shared memory");
+  static_assert(BK == 128 || BK == 64, "wgmma forward KV block");
+  static_assert(kStages >= 2 && kSmem <= kCap, "shared memory");
 };
 
 // S (64 x 128 fp32 fragment, 64 registers a thread) = or += A (smem) * B (smem);
@@ -509,6 +364,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S (64 x 64 fp32 fragment, 32 registers a thread) = or += A (smem) * B (smem),
+// as wgmma_ss_n128: Q K^T at (64, 64) with Q from shared memory (kQInRegs off)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -659,9 +536,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
@@ -672,56 +550,66 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// S = Q K^T for one consumer's 64 query rows and a block of 128 keys: Q and
-// K both K-major, in swizzled boxes of 128 rows (16 KB) each; a k16 step
-// is 32 bytes along a swizzled row, and only the D / 16 steps of real
-// columns run (the zero padding past D is never read)
-template <int D>
-__device__ __forceinline__ void qk_gemm(float (&s)[64], uint32_t q, uint32_t k) {
+// S = Q K^T for one consumer's 64 query rows and a block of BK keys: Q and
+// K both K-major, in swizzled boxes of 64 columns (Q's kQBox bytes, K's
+// BK x 128); a k16 step is 32 bytes along a swizzled row, and only the
+// D / 16 steps of real columns run (the zero padding past D is never read)
+template <int D, int BK, int kQBox>
+__device__ __forceinline__ void qk_gemm(float (&s)[BK / 2], uint32_t q, uint32_t k) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t step = (kk / 4) * kFaBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n128(s, smem_desc(q + step, 16, 1024), smem_desc(k + step, 16, 1024), kk > 0);
+    const uint32_t col = (kk % 4) * 32;
+    const uint64_t da = smem_desc(q + (kk / 4) * kQBox + col, 16, 1024);
+    const uint64_t db = smem_desc(k + (kk / 4) * BK * 128 + col, 16, 1024);
+    if constexpr (BK == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else
+      wgmma_ss_n64(s, da, db, kk > 0);
   }
 }
 
 // The same with Q in registers (this consumer's 64 rows as D/16 m16n8k16
 // A fragments a warp, qf from load_q), so only K is read from shared memory
-template <int D>
-__device__ __forceinline__ void qk_gemm(float (&s)[64], const uint32_t (&qf)[D / 16][4],
+template <int D, int BK>
+__device__ __forceinline__ void qk_gemm(float (&s)[BK / 2], const uint32_t (&qf)[D / 16][4],
                                         uint32_t k) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_rs_n128<0>(s, qf[kk], smem_desc(k + (kk / 4) * kFaBoxBytes + (kk % 4) * 32, 16, 1024),
-                     kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t db = smem_desc(k + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024);
+    if constexpr (BK == 128)
+      wgmma_rs_n128<0>(s, qf[kk], db, kk > 0);
+    else
+      wgmma_rs_n64<0>(s, qf[kk], db, kk > 0);
+  }
 }
 
-// Q's A fragments from the swizzled Q tile, by ldmatrix: lane l reads row
-// l % 16 of its warp's 16 rows, 16-byte chunk l / 16 of the k step, which
-// the 128-byte swizzle puts at chunk ^ (row % 8) of the row
-template <int D>
+// Q's A fragments from the swizzled Q tile (boxes of kQBox bytes), by
+// ldmatrix: lane l reads row l % 16 of its warp's 16 rows, 16-byte chunk
+// l / 16 of the k step, which the 128-byte swizzle puts at chunk ^ (row % 8)
+// of the row
+template <int D, int kQBox>
 __device__ __forceinline__ void load_q(uint32_t (&qf)[D / 16][4], uint32_t sq, int first_row) {
   const int lane = threadIdx.x & 31;
   const int row = first_row + (threadIdx.x / 32 % 4) * 16 + (lane & 15);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int chunk = (kk % 4) * 2 + (lane >> 4);
-    ldmatrix_x4(qf[kk], sq + (kk / 4) * kFaBoxBytes + row * 128 + ((chunk ^ (row & 7)) << 4));
+    ldmatrix_x4(qf[kk], sq + (kk / 4) * kQBox + row * 128 + ((chunk ^ (row & 7)) << 4));
   }
 }
 
-// O += P V: P in registers (pack_p), V MN-major through the transpose-B
-// mode, its 64-wide column boxes 16 KB apart (leading offset), 8-key groups
-// 1024 bytes apart; a k16 step is 16 keys, 2048 bytes.  N is FwdWgmma::kN:
-// D, or D padded to whole boxes (V's zero columns give O zero columns, never
-// stored)
-template <int D>
-__device__ __forceinline__ void pv_gemm(float (&o)[FwdWgmma<D>::kN / 2], const uint32_t (&p)[8][4],
-                                        uint32_t v) {
-  constexpr int N = FwdWgmma<D>::kN;
+// O += P V over a block of BK keys: P in registers (pack_p), V MN-major
+// through the transpose-B mode, its 64-wide column boxes BK x 128 bytes
+// apart (leading offset), 8-key groups 1024 bytes apart; a k16 step is 16
+// keys, 2048 bytes.  N is FwdWgmma::kN: D, or D padded to whole boxes (V's
+// zero columns give O zero columns, never stored)
+template <int D, int BK>
+__device__ __forceinline__ void pv_gemm(float (&o)[FwdWgmma<D, BK>::kN / 2],
+                                        const uint32_t (&p)[BK / 16][4], uint32_t v) {
+  constexpr int N = FwdWgmma<D, BK>::kN;
 #pragma unroll
-  for (int t = 0; t < kFaBlock / 16; ++t) {
-    const uint64_t db = smem_desc(v + t * 2048, kFaBoxBytes, 1024);
+  for (int t = 0; t < BK / 16; ++t) {
+    const uint64_t db = smem_desc(v + t * 2048, BK * 128, 1024);
     if constexpr (N == 32)
       wgmma_rs_n32<1>(o, p[t], db, 1);
     else if constexpr (N == 64)
@@ -735,16 +623,34 @@ __device__ __forceinline__ void pv_gemm(float (&o)[FwdWgmma<D>::kN / 2], const u
   }
 }
 
-// The S accumulator as P's A fragments, rounded to bf16.  Register 4j+e of
-// an m64nN fp32 fragment holds row 16*warp + lane/4 (+8 for e >= 2), column
-// 8j + 2*(lane%4) + (e&1); the A fragment of k step t is the m16n8k16 one
-// of each warp: {row r, cols 2q, 2q+1}, {r+8, same}, {r, +8}, {r+8, +8} of
-// keys 16t.., i.e. accumulator n8 tiles 2t and 2t+1.
-__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]) {
+// The S accumulator (an m64nBK fp32 fragment) as P's A fragments, rounded
+// to bf16.  Register 4j+e holds row 16*warp + lane/4 (+8 for e >= 2),
+// column 8j + 2*(lane%4) + (e&1); the A fragment of k step t is the
+// m16n8k16 one of each warp: {row r, cols 2q, 2q+1}, {r+8, same}, {r, +8},
+// {r+8, +8} of keys 16t.., i.e. accumulator n8 tiles 2t and 2t+1.
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&p)[BK / 16][4]) {
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
+  for (int t = 0; t < BK / 16; ++t)
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[t][i] = pack_bf16(s[8 * t + 2 * i], s[8 * t + 2 * i + 1]);
+}
+
+// The largest (kSum: the sum) of row r's N/2 values in an m16 accumulator
+// fragment s (register 4j+e holding row e >> 1), as a tree of N/2 - 1
+// operations, log2(N/2) deep
+template <int N, bool kSum>
+__device__ __forceinline__ float row_tree(const float (&s)[N], int r) {
+  float t[N / 4];
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    t[j] = kSum ? s[4 * j + 2 * r] + s[4 * j + 2 * r + 1]
+                : fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+#pragma unroll
+  for (int w = N / 8; w >= 1; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = kSum ? t[j] + t[j + w] : fmaxf(t[j], t[j + w]);
+  return t[0];
 }
 
 // One block's online softmax in the exp2 domain, in place: s (raw Q K^T,
@@ -753,9 +659,9 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
 // of s c; l keeps the thread's partial row sums of the unrounded p (summed
 // over a row's four lanes once, in the epilogue); corr is each row's
 // 2^(m_old - m).  kMask: keys past key_lim[r] get the reference's finite
-// NEG_INF (a row that sees no key then averages the block, as the mma.sync
-// kernel and the TPU kernel do).
-template <bool kMask, int N>
+// NEG_INF (a row that sees no key then averages the keys of its blocks, as
+// the TPU kernel does).
+template <bool kMask, int N, bool kTree = false>
 __device__ __forceinline__ void softmax_block(float (&s)[N], float (&m)[2], float (&l)[2],
                                               float (&corr)[2], float c, int key0,
                                               const int (&key_lim)[2]) {
@@ -769,11 +675,18 @@ __device__ __forceinline__ void softmax_block(float (&s)[N], float (&m)[2], floa
         s[4 * j + e] = key > key_lim[e >> 1] ? kNegInf : s[4 * j + e] * c;
       }
   }
+  // kTree: the row max and sum as trees (row_tree); else as chains, the sum
+  // beside the exponentials (a tree of 64 values spilled at (128, 128))
   float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
+  if constexpr (kTree) {
+    mx[0] = row_tree<N, false>(s, 0);
+    mx[1] = row_tree<N, false>(s, 1);
+  } else {
 #pragma unroll
-  for (int j = 0; j < N / 4; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -788,10 +701,25 @@ __device__ __forceinline__ void softmax_block(float (&s)[N], float (&m)[2], floa
     for (int e = 0; e < 4; ++e) {
       float& x = s[4 * j + e];
       x = kMask ? ex2(x - m[e >> 1]) : ex2(fmaf(x, c, -m[e >> 1]));
-      sum[e >> 1] += x;
+      if constexpr (!kTree) sum[e >> 1] += x;
     }
+  if constexpr (kTree) {
+    sum[0] = row_tree<N, true>(s, 0);
+    sum[1] = row_tree<N, true>(s, 1);
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+}
+
+// The end of the keys that a causal row that sees no key (row + off < 0)
+// averages: the end of the reference's KV blocks of its q block at the
+// tile (rbq, rbk), or 0 where the reference computes none.  rbq and rbk
+// are multiples of the tile that runs (the launchers refuse others), so the
+// end is a whole number of the kernel's KV blocks, every key of which the
+// mask sets to NEG_INF alike (p = 1).
+__device__ __forceinline__ int no_key_end(int row, int Skv, int off, int rbq, int rbk) {
+  const int lim = (row / rbq) * rbq + rbq - 1 + off;
+  return lim < 0 ? 0 : min(Skv, (lim / rbk + 1) * rbk);
 }
 
 // O scaled by each row's softmax correction: register 4j+e holds row e >> 1
@@ -820,42 +748,74 @@ __device__ __forceinline__ int cta_tile(int i) {
   return i * gridDim.x + (back ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kFaThreads, 1)
+// The KV blocks of BK keys that the 64 query rows r0 .. r0 + 63 read: all
+// of them for a full call; causal, those up to the last row's diagonal or,
+// where the rows see no key, the reference's blocks of their q block
+// (no_key_end; Sq and Skv are multiples of 64 and rbq of 64, so the 64 rows
+// all see a key or all see none, in one reference q block); none for rows
+// past Sq (the second q block of a (64, 64) tile when Sq / 64 is odd)
+template <int BK>
+__device__ __forceinline__ int wgmma_blocks(int r0, int Sq, int Skv, int causal, int rbq,
+                                            int rbk) {
+  if (r0 >= Sq) return 0;
+  const int off = Skv - Sq;
+  const int n = last_kv_block(causal, r0 / 64, 64, BK, Skv / BK, off) + 1;
+  return n > 0 ? n : no_key_end(r0, Skv, off, rbq, rbk) / BK;
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__((FwdWgmma<D, BK>::kThreads), (FwdWgmma<D, BK>::kCtasPerSm))
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
                        const __grid_constant__ CUtensorMap tma_k,
                        const __grid_constant__ CUtensorMap tma_v, bf16* __restrict__ O, int B,
-                       int Hq, int Hkv, int Sq, int Skv, float c, int causal) {
-  using T = FwdWgmma<D>;
+                       int Hq, int Hkv, int Sq, int Skv, int rbq, int rbk, float c, int causal) {
+  using T = FwdWgmma<D, BK>;
+  constexpr int S = T::kStages, NC = T::kCons;
+  constexpr bool kTree = kTreeReduce && BK == 64;
+  // kSame: both consumers read the tile's blocks.  At (128, 128) they read
+  // the same ones: Sq, Skv and rbq are multiples of 128, so a tile's rows
+  // all see a key or all see none, in one reference q block
+  constexpr bool kSame = NC == 1 || BK == 128;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base;                               // [boxes][128][64], swizzled
-  const uint32_t sk = sq + T::kTileBytes;                 // [stages][boxes][128][64]
-  const uint32_t sv = sk + kFaStages * T::kTileBytes;     // [stages][boxes][128][64]
-  const uint32_t bars = sv + kFaStages * T::kTileBytes;
+  const uint32_t sq = base;                       // [boxes][kRows][64], swizzled
+  const uint32_t sk = sq + T::kQBytes;            // [stages][boxes][BK][64]
+  const uint32_t sv = sk + S * T::kKvBytes;       // [stages][boxes][BK][64]
+  const uint32_t bars = sv + S * T::kKvBytes;
   const uint32_t q_full = bars, q_empty = bars + 8;
   auto k_full = [&](int s) { return bars + 8u * (2 + s); };
-  auto v_full = [&](int s) { return bars + 8u * (2 + kFaStages + s); };
-  auto k_empty = [&](int s) { return bars + 8u * (2 + 2 * kFaStages + s); };
-  auto v_empty = [&](int s) { return bars + 8u * (2 + 3 * kFaStages + s); };
+  auto v_full = [&](int s) { return bars + 8u * (2 + S + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (2 + 2 * S + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (2 + 3 * S + s); };
 
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  const int bh_count = B * Hq, nqb = Sq / kFaBlock, tiles = bh_count * nqb;
+  // the warpgroup; where the consumers' block counts differ it is broadcast
+  // from lane 0 so the compiler knows it is uniform (a count it must treat
+  // as divergent costs a warp sync before every named barrier, a check
+  // before every shuffle and the uniform registers of the ring's addresses;
+  // the ablation's "warpgroup index not broadcast"); where they cannot
+  // differ the broadcast only costs (PERF.md)
+  const int wg = kSame ? threadIdx.x / 128 : __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int bh_count = B * Hq, nqb = (Sq + T::kRows - 1) / T::kRows, tiles = bh_count * nqb;
   const int off = Skv - Sq;
-  // KV blocks 0..n-1 of q block qb; with Sq and Skv multiples of 128, only
-  // block n-1 of a causal call is cut by the mask
-  auto kv_blocks = [&](int qb) {
-    return last_kv_block(causal, qb, kFaBlock, kFaBlock, Skv / kFaBlock, off) + 1;
+  // the KV blocks of consumer `cons` in tile row block qb, and of the tile
+  // (the most of its consumers', which the producer loads); neither depends
+  // on the warpgroup
+  auto cons_blocks = [&](int qb, int cons) {
+    return wgmma_blocks<BK>(qb * T::kRows + cons * 64, Sq, Skv, causal, rbq, rbk);
+  };
+  auto tile_blocks = [&](int qb) {
+    return kSame ? cons_blocks(qb, 0) : max(cons_blocks(qb, 0), cons_blocks(qb, 1));
   };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);  // the producer's arrive.expect_tx
-    mbar_init(q_empty, 8);  // lane 0 of each consumer warp
-    for (int s = 0; s < kFaStages; ++s) {
+    mbar_init(q_empty, 4 * NC);  // lane 0 of each consumer warp
+    for (int s = 0; s < S; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(k_empty(s), 8);
-      mbar_init(v_empty(s), 8);
+      mbar_init(k_empty(s), 4 * NC);
+      mbar_init(v_empty(s), 4 * NC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -872,103 +832,113 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       for (int i = 0, t = cta_tile(0); t < tiles; t = cta_tile(++i)) {
         int bh, qb;
         fwd_tile(t, bh_count, nqb, bh, qb);
-        const int n = kv_blocks(qb);
+        const int n = tile_blocks(qb);
         if (n <= 0) continue;
         const int b = bh / Hq, kvh = (bh % Hq) / (Hq / Hkv);
         const int kv_row = (b * Hkv + kvh) * Skv;
         mbar_wait(q_empty, (ti & 1) ^ 1);  // the last tile's Q K^T are done
-        mbar_arrive_expect_tx(q_full, T::kTileBytes);
+        mbar_arrive_expect_tx(q_full, T::kQBytes);
 #pragma unroll
         for (int x = 0; x < T::kBoxes; ++x)
-          tma_load_2d(sq + x * kFaBoxBytes, &tma_q, x * kSwizzleCols, bh * Sq + qb * kFaBlock,
+          tma_load_2d(sq + x * T::kQBoxBytes, &tma_q, x * kSwizzleCols, bh * Sq + qb * T::kRows,
                       q_full);
         for (int j = 0; j < n; ++j, ++it) {
-          const int s = it % kFaStages, ph = (it / kFaStages) & 1;
-          const int row = kv_row + j * kFaBlock;
+          const int s = it % S, ph = (it / S) & 1;
+          const int row = kv_row + j * BK;
           mbar_wait(k_empty(s), ph ^ 1);
-          mbar_arrive_expect_tx(k_full(s), T::kTileBytes);
+          mbar_arrive_expect_tx(k_full(s), T::kKvBytes);
 #pragma unroll
           for (int x = 0; x < T::kBoxes; ++x)
-            tma_load_2d(sk + s * T::kTileBytes + x * kFaBoxBytes, &tma_k, x * kSwizzleCols, row,
+            tma_load_2d(sk + s * T::kKvBytes + x * T::kKvBoxBytes, &tma_k, x * kSwizzleCols, row,
                         k_full(s));
           mbar_wait(v_empty(s), ph ^ 1);
-          mbar_arrive_expect_tx(v_full(s), T::kTileBytes);
+          mbar_arrive_expect_tx(v_full(s), T::kKvBytes);
 #pragma unroll
           for (int x = 0; x < T::kBoxes; ++x)
-            tma_load_2d(sv + s * T::kTileBytes + x * kFaBoxBytes, &tma_v, x * kSwizzleCols, row,
+            tma_load_2d(sv + s * T::kKvBytes + x * T::kKvBoxBytes, &tma_v, x * kSwizzleCols, row,
                         v_full(s));
         }
         ++ti;
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int cons = wg - 1;  // query rows 64*cons .. 64*cons+63 of a q block
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::kConsRegs));
+    const int cons = wg - 1;  // query rows 64*cons .. 64*cons+63 of a tile
     const int warp = tid / 32, lane = tid % 32;
     const uint32_t q = sq + cons * 64 * 128;  // this consumer's 64 rows of each Q box
     // named barriers 1 and 2: consumer 0's and consumer 1's turn to issue
     const int mine = 1 + cons, theirs = 2 - cons;
-    float o[T::kN / 2], s[64], m[2], l[2], corr[2];
-    uint32_t p[8][4], qf[D / 16][4];
+    float o[T::kN / 2], s[BK / 2], m[2], l[2], corr[2];
+    uint32_t p[BK / 16][4], qf[D / 16][4];
     int it = 0, ti = 0;
     bool started = false;
 
-    // only the last block of a causal call runs the mask code
-#define SOFTMAX(j)                                                          \
-  if (causal && (j) == n - 1)                                               \
-    softmax_block<true>(s, m, l, corr, c, (j) * kFaBlock, key_lim);         \
-  else                                                                      \
-    softmax_block<false>(s, m, l, corr, c, (j) * kFaBlock, key_lim)
+    // only the last block of a causal call runs the mask code, or every
+    // block where the rows see no key (each key masked: the mean of V over
+    // the reference's blocks, wgmma_blocks)
+#define SOFTMAX(j)                                                           \
+  if (mask_all || (causal && (j) == n - 1))                                  \
+    softmax_block<true, BK / 2, kTree>(s, m, l, corr, c, (j) * BK, key_lim); \
+  else                                                                       \
+    softmax_block<false, BK / 2, kTree>(s, m, l, corr, c, (j) * BK, key_lim)
 #define RELEASE(bar) \
   if (lane == 0) mbar_arrive(bar)
-#define QK(stage)                                      \
-  if constexpr (kQInRegs)                              \
-    qk_gemm<D>(s, qf, sk + (stage) * T::kTileBytes);   \
-  else                                                 \
-    qk_gemm<D>(s, q, sk + (stage) * T::kTileBytes)
+#define QK(stage)                                                  \
+  if constexpr (kQInRegs)                                          \
+    qk_gemm<D, BK>(s, qf, sk + (stage) * T::kKvBytes);             \
+  else                                                             \
+    qk_gemm<D, BK, T::kQBoxBytes>(s, q, sk + (stage) * T::kKvBytes)
 
     for (int i = 0, t = cta_tile(0); t < tiles; t = cta_tile(++i)) {
       int bh, qb;
       fwd_tile(t, bh_count, nqb, bh, qb);
-      const int n = kv_blocks(qb);
-      const int row = qb * kFaBlock + cons * 64 + warp * 16 + lane / 4;  // the thread's first row
+      const int r0 = qb * T::kRows + cons * 64;  // this consumer's first row
+      const int nt = tile_blocks(qb), n = kSame ? nt : cons_blocks(qb, cons);
+      // rows that see no key: mask every block.  Where both consumers walk the
+      // tile's blocks it is read off the tile, not the consumer, so that the
+      // compiler can prove it uniform (at (128, 128) a tile's rows all see a
+      // key or all see none)
+      const bool mask_all = causal && (kSame ? qb * T::kRows : r0) + off < 0;
+      const int row = r0 + warp * 16 + lane / 4;  // the thread's first row
       const int key_lim[2] = {row + off, row + 8 + off};
       m[0] = m[1] = kNegInf;
       l[0] = l[1] = 0.f;
 #pragma unroll
       for (int i = 0; i < T::kN / 2; ++i) o[i] = 0.f;
 
-      if (n > 0) {
-        if (kPingPong && cons == 1 && !started) consumers_arrive(1);  // consumer 0 goes first
+      if (nt > 0) {
+        if (T::kTurns && cons == 1 && !started) consumers_arrive(1);  // consumer 0 goes first
         started = true;
         mbar_wait(q_full, ti & 1);
-        if (kQInRegs) {  // Q in registers for the whole tile: its buffer is free at once
-          load_q<D>(qf, sq, cons * 64);
+        if (kQInRegs || n == 0) {  // Q in registers for the whole tile: its buffer is free at once
+          if (n > 0) load_q<D, T::kQBoxBytes>(qf, sq, cons * 64);
           __syncwarp();
           RELEASE(q_empty);
         }
+      }
+      if (n > 0) {
         // block 0: S only
-        const int s0 = it % kFaStages;
-        mbar_wait(k_full(s0), (it / kFaStages) & 1);
-        if (kPingPong) consumers_sync(mine);
+        const int s0 = it % S;
+        mbar_wait(k_full(s0), (it / S) & 1);
+        if (T::kTurns) consumers_sync(mine);
         wgmma_fence();
         QK(s0);
         wgmma_commit();
-        if (kPingPong) consumers_arrive(theirs);
+        if (T::kTurns) consumers_arrive(theirs);
         wgmma_wait<0>();
         fence_regs(s);
         RELEASE(k_empty(s0));
         if (!kQInRegs && n == 1) RELEASE(q_empty);
         SOFTMAX(0);
-        pack_p(s, p);
+        pack_p<BK>(s, p);
         // block j: S_j and P_{j-1} V_{j-1} in one turn on the tensor cores,
         // then S_j's softmax while P V still runs (and the other consumer's
         // turn begins)
         for (int j = 1; j < n; ++j) {
-          const int st = (it + j) % kFaStages, pst = (it + j - 1) % kFaStages;
-          mbar_wait(k_full(st), ((it + j) / kFaStages) & 1);
-          mbar_wait(v_full(pst), ((it + j - 1) / kFaStages) & 1);
-          if (kPingPong) consumers_sync(mine);
+          const int st = (it + j) % S, pst = (it + j - 1) % S;
+          mbar_wait(k_full(st), ((it + j) / S) & 1);
+          mbar_wait(v_full(pst), ((it + j - 1) / S) & 1);
+          if (T::kTurns) consumers_sync(mine);
           wgmma_fence();
           QK(st);
           wgmma_commit();
@@ -976,9 +946,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
             rescale(o, corr);
             wgmma_fence();
           }
-          pv_gemm<D>(o, p, sv + pst * T::kTileBytes);
+          pv_gemm<D, BK>(o, p, sv + pst * T::kKvBytes);
           wgmma_commit();
-          if (kPingPong) consumers_arrive(theirs);
+          if (T::kTurns) consumers_arrive(theirs);
           if (kIntraOverlap)
             wgmma_wait<1>();
           else
@@ -992,38 +962,63 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
           fence_regs(p);
           RELEASE(v_empty(pst));
           if (!kRescaleInTurn) rescale(o, corr);
-          pack_p(s, p);
+          pack_p<BK>(s, p);
         }
         // the last block's P V
-        const int lst = (it + n - 1) % kFaStages;
-        mbar_wait(v_full(lst), ((it + n - 1) / kFaStages) & 1);
-        if (kPingPong) consumers_sync(mine);
+        const int lst = (it + n - 1) % S;
+        mbar_wait(v_full(lst), ((it + n - 1) / S) & 1);
+        if (T::kTurns) consumers_sync(mine);
         if (kRescaleInTurn) rescale(o, corr);
         wgmma_fence();
-        pv_gemm<D>(o, p, sv + lst * T::kTileBytes);
+        pv_gemm<D, BK>(o, p, sv + lst * T::kKvBytes);
         wgmma_commit();
-        if (kPingPong) consumers_arrive(theirs);
+        if (T::kTurns) consumers_arrive(theirs);
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(p);
         RELEASE(v_empty(lst));
-        it += n;
+      }
+      if (nt > 0) {
+        // the tile's blocks past this consumer's last (consumer 0 stops a
+        // block before consumer 1 on the causal diagonal at (64, 64)): wait
+        // for each and release it, in a turn that issues nothing, so both
+        // consumers take the tile's nt + 1 turns
+        if constexpr (!kSame) {
+        for (int j = n; j < nt; ++j) {
+          const int st = (it + j) % S, ph = ((it + j) / S) & 1;
+          mbar_wait(k_full(st), ph);
+          mbar_wait(v_full(st), ph);
+          if (T::kTurns) {
+            consumers_sync(mine);
+            consumers_arrive(theirs);
+          }
+          RELEASE(k_empty(st));
+          RELEASE(v_empty(st));
+        }
+        if (T::kTurns && n == 0) {
+          consumers_sync(mine);
+          consumers_arrive(theirs);
+        }
+        }
+        it += nt;
         ++ti;
       }
 
       // o / max(l, 1e-30), rounded to bf16, stored from registers while the
       // producer already loads the next tile: the D / 8 n8 tiles of real
       // columns, row stride D
-      bf16* og = O + ((int64_t)bh * Sq + row) * D + 2 * (lane & 3);
+      if (BK == 128 || NC == 1 || r0 < Sq) {  // rows past Sq: only a (64, 64) tile's second half
+        bf16* og = O + ((int64_t)bh * Sq + row) * D + 2 * (lane & 3);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-        const float denom = fmaxf(l[r], kMinDenom);
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+          const float denom = fmaxf(l[r], kMinDenom);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(og + (int64_t)r * 8 * D + 8 * j) =
-              __floats2bfloat162_rn(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(og + (int64_t)r * 8 * D + 8 * j) =
+                __floats2bfloat162_rn(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+        }
       }
     }
 #undef QK
@@ -1031,7 +1026,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
 #undef SOFTMAX
     // consumer 1 arrived once ahead, at its first turn: consumer 0 takes
     // that arrival here, so both barriers end balanced
-    if (kPingPong && cons == 0 && started) consumers_sync(1);
+    if (T::kTurns && cons == 0 && started) consumers_sync(1);
   }
 }
 
@@ -1044,10 +1039,10 @@ template <int D>
 __global__ void __launch_bounds__(128)
 flash_pv_probe_kernel(const __grid_constant__ CUtensorMap tma_v, const float* __restrict__ P,
                       float* __restrict__ O) {
-  using T = FwdWgmma<D>;
+  using T = FwdWgmma<D, 128>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sv = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar = sv + T::kTileBytes;
+  const uint32_t bar = sv + T::kKvBytes;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (tid == 0) {
     mbar_init(bar, 1);
@@ -1055,9 +1050,9 @@ flash_pv_probe_kernel(const __grid_constant__ CUtensorMap tma_v, const float* __
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_arrive_expect_tx(bar, T::kTileBytes);
+    mbar_arrive_expect_tx(bar, T::kKvBytes);
     for (int x = 0; x < T::kBoxes; ++x)
-      tma_load_2d(sv + x * kFaBoxBytes, &tma_v, x * kSwizzleCols, 0, bar);
+      tma_load_2d(sv + x * T::kKvBoxBytes, &tma_v, x * kSwizzleCols, 0, bar);
   }
   const int row = warp * 16 + lane / 4, col = 2 * (lane & 3);
   float s[64], o[T::kN / 2];
@@ -1065,13 +1060,13 @@ flash_pv_probe_kernel(const __grid_constant__ CUtensorMap tma_v, const float* __
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[4 * j + e] = P[(row + 8 * (e >> 1)) * kFaBlock + 8 * j + col + (e & 1)];
+    for (int e = 0; e < 4; ++e) s[4 * j + e] = P[(row + 8 * (e >> 1)) * 128 + 8 * j + col + (e & 1)];
 #pragma unroll
   for (int i = 0; i < T::kN / 2; ++i) o[i] = 0.f;
-  pack_p(s, p);
+  pack_p<128>(s, p);
   mbar_wait(bar, 0);
   wgmma_fence();
-  pv_gemm<D>(o, p, sv);
+  pv_gemm<D, 128>(o, p, sv);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
@@ -2073,18 +2068,6 @@ int set_smem(Kern kern, int bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int BQ, int BK, int D>
-int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                    int Hkv, int Sq, int Skv, float scale, int causal, cudaStream_t s) {
-  constexpr int smem = fwd_bf16_smem_bytes<BQ, BK, D>();
-  auto kern = flash_fwd_bf16_kernel<BQ, BK, D>;
-  if (int err = set_smem(kern, smem)) return err;
-  kern<<<dim3(B * Hq, Sq / BQ), BQ * 2, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Hq, Hkv, Sq, Skv, scale, causal);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
 int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
                     int Sq, int Skv, int bq, int bk, float scale, int causal, cudaStream_t s) {
@@ -2107,30 +2090,34 @@ int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+// rbq, rbk: the reference's tile, whose KV blocks the rows that see no key
+// average (no_key_end): multiples of BK, flash_fwd_launch checks
+template <int D, int BK>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                     int Sq, int Skv, float scale, int causal, cudaStream_t s) {
-  using T = FwdWgmma<D>;
+                     int Sq, int Skv, int rbq, int rbk, float scale, int causal, cudaStream_t s) {
+  using T = FwdWgmma<D, BK>;
   // TMA row coordinates are 32-bit
-  if ((int64_t)B * Hq * Sq > INT32_MAX || (int64_t)B * Hkv * Skv > INT32_MAX)
+  if ((int64_t)B * Hq * Sq > INT32_MAX || (int64_t)B * Hkv * Skv > INT32_MAX || Sq % BK ||
+      Skv % BK)
     return (int)cudaErrorInvalidValue;
-  // q, k and v as row-major (B*H*S, D) matrices in (128 rows, 64 columns) boxes
+  // q, k and v as row-major (B*H*S, D) matrices in (kRows or BK rows, 64 columns) boxes
   CUtensorMap mq, mk, mv;
-  int rc = encode_bf16(&mq, q, B * Hq * Sq, D, kFaBlock);
-  if (rc == 0) rc = encode_bf16(&mk, k, B * Hkv * Skv, D, kFaBlock);
-  if (rc == 0) rc = encode_bf16(&mv, v, B * Hkv * Skv, D, kFaBlock);
+  int rc = encode_bf16(&mq, q, B * Hq * Sq, D, T::kRows);
+  if (rc == 0) rc = encode_bf16(&mk, k, B * Hkv * Skv, D, BK);
+  if (rc == 0) rc = encode_bf16(&mv, v, B * Hkv * Skv, D, BK);
   if (rc != 0) return rc;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  auto kern = flash_fwd_wgmma_kernel<D>;
+  auto kern = flash_fwd_wgmma_kernel<D, BK>;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = B * Hq * (Sq / kFaBlock);
-  const int grid = tiles < sms ? tiles : sms;  // persistent: at most one CTA per SM
-  kern<<<grid, kFaThreads, T::kSmem, s>>>(mq, mk, mv, static_cast<bf16*>(o), B, Hq, Hkv, Sq, Skv,
-                                          scale * kLog2e, causal);
+  const int tiles = B * Hq * ((Sq + T::kRows - 1) / T::kRows);
+  const int slots = T::kCtasPerSm * sms;  // persistent: at most kCtasPerSm CTAs an SM
+  const int grid = tiles < slots ? tiles : slots;
+  kern<<<grid, T::kThreads, T::kSmem, s>>>(mq, mk, mv, static_cast<bf16*>(o), B, Hq, Hkv, Sq, Skv,
+                                           rbq, rbk, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -2214,31 +2201,36 @@ constexpr bool head_dim(int D) { return D == 32 || D == 64 || D == 80 || D == 96
 extern "C" {
 
 // The forward kernel for elem_bytes 2 (bf16) or 4 (fp32), head dim D and
-// tile (bq, bk): kRouteWgmma for bf16 at (128, 128), kRouteMmaSync for bf16
-// at (64, 64), kRouteSplitTf32 for fp32 (both tiles), each at every head
-// dim; kRouteNone for anything not instantiated.
-enum {
-  kRouteNone = 0, kRouteWgmma = 1, kRouteMmaSync = 2, kRouteCudaCores = 3, kRouteTmaMma = 4,
-  kRouteSplitTf32 = 5
-};
+// tile (bq, bk): kRouteWgmma for bf16 at (128, 128) and (64, 64),
+// kRouteSplitTf32 for fp32 (both tiles), each at every head dim;
+// kRouteNone for anything not instantiated.  (2 is no longer a route.)
+enum { kRouteNone = 0, kRouteWgmma = 1, kRouteCudaCores = 3, kRouteTmaMma = 4, kRouteSplitTf32 = 5 };
 
 int flash_fwd_route(int elem_bytes, int D, int bq, int bk) {
   const bool big = bq == 128 && bk == 128, small = bq == 64 && bk == 64;
   if ((!big && !small) || !head_dim(D)) return kRouteNone;
-  if (elem_bytes == 2) return big ? kRouteWgmma : kRouteMmaSync;
+  if (elem_bytes == 2) return kRouteWgmma;
   return elem_bytes == 4 ? kRouteSplitTf32 : kRouteNone;
 }
 
-// launches the kernel flash_fwd_route names; a combination it does not
-// name returns cudaErrorInvalidValue without launching
+// launches the kernel flash_fwd_route names at the tile (bq, bk); the rows
+// that see no key (causal, Skv < Sq) average the keys of the reference's
+// KV blocks at the tile (rbq, rbk), which the caller asked for and which
+// must be a multiple of (bq, bk) (the fp32 kernel's block rule;
+// no_key_end).  A combination flash_fwd_route does not name, or such
+// blocks, return cudaErrorInvalidValue without launching.
 int flash_fwd_launch(int elem_bytes, const void* q, const void* k, const void* v, void* o, int B,
-                     int Hq, int Hkv, int Sq, int Skv, int D, int bq, int bk, float scale,
-                     int causal, void* stream) {
+                     int Hq, int Hkv, int Sq, int Skv, int D, int bq, int bk, int rbq, int rbk,
+                     float scale, int causal, void* stream) {
+  if (bq < 1 || bk < 1 || rbq < 1 || rbk < 1 || rbq % bq || rbk % bk)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD(KERN, ...) KERN<__VA_ARGS__>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, s)
-#define WGMMA(HD) return FWD(launch_fwd_wgmma, HD)
-#define MMA(HD) return FWD(launch_fwd_bf16, 64, 64, HD)
-#define SPLIT(HD) return launch_fwd_tf32<HD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, bq, bk, scale, causal, s)
+#define WGMMA(HD)                                                                                 \
+  return bk == 128 ? launch_fwd_wgmma<HD, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, rbq, rbk, scale, \
+                                               causal, s)                                         \
+                   : launch_fwd_wgmma<HD, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, rbq, rbk, scale,  \
+                                              causal, s)
+#define SPLIT(HD) return launch_fwd_tf32<HD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, rbq, rbk, scale, causal, s)
   switch (flash_fwd_route(elem_bytes, D, bq, bk)) {
     case kRouteWgmma:
       if (D == 32) WGMMA(32);
@@ -2246,12 +2238,6 @@ int flash_fwd_launch(int elem_bytes, const void* q, const void* k, const void* v
       if (D == 80) WGMMA(80);
       if (D == 96) WGMMA(96);
       WGMMA(128);
-    case kRouteMmaSync:
-      if (D == 32) MMA(32);
-      if (D == 64) MMA(64);
-      if (D == 80) MMA(80);
-      if (D == 96) MMA(96);
-      MMA(128);
     case kRouteSplitTf32:
       if (D == 32) SPLIT(32);
       if (D == 64) SPLIT(64);
@@ -2260,9 +2246,7 @@ int flash_fwd_launch(int elem_bytes, const void* q, const void* k, const void* v
       SPLIT(128);
   }
 #undef SPLIT
-#undef MMA
 #undef WGMMA
-#undef FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2271,13 +2255,13 @@ int flash_fwd_launch(int elem_bytes, const void* q, const void* k, const void* v
 int flash_pv_probe_launch(const void* p, const void* v, void* o, int D, void* stream) {
   if (!head_dim(D)) return (int)cudaErrorInvalidValue;
   CUtensorMap mv;
-  if (int rc = encode_bf16(&mv, v, kFaBlock, D, kFaBlock)) return rc;
+  if (int rc = encode_bf16(&mv, v, 128, D, 128)) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* pp = static_cast<const float*>(p);
   auto* po = static_cast<float*>(o);
 #define PROBE(HD)                                                         \
   if (D == HD) {                                                          \
-    constexpr int smem = FwdWgmma<HD>::kTileBytes + 1024 + 8;             \
+    constexpr int smem = FwdWgmma<HD, 128>::kKvBytes + 1024 + 8;          \
     if (int err = set_smem(flash_pv_probe_kernel<HD>, smem)) return err;  \
     flash_pv_probe_kernel<HD><<<1, 128, smem, s>>>(mv, pp, po);           \
   }

@@ -7,7 +7,7 @@ turns with the kernel as built and ``F.scaled_dot_product_attention``.
 The forward (``--part fwd``), ``flash_fwd_wgmma_kernel`` at granite-3-2b's
 causal prefill (B 4 × S 4096, Hq 32, Hkv 8, D 64, bf16: the main path of
 ``chip_smoke.py``'s ``run_flash``), at the tile (128, 128), beside the
-``mma.sync`` kernel at (64, 64):
+same kernel at (64, 64):
 
 * ``no ping-pong``: the two consumer warpgroups issue their GEMMs freely
   instead of taking turns on the tensor cores (named barriers);
@@ -17,7 +17,7 @@ causal prefill (B 4 × S 4096, Hq 32, Hkv 8, D 64, bf16: the main path of
   operands there) instead of from registers loaded once a tile;
 * ``correction after P V``: O is rescaled once the previous P·V is done,
   on the critical path, instead of under the next Q·K^T;
-* ``3-stage ring``: three K and V stages instead of two;
+* ``3-stage ring``: three K and V stages instead of two (at (128, 128));
 * ``not persistent``: one CTA per tile instead of one per SM;
 * ``stride tile order``: CTA i takes tiles i, i + n, i + 2n, ... (n CTAs)
   instead of rounds that alternate direction;
@@ -29,19 +29,41 @@ the critical path.  Then the same kernel at the head dims it pads in
 shared memory, zamba2-2.7b's D 80 and phi3-mini-3.8b's D 96 (32 query and
 32 KV heads each, causal B 1 × 4096, bf16, (128, 128): ``chip_smoke.py``'s
 ``run_head_dims``), and at mixtral-8x7b's D 128 (32 and 8), as built
+against ``fwd: P V over the padded width`` (at D 80 and 96 only): P·V
+over the 128 columns of the two boxes (V's zero columns giving O's zero
+columns) instead of at N = D (wgmma m64n80k16, m64n96k16);
+``stride tile order``, SDPA and, with ``--base`` (a checkout of the commit
+before, e.g. ``git archive b905bb3`` unpacked), the ``old kernel``: the
+forward from there, at granite's D 64 too.
+
+The forward at (64, 64) (``--part fwd64``), the same kernel at KV blocks
+of 64 keys, its two consumers on two adjacent q blocks of 64 rows sharing
+one ring, at granite-3-2b's causal prefill (as ``--part fwd``), as built
 against
 
-* ``fwd: mma.sync route``: ``flash_fwd_route`` sends D 80 and 96 at
-  (128, 128) back to the ``mma.sync`` kernel (its route before the wgmma
-  kernel took them);
-* ``fwd: P V over the padded width``: P·V over the 128 columns of the two
-  boxes (V's zero columns giving O's zero columns) instead of at N = D
-  (wgmma m64n80k16, m64n96k16);
-
-(those two at D 80 and 96 only), ``stride tile order``, SDPA and, with
-``--base`` (a checkout of the commit before, e.g. ``git archive b905bb3``
-unpacked), the ``old kernel``: the forward from there, at granite's D 64
-too.
+* ``fwd64: 2 stages`` and ``fwd64: 4 stages``: K and V rings of two or
+  four stages instead of three;
+* ``fwd64: 6 stages``: six;
+* ``fwd64: one q block a CTA``: one consumer warpgroup a CTA on one q
+  block with a ring of its own, two CTAs an SM (``kFa64Pair`` off);
+* ``fwd64: softmax reductions as chains``: a block's row max and sum as
+  chains of 15 operations instead of trees 4 deep (``kTreeReduce``);
+* ``fwd64: a quarter of the exponentials on the FMA pipe``: every fourth
+  n8 tile's exponentials of an unmasked block by a degree-4 polynomial
+  (``EX2_POLY``, inserted into the source) instead of the MUFU's
+  ``ex2.approx``, to show whether the MUFU is the limit;
+* ``fwd64: warpgroup index not broadcast``: ``threadIdx.x / 128`` as it
+  is, which the compiler cannot prove uniform, so each consumer's block
+  count, derived from it, reads as divergent;
+* the (128, 128) switches that apply at (64, 64) too (``no ping-pong``,
+  ``no intra-warpgroup overlap``, ``Q from shared memory``, ``correction
+  after P V``, ``not persistent``, ``stride tile order``) and the probes;
+* the kernel at (128, 128), as built; SDPA; and, with ``--base`` (a
+  checkout of the parent commit, e.g. ``git archive 4e138d5`` unpacked),
+  the ``old kernel``: the FA2 ``mma.sync`` kernel at (64, 64) from there,
+  and that library's (128, 128) kernel beside this one's, twice (``old
+  kernel (128, 128), again``: the same launch under a second name, whose
+  difference from the first is the spread of the turns).
 
 The decode (``--part decode``), ``flash_decode_tma_kernel`` at
 granite-3-2b's ``decode_32k`` (B 128, a 32768-token cache, bf16: the
@@ -103,7 +125,7 @@ the three passes still run), ``no softmax``, ``no P V`` and ``no Q K^T``.
 Each variant's RMS and max abs error against an fp64 attention is
 printed beside the math backend's (TF32 off).
 
-    python -m repro_torch.kernels.flash_attention.ablate [--part all|fwd|decode|fwd32] [--base DIR] [--rounds 30] [--seed 0]
+    python -m repro_torch.kernels.flash_attention.ablate [--part all|fwd|fwd64|decode|fwd32] [--base DIR] [--rounds 30] [--seed 0]
 
 ``--base`` takes a checkout that holds the old kernel of each part asked
 for: the CUDA-core decode before its redesign for ``decode`` (e.g. ``git
@@ -111,7 +133,8 @@ archive 8a5a615``, which holds the old fp32 forward and the wgmma forward
 at D 64 and 128 only too, so it serves ``all``), the CUDA-core fp32
 forward for ``fwd32``, the wgmma forward at D 64 and 128 only for
 ``fwd`` (at the head dims its library does not route to that kernel it
-is timed on what it runs there).
+is timed on what it runs there), the ``mma.sync`` forward for ``fwd64``.
+An old library's ``flash_fwd_launch`` takes no reference blocks.
 
 Needs a CUDA device and nvcc (exits nonzero without); prints the card's
 name and power limit and the median time of each variant.  Every variant
@@ -137,21 +160,51 @@ VARIANTS = {
     "correction after P V": [("constexpr bool kRescaleInTurn = true;",
                               "constexpr bool kRescaleInTurn = false;")],
     "3-stage ring": [("constexpr int kFaStages = 2;", "constexpr int kFaStages = 3;")],
-    "not persistent": [("const int grid = tiles < sms ? tiles : sms;", "const int grid = tiles;")],
+    "not persistent": [("const int grid = tiles < slots ? tiles : slots;", "const int grid = tiles;")],
     "stride tile order": [("constexpr bool kSnakeTiles = true;", "constexpr bool kSnakeTiles = false;")],
 }
 STRIDE = "stride tile order"  # timed at the head dims too
 # the forward at the head dims the wgmma kernel pads (ablate_head_dims)
 HEAD_DIM_VARIANTS = {
-    "fwd: mma.sync route": [
-        ("  if (elem_bytes == 2) return big ? kRouteWgmma : kRouteMmaSync;",
-         "  if (elem_bytes == 2) return big && D % 64 == 0 ? kRouteWgmma : kRouteMmaSync;"),
-        ("#define MMA(HD) return FWD(launch_fwd_bf16, 64, 64, HD)",
-         "#define MMA(HD) return bq == 128 ? FWD(launch_fwd_bf16, 128, 128, HD) "
-         ": FWD(launch_fwd_bf16, 64, 64, HD)")],
     "fwd: P V over the padded width": [("constexpr bool kPvExactWidth = true;",
                                         "constexpr bool kPvExactWidth = false;")],
 }
+# 2^x on the FMA and integer pipes instead of the MUFU: x = n + f with n the
+# nearest integer (the 1.5 * 2^23 rounding trick) and f in [-1/2, 1/2], 2^f
+# by a degree-4 polynomial (relative error 2.7e-6), n added to the exponent
+# bits; 0 below 2^-125 (ex2.approx.ftz: below 2^-126)
+EX2_POLY = """__device__ __forceinline__ float ex2_poly(float x) {
+  const float t = fmaxf(x, -127.f) + 12582912.f;
+  const float f = x - (t - 12582912.f);
+  float p = fmaf(0.009570102f, f, 0.055917863f);
+  p = fmaf(p, f, 0.24024744f);
+  p = fmaf(p, f, 0.69312179f);
+  p = fmaf(p, f, 0.99999928f);
+  const float y = __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+  return x < -125.f ? 0.f : y;
+}
+
+"""
+# the forward at (64, 64) (ablate_fwd64), beside VARIANTS' "no ping-pong"
+FWD64_VARIANTS = {
+    "fwd64: 2 stages": [("constexpr int kFa64Stages = 3;", "constexpr int kFa64Stages = 2;")],
+    "fwd64: 4 stages": [("constexpr int kFa64Stages = 3;", "constexpr int kFa64Stages = 4;")],
+    "fwd64: 6 stages": [("constexpr int kFa64Stages = 3;", "constexpr int kFa64Stages = 6;")],
+    "fwd64: one q block a CTA": [("constexpr bool kFa64Pair = true;",
+                                  "constexpr bool kFa64Pair = false;")],
+    "fwd64: softmax reductions as chains": [("constexpr bool kTreeReduce = true;",
+                                             "constexpr bool kTreeReduce = false;")],
+    "fwd64: a quarter of the exponentials on the FMA pipe": [
+        ("// The largest (kSum: the sum) of row r's", EX2_POLY + "// The largest (kSum: the sum) of row r's"),
+        ("      x = kMask ? ex2(x - m[e >> 1]) : ex2(fmaf(x, c, -m[e >> 1]));\n",
+         "      x = kMask ? ex2(x - m[e >> 1])\n"
+         "          : j % 4 == 3 ? ex2_poly(fmaf(x, c, -m[e >> 1])) : ex2(fmaf(x, c, -m[e >> 1]));\n")],
+    "fwd64: warpgroup index not broadcast": [
+        ("  const int wg = kSame ? threadIdx.x / 128 : __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);",
+         "  const int wg = threadIdx.x / 128;")],
+}
+# the (128, 128) switches that apply at (64, 64) too, timed there as well
+FWD64_SHARED = {name: edits for name, edits in VARIANTS.items() if name != "3-stage ring"}
 HEAD_DIMS_TIMED = (("zamba2-2.7b", 32, 32, 80), ("phi3-mini-3.8b", 32, 32, 96),
                    ("mixtral-8x7b", 32, 8, 128))
 # timing probes: each drops one piece of the work, so its output is wrong
@@ -162,8 +215,8 @@ PROBES = {
                                 "y = x;")],
     "probe: no softmax": [("        SOFTMAX(0);\n", "        corr[0] = corr[1] = 1.f;\n"),
                           ("          SOFTMAX(j);\n", "          corr[0] = corr[1] = 1.f;\n")],
-    "probe: no P V": [("          pv_gemm<D>(o, p, sv + pst * T::kTileBytes);\n", ""),
-                      ("        pv_gemm<D>(o, p, sv + lst * T::kTileBytes);\n", "")],
+    "probe: no P V": [("          pv_gemm<D, BK>(o, p, sv + pst * T::kKvBytes);\n", ""),
+                      ("        pv_gemm<D, BK>(o, p, sv + lst * T::kKvBytes);\n", "")],
     "probe: no Q K^T": [("        QK(s0);\n", ""), ("          QK(st);\n", "")],
 }
 _DEC_SOFTMAX = ("      dec_softmax<ROWS>(s, m, l, corr, c, kb * kDecBlock, Skv);\n",
@@ -226,7 +279,8 @@ OLD = "old kernel"
 # the text that marks each part's old kernel in a --base checkout
 OLD_MARKERS = {"decode": "flash_decode_kernel(const T* __restrict__ Q",
                "fwd32": "flash_fwd_f32_kernel(",
-               "fwd": 'static_assert(D == 64 || D == 128, "wgmma forward head dim");'}
+               "fwd": 'static_assert(D == 64 || D == 128, "wgmma forward head dim");',
+               "fwd64": "flash_fwd_bf16_kernel("}
 CORE_FORCED_SPLITS = (1, 2, 4)        # at B 8 in fp32, beside decode_splits's choice
 ATOL32, ROW_REL32 = 2e-3, 1e-4        # chip_smoke.FLASH_TOL / FLASH_ROW_REL for fp32
 DECODE_PROBES = {
@@ -246,10 +300,12 @@ ATOL, ROW_REL = 3e-2, 2e-2  # chip_smoke.FLASH_TOL / FLASH_ROW_REL for bf16
 
 def variant_edits(part: str = "all") -> dict:
     """name -> textual edits of each variant and probe of ``part`` ("fwd",
-    "decode", "fwd32" or "all"), and "as built" (no edit)."""
+    "fwd64", "decode", "fwd32" or "all"), and "as built" (no edit)."""
     edits = {"as built": []}
     if part in ("all", "fwd"):
         edits.update({**VARIANTS, **PROBES, **HEAD_DIM_VARIANTS})
+    if part in ("all", "fwd64"):
+        edits.update({**FWD64_VARIANTS, **FWD64_SHARED, **PROBES})
     if part in ("all", "decode"):
         edits.update({**DECODE_VARIANTS, **DECODE_PROBES, **CORE_VARIANTS})
     if part in ("all", "fwd32"):
@@ -287,7 +343,8 @@ def build_variants(part: str = "all", base: Path | None = None) -> dict:
     libs = {}
     for name, so in paths.items():
         lib = ctypes.CDLL(str(so))
-        lib.flash_fwd_launch.argtypes = [I] + [P] * 4 + [I] * 8 + [F, I, P]
+        # an old library's forward launcher took no reference blocks
+        lib.flash_fwd_launch.argtypes = [I] + [P] * 4 + [I] * (8 if name == OLD else 10) + [F, I, P]
         lib.flash_fwd_route.argtypes = [I] * 4
         # the old decode's launcher took the block bk, its combine wrote bf16
         # only and took no output width
@@ -321,6 +378,20 @@ def in_turns(torch, fns: dict, rounds: int, calls: int = 1) -> dict:
     return {name: sorted(t) for name, t in times.items()}
 
 
+def fwd_launch(lib, name: str, q, k, v, out, tile, stream) -> None:
+    """The causal forward of ``lib`` (the variant ``name``) at ``tile``, its
+    rows that see no key on the same blocks; an old library's launcher takes
+    no reference blocks."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    blocks = () if name == OLD else tuple(tile)
+    rc = lib.flash_fwd_launch(q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), B, Hq, Hkv, Sq, Skv, D, *tile, *blocks, D ** -0.5, 1,
+                              stream)
+    if rc:
+        raise RuntimeError(f"{name}: launch failed: {rc}")
+
+
 def report(times: dict, base: str) -> None:
     ref = statistics.median(times[base])
     for name, t in times.items():
@@ -343,17 +414,12 @@ def ablate_fwd(torch, libs: dict, rounds: int, gen, dev) -> None:
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def fwd(lib, tile):
-        def run():
-            rc = lib.flash_fwd_launch(2, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      B, Hq, Hkv, S, S, D, *tile, D ** -0.5, 1, stream)
-            if rc:
-                raise RuntimeError(f"launch failed: {rc}")
-        return run
+    def fwd(name, tile):
+        return lambda: fwd_launch(libs[name], name, q, k, v, out, tile, stream)
 
     names = ["as built", *VARIANTS, *PROBES, *((OLD,) if OLD in libs else ())]
-    fns = {name: fwd(libs[name], (128, 128)) for name in names}
-    fns["mma.sync (64, 64)"] = fwd(libs["as built"], (64, 64))
+    fns = {name: fwd(name, (128, 128)) for name in names}
+    fns["(64, 64)"] = fwd("as built", (64, 64))
     fns["F.scaled_dot_product_attention"] = lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True)
     want = attention_ref(q[:1], k[:1], v[:1], True).float()
@@ -372,6 +438,55 @@ def ablate_fwd(torch, libs: dict, rounds: int, gen, dev) -> None:
     times = in_turns(torch, fns, rounds)
     print(f"causal prefill B {B} x S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, tile (128, 128), in "
           f"turns ({rounds} rounds, order reversed every other round):")
+    report(times, "as built")
+
+
+def ablate_fwd64(torch, libs: dict, rounds: int, gen, dev) -> None:
+    """The bf16 forward at (64, 64) at granite-3-2b's causal prefill: as
+    built, ``FWD64_VARIANTS``, no ping-pong, the kernel at (128, 128), SDPA
+    and, with ``--base``, the old ``mma.sync`` kernel, in turns, each first
+    held to the smoke's tolerances on the first batch."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.granite3_2b import CONFIG
+    from repro_torch.kernels.flash_attention.ref import attention_ref, row_rel_err
+
+    Hq, Hkv, D = CONFIG.n_heads, CONFIG.n_kv, CONFIG.resolved_head_dim
+    B, S = PREFILL
+    q = torch.randn((B, Hq, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    k = torch.randn((B, Hkv, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    v = torch.randn((B, Hkv, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = ["as built", *FWD64_VARIANTS, *FWD64_SHARED, *PROBES,
+             *((OLD,) if OLD in libs else ())]
+    fns = {name: (lambda name=name: fwd_launch(libs[name], name, q, k, v, out, (64, 64), stream))
+           for name in names}
+    fns["(128, 128)"] = lambda: fwd_launch(libs["as built"], "as built", q, k, v, out, (128, 128),
+                                           stream)
+    if OLD in libs:  # the parent's (128, 128) kernel, which this slice templated on the block
+        fns["old kernel (128, 128)"] = lambda: fwd_launch(libs[OLD], OLD, q, k, v, out, (128, 128),
+                                                          stream)
+        fns["old kernel (128, 128), again"] = fns["old kernel (128, 128)"]
+    want = attention_ref(q[:1], k[:1], v[:1], True).float()
+    errs = []
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        if name in PROBES:
+            continue
+        err, rel = float((out[:1].float() - want).abs().max()), row_rel_err(out[:1], want)
+        if err > ATOL or rel > ROW_REL:
+            raise AssertionError(f"fwd64 variant {name!r} disagrees with the plain version: max "
+                                 f"abs {err}, row relative {rel}")
+        errs.append(f"{name} {err:.3e} / {rel:.3e}")
+    del want
+    fns["F.scaled_dot_product_attention"] = lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    times = in_turns(torch, fns, rounds)
+    print(f"causal prefill B {B} x S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, tile (64, 64): max abs "
+          f"/ row relative error against the plain version on batch 0: {'; '.join(errs)}; in "
+          f"turns ({rounds} rounds, order reversed every other round):", flush=True)
     report(times, "as built")
 
 
@@ -402,13 +517,8 @@ def ablate_head_dims(torch, libs: dict, rounds: int, gen, dev) -> None:
         for name in names:
             out = outs[name] = torch.empty_like(q)
 
-            def run(lib=libs[name], out=out, name=name):
-                rc = lib.flash_fwd_launch(2, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                          out.data_ptr(), 1, Hq, Hkv, S, S, D, 128, 128,
-                                          D ** -0.5, 1, stream)
-                if rc:
-                    raise RuntimeError(f"{name}: launch failed: {rc}")
-            fns[name] = run
+            fns[name] = lambda name=name, out=out: fwd_launch(libs[name], name, q, k, v, out,
+                                                              (128, 128), stream)
         want = attention_ref(q, k, v, True).float()
         errs = []
         for name, fn in fns.items():
@@ -617,13 +727,7 @@ def ablate_fwd32(torch, libs: dict, rounds: int, gen, dev) -> None:
 
     def fwd(name, lib, tile):
         out = outs[name] = torch.empty_like(q)
-
-        def run():
-            rc = lib.flash_fwd_launch(4, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      1, Hq, Hkv, S, S, D, *tile, D ** -0.5, 1, stream)
-            if rc:
-                raise RuntimeError(f"{name}: launch failed: {rc}")
-        fns[name] = run
+        fns[name] = lambda: fwd_launch(lib, name, q, k, v, out, tile, stream)
 
     for name in ("as built", *FWD32_VARIANTS, *FWD32_PROBES, *((OLD,) if OLD in libs else ())):
         fwd(name, libs[name], (128, 128))
@@ -673,11 +777,12 @@ def ablate_fwd32(torch, libs: dict, rounds: int, gen, dev) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=("all", "fwd", "decode", "fwd32"), default="all")
+    ap.add_argument("--part", choices=("all", "fwd", "fwd64", "decode", "fwd32"), default="all")
     ap.add_argument("--base", type=Path, default=None,
                     help="a checkout that holds the old kernel of the part (the CUDA-core decode "
                          "before its redesign, the CUDA-core fp32 forward, the wgmma forward at D "
-                         "64 and 128 only), timed as the old kernel (left out without it)")
+                         "64 and 128 only, the mma.sync forward at (64, 64)), timed as the old "
+                         "kernel (left out without it)")
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -698,6 +803,10 @@ def main(argv=None) -> int:
         ablate_fwd(torch, libs, args.rounds, gen, dev)
         torch.cuda.empty_cache()
         ablate_head_dims(torch, libs, args.rounds, gen, dev)
+        torch.cuda.empty_cache()
+    if args.part in ("all", "fwd64"):
+        ablate_fwd64(torch, libs, args.rounds, gen, dev)
+        torch.cuda.empty_cache()
     if args.part in ("all", "decode"):
         ablate_decode(torch, libs, args.rounds, gen, dev)
         torch.cuda.empty_cache()

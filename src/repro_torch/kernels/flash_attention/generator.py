@@ -8,15 +8,16 @@ machines, and nothing in it can rank the tiles of a flash kernel.  So
 nothing is ranked here: ``tpu_space`` is the TPU's space, which
 ``repro_torch.kernels.tpu_skipped`` lists as skipped with that reason, and
 the forward kernel runs at ``DEFAULT = {"bq": 128, "bk": 128}`` unless a
-config pins one of ``TILES``.
+config pins one of ``TILES``.  A config of the TPU's space runs the kernel
+at ``DEFAULT`` too (a VMEM block decides nothing on the card), and only
+the rows that see no key follow its blocks (``kernel_tile``).
 
 (128, 128) is the reference's own fallback
-(``repro/kernels/flash_attention/ops.py:29``) and, since bf16 at that tile
-runs the wgmma + TMA kernel, the faster tile on the H100: at granite-3-2b's
-causal prefill (B 4 × 4096, D 64) ``chip_smoke.py`` times both tiles in
-turns, and (128, 128) took about 0.6 of the (64, 64) ``mma.sync`` kernel's
-time in every run since (``PERF.md`` §6 row 10, with the card and its
-power limit).  Before that kernel (64, 64) had been 8–11 % faster.
+(``repro/kernels/flash_attention/ops.py:29``) and the faster tile on the
+H100: at granite-3-2b's causal prefill (B 4 × 4096, D 64), where
+``chip_smoke.py`` times both tiles in turns, the (64, 64) wgmma kernel
+is the slower one (``PERF.md`` §6 row 10 gives both times, with the card
+and its power limit).
 """
 from __future__ import annotations
 
@@ -43,3 +44,19 @@ def tpu_space(Sq: int, Skv: int):
 def decode_bk(Skv: int) -> int:
     """The decode kernel's KV block, as the reference's entry point picks it."""
     return 512 if Skv % 512 == 0 else 128
+
+
+def kernel_tile(config: dict, Sq: int, Skv: int) -> tuple:
+    """((bq, bk) the forward kernel runs, (bq, bk) of the blocks the rows
+    that see no key follow) for ``config``: one of ``TILES`` runs as it is;
+    one of the reference's space at (Sq, Skv) (``tpu_space``) runs at
+    ``DEFAULT``, its rows that see no key averaging its own blocks, as the
+    reference's kernel at that config does.  ValueError for any other."""
+    asked = {"bq": int(config["bq"]), "bk": int(config["bk"])}
+    tile = (asked["bq"], asked["bk"])
+    if asked in TILES:
+        return tile, tile
+    if asked in tpu_space(Sq, Skv):
+        return (DEFAULT["bq"], DEFAULT["bk"]), tile
+    raise ValueError(f"config {asked} is not instantiated: neither one of the kernel's tiles "
+                     f"{TILES} nor in the reference's space at Sq={Sq}, Skv={Skv}")

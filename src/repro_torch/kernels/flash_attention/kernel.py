@@ -1,17 +1,22 @@
 """Wrappers of the hand-written CUDA attention kernels
 (``repro_torch/csrc/flash_attention.cu``).
 
-* ``flash_attention_fwd(q, k, v, bq, bk, causal)`` — the causal GQA
-  forward with online softmax, one CTA per (b·Hq + h, q block of bq rows)
-  streaming KV blocks of bk rows.  Replaces the TPU's
-  ``make_flash_attention(B, Hq, Hkv, Sq, Skv, D, bq, bk, causal)``; bq | Sq
-  and bk | Skv, as there.  Head dims 32, 64, 80, 96 and 128 (the repo's
-  configs) in both dtypes.  ``fwd_route`` names the kernel a call runs:
-  bf16 at (128, 128) runs the warp-specialised wgmma + TMA kernel
+* ``flash_attention_fwd(q, k, v, bq, bk, causal, blocks=None)`` — the
+  causal GQA forward with online softmax over q blocks of bq rows and KV
+  blocks of bk keys.  Replaces the TPU's ``make_flash_attention(B, Hq,
+  Hkv, Sq, Skv, D, bq, bk, causal)``; bq | Sq and bk | Skv, as there.  Head
+  dims 32, 64, 80, 96 and 128 (the repo's configs) in both dtypes.
+  ``fwd_route`` names the kernel a call runs: bf16 at (128, 128) and
+  (64, 64) the persistent, warp-specialised wgmma + TMA kernel
   (``"wgmma"``; D 32, 80 and 96 padded to whole 64-column boxes in shared
-  memory only), bf16 at (64, 64) the ``mma.sync`` kernel (``"mma_sync"``),
-  fp32 three TF32 passes on the tensor cores (``"split_tf32"``, plain
-  emulation ``ref.attention_split_tf32_ref``), each at every head dim.
+  memory only), fp32 three TF32 passes on the tensor cores
+  (``"split_tf32"``, plain emulation ``ref.attention_split_tf32_ref``),
+  each at every head dim.  A causal row that sees no key (Sq > Skv)
+  gets the reference kernel's value at the tile ``blocks`` (the tile that
+  runs by default, else a multiple of it, as every config of the
+  reference's space is of (128, 128)): the mean of V over the keys of the
+  KV blocks the reference computes for its q block, or 0 where it computes
+  none (``ref.attention_blocks_ref``).
 * ``flash_decode(q, k, v, bk, splits=None)`` — one query token against
   the KV cache.  Replaces ``make_flash_decode(B, Hq, Hkv, Skv, D, bk)``.
   ``decode_route`` names the kernel: bf16 at D 64 or 128 runs the
@@ -43,6 +48,7 @@ import torch
 from repro_torch.kernels import _build, raw_stream
 from repro_torch.kernels.flash_attention.ref import (
     DECODE_BLOCK,
+    attention_blocks_ref,
     attention_ref,
     combine_partials_ref,
     decode_split_bounds,
@@ -59,7 +65,7 @@ HEAD_DIMS = (32, 64, 80, 96, 128)
 FWD_TILES = ((128, 128), (64, 64))
 FWD_HEAD_DIMS = {torch.bfloat16: HEAD_DIMS, torch.float32: HEAD_DIMS}
 # the kernel of each forward route, as csrc/flash_attention.cu's flash_fwd_route numbers them
-FWD_ROUTES = {"wgmma": 1, "mma_sync": 2, "split_tf32": 5}
+FWD_ROUTES = {"wgmma": 1, "split_tf32": 5}
 DECODE_HEAD_DIMS = HEAD_DIMS
 DECODE_BK_MAX = 2048          # the largest bk flash_decode validates (no kernel reads bk)
 # the kernel of each decode route, as csrc/flash_attention.cu's flash_decode_route numbers them
@@ -67,7 +73,6 @@ DECODE_ROUTES = {"tma_mma": 4, "cuda_cores": 3}
 TMA_DECODE_HEAD_DIMS = (64, 128)
 DECODE_ROWS = 16              # query heads of one tensor-core decode unit (an m16n8k16 A tile)
 CORE_DECODE_ROWS = (4, 8)     # query heads of one CUDA-core decode unit: 4 for groups of <= 4
-_GRID_Y_MAX = 65_535
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,7 +89,7 @@ def reset_launch_counts() -> None:
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared."""
     lib = _build.load("flash_attention")
-    lib.flash_fwd_launch.argtypes = [_I, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P]
+    lib.flash_fwd_launch.argtypes = [_I, _P, _P, _P, _P] + [_I] * 10 + [_F, _I, _P]
     lib.flash_decode_launch.argtypes = [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]
     lib.flash_decode_combine_launch.argtypes = [_P, _P, _I, _I, _I, _I, _P]
     lib.flash_fwd_route.argtypes = [_I] * 4
@@ -122,17 +127,15 @@ def _check(q, k, v) -> tuple:
 
 def fwd_route(dtype: torch.dtype, D: int, bq: int, bk: int) -> str:
     """The forward kernel that a call with ``dtype``, head dim ``D`` and tile
-    (bq, bk) runs on the card: ``"wgmma"`` (bf16 at (128, 128)),
-    ``"mma_sync"`` (bf16 at (64, 64)) or ``"split_tf32"`` (fp32); raises
-    ValueError for a combination not instantiated."""
+    (bq, bk) runs on the card: ``"wgmma"`` (bf16 at (128, 128) and
+    (64, 64)) or ``"split_tf32"`` (fp32); raises ValueError for a
+    combination not instantiated."""
     if (bq, bk) not in FWD_TILES:
         raise ValueError(f"(bq, bk) = {(bq, bk)} is not instantiated; choose from {FWD_TILES}")
     if dtype not in FWD_HEAD_DIMS or D not in FWD_HEAD_DIMS[dtype]:
         raise ValueError(f"head dim {D} is not instantiated for {dtype}; "
                          f"choose from {FWD_HEAD_DIMS.get(dtype, ())}")
-    if dtype == torch.float32:
-        return "split_tf32"
-    return "wgmma" if (bq, bk) == (128, 128) else "mma_sync"
+    return "split_tf32" if dtype == torch.float32 else "wgmma"
 
 
 def decode_route(dtype: torch.dtype, D: int) -> str:
@@ -187,24 +190,31 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int = 128,
-                        bk: int = 128, causal: bool = True) -> torch.Tensor:
-    """Causal (or full) GQA attention, (B, Hq, Sq, D), in q's dtype."""
+                        bk: int = 128, causal: bool = True, blocks: tuple | None = None
+                        ) -> torch.Tensor:
+    """Causal (or full) GQA attention, (B, Hq, Sq, D), in q's dtype, at the
+    tile (bq, bk).  ``blocks`` (rbq, rbk), by default (bq, bk), is the
+    reference's tile whose KV blocks the rows that see no key average
+    (``ref.attention_blocks_ref``): a multiple of (bq, bk), with rbq | Sq and
+    rbk | Skv."""
     B, Hq, Hkv, Sq, Skv, D = _check(q, k, v)
     bq, bk, causal = int(bq), int(bk), bool(causal)
+    rbq, rbk = (bq, bk) if blocks is None else (int(blocks[0]), int(blocks[1]))
     if Sq % bq or Skv % bk:
         raise ValueError(f"bq={bq} must divide Sq={Sq} and bk={bk} Skv={Skv}")
+    if min(rbq, rbk) < 1 or Sq % rbq or Skv % rbk or rbq % bq or rbk % bk:
+        raise ValueError(f"blocks {(rbq, rbk)}: must be a multiple of the tile {(bq, bk)}, rbq "
+                         f"must divide Sq={Sq} and rbk Skv={Skv}")
     fwd_route(q.dtype, D, bq, bk)
-    if Sq // bq > _GRID_Y_MAX:
-        raise ValueError(f"{Sq // bq} q blocks exceed CUDA's y grid limit")
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
+        return attention_blocks_ref(q, k, v, causal, rbq, rbk)
     _aligned(q, k, v)
     out = torch.empty_like(q)
     index = q.get_device()
     with torch.cuda.device(index):
         rc = _lib().flash_fwd_launch(
             q.element_size(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D, bq, bk, D ** -0.5, int(causal), raw_stream(index))
+            B, Hq, Hkv, Sq, Skv, D, bq, bk, rbq, rbk, D ** -0.5, int(causal), raw_stream(index))
     _raise_on(rc, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
     LAST_LAUNCH["flash_attention_fwd"] = (bq, bk, causal)

@@ -4,24 +4,30 @@
 cache length is a multiple of 128, shapes the blocked kernel cannot tile
 (Sq or Skv not 128-divisible) to the plain version, and everything else to
 the forward kernel at the pinned default tile (shape-keyed cache), unless
-``config`` pins the tile.
+``config`` pins the tile.  ``config`` takes the kernel's tiles and the
+reference's space; a config of the latter runs at the default tile
+(``generator.kernel_tile``), the rows that see no key averaging its blocks.
+``LAST_CONFIG`` holds the config the last forward call asked for and the
+tile it ran.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.generator import DEFAULT, decode_bk
+from repro_torch.kernels.flash_attention.generator import DEFAULT, decode_bk, kernel_tile
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, flash_decode
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _CONFIG_CACHE: dict = {}
+LAST_CONFIG = {"config": None, "tile": None}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                     config: dict | None = None) -> torch.Tensor:
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) on q's
     device.  ``config`` is ``{"bq": bq, "bk": bk}``, one of
-    ``generator.TILES``."""
+    ``generator.TILES`` or of the reference's space
+    (``generator.tpu_space(Sq, Skv)``)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"expected (B, H, S, D) tensors, got {tuple(q.shape)}, {tuple(k.shape)}")
     B, Hq, Sq, D = q.shape
@@ -36,4 +42,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     if config is None:
         key = (B, Hq, Hkv, Sq, Skv, D, causal, q.element_size())
         config = _CONFIG_CACHE.setdefault(key, dict(DEFAULT))
-    return flash_attention_fwd(q, k, v, config["bq"], config["bk"], causal)
+    tile, blocks = kernel_tile(config, Sq, Skv)
+    LAST_CONFIG.update(config=dict(config), tile=tile)
+    return flash_attention_fwd(q, k, v, *tile, causal, blocks=blocks)

@@ -5,7 +5,10 @@ K and V repeated over each query head's group, scores and softmax in fp32,
 and the decode-convention causal mask (query i attends keys
 [0, Skv - Sq + i]).  The CPU tests run it, the CUDA kernels are held
 against it on the card, and ``ops.flash_attention`` sends the shapes the
-kernels cannot tile to it, as the reference does.
+kernels cannot tile to it, as the reference does.  A causal row that sees
+no key (Sq > Skv) gets NaN from its -inf mask; ``attention_blocks_ref``
+gives it the reference kernel's value at a tile (bq, bk) instead, as the
+forward kernels do.
 
 ``attention_split_tf32_ref`` emulates the fp32 forward kernel's three TF32
 passes in its order (blocks of 64 keys, the online softmax, p split into
@@ -50,6 +53,45 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     e = torch.exp(s - m)
     p = e / e.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)
+
+
+def no_key_keys(Sq: int, Skv: int, bq: int, bk: int) -> torch.Tensor:
+    """(Sq,) int64: for each causal query row that sees no key (i + Skv -
+    Sq < 0), the number of keys the reference's kernel averages at the tile
+    (bq, bk): its KV blocks kb of the row's q block qb = i // bq are those
+    with kb·bk <= qb·bq + bq - 1 + (Skv - Sq) (the rest skipped), each key
+    masked to the finite NEG_INF, so p = 1 for each; 0 where it computes
+    none.  -1 for a row that sees a key."""
+    off = Skv - Sq
+    rows = torch.arange(Sq)
+    lim = rows // bq * bq + bq - 1 + off
+    keys = torch.where(lim < 0, 0, torch.clamp((lim // bk + 1) * bk, max=Skv))
+    return torch.where(rows + off < 0, keys, -1)
+
+
+def attention_blocks_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                         bq: int, bk: int) -> torch.Tensor:
+    """The reference kernel's attention at the tile (bq, bk): ``attention_ref``
+    for every row that sees a key, and for a causal row that sees none (Sq >
+    Skv) the mean of V over the keys ``no_key_keys`` gives, or 0 where there
+    are none (the kernel's o = acc / max(l, 1e-30) of empty sums), where
+    ``attention_ref``'s -inf mask gives NaN."""
+    out = attention_ref(q, k, v, causal)
+    Sq, Skv = q.shape[2], k.shape[2]
+    if not causal or Sq <= Skv:
+        return out
+    keys = no_key_keys(Sq, Skv, bq, bk)
+    group = q.shape[1] // k.shape[1]
+    vr = v.repeat_interleave(group, dim=1).float()
+    ones = torch.ones((1, bk), dtype=torch.float32, device=q.device)
+    for n in keys[keys >= 0].unique().tolist():
+        rows = (keys == n).nonzero().flatten().to(q.device)
+        # as the kernel sums them: each KV block's P V (p = 1), then / l
+        acc = torch.zeros_like(vr[:, :, :1])
+        for k0 in range(0, n, bk):
+            acc = acc + ones @ vr[:, :, k0:k0 + bk]
+        out[:, :, rows] = (acc / max(n, 1)).expand(-1, -1, rows.numel(), -1).to(out.dtype)
+    return out
 
 
 def split_tf32_mma(x: torch.Tensor) -> tuple:

@@ -8,7 +8,9 @@ the eight ``SUITE_GPU_BLOCKS`` (DESIGN §8), and it cannot rank the tiles of
 a tensor-core kernel.  So nothing is ranked here: ``tpu_space`` is the
 TPU's space, which ``repro_torch.kernels.tpu_skipped`` lists as skipped
 with that reason, and the CUDA GEMM runs at a pinned default tile per dtype
-(``DEFAULT``), one of the tiles it instantiates (``TILES``).
+(``DEFAULT``), one of the tiles it instantiates (``TILES``).  A config of
+the TPU's space runs at ``DEFAULT`` too (``kernel_tile``): a VMEM block
+decides nothing on the card.
 ``suite_price`` gives the copied estimator's price of ``matmul_naive`` at
 the suite's blocks, which is a CUDA-core model's price, not a prediction of
 the tiled kernel.
@@ -74,6 +76,20 @@ def default_config(M: int, K: int, N: int, elem_bytes: int = 2) -> dict | None:
     if K % vec or N % vec:
         return None
     return dict(DEFAULT[elem_bytes])
+
+
+def kernel_tile(config: dict, M: int, K: int, N: int, elem_bytes: int) -> dict:
+    """The tile the CUDA GEMM runs for ``config``: one of ``TILES`` for the
+    element size as it is, one of the reference's space at (M, K, N)
+    (``tpu_space``) at ``DEFAULT``; ValueError for any other."""
+    asked = {"bm": int(config["bm"]), "bk": int(config["bk"]), "bn": int(config["bn"])}
+    if asked in TILES.get(elem_bytes, ()):
+        return asked
+    if elem_bytes in DEFAULT and asked in tpu_space(M, K, N):
+        return dict(DEFAULT[elem_bytes])
+    raise ValueError(f"config {asked} is not instantiated: neither one of the kernel's tiles "
+                     f"{TILES.get(elem_bytes, ())} nor in the reference's space at "
+                     f"(M, K, N) = {(M, K, N)}")
 
 
 def suite_price(M: int, K: int, N: int, elem_bytes: int = 2,

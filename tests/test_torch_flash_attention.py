@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention.generator import (
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (
+    attention_blocks_ref,
     attention_fp64_ref,
     attention_ref,
     attention_split_tf32_ref,
@@ -124,6 +125,113 @@ def test_flash_attention_every_config_head_dim_matches_pallas_kernel(dtype, D):
         np.testing.assert_allclose(got.float().numpy(), want, atol=atol)
     for tile in K.FWD_TILES:
         assert K.fwd_route(getattr(torch, dtype), D, *tile) in K.FWD_ROUTES
+
+
+REFERENCE_SPACE = [(Sq, Skv, cfg) for Sq, Skv in ((256, 256), (128, 256))
+                   for cfg in tpu_space(Sq, Skv)]
+
+
+@pytest.mark.parametrize("Sq,Skv,config", REFERENCE_SPACE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_space_configs_match_the_jax_entry_point(dtype, Sq, Skv, config):
+    """Every config of the reference's space at the test shapes runs
+    through the entry point (at the kernel's own tile: a VMEM block decides
+    nothing on the card) and matches the JAX entry point with the same
+    config in interpret mode; the port refused them all before ("not
+    instantiated")."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.ops import flash_attention as jflash
+
+    B, Hq, Hkv, D = 1, 4, 2, 64
+    jdt = getattr(jnp, dtype)
+    q, k, v = (jnp.asarray(a).astype(jdt) for a in _qkv(30, B, Hq, Hkv, Sq, Skv, D))
+    want = np.asarray(jflash(q, k, v, True, dict(config)), np.float32)
+    got = flash_attention(*_port(q, k, v), causal=True, config=dict(config))
+    assert got.shape == (B, Hq, Sq, D) and got.dtype == getattr(torch, dtype)
+    assert ops.LAST_CONFIG == {"config": config, "tile": (DEFAULT["bq"], DEFAULT["bk"])}
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-3 if dtype == "float32" else 3e-2)
+
+
+@pytest.mark.parametrize("config", [{"bq": 128, "bk": 128}, {"bq": 256, "bk": 128}])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_that_see_no_key_match_the_jax_kernel(dtype, config):
+    """Causal with Sq > Skv: rows i < Sq - Skv see no key.  The reference's
+    kernel gives them 0 at (128, 128) (it computes no KV block for their q
+    block) and the mean of V over keys 0-127 at (256, 128); the port's entry
+    point matches it exactly there, with no NaN (``attention_ref`` gives
+    NaN), and to the pinned tolerance on the rows that see keys."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.kernel import make_flash_attention
+
+    B, Hq, Hkv, Sq, Skv, D = 1, 2, 1, 256, 128, 64
+    jdt = getattr(jnp, dtype)
+    q, k, v = (jnp.asarray(a).astype(jdt) for a in _qkv(0, B, Hq, Hkv, Sq, Skv, D))
+    want = np.asarray(make_flash_attention(B, Hq, Hkv, Sq, Skv, D, config["bq"], config["bk"],
+                                           True, jdt)(q, k, v), np.float32)
+    got = flash_attention(*_port(q, k, v), causal=True, config=config).float().numpy()
+    n = Sq - Skv
+    assert not np.isnan(got).any()
+    np.testing.assert_array_equal(got[:, :, :n], want[:, :, :n])
+    np.testing.assert_allclose(got[:, :, n:], want[:, :, n:], atol=2e-3 if dtype == "float32" else 3e-2)
+    mean = np.asarray(v, np.float32)[:, :, None, :128].mean(axis=3).repeat(Hq // Hkv, axis=1)
+    np.testing.assert_allclose(want[:, :, :n], np.broadcast_to(
+        0.0 if config["bq"] == 128 else mean, want[:, :, :n].shape),
+        rtol=1e-6 if dtype == "float32" else 2 ** -8, atol=1e-7)
+    assert torch.isnan(attention_ref(*_port(q, k, v), True)[:, :, :n]).all()
+
+
+@pytest.mark.parametrize("Sq,Skv,bq,bk", [(256, 128, 128, 128), (256, 128, 256, 128),
+                                          (512, 128, 512, 128), (512, 256, 128, 256),
+                                          (1024, 256, 512, 128), (320, 192, 64, 64),
+                                          (256, 256, 128, 128), (128, 384, 128, 128)])
+def test_attention_blocks_ref_follows_the_reference_block_rule(Sq, Skv, bq, bk):
+    """``attention_blocks_ref`` against a direct loop over the reference's
+    rule: q block qb reads KV blocks kb with kb·bk <= qb·bq + bq - 1 + (Skv -
+    Sq); a row that sees no key averages V over their keys (0 where there
+    are none), every other row is ``attention_ref``'s."""
+    q, k, v = _port(*_qkv(7, 1, 4, 2, Sq, Skv, 32))
+    got = attention_blocks_ref(q, k, v, True, bq, bk)
+    want = attention_ref(q, k, v, True)
+    off = Skv - Sq
+    for i in range(Sq):
+        if i + off >= 0:
+            continue
+        qb = i // bq
+        keys = [j for kb in range(Skv // bk) if kb * bk <= qb * bq + bq - 1 + off
+                for j in range(kb * bk, (kb + 1) * bk)]
+        want[:, :, i] = (v[:, :, keys].float().mean(dim=2) if keys else
+                         torch.zeros_like(v[:, :, 0])).repeat_interleave(2, dim=1)
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert torch.equal(attention_blocks_ref(q, k, v, False, bq, bk), attention_ref(q, k, v, False))
+
+
+def test_the_layer_never_passes_a_row_without_a_key(monkeypatch):
+    """``attention_apply`` sends self-attention (Sq == Skv) to the forward
+    and ``chunked_attention`` never reaches it, so the no-key rule leaves
+    the layer as it was: on its call ``attention_blocks_ref`` is
+    ``attention_ref`` bit for bit."""
+    from repro_torch.layers.attention import attention_apply, attention_init
+
+    seen = []
+    real = ops.flash_attention_fwd
+
+    def spy(q, k, v, bq, bk, causal, blocks):
+        seen.append((q.shape[2], k.shape[2], causal))
+        assert torch.equal(attention_blocks_ref(q, k, v, causal, *blocks),
+                           attention_ref(q, k, v, causal))
+        return real(q, k, v, bq, bk, causal, blocks=blocks)
+
+    monkeypatch.setattr(ops, "flash_attention_fwd", spy)
+    gen = torch.Generator().manual_seed(0)
+    params = attention_init(128, 4, 2, 32, dtype=torch.float32, generator=gen, device="cpu")
+    x = torch.randn((2, 256, 128), generator=gen)
+    for causal in (True, False):
+        attention_apply(params, x, n_heads=4, n_kv=2, head_dim=32, causal=causal, use_pallas=True)
+        attention_apply(params, x, n_heads=4, n_kv=2, head_dim=32, causal=causal)
+    assert seen == [(256, 256, True), (256, 256, False)]
 
 
 @pytest.mark.parametrize("D", [80, 96])
@@ -245,7 +353,8 @@ def test_dispatch_to_the_plain_version_matches_reference(monkeypatch, Sq, Skv):
 def test_dispatch_routes_and_caches_configs(monkeypatch):
     calls = []
     monkeypatch.setattr(ops, "flash_attention_fwd",
-                        lambda q, k, v, bq, bk, causal: calls.append(("fwd", bq, bk, causal)))
+                        lambda q, k, v, bq, bk, causal, blocks: calls.append(
+                            ("fwd", bq, bk, causal, blocks)))
     monkeypatch.setattr(ops, "flash_decode", lambda q, k, v, bk: calls.append(("dec", bk)))
     ops._CONFIG_CACHE.clear()
     z = torch.zeros
@@ -254,7 +363,11 @@ def test_dispatch_routes_and_caches_configs(monkeypatch):
     flash_attention(z(1, 4, 256, 64), z(1, 2, 256, 64), z(1, 2, 256, 64), causal=False)
     flash_attention(z(1, 4, 256, 64), z(1, 2, 256, 64), z(1, 2, 256, 64),
                     config={"bq": 64, "bk": 64})
-    assert calls == [("dec", 512), ("dec", 128), ("fwd", 128, 128, False), ("fwd", 64, 64, True)]
+    flash_attention(z(1, 4, 256, 64), z(1, 2, 256, 64), z(1, 2, 256, 64),
+                    config={"bq": 256, "bk": 128})
+    assert calls == [("dec", 512), ("dec", 128), ("fwd", 128, 128, False, (128, 128)),
+                     ("fwd", 64, 64, True, (64, 64)), ("fwd", 128, 128, True, (256, 128))]
+    assert ops.LAST_CONFIG == {"config": {"bq": 256, "bk": 128}, "tile": (128, 128)}
     assert ops._CONFIG_CACHE == {(1, 4, 2, 256, 256, 64, False, 4): DEFAULT}
     assert (decode_bk(32768), decode_bk(384)) == (512, 128)
 
@@ -323,8 +436,11 @@ def test_wrappers_validate_tiles_and_decode_blocks():
     q, k = torch.zeros(1, 2, 256, 64), torch.zeros(1, 2, 256, 64)
     with pytest.raises(ValueError, match="not instantiated"):
         K.flash_attention_fwd(q, k, k, 128, 256, True)
-    with pytest.raises(ValueError, match="not instantiated"):
-        flash_attention(q, k, k, config={"bq": 256, "bk": 128})
+    # in neither the kernel's tiles nor the reference's space (a reference
+    # config such as {"bq": 256, "bk": 128} runs: test_reference_space_*)
+    for config in ({"bq": 96, "bk": 128}, {"bq": 512, "bk": 128}, {"bq": 128, "bk": 64}):
+        with pytest.raises(ValueError, match="not instantiated"):
+            flash_attention(q, k, k, config=config)
     q1 = torch.zeros(1, 2, 1, 64)
     with pytest.raises(ValueError, match="one query token"):
         K.flash_decode(q, k, k, 128)
@@ -335,13 +451,26 @@ def test_wrappers_validate_tiles_and_decode_blocks():
         K.flash_decode(torch.zeros(1, 2, 1, 16), *(torch.zeros(1, 2, 256, 16),) * 2, 128)
 
 
-ROUTES = [(torch.bfloat16, 32, (128, 128), "wgmma"), (torch.bfloat16, 32, (64, 64), "mma_sync"),
-          (torch.bfloat16, 64, (128, 128), "wgmma"), (torch.bfloat16, 64, (64, 64), "mma_sync"),
-          (torch.bfloat16, 128, (128, 128), "wgmma"), (torch.bfloat16, 128, (64, 64), "mma_sync"),
+@pytest.mark.parametrize("tile,blocks", [((128, 128), (64, 64)), ((128, 128), (128, 64)),
+                                         ((128, 128), (192, 128)), ((64, 64), (32, 64)),
+                                         ((64, 64), (64, 96)), ((64, 64), (512, 64))])
+def test_forward_refuses_blocks_off_the_tile(tile, blocks):
+    """``blocks`` must be a multiple of the tile that runs, with rbq | Sq
+    and rbk | Skv: the kernels' block counts for the rows that see no key
+    are whole blocks of the tile (every config of the reference's space is
+    a multiple of (128, 128)); the CPU path keeps the card's rule."""
+    q, k = torch.zeros(1, 2, 384, 64), torch.zeros(1, 2, 256, 64)
+    with pytest.raises(ValueError, match="blocks"):
+        K.flash_attention_fwd(q, k, k, *tile, True, blocks=blocks)
+
+
+ROUTES = [(torch.bfloat16, 32, (128, 128), "wgmma"), (torch.bfloat16, 32, (64, 64), "wgmma"),
+          (torch.bfloat16, 64, (128, 128), "wgmma"), (torch.bfloat16, 64, (64, 64), "wgmma"),
+          (torch.bfloat16, 128, (128, 128), "wgmma"), (torch.bfloat16, 128, (64, 64), "wgmma"),
           (torch.float32, 32, (128, 128), "split_tf32"), (torch.float32, 32, (64, 64), "split_tf32"),
           (torch.float32, 64, (128, 128), "split_tf32"), (torch.float32, 64, (64, 64), "split_tf32"),
-          (torch.bfloat16, 80, (128, 128), "wgmma"), (torch.bfloat16, 80, (64, 64), "mma_sync"),
-          (torch.bfloat16, 96, (128, 128), "wgmma"), (torch.bfloat16, 96, (64, 64), "mma_sync"),
+          (torch.bfloat16, 80, (128, 128), "wgmma"), (torch.bfloat16, 80, (64, 64), "wgmma"),
+          (torch.bfloat16, 96, (128, 128), "wgmma"), (torch.bfloat16, 96, (64, 64), "wgmma"),
           (torch.float32, 80, (128, 128), "split_tf32"), (torch.float32, 80, (64, 64), "split_tf32"),
           (torch.float32, 96, (128, 128), "split_tf32"), (torch.float32, 96, (64, 64), "split_tf32"),
           (torch.float32, 128, (128, 128), "split_tf32"), (torch.float32, 128, (64, 64), "split_tf32")]
@@ -349,9 +478,9 @@ ROUTES = [(torch.bfloat16, 32, (128, 128), "wgmma"), (torch.bfloat16, 32, (64, 6
 
 @pytest.mark.parametrize("dtype,D,tile,route", ROUTES)
 def test_fwd_route_names_the_kernel_of_every_instantiation(dtype, D, tile, route):
-    """bf16 at (128, 128) runs the wgmma kernel at every head dim (32, 80
-    and 96 padded to whole 64-column boxes in shared memory), bf16 at
-    (64, 64) mma.sync, fp32 three TF32 passes at every head dim."""
+    """bf16 at (128, 128) and (64, 64) runs the wgmma kernel at every head
+    dim (32, 80 and 96 padded to whole 64-column boxes in shared memory),
+    fp32 three TF32 passes at every head dim."""
     assert K.fwd_route(dtype, D, *tile) == route
     assert route in K.FWD_ROUTES
 
@@ -602,12 +731,14 @@ def _ablation_cases():
     return [*ablate.VARIANTS.items(), *ablate.PROBES.items(), *ablate.HEAD_DIM_VARIANTS.items(),
             *ablate.DECODE_VARIANTS.items(),
             *ablate.DECODE_PROBES.items(), *ablate.CORE_VARIANTS.items(),
-            *ablate.FWD32_VARIANTS.items(), *ablate.FWD32_PROBES.items()]
+            *ablate.FWD32_VARIANTS.items(), *ablate.FWD32_PROBES.items(),
+            *ablate.FWD64_VARIANTS.items()]
 
 
 @pytest.mark.parametrize("part,want", [
-    ("fwd", {"as built", "no ping-pong", "probe: no Q K^T", "fwd: mma.sync route",
-             "fwd: P V over the padded width"}),
+    ("fwd", {"as built", "no ping-pong", "probe: no Q K^T", "fwd: P V over the padded width"}),
+    ("fwd64", {"as built", "no ping-pong", "fwd64: 2 stages", "fwd64: 4 stages",
+               "fwd64: one q block a CTA"}),
     ("decode", {"as built", "decode: one consumer warp", "decode probe: loads only"}),
     ("all", {"no ping-pong", "decode: CUDA-core kernel", "fwd32: one TF32 pass"}),
     ("fwd32", {"as built", "fwd32: one TF32 pass", "fwd32: 4 consumer warps", "fwd32: 4 stages",
@@ -633,7 +764,7 @@ def test_ablation_base_must_hold_the_parts_old_kernel(tmp_path):
     with pytest.raises(FileNotFoundError):
         ablate.old_source(tmp_path, "fwd32")
     (csrc / "flash_attention.cu").write_text((_build.CSRC / "flash_attention.cu").read_text())
-    for part in ("fwd32", "decode", "fwd", "all"):
+    for part in ("fwd32", "decode", "fwd", "fwd64", "all"):
         with pytest.raises(ValueError, match="old kernel"):
             ablate.old_source(tmp_path, part)
     (csrc / "flash_attention.cu").write_text(ablate.OLD_MARKERS["fwd32"])
@@ -724,8 +855,8 @@ def test_card_wgmma_pv_fragment_layout(cuda, D, case):
 def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq, Skv, causal):
     """Odd B·Hq, GQA groups of 1 to 5, Sq < Skv (the causal offset, up to
     three blocks), a single diagonal block, and more tiles than two
-    waves of 132 SMs (each persistent wgmma CTA walks several); bf16 (128, 128)
-    runs the wgmma kernel at every head dim, and the library's route table
+    waves of 132 SMs (each persistent wgmma CTA walks several); bf16 at both
+    tiles runs the wgmma kernel at every head dim, and the library's route table
     agrees with ``fwd_route``.  fp32 (three TF32 passes) is also held to
     the plain emulation of its passes, ``attention_split_tf32_ref``."""
     q, k, v = _card_qkv(cuda, dtype, B, Hq, Hkv, Sq, Skv, D)
@@ -733,7 +864,7 @@ def test_card_forward_matches_plain_on_odd_heads(cuda, dtype, D, B, Hq, Hkv, Sq,
     split = attention_split_tf32_ref(q, k, v, causal) if dtype == torch.float32 else None
     for bq, bk in K.FWD_TILES:
         route = K.fwd_route(dtype, D, bq, bk)
-        if dtype == torch.bfloat16 and (bq, bk) == (128, 128):
+        if dtype == torch.bfloat16:
             assert route == "wgmma"
         assert K._lib().flash_fwd_route(q.element_size(), D, bq, bk) == K.FWD_ROUTES[route]
         before = K.LAUNCHES["flash_attention_fwd"]
@@ -788,8 +919,8 @@ def test_card_wgmma_padded_columns_do_not_leak(cuda, D, causal):
     n = got.numel()
     guarded = torch.full((n + 4096,), float("nan"), device=cuda, dtype=torch.bfloat16)
     rc = K._lib().flash_fwd_launch(2, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   guarded.data_ptr(), B, Hq, Hkv, S, S, D, 128, 128, D ** -0.5,
-                                   int(causal), torch.cuda.current_stream().cuda_stream)
+                                   guarded.data_ptr(), B, Hq, Hkv, S, S, D, 128, 128, 128, 128,
+                                   D ** -0.5, int(causal), torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
     assert bool(torch.isnan(guarded[n:]).all()), "the kernel wrote past its output"
@@ -800,6 +931,116 @@ def test_card_wgmma_padded_columns_do_not_leak(cuda, D, causal):
     bad = (err > ATOL[torch.bfloat16]).nonzero().flatten().tolist()
     assert not bad, f"columns {bad} off by up to {float(err.max()):.3e} of their scale"
     assert row_rel_err(got, want) <= ROW_REL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [(2, 4, 2, 256, 256), (1, 4, 1, 128, 384),
+                                             (1, 4, 2, 512, 256), (1, 3, 1, 192, 192),
+                                             (2, 2, 2, 320, 448), (1, 4, 2, 320, 192)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_card_fwd64_matches_plain(cuda, D, B, Hq, Hkv, Sq, Skv, causal):
+    """bf16 at (64, 64) runs the wgmma kernel, its two consumers on two
+    adjacent 64-row q blocks sharing one ring of 64-key blocks: GQA, Sq =
+    Skv, Sq < Skv, Sq > Skv (rows that see no key), and Sq an odd number of
+    64-row blocks (the last tile's second consumer has no rows), against
+    ``attention_blocks_ref`` at (64, 64); the rows that see no key exactly
+    (p = 1 is exact in bf16 and each block's sum of bf16 values is exact in
+    fp32 at these sizes)."""
+    q, k, v = _card_qkv(cuda, torch.bfloat16, B, Hq, Hkv, Sq, Skv, D, seed=9)
+    assert K.fwd_route(torch.bfloat16, D, 64, 64) == "wgmma"
+    assert K._lib().flash_fwd_route(2, D, 64, 64) == K.FWD_ROUTES["wgmma"]
+    want = attention_blocks_ref(q, k, v, causal, 64, 64)
+    got = K.flash_attention_fwd(q, k, v, 64, 64, causal)
+    torch.cuda.synchronize()
+    assert K.LAST_LAUNCH["flash_attention_fwd"] == (64, 64, causal)
+    assert bool(torch.isfinite(got).all())
+    n = max(0, Sq - Skv) if causal else 0
+    assert torch.equal(got[:, :, :n], want[:, :, :n]), "rows that see no key"
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[torch.bfloat16])
+    assert row_rel_err(got[:, :, n:], want[:, :, n:]) <= ROW_REL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 80, 96])
+@pytest.mark.parametrize("Sq,Skv", [(320, 320), (320, 192)])
+def test_card_fwd64_writes_nothing_past_its_output(cuda, D, Sq, Skv):
+    """The (64, 64) kernel loads Q in 128-row boxes: with Sq an odd number of
+    64-row blocks the last tile's box runs into the next head (or past the
+    tensor) and its second consumer must store nothing.  The output sits in
+    a buffer with a guard band of NaN behind it, which must stay NaN, and
+    the output equals the wrapper's."""
+    B, Hq, Hkv = 2, 4, 2
+    q, k, v = _card_qkv(cuda, torch.bfloat16, B, Hq, Hkv, Sq, Skv, D, seed=12)
+    got = K.flash_attention_fwd(q, k, v, 64, 64, True)
+    n = got.numel()
+    guarded = torch.full((n + 8192,), float("nan"), device=cuda, dtype=torch.bfloat16)
+    rc = K._lib().flash_fwd_launch(2, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   guarded.data_ptr(), B, Hq, Hkv, Sq, Skv, D, 64, 64, 64, 64,
+                                   D ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert bool(torch.isnan(guarded[n:]).all()), "the kernel wrote past its output"
+    assert torch.equal(guarded[:n].view_as(got), got)
+    want = attention_blocks_ref(q, k, v, True, 64, 64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("config", [{"bq": 128, "bk": 128}, {"bq": 256, "bk": 128},
+                                    {"bq": 512, "bk": 256}, {"bq": 128, "bk": 512},
+                                    {"bq": 1024, "bk": 256}, {"bq": 64, "bk": 64}])
+def test_card_reference_configs_and_rows_without_a_key(cuda, dtype, config):
+    """A causal call with Sq > Skv through the entry point at a pinned
+    config: a config of the reference's space runs the kernel at (128, 128)
+    (``LAST_LAUNCH``), and the rows that see no key take the config's own
+    blocks (``LAST_CONFIG`` keeps what was asked).  Against
+    ``attention_blocks_ref`` at the config: the rows that see no key
+    exactly in bf16, to 1e-6 in fp32 (three TF32 passes sum V on the tensor
+    cores, in their own order), every other row to the tolerances."""
+    B, Hq, Hkv, Sq, Skv, D = 1, 32, 8, 1024, 512, 64
+    q, k, v = _card_qkv(cuda, dtype, B, Hq, Hkv, Sq, Skv, D, seed=13)
+    got = ops.flash_attention(q, k, v, causal=True, config=config)
+    torch.cuda.synchronize()
+    tile = (config["bq"], config["bk"]) if config in TILES else (128, 128)
+    assert K.LAST_LAUNCH["flash_attention_fwd"] == (*tile, True)
+    assert ops.LAST_CONFIG == {"config": config, "tile": tile}
+    want = attention_blocks_ref(q, k, v, True, config["bq"], config["bk"])
+    n = Sq - Skv
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[:, :, :n], want[:, :, :n]), "rows that see no key"
+    else:
+        torch.testing.assert_close(got[:, :, :n], want[:, :, :n], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[dtype])
+    assert row_rel_err(got[:, :, n:], want[:, :, n:]) <= ROW_REL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tile,blocks", [((128, 128), (384, 256)), ((128, 128), (384, 128)),
+                                         ((64, 64), (192, 64)), ((64, 64), (384, 128)),
+                                         ((64, 64), (128, 256))])
+def test_card_rows_without_a_key_at_multiples_of_the_tile(cuda, dtype, tile, blocks):
+    """The kernel-level forward at Sq 384 > Skv 256 with blocks that are
+    multiples of the tile but no config of the entry point: the rows that
+    see no key (0-127) average all 256 keys, the first 128, the first 64,
+    all 256, or none.  Against ``attention_blocks_ref``: those rows exactly
+    in bf16, to 1e-6 in fp32, every other row to the tolerances."""
+    B, Hq, Hkv, Sq, Skv, D = 1, 4, 2, 384, 256, 64
+    q, k, v = _card_qkv(cuda, dtype, B, Hq, Hkv, Sq, Skv, D, seed=17)
+    got = K.flash_attention_fwd(q, k, v, *tile, True, blocks=blocks)
+    torch.cuda.synchronize()
+    want = attention_blocks_ref(q, k, v, True, *blocks)
+    n = Sq - Skv
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[:, :, :n], want[:, :, :n]), "rows that see no key"
+    else:
+        torch.testing.assert_close(got[:, :, :n], want[:, :, :n], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[dtype])
+    assert row_rel_err(got[:, :, n:], want[:, :, n:]) <= ROW_REL[dtype]
 
 
 @pytest.mark.gpu

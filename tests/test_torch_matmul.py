@@ -90,6 +90,35 @@ def test_tuned_matmul_matches_reference_entry_point(dtype):
     np.testing.assert_allclose(got.float().numpy(), want, **_tol(dtype))
 
 
+@pytest.mark.parametrize("config", list(tpu_space(256, 256, 256)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_space_configs_match_the_jax_entry_point(monkeypatch, dtype, config):
+    """Every config of the reference's space at 256 x 256 x 256 runs through
+    the entry point, at the kernel's default tile for the dtype (a VMEM
+    block decides nothing on the card), and matches the JAX entry point with
+    the same config in interpret mode; the port refused them all before
+    (every one has bk >= 128)."""
+    import jax.numpy as jnp
+
+    from repro.kernels.matmul.ops import tuned_matmul as jtuned
+
+    a_np, b_np = _ab(2, (256, 256, 256))
+    a, b = jnp.asarray(a_np).astype(dtype), jnp.asarray(b_np).astype(dtype)
+    want = np.asarray(jtuned(a, b, dict(config)), np.float32)
+    tiles, real = [], ops.matmul_tiled
+
+    def spy(a, b, bm, bn, bk):
+        tiles.append({"bm": bm, "bn": bn, "bk": bk})
+        return real(a, b, bm, bn, bk)
+
+    monkeypatch.setattr(ops, "matmul_tiled", spy)
+    at, bt = convert.from_numpy(np.asarray(a), "cpu"), convert.from_numpy(np.asarray(b), "cpu")
+    got = tuned_matmul(at, bt, dict(config))
+    assert tiles == [DEFAULT[at.element_size()]]
+    assert got.dtype == at.dtype and got.shape == (256, 256)
+    np.testing.assert_allclose(got.float().numpy(), want, **_tol(dtype))
+
+
 def test_matmul_ref_accumulates_in_fp32():
     a = torch.full((1, 4096), 1.0, dtype=torch.bfloat16)
     b = torch.full((4096, 1), 1.0 + 2 ** -7, dtype=torch.bfloat16)
@@ -431,6 +460,25 @@ def test_card_entry_point_launches_the_default_tile(cuda):
     torch.testing.assert_close(got, matmul_ref(a.float(), b.float()), **CARD_TOL[torch.float32])
     with pytest.raises(ValueError, match="aligned"):
         K.matmul_tiled(a.view(-1)[1:1 + 511 * 256].view(511, 256), b, *K.TILES[2][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("config", [{"bm": 128, "bk": 128, "bn": 128},
+                                    {"bm": 512, "bk": 256, "bn": 128}])
+def test_card_reference_configs_run_the_default_tile(cuda, dtype, config):
+    """A config of the reference's space runs the GEMM at the dtype's
+    default tile, and ``LAST_LAUNCH`` names the tile that ran."""
+    a_np, b_np = _ab(4, (512, 256, 384), scale=256 ** -0.5)
+    a, b = torch.from_numpy(a_np).to(cuda).to(dtype), torch.from_numpy(b_np).to(cuda).to(dtype)
+    K.reset_launch_counts()
+    got = tuned_matmul(a, b, config)
+    torch.cuda.synchronize()
+    eb = a.element_size()
+    d = DEFAULT[eb]
+    assert K.LAUNCHES["matmul_tiled"] == 1
+    assert K.LAST_LAUNCH["matmul_tiled"] == (K.ROUTE[eb], (d["bm"], d["bn"], d["bk"]))
+    torch.testing.assert_close(got, matmul_ref(a, b), **CARD_TOL[dtype])
 
 
 @pytest.mark.gpu
