@@ -31,7 +31,17 @@ with nvcc first (one nvcc per source, in parallel):
   ``attention_apply(use_pallas=True)`` on (4, 4096, 2048);
   the GEMMs are also timed in turns with ``torch.matmul``, and the prefill's
   two tiles in turns with ``F.scaled_dot_product_attention``, since the
-  card slows under sustained tensor-core load.
+  card slows under sustained tensor-core load;
+* the api phase, last: ``examples/torch_stencil_codegen.main`` at the
+  paper's domains (one ``repro_torch.api.price`` sweep of both paths' 168
+  launches, then ``star_pointwise`` and ``lbm_pointwise`` at the winners
+  against ``ref.py``), its rankings against the generators' bitwise, one
+  ranking of each path timed four ways (serial; the pooled engine, started
+  after CUDA, so never by ``fork``; pooled top-10; the same engine warm)
+  with the pooled sweep's spans, and ``torch.sum`` streaming reads at an
+  L2-resident footprint and at the two paths' DRAM footprints beside the
+  H100 model's ``l2_bw`` and ``dram_bw``; then it stops the pool's
+  forkserver, and fails if any process it started is still there.
 
 Each path's pinned variants (the z-march stencils, the y-tiled LBM, the
 y-tiled Jacobi sweep, the tiled transpose, the second GEMM and flash tiles)
@@ -206,6 +216,24 @@ def ptxas_kernel_name(line: str) -> str:
 def registers(kernel: str) -> str:
     """ptxas's report for ``kernel`` (``name<args>``), or "not reported"."""
     return REGISTERS.get(kernel, "not reported")
+
+
+def live_children() -> list:
+    """``(pid, state, command)`` of every process whose parent is this one,
+    zombies too, from ``/proc``."""
+    import os
+
+    me, found = os.getpid(), []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:  # gone meanwhile
+            continue
+        state, ppid = text[text.rindex(")") + 2:].split()[:2]
+        if int(ppid) == me:
+            command = text[text.index("(") + 1:text.rindex(")")]
+            found.append((int(stat.parent.name), state, command))
+    return found
 
 
 def card_line() -> str:
@@ -2293,6 +2321,207 @@ def run_attention(args, torch, dev) -> list:
     return kernels
 
 
+STREAM_L2_BYTES = 8 * 2**20             # a read footprint the 50 MB L2 holds
+STREAM_L2_PASSES = 64                    # passes over it in one reduction
+RANK_TOP_K = 10                          # the pruned ranking's k
+
+
+def stream_read(torch, dev, n_bytes: int, passes: int = 1) -> tuple:
+    """A streaming read of ``n_bytes`` (fp64) on the card: ``torch.sum``
+    over a stride-0 view that reads the footprint ``passes`` times in one
+    kernel (the L2-resident case), queued 10 calls back to back in turns.
+    Returns (bytes read a call, ms a call, GB/s)."""
+    x = torch.rand(n_bytes // 8, dtype=torch.float64, device=dev)
+    view = x.expand(passes, x.numel()) if passes > 1 else x
+    ms = interleaved_ms(torch, {"read": lambda: view.sum()}, rounds=5,
+                        calls=QUEUED_CALLS)["read"]
+    read = n_bytes * passes
+    return read, ms, read / (ms * 1e-3) / 1e9
+
+
+def run_api(args, torch, dev) -> dict:
+    """The estimator's front door on the card: the paper-loop example
+    (``examples/torch_stencil_codegen.main``) at the paper's domains, its
+    rankings against the generators', one ranking of each path's 168
+    launches four ways (serial; the pooled engine, started after CUDA;
+    pooled with a top-k; the same engine warm), and streaming reads at an
+    L2-resident footprint and at the two paths' DRAM footprints beside the
+    H100 model's rates.  Returns the main path's launch counts."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.api import gpu_request, price
+    from repro_torch.core import gridwalk, perfmodel
+    from repro_torch.core.engine import Explorer, pool
+    from repro_torch.core.machines import H100
+    from repro_torch.core.specs import lbm_d3q15, star_stencil_3d
+    from repro_torch.kernels.lbm_d3q15 import kernel as LK
+    from repro_torch.kernels.lbm_d3q15.generator import rank_configs as lbm_rank
+    from repro_torch.kernels.stencil3d25 import kernel as K
+    from repro_torch.kernels.stencil3d25.generator import rank_configs as star_rank
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_stencil_codegen as example
+
+    card = card_line()
+    cores = len(os.sched_getaffinity(0))
+    say(f"api: card {card}; host {cores} cores available ({os.cpu_count()} on the host); "
+        f"torch.cuda.is_initialized() {torch.cuda.is_initialized()}")
+    if (example.R, example.STENCIL_DOMAIN, example.LBM_DOMAIN) != (R, DOMAIN, LBM_DOMAIN) \
+            or example.TOL != TOL[8]:
+        raise AssertionError("the example's domains or tolerance are not the smoke's")
+
+    # A1. the example: one price() sweep of both launch spaces, then the winners
+    reset_counts()
+    t0 = time.perf_counter()
+    out = example.main(device=dev, stencil_domain=DOMAIN, lbm_domain=LBM_DOMAIN)
+    torch.cuda.synchronize()
+    t_example = time.perf_counter() - t0
+    launches = {"star_pointwise": K.LAUNCHES["star_pointwise"],
+                "lbm_pointwise": LK.LAUNCHES["lbm_pointwise"]}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the example launched {launches}")
+    result = out["result"]
+    for name, ranked in (("stencil3d25", star_rank(R, DOMAIN, 8, H100)),
+                         ("lbm_d3q15", lbm_rank(LBM_DOMAIN, 8, H100))):
+        mine = result.ranking(name)
+        if len(mine) != 168 or [(e.config, e.perf, e.limiter, e.estimate.limiter_rates)
+                                for e in mine] != [
+                (rc.launch, rc.perf, rc.estimate.limiter, rc.estimate.limiter_rates)
+                for rc in ranked]:
+            raise AssertionError(f"the API's {name} ranking is not rank_configs'")
+    if out["lbm"]["launch"] != LK.LAST_LAUNCH["lbm_pointwise"] \
+            or out["stencil"]["launch"] != result.best("stencil3d25").config:
+        raise AssertionError("the example's kernels did not run at the API's winners")
+    say(f"api example: price() ranked 168 + 168 launches in {result.wall_time_s:.3f} s "
+        f"(serial), then ran star_pointwise at {out['stencil']['launch'].block}/"
+        f"{out['stencil']['launch'].folding} (max abs error {out['stencil']['max_abs_err']!r}) "
+        f"and lbm_pointwise at {out['lbm']['launch'].block}/{out['lbm']['launch'].folding} "
+        f"(max abs error {out['lbm']['max_abs_err']!r}), tolerance {TOL[8]}; launches "
+        f"{launches}; the rankings equal rank_configs' bitwise; whole example "
+        f"{t_example:.2f} s")
+
+    # A2. one ranking of each path's 168 launches, four ways (host time)
+    def cold():
+        perfmodel._WAVE_BOX_MEMO.clear()
+        gridwalk._STREAM_MEMO.clear()
+
+    def key(entries):
+        return [(e.config, e.perf, e.limiter) for e in entries]
+
+    ctx = pool._context()
+    if ctx is None or ctx.get_start_method() == "fork":
+        raise AssertionError(f"the pool after CUDA would start with {ctx and ctx.get_start_method()}")
+    times = {}
+    for name, spec in (("stencil", star_stencil_3d(R, DOMAIN, 8)),
+                       ("lbm", lbm_d3q15(LBM_DOMAIN, 8))):
+        cold()
+        t0 = time.perf_counter()
+        serial = price(gpu_request(spec, H100))
+        t_serial = time.perf_counter() - t0
+        cold()
+        obs.reset()
+        obs.enable()
+        t0 = time.perf_counter()
+        pooled = price(gpu_request(spec, H100), engine=Explorer(parallel=True))
+        t_pooled = time.perf_counter() - t0
+        obs.disable()
+        spans = obs.spans()
+        chunks = [r for r in spans if r.name == "pool.chunk"]
+        workers = {r.pid for r in chunks}
+        obs.reset()
+        if not chunks or os.getpid() in workers:
+            raise AssertionError(f"the pooled {name} ranking ran no pool worker")
+        # where the pooled sweep's time goes, from its spans (host clock, µs)
+        run = next(r for r in spans if r.name == "pool.run")
+        sweep = next(r for r in spans if r.name == "engine.sweep")
+        first = min(c.t0_us for c in chunks) - run.t0_us
+        last = max(c.t0_us + c.dur_us for c in chunks) - run.t0_us
+        chunk_s = sum(c.dur_us for c in chunks) / 1e6
+        task_s = sum(r.dur_us for r in spans if r.cat == "task") / 1e6
+        split = {"sweep_s": sweep.dur_us / 1e6, "pool_run_s": run.dur_us / 1e6,
+                 "first_chunk_s": first / 1e6, "last_chunk_end_s": last / 1e6,
+                 "chunks": len(chunks), "chunk_s": chunk_s, "task_s": task_s,
+                 "busy_share": chunk_s / (len(workers) * run.dur_us / 1e6)}
+        engine = Explorer(parallel=True)
+        t0 = time.perf_counter()
+        pruned = price(gpu_request(spec, H100, top_k=RANK_TOP_K), engine=engine)
+        t_pruned = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = price(gpu_request(spec, H100, top_k=RANK_TOP_K), engine=engine)
+        t_warm = time.perf_counter() - t0
+        if key(pooled.entries) != key(serial.entries) or len(serial.entries) != 168 \
+                or key(pruned.entries) != key(serial.entries)[:RANK_TOP_K] \
+                or key(warm.entries) != key(pruned.entries):
+            raise AssertionError(f"the {name} rankings disagree between the four ways")
+        if warm.cache_stats["misses"] or warm.cache_stats["pool_tasks"]:
+            raise AssertionError(f"the warm {name} ranking did structural work: "
+                                 f"{warm.cache_stats}")
+        times[name] = {"serial_s": t_serial, "pooled_s": t_pooled, "pruned_s": t_pruned,
+                       "warm_s": t_warm, "workers": len(workers),
+                       "start_method": ctx.get_start_method(), "pooled_split": split,
+                       "pruned": pruned.cache_stats["pruned"],
+                       "pool_tasks": {"serial": serial.cache_stats["pool_tasks"],
+                                      "pruned": pruned.cache_stats["pool_tasks"]}}
+        say(f"api ranking {name} (168 launches on {H100.name}, fp64), {card}, {cores} cores: "
+            f"serial {t_serial:.3f} s; pooled ({ctx.get_start_method()}, {len(workers)} "
+            f"worker processes, started after CUDA) {t_pooled:.3f} s; pooled top-{RANK_TOP_K} "
+            f"{t_pruned:.3f} s ({pruned.cache_stats['pruned']} launches pruned, "
+            f"{pruned.cache_stats['pool_tasks']} of {serial.cache_stats['pool_tasks']} "
+            f"structural tasks); the same engine warm {t_warm:.4f} s (0 tasks); all four "
+            f"agree bitwise")
+        say(f"  pooled {name} sweep's spans: sweep {split['sweep_s']:.3f} s, pool.run "
+            f"{split['pool_run_s']:.3f} s; first chunk starts at {split['first_chunk_s']:.3f} s, "
+            f"the last ends at {split['last_chunk_end_s']:.3f} s; {len(chunks)} chunks, "
+            f"{split['chunk_s']:.3f} s of chunks ({split['task_s']:.3f} s in tasks) on "
+            f"{len(workers)} workers, busy share {split['busy_share']:.3f}; serial sweep "
+            f"{t_serial:.3f} s")
+
+    # what a pool worker pays before its first task: a fresh interpreter,
+    # then the imports that unpickling a task brings in
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    starts = {}
+    for what, code in (("interpreter", "pass"), ("numpy", "import numpy"),
+                       ("engine", "import repro_torch.core.engine")):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
+        starts[what] = time.perf_counter() - t0
+    times["process_start_s"] = starts
+    say(f"api: a fresh process on this host takes {starts['interpreter']:.3f} s, "
+        f"{starts['numpy']:.3f} s with numpy imported, {starts['engine']:.3f} s with "
+        f"repro_torch.core.engine imported (one at a time, while the card is idle)")
+
+    # A3. streaming reads beside the model's L2 and DRAM rates
+    reads = {}
+    padded = tuple(d + 2 * R for d in DOMAIN)
+    star_bytes = 8 * (padded[0] * padded[1] * padded[2] + DOMAIN[0] * DOMAIN[1] * DOMAIN[2])
+    lbm_pad = tuple(d + 2 for d in LBM_DOMAIN)
+    lbm_bytes = 8 * (16 * lbm_pad[0] * lbm_pad[1] * lbm_pad[2]
+                     + 15 * LBM_DOMAIN[0] * LBM_DOMAIN[1] * LBM_DOMAIN[2])
+    for label, n_bytes, passes, model in (
+            ("L2-resident", STREAM_L2_BYTES, STREAM_L2_PASSES, H100.l2_bw),
+            ("stencil footprint", star_bytes, 1, H100.dram_bw),
+            ("LBM footprint", lbm_bytes, 1, H100.dram_bw)):
+        read, ms, gbs = stream_read(torch, dev, n_bytes, passes)
+        torch.cuda.empty_cache()
+        reads[label] = {"footprint_bytes": n_bytes, "bytes": read, "ms": ms, "GB_s": gbs,
+                        "model_GB_s": model / 1e9}
+        say(f"api stream read {label}: {n_bytes / 2**20:.1f} MiB footprint x {passes} "
+            f"pass(es), {ms:.4f} ms a call (10 queued calls, median of 5 rounds) = "
+            f"{gbs:.1f} GB/s beside the model's {model / 1e9:.0f} GB/s "
+            f"({'H100.l2_bw' if passes > 1 else 'H100.dram_bw'}); {card}")
+    say("api: " + json.dumps({"card": card, "cores": cores, "example_s": t_example,
+                              "rank": times, "stream_read": reads}))
+
+    # the forkserver the pooled sweeps started outlives them: stop it
+    pool.stop_helpers()
+    left = live_children()
+    if left:
+        raise AssertionError(f"processes the smoke started are still there: {left}")
+    say("api: the pool's forkserver stopped and reaped; no child process left")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2349,6 +2578,11 @@ def main(argv=None) -> int:
     kernels += run_transpose(args, torch, dev)
     torch.cuda.empty_cache()
     kernels += run_attention(args, torch, dev)
+    torch.cuda.empty_cache()
+    api_launches = run_api(args, torch, dev)
+    for k in kernels:
+        if k["name"] in api_launches and k.get("config", "") is None:
+            k["api_launches"] = api_launches[k["name"]]
 
     # peak memory
     say(f"peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
@@ -2369,7 +2603,8 @@ def main(argv=None) -> int:
                                     "fp32_plain_ms", "copy_queued_ms", "fp32_in_turns_ms",
                                     "fp32_queued_ms", "fp32_library_ms",
                                     "fp32_library_in_turns_ms", "fp32_library_queued_ms",
-                                    "fp32_copy_queued_ms", "ytile_fp64", "ytile_fp32")
+                                    "fp32_copy_queued_ms", "ytile_fp64", "ytile_fp32",
+                                    "api_launches")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

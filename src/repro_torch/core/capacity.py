@@ -16,7 +16,8 @@ Separate fits are kept per level/volume class exactly as in the paper:
 L1 redundant loads, L2 y-layer overlap, L2 z-layer overlap, L2 redundant
 stores.
 
-A copy of ``repro.core.capacity`` without the batched matrix path.
+A copy of ``repro.core.capacity``: the scalar hit rate and its batched
+(allocation x cache-size) form that the engine's machine-axis path reads.
 """
 from __future__ import annotations
 
@@ -63,3 +64,24 @@ class CapacityModel:
             return 0.0
         o = v_alloc / v_cache
         return self.fits[kind](o)
+
+    def hit_rate_matrix(self, kind: str, v_alloc, v_cache):
+        """``hit_rate`` over the (allocation x cache-size) cross product.
+
+        Returns a ``(len(v_alloc), len(v_cache))`` float64 array whose
+        entries are **bitwise equal** to the scalar path: ``np.exp`` and
+        ``math.exp`` disagree in the last ulp on some inputs, so the
+        Gompertz curve is evaluated through the scalar ``hit_rate`` once
+        per *unique* (allocation, cache) pair and broadcast by indexing.
+        """
+        import numpy as np
+
+        va = np.asarray(v_alloc, dtype=float)
+        vc = np.asarray(v_cache, dtype=float)
+        ua, ia = np.unique(va, return_inverse=True)
+        uc, ic = np.unique(vc, return_inverse=True)
+        table = np.empty((ua.size, uc.size))
+        for i, a in enumerate(ua):
+            for j, c in enumerate(uc):
+                table[i, j] = self.hit_rate(kind, float(a), float(c))
+        return table[ia][:, ic]

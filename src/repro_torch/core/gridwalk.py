@@ -18,7 +18,32 @@ from collections import OrderedDict
 
 import numpy as np
 
+from repro_torch import obs
+from repro_torch.obs.metrics import CounterGroup
+
 from .access import Access, KernelSpec, LaunchConfig, domain_zyx
+
+# ---------------------------------------------------------------------------
+# Core instrumentation (process-local; the Explorer reports per-sweep deltas),
+# a registry-backed counter group: every counter is named and documented as
+# ``core.<field>``.  The two wave counters belong to the cache simulator,
+# which is not ported yet; they stay 0 and keep the reference's key set.
+# ---------------------------------------------------------------------------
+CORE_STATS = CounterGroup("core", {
+    "streams_built": "stream-table entries constructed",
+    "streams_shared": "stream-table memo hits (a consumer reused a table)",
+    "waves_folded": "simulator waves generated by pure translation",
+    "wave_fallbacks": "simulator waves rebuilt per block (no sector fold)",
+})
+
+
+def core_stats_snapshot() -> dict:
+    return dict(CORE_STATS)
+
+
+def reset_core_stats() -> None:
+    for k in CORE_STATS:
+        CORE_STATS[k] = 0
 
 
 def block_points(launch: LaunchConfig, domain: tuple, block_idx=(0, 0, 0)):
@@ -162,14 +187,18 @@ _STREAM_MEMO_CAP = 32
 
 def stream_table(spec: KernelSpec, launch: LaunchConfig,
                  domain=None) -> StreamTable:
-    """Memoized shared stream table (bounded LRU)."""
+    """Memoized shared stream table (bounded LRU; the ``streams
+    built/shared`` counters feed the engine's cache_stats)."""
     domain = tuple(domain or spec.domain)
     key = (spec, launch, domain)
     tab = _STREAM_MEMO.get(key)
     if tab is not None:
         _STREAM_MEMO.move_to_end(key)
+        CORE_STATS["streams_shared"] += 1
         return tab
-    tab = StreamTable(spec, launch, domain)
+    with obs.span("gridwalk.stream_table", "cachesim"):
+        tab = StreamTable(spec, launch, domain)
+    CORE_STATS["streams_built"] += 1
     _STREAM_MEMO[key] = tab
     while len(_STREAM_MEMO) > _STREAM_MEMO_CAP:
         _STREAM_MEMO.popitem(last=False)

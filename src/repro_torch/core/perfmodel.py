@@ -12,9 +12,12 @@ The pipeline is factored into *structural* stages (grid walks, footprint
 unions, wave-set counting — pure functions of ``(spec, launch geometry,
 machine geometry)``) and *rate* stages (capacity hit-rates and limiter
 arithmetic — cheap functions of the structural outputs plus cache sizes).
+The exploration engine (``repro_torch.core.engine``) memoizes the structural
+stages across the configurations and machines that share them; calling the
+staged functions back-to-back is bitwise-identical to ``estimate_gpu``.
 
-A copy of the serial ``estimate_gpu`` path of ``repro.core.perfmodel``;
-the port's tests pin its estimates bitwise equal to the reference's.
+A copy of ``repro.core.perfmodel``; the port's tests pin its estimates
+bitwise equal to the reference's.
 """
 from __future__ import annotations
 
@@ -142,6 +145,20 @@ def estimate_l1(spec: KernelSpec, launch: LaunchConfig, machine: GPUMachine,
 # --------------------------------------------------------------------------
 # DRAM stage
 # --------------------------------------------------------------------------
+# The wave-model structure is computed in two pieces with very different
+# costs, so the tiered search (engine §5) can price the cheap piece for every
+# candidate and reserve the expensive piece for the bound-surviving frontier:
+#
+#   * ``dram_front_structure`` — wave/layer *footprint volumes* (unions
+#     only): compulsory load and store volumes, layer-set load footprints
+#     and allocation volumes.  Enough for the sound DRAM lower bound.
+#   * ``dram_overlap_structure`` — the wave ∩ layer *intersection* counts
+#     (pairwise box intersections + the triple-overlap correction), the
+#     dominant cost of the full wave model.
+#
+# ``dram_structure`` composes the two, so the monolithic path and the tiered
+# engine path are bitwise identical by construction (every count is exact
+# integer math; the merge introduces no float reassociation).
 _WAVE_BOX_MEMO: dict = {}
 _WAVE_BOX_MEMO_CAP = 64
 
@@ -151,8 +168,10 @@ def _wave_layer_boxes(spec: KernelSpec, launch: LaunchConfig,
     """Shared box construction: wave sets + sector-granular load-footprint
     box lists of the wave and the y/z layer sets.
 
-    Memoized in-process (bounded FIFO): the construction is a pure function
-    of (spec, launch geometry, machine geometry)."""
+    Memoized in-process (bounded FIFO): the front and overlap stages run
+    back-to-back on the same (spec, launch geometry, machine geometry) —
+    as engine tasks possibly in the same worker — and the construction is
+    a pure function of that key."""
     key = (spec, launch.block_extent(), launch.threads, machine.n_sms,
            machine.max_threads_per_sm, machine.sector_bytes)
     hit = _WAVE_BOX_MEMO.get(key)
@@ -171,7 +190,8 @@ def _wave_layer_boxes(spec: KernelSpec, launch: LaunchConfig,
     return out
 
 
-def _front_counts(spec, launch, machine, domain, ws, f_wave, f_y, f_z):
+def _front_counts(spec, launch, machine, domain, ws, f_wave, f_y, f_z,
+                  block_store_bytes):
     sect = machine.sector_bytes
     wave_pts = count_union(ws.wave)
     if wave_pts == 0:
@@ -189,8 +209,9 @@ def _front_counts(spec, launch, machine, domain, ws, f_wave, f_y, f_z):
     # --- stores ---------------------------------------------------------
     v_store_comp = footprint_bytes(spec.stores, ws.wave, sect)
     # per-block redundancy: sum of block store footprints vs wave unique
-    block_store_bytes = footprint_bytes(
-        spec.stores, _interior_boxes(launch, domain), sect)
+    if block_store_bytes is None:
+        block_store_bytes = footprint_bytes(
+            spec.stores, _interior_boxes(launch, domain), sect)
     alloc_wave = footprint_bytes(spec.accesses, ws.wave, machine.line_bytes)
     return {
         "wave_pts": wave_pts,
@@ -229,14 +250,41 @@ def _overlap_counts(f_wave, f_y, f_z, sect):
     return {"v_ov_y": v_ov_y, "v_ov_z": v_ov_z}
 
 
-def dram_structure(spec: KernelSpec, launch: LaunchConfig, machine: GPUMachine,
-                   domain=None) -> dict:
-    """Full wave-model footprint counts (§4.4): front volumes (unions) plus
-    the wave ∩ layer overlaps, including the triple-overlap correction that
-    keeps the y and z reuse credits disjoint."""
+def dram_front_structure(spec: KernelSpec, launch: LaunchConfig,
+                         machine, domain=None,
+                         block_store_bytes: int | None = None) -> dict:
+    """Wave-model footprint volumes (§4.4) — unions only, no overlaps.
+
+    Everything here is independent of cache *capacities* (shareable across
+    machines differing only in L2 size); ``machine`` may be a ``GPUMachine``
+    or its ``GPUGeometry``.  ``block_store_bytes`` optionally injects a
+    precomputed interior-block store footprint.
+    """
     domain = domain or spec.domain
     ws, f_wave, f_y, f_z = _wave_layer_boxes(spec, launch, machine)
-    struct = _front_counts(spec, launch, machine, domain, ws, f_wave, f_y, f_z)
+    return _front_counts(spec, launch, machine, domain, ws, f_wave, f_y, f_z,
+                         block_store_bytes)
+
+
+def dram_overlap_structure(spec: KernelSpec, launch: LaunchConfig,
+                           machine, domain=None) -> dict:
+    """Wave ∩ layer overlap counts (§4.4.2) — the expensive intersections,
+    including the triple-overlap correction that keeps the y and z reuse
+    credits disjoint.  Rebuilds the (memoized) box lists rather than
+    receiving them from the front stage: as engine tasks the two stages may
+    run in separate worker processes under separate cache keys."""
+    _, f_wave, f_y, f_z = _wave_layer_boxes(spec, launch, machine)
+    return _overlap_counts(f_wave, f_y, f_z, machine.sector_bytes)
+
+
+def dram_structure(spec: KernelSpec, launch: LaunchConfig, machine: GPUMachine,
+                   domain=None, block_store_bytes: int | None = None) -> dict:
+    """Full wave-model footprint counts (§4.4): front volumes + overlaps,
+    over one shared wave/layer box construction."""
+    domain = domain or spec.domain
+    ws, f_wave, f_y, f_z = _wave_layer_boxes(spec, launch, machine)
+    struct = _front_counts(spec, launch, machine, domain, ws, f_wave, f_y,
+                           f_z, block_store_bytes)
     struct.update(_overlap_counts(f_wave, f_y, f_z, machine.sector_bytes))
     return struct
 
@@ -351,3 +399,89 @@ def estimate_gpu(
     l1 = estimate_l1(spec, launch, machine, capacity, domain)
     dram = estimate_dram(spec, launch, machine, capacity, domain)
     return assemble_gpu_estimate(spec, launch, machine, domain, l1, dram)
+
+
+# --------------------------------------------------------------------------
+# Batched machine-axis rate stage (DESIGN.md §11)
+# --------------------------------------------------------------------------
+GPU_LIMITERS = ("L1", "L2", "DRAM", "FP")  # assemble_gpu_estimate dict order
+
+
+def gpu_rate_matrix(parts_list, structs, launches, geometry, machines,
+                    capacity: CapacityModel, flops: float):
+    """Rate/limiter stage as one ``(configs x machines)`` array program.
+
+    ``parts_list``/``structs``/``launches`` are the per-config structural
+    outputs (L1Parts, merged front+overlap dicts, LaunchConfig) of one
+    geometry group; ``machines`` vary only in rate-key fields.  Returns
+    ``(perf, limiter_idx)`` — perf in LUP/s, limiter indices into
+    ``GPU_LIMITERS``.
+
+    Bitwise contract: every float operation mirrors the scalar
+    ``l1_rates`` / ``dram_rates`` / ``assemble_gpu_estimate`` chain in the
+    same order and associativity (IEEE +,-,*,/,min,max vectorize exactly;
+    the only transcendental — the Gompertz hit-rate — goes through
+    ``CapacityModel.hit_rate_matrix``, which reuses the scalar ``math.exp``
+    path per unique input pair).  ``np.argmin`` picks the first minimum,
+    matching ``min(rates, key=rates.get)`` over the insertion order above.
+    The geometry-factoring property test pins column-equality to
+    ``estimate_gpu``.
+    """
+    import numpy as np
+
+    f = lambda xs: np.array(list(xs), dtype=float)  # noqa: E731
+    # --- per-config structural arrays (exact int -> float64 conversions) --
+    pts = f(l.points_per_block() for l in launches)
+    bps = f(occupancy_blocks_per_sm(l, geometry.max_threads_per_sm)
+            for l in launches)
+    cycles = f(p.cycles_per_lup for p in parts_list)
+    v_comp = f(p.v_comp for p in parts_list)
+    v_up = f(p.v_up for p in parts_list)
+    v_alloc = f(p.v_alloc for p in parts_list)
+    v_store = f(p.v_store for p in parts_list)
+    wave_pts = f(s["wave_pts"] for s in structs)
+    v_comp_w = f(s["v_comp"] for s in structs)
+    alloc_y = f(s["alloc_y"] for s in structs)
+    alloc_z = f(s["alloc_z"] for s in structs)
+    v_ov_y = f(s["v_ov_y"] for s in structs)
+    v_ov_z = f(s["v_ov_z"] for s in structs)
+    has_y = np.array([s["has_y"] for s in structs], dtype=bool)
+    has_z = np.array([s["has_z"] for s in structs], dtype=bool)
+    v_store_comp = f(s["v_store_comp"] for s in structs)
+    v_store_up = f(s["block_store_bytes"] * s["n_blocks"] for s in structs)
+    alloc_wave = f(s["alloc_wave"] for s in structs)
+    # --- per-machine rate arrays -----------------------------------------
+    l1_bytes = f(m.l1_bytes for m in machines)
+    l2_bytes = f(m.l2_bytes for m in machines)
+    clock = f(m.clock_hz for m in machines)
+    l2_bw = f(m.l2_bw for m in machines)
+    dram_bw = f(m.dram_bw for m in machines)
+    peak = f(m.peak_flops_dp for m in machines)
+
+    C, M = len(launches), len(machines)
+    # --- L1 stage (l1_rates) ---------------------------------------------
+    r_hit = capacity.hit_rate_matrix("l1_loads", v_alloc * bps, l1_bytes)
+    v_cap = (1.0 - r_hit) * np.maximum(0.0, v_up - v_comp)[:, None]
+    l1_load = (v_comp[:, None] + v_cap) / pts[:, None]
+    l1_store = (v_store / pts)[:, None]
+    # --- DRAM stage (dram_rates) -----------------------------------------
+    r_y = capacity.hit_rate_matrix("l2_over_y", alloc_y, l2_bytes)
+    r_z = capacity.hit_rate_matrix("l2_over_z", alloc_z, l2_bytes)
+    saved_y = np.where(has_y[:, None], r_y * v_ov_y[:, None], 0.0)
+    saved_z = np.where(has_z[:, None], r_z * v_ov_z[:, None], 0.0)
+    r_store = capacity.hit_rate_matrix("l2_store", alloc_wave, l2_bytes)
+    v_store_cap = (1.0 - r_store) * np.maximum(
+        0.0, v_store_up - v_store_comp)[:, None]
+    # partially-written sectors evicted before completion are re-read
+    v_load = v_comp_w[:, None] - saved_y - saved_z + v_store_cap
+    dram_load = v_load / wave_pts[:, None]
+    dram_store = (v_store_comp[:, None] + v_store_cap) / wave_pts[:, None]
+    # --- limiter arithmetic (assemble_gpu_estimate) ----------------------
+    stack = np.stack([
+        np.broadcast_to((geometry.n_sms * clock)[None, :]
+                        / np.maximum(cycles, 1e-12)[:, None], (C, M)),
+        l2_bw[None, :] / np.maximum(l1_load + l1_store, 1e-12),
+        dram_bw[None, :] / np.maximum(dram_load + dram_store, 1e-12),
+        np.broadcast_to((peak / max(flops, 1e-12))[None, :], (C, M)),
+    ])
+    return stack.min(axis=0), stack.argmin(axis=0)

@@ -5,24 +5,26 @@ block shapes x thread-folding factors), price every candidate with the
 analytical estimator, and return the ranking.  Evaluation is pure math — no
 code generation, no compilation, no benchmarking, no hardware.
 
-A copy of the GPU half of ``repro.core.selector``.  Where the reference
-ranks through its exploration engine and process pool, this ranking is a
-plain serial loop over ``estimate_gpu``: the engine's estimates are pinned
-bitwise equal to that loop, and a serial loop needs no worker processes
-(none forked after a CUDA context exists).  Order and tie-breaking match
-the engine: descending predicted performance, ties to the configuration
+A copy of the GPU half of ``repro.core.selector``.  Ranking routes through
+the port's exploration engine (``repro_torch.core.engine``), as the
+reference's does: the staged, memoized pipeline produces estimates bitwise
+equal to direct ``estimate_gpu`` calls while sharing structural work across
+configurations, optionally in a worker pool (which never forks a process
+that has started CUDA) and optionally pruned to a top-k.  Order and
+tie-breaking: descending predicted performance, ties to the configuration
 enumerated first.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Iterable, Sequence
+from typing import Callable, Iterable, Sequence
 
 from .access import KernelSpec, LaunchConfig
 from .capacity import CapacityModel
+from .engine import Explorer, SkippedConfig  # noqa: F401  (the generators' skip records)
 from .machines import GPUMachine
-from .perfmodel import GPUEstimate, estimate_gpu
+from .perfmodel import GPUEstimate
 
 
 def paper_block_sizes(total_threads: int = 1024) -> list[tuple]:
@@ -54,14 +56,6 @@ class RankedConfig:
         return self.estimate.perf_lups
 
 
-@dataclass
-class SkippedConfig:
-    """A configuration that could not be priced, with the reason."""
-
-    config: Any
-    reason: str
-
-
 def enumerate_gpu_configs(
     total_threads: int = 1024,
     foldings: Sequence[tuple] | None = None,
@@ -74,13 +68,33 @@ def enumerate_gpu_configs(
 
 
 class RankingResult(list):
-    """``list[RankedConfig]`` (best first); ``.skipped`` records every
-    configuration that could not be priced together with its reason
-    (nothing is silently dropped)."""
+    """``list[RankedConfig]`` (best first) that also carries the engine's
+    exploration report: ``.skipped`` records every configuration that could
+    not be priced together with its reason (nothing is silently swallowed;
+    a generator appends the variants it does not rank), ``.pruned`` every
+    configuration a ``top_k`` search proved out of the top-k from its bound
+    alone, ``.report`` is the full ``ExplorationReport``.
 
-    def __init__(self, ranked=(), skipped=()):
+    ``skipped`` defaults to a copy of the report's, so a caller that
+    extends it leaves the report as it was."""
+
+    def __init__(self, ranked=(), report=None, skipped=None):
         super().__init__(ranked)
+        self.report = report
+        if skipped is None:
+            skipped = report.skipped if report is not None else ()
         self.skipped = list(skipped)
+
+    @property
+    def pruned(self) -> list:
+        return self.report.pruned if self.report is not None else []
+
+    @property
+    def cache_stats(self) -> dict:
+        """Invariant-cache hits/misses/entries plus pruned/evaluated config
+        counts of the engine sweep that produced this ranking (per-sweep
+        deltas)."""
+        return self.report.cache_stats if self.report is not None else {}
 
 
 def rank_gpu_configs(
@@ -89,29 +103,42 @@ def rank_gpu_configs(
     configs: Iterable[LaunchConfig] | None = None,
     capacity: CapacityModel | None = None,
     total_threads: int = 1024,
+    progress: Callable | None = None,
     *,
     strict: bool = False,
+    engine=None,
+    parallel: bool = False,
+    top_k: int | None = None,
 ) -> RankingResult:
     """Rank configurations by predicted performance, best first.
 
-    ``strict=True`` re-raises the first estimation error instead of
-    recording the config under ``result.skipped``.
+    Runs on the exploration engine (results are bitwise-identical to serial
+    ``estimate_gpu`` calls).  ``strict=True`` re-raises the first estimation
+    error instead of recording the config under ``result.skipped``.  Pass an
+    ``engine`` (``repro_torch.core.engine.Explorer``) to share its invariant
+    cache across calls, or ``parallel=True`` for a pooled one-off sweep.
+    ``top_k`` runs the tiered bound-then-refine search instead of exhaustive
+    pricing: the result is truncated to the top-k (bitwise identical to the
+    exhaustive head) and bound-eliminated configs land in ``.pruned``.
     """
-    capacity = capacity or CapacityModel()
-    if configs is None:
-        configs = enumerate_gpu_configs(total_threads)
-    priced, skipped = [], []
-    for index, launch in enumerate(configs):
-        try:
-            est = estimate_gpu(spec, launch, machine, capacity)
-        except (ArithmeticError, ValueError, RuntimeError) as exc:
-            if strict:
-                raise
-            skipped.append(SkippedConfig(launch, f"{type(exc).__name__}: {exc}"))
-            continue
-        priced.append((-est.perf_lups, index, RankedConfig(launch, est)))
-    priced.sort(key=lambda t: t[:2])
-    return RankingResult((rc for _, _, rc in priced), skipped)
+    explorer = engine or Explorer(parallel=parallel)
+    report = explorer._rank_gpu(
+        spec, machine, configs, capacity=capacity,
+        total_threads=total_threads, strict=strict, top_k=top_k,
+        progress=progress,
+    )
+    return RankingResult(
+        (RankedConfig(r.config, r.estimate) for r in report.entries), report
+    )
+
+
+def select_gpu_config(
+    spec: KernelSpec, machine: GPUMachine, **kw
+) -> RankedConfig:
+    ranked = rank_gpu_configs(spec, machine, **kw)
+    if not ranked:
+        raise RuntimeError("no feasible configuration")
+    return ranked[0]
 
 
 def ranking_quality(predicted: Sequence, measured: Sequence) -> dict:

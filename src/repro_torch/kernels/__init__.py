@@ -50,23 +50,13 @@ SMEM_PER_BLOCK = 232_448
 _DTYPES = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32, 8: torch.float64}
 
 
-def pow2_tiles(lo: int, hi: int) -> list[int]:
-    """Powers of two from ``lo`` up to ``hi`` (the TPU generators' block
-    sizes; a copy of ``repro.core.tpu_adapt.pow2_tiles``)."""
-    out = []
-    t = lo
-    while t <= hi:
-        out.append(t)
-        t *= 2
-    return out
-
-
 def tpu_skipped(space) -> list:
     """The TPU's block decisions ``space`` (a generator's ``tpu_space``) as
-    ``SkippedConfig`` entries with ``TPU_REASON``."""
+    ``SkippedConfig`` entries with ``TPU_REASON``; they belong to no GPU
+    workload or machine, so both names are empty."""
     from repro_torch.core.selector import SkippedConfig
 
-    return [SkippedConfig(cfg, TPU_REASON) for cfg in space]
+    return [SkippedConfig("", "", cfg, TPU_REASON) for cfg in space]
 
 
 def fills_depth(launch) -> bool:
@@ -81,11 +71,12 @@ def flat_launches(ranked):
     what was skipped already, as pinned configs ``{"block", "folding"}``."""
     from repro_torch.core.selector import RankingResult, SkippedConfig
 
-    deep = [SkippedConfig({"block": rc.launch.block, "folding": rc.launch.folding},
+    deep = [SkippedConfig(rc.estimate.kernel, rc.estimate.machine,
+                          {"block": rc.launch.block, "folding": rc.launch.folding},
                           DEPTH_REASON)
             for rc in ranked if not fills_depth(rc.launch)]
     return RankingResult([rc for rc in ranked if fills_depth(rc.launch)],
-                         ranked.skipped + deep)
+                         ranked.report, ranked.skipped + deep)
 
 
 def available_generators() -> list[str]:

@@ -21,7 +21,7 @@ and its power limit).
 """
 from __future__ import annotations
 
-from repro_torch.kernels import pow2_tiles
+from repro_torch.core.tpu_adapt import pow2_tiles
 from repro_torch.kernels.flash_attention.kernel import FWD_TILES
 
 TILES = tuple({"bq": bq, "bk": bk} for bq, bk in FWD_TILES)

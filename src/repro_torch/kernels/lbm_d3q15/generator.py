@@ -14,7 +14,8 @@ the GPU model prices per-point kernels only: they are recorded in
 ``.skipped`` with that reason and stay runnable through a pinned config
 (``ops.lbm_step``).
 
-Ranking runs on the host, serially, and is memoized per
+Ranking runs on the host through the exploration engine
+(``core.selector.rank_gpu_configs``, serial) and is memoized per
 ``(domain, elem_bytes, machine)``.
 """
 from __future__ import annotations
@@ -48,11 +49,13 @@ def rank_configs(domain: tuple, elem_bytes: int = 8,
     key = (tuple(domain), elem_bytes, machine)
     cached = _RANKINGS.get(key)
     if cached is None:
-        cached = rank_gpu_configs(lbm_d3q15(tuple(domain), elem_bytes), machine)
+        spec = lbm_d3q15(tuple(domain), elem_bytes)
+        cached = rank_gpu_configs(spec, machine)
         cached.skipped.extend(
-            SkippedConfig(cfg, SCRATCH_REASON) for cfg in ytile_space(tuple(domain)))
+            SkippedConfig(spec.name, machine.name, cfg, SCRATCH_REASON) for cfg in ytile_space(tuple(domain)))
         _RANKINGS[key] = cached
-    return RankingResult(cached, cached.skipped)  # a copy: callers may mutate it
+    # a copy: callers may mutate it
+    return RankingResult(cached, cached.report, cached.skipped)
 
 
 def best_config(domain: tuple, elem_bytes: int = 8,

@@ -21,7 +21,7 @@ from repro_torch.core.access import LaunchConfig
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankingResult, rank_gpu_configs
 from repro_torch.core.specs import matmul_naive
-from repro_torch.kernels import pow2_tiles
+from repro_torch.core.tpu_adapt import pow2_tiles
 from repro_torch.kernels.matmul.kernel import TILES as _KERNEL_TILES
 from repro_torch.kernels.matmul.kernel import vector_width
 

@@ -14,7 +14,8 @@ scratch-staged kernels for the GPU target.  They are recorded in
 ``.skipped`` with that reason and stay runnable through a pinned config
 (``ops.star_stencil``).
 
-Ranking runs on the host, serially, and is memoized per
+Ranking runs on the host through the exploration engine
+(``core.selector.rank_gpu_configs``, serial) and is memoized per
 ``(r, domain, elem_bytes, machine)``.
 """
 from __future__ import annotations
@@ -49,11 +50,13 @@ def rank_configs(r: int, domain: tuple, elem_bytes: int = 8,
     key = (r, tuple(domain), elem_bytes, machine)
     cached = _RANKINGS.get(key)
     if cached is None:
-        cached = rank_gpu_configs(star_stencil_3d(r, tuple(domain), elem_bytes), machine)
+        spec = star_stencil_3d(r, tuple(domain), elem_bytes)
+        cached = rank_gpu_configs(spec, machine)
         cached.skipped.extend(
-            SkippedConfig(cfg, SCRATCH_REASON) for cfg in zmarch_space(r, tuple(domain)))
+            SkippedConfig(spec.name, machine.name, cfg, SCRATCH_REASON) for cfg in zmarch_space(r, tuple(domain)))
         _RANKINGS[key] = cached
-    return RankingResult(cached, cached.skipped)  # a copy: callers may mutate it
+    # a copy: callers may mutate it
+    return RankingResult(cached, cached.report, cached.skipped)
 
 
 def best_config(r: int, domain: tuple, elem_bytes: int = 8,

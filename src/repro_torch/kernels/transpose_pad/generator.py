@@ -21,7 +21,8 @@ launches with z extent 1 (``kernels.flat_launches``), in the core's order;
 the others are recorded in ``.skipped`` with their own reason and stay
 runnable through a pinned config.
 
-Ranking runs on the host, serially, and is memoized per
+Ranking runs on the host through the exploration engine
+(``core.selector.rank_gpu_configs``, serial) and is memoized per
 ``(shape, elem_bytes, machine)``.
 """
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import transpose_pad
-from repro_torch.kernels import SCRATCH_REASON, flat_launches, pow2_tiles, resolve_device
+from repro_torch.core.tpu_adapt import pow2_tiles
+from repro_torch.kernels import SCRATCH_REASON, flat_launches, resolve_device
 from repro_torch.kernels.transpose_pad.kernel import transpose_pointwise
 
 _RANKINGS: dict = {}
@@ -64,12 +66,14 @@ def rank_configs(shape: tuple, elem_bytes: int = 4,
     key = (tuple(shape), elem_bytes, machine)
     cached = _RANKINGS.get(key)
     if cached is None:
-        cached = rank_gpu_configs(transpose_pad(tuple(shape), elem_bytes), machine)
+        spec = transpose_pad(tuple(shape), elem_bytes)
+        cached = rank_gpu_configs(spec, machine)
         cached.skipped.extend(
-            SkippedConfig(cfg, SCRATCH_REASON) for cfg in tile_space(tuple(shape)))
+            SkippedConfig(spec.name, machine.name, cfg, SCRATCH_REASON) for cfg in tile_space(tuple(shape)))
         cached = flat_launches(cached)
         _RANKINGS[key] = cached
-    return RankingResult(cached, cached.skipped)  # a copy: callers may mutate it
+    # a copy: callers may mutate it
+    return RankingResult(cached, cached.report, cached.skipped)
 
 
 def best_config(shape: tuple, elem_bytes: int = 4,
