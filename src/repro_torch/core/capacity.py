@@ -9,8 +9,10 @@ As in the paper we use a Gompertz sigmoid
 (with c < 0 the function falls from ~a at O=0 towards 0 for large O).  The
 function is "not grounded in any real-world mechanism" (paper) — it is a
 smooth stand-in fitted against observed hit rates.  Where the paper fits
-against hardware counters, we fit against the LRU cache simulator
-(``repro.core.cachesim``); `benchmarks/bench_capacity_fit.py` regenerates the fits.
+against hardware counters, the fits here were made against the LRU cache
+simulator (``repro.core.cachesim``, which the port copies as
+``repro_torch.core.cachesim``); `benchmarks/bench_capacity_fit.py`
+regenerates them.
 
 Separate fits are kept per level/volume class exactly as in the paper:
 L1 redundant loads, L2 y-layer overlap, L2 z-layer overlap, L2 redundant

@@ -3,7 +3,8 @@
 These are the "address expressions + field sizes" artifacts a code generator
 hands to the estimator (paper §1.2).  A copy of the specs of
 ``repro.core.specs`` (the star stencil, the 2D 5-point stencil, the
-D3Q15 LBM and the naive GEMM) that the port's generators price, and the
+D3Q15 LBM, the naive GEMM, and the streaming LOAD and SCALE kernels the
+cache simulator's tests drive) that the port's generators price, and the
 transpose's spec, which the reference gets only by tracing; the per-point
 CUDA kernels in ``repro_torch/csrc`` perform exactly these accesses.  The
 GEMM spec is the suite's CUDA-core price of a model's matmuls; the tiled
@@ -151,4 +152,19 @@ def matmul_naive(M: int, K: int, N: int, elem_bytes: int = 2,
     return KernelSpec(
         name or f"gemm_{M}x{K}x{N}", (K, M, N), accs,
         flops_per_point=2.0, work_unit="MAC",
+    )
+
+
+def streaming_load(n: int, elem_bytes: int = 8) -> KernelSpec:
+    """c = A[i]  (paper fig. 2 LOAD kernel)."""
+    a = Field("A", (n,), elem_bytes)
+    return KernelSpec("load", (n,), (Access(a, (0,)),), flops_per_point=0.0)
+
+
+def streaming_scale(n: int, elem_bytes: int = 8) -> KernelSpec:
+    """A[i] = c * B[i]  (paper figs. 2/3 SCALE kernel)."""
+    a = Field("A", (n,), elem_bytes)
+    b = Field("B", (n,), elem_bytes)
+    return KernelSpec(
+        "scale", (n,), (Access(b, (0,)), Access(a, (0,), is_store=True)), flops_per_point=1.0
     )
