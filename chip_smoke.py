@@ -51,7 +51,17 @@ with nvcc first (one nvcc per source, in parallel):
   the DRAM rates they imply at the kernels' measured times;
   ``examples/torch_design_space.main`` on the pooled engine started after
   CUDA, held to a serial sweep and to ``price`` on its A100 anchor; then
-  the pool's forkserver stopped as after the api phase.
+  the pool's forkserver stopped as after the api phase;
+* the suite phase, after it: ``examples/torch_model_pricing.main`` (the
+  mixtral-8x7b plan priced on V100, A100 and TPU-v5e through
+  ``price(plan_request(...))``), its rows held to the reference's; a
+  ``plan_request`` for granite-3-2b's ``train_4k`` plan on ``H100``
+  through the wire codec and ``price``; then one forward pass of that plan
+  at full width on the card: every distinct GEMM class through
+  ``tuned_matmul`` in bf16 and the attention core through
+  ``flash_attention`` (B 1, 32/8 heads, S 4096, D 64, causal), each held
+  against its plain version and timed beside the suite's H100 price of it
+  and its bf16 bound; then the pass against the suite's H100 price.
 
 Each path's pinned variants (the z-march stencils, the y-tiled LBM, the
 y-tiled Jacobi sweep, the tiled transpose, the second GEMM and flash tiles)
@@ -2840,6 +2850,241 @@ def run_sim(args, torch, dev, kernels: list, reads: dict) -> dict:
     return launches
 
 
+# examples/torch_model_pricing.py's rows (mixtral-8x7b at train_4k): machine
+# -> (time a pass s, flops, HBM bytes, dominant, workload rows), and the
+# suite's H100 price of granite-3-2b at train_4k: (time a pass s, flops,
+# HBM bytes, dominant) and its time a role; tests/test_torch_suite.py holds
+# them exactly against the reference's suite on the CPU (the chip machine
+# has no jax), and the card's host holds its own within SUITE_RTOL
+MODEL_PRICING_ROWS = {
+    "V100-PCIe-32GB": (96.16262544695653, 113232517791744.0, 29598447903612.53, "memory", 225),
+    "A100-SXM4-40G": (69.71600899227738, 113232517791744.0, 29476617934614.87, "memory", 225),
+    "TPUv5e": (0.5850649735220053, 108834471280640.0, 239211642880.0, "compute", 193),
+}
+GRANITE_H100 = (10.18967922583209, 26255135080448.0, 6924370839428.047, "memory")
+GRANITE_H100_ROLES = {
+    "attn.qkv": 0.8001056810730257,
+    "attn.core[qk]": 1.066807574764033,
+    "attn.core[av]": 1.066807574764033,
+    "attn.out": 0.5334037873820165,
+    "mlp.in": 4.267230299056132,
+    "mlp.out": 2.133615149528066,
+    "head.lm": 0.32170915926477894,
+}
+SUITE_RTOL = 1e-9                        # another host's numpy may sum in another order
+SUITE_PASSES = 5                         # timed runs of the whole pass, back to back
+
+
+def same_numbers(got, want) -> bool:
+    """Whether two tuples agree, floats within SUITE_RTOL, the rest exactly."""
+    return len(got) == len(want) and all(
+        abs(g - w) <= SUITE_RTOL * abs(w) if isinstance(w, float) else g == w
+        for g, w in zip(got, want))
+
+
+def run_suite(args, torch, dev, kernels: list) -> dict:
+    """The model suite on the card's host and its plan on the card: U1 the
+    model-pricing example (``examples/torch_model_pricing.main``), its rows
+    held to the reference's; U2 a ``plan_request`` for granite-3-2b's
+    ``train_4k`` plan on ``H100`` through the wire codec and ``price``; U3
+    one forward pass of that plan at full width, each distinct GEMM class
+    through ``tuned_matmul`` (bf16) and the attention core through
+    ``flash_attention``, held against their plain versions and timed beside
+    the suite's H100 price of each and their bf16 bound.  Returns U3's
+    launch counts."""
+    import os
+
+    from repro_torch.api import PlanRef, plan_request, price
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import pool
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.matmul import kernel as MK
+    from repro_torch.kernels.matmul.ops import tuned_matmul
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.serve import schema
+    from repro_torch.suite import lower_model
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_model_pricing as pricing
+
+    card = card_line()
+    cores = len(os.sched_getaffinity(0))
+    say(f"suite: card {card}; host {cores} cores available ({os.cpu_count()} on the host)")
+
+    # U1. the example: one price() sweep of mixtral-8x7b's plan on three machines
+    t0 = time.perf_counter()
+    out = pricing.main()
+    t_example = time.perf_counter() - t0
+    got = out["suite"]
+    rows = {machine: (r.time_s, r.flops, r.hbm_bytes, r.roofline.dominant, len(r.rows))
+            for (_, machine), r in got.reports.items()}
+    if set(rows) != set(MODEL_PRICING_ROWS) or not all(
+            same_numbers(rows[m], want) for m, want in MODEL_PRICING_ROWS.items()):
+        raise AssertionError(f"the example's rows {rows} are not the reference's "
+                             f"{MODEL_PRICING_ROWS}")
+    exact = rows == MODEL_PRICING_ROWS
+    say(f"suite U1 model pricing: {pricing.ARCH} at {pricing.SHAPE}, {len(out['plan'].workloads)} "
+        f"workloads, {len(out['plan'].distinct())} structural classes, priced on "
+        f"{len(rows)} machines in {got.wall_time_s:.4f} s (sweep), the example {t_example:.4f} s; "
+        f"invariant cache {got.cache_stats['hits']} hits / {got.cache_stats['misses']} misses; "
+        f"rows equal the reference's {'exactly' if exact else f'within {SUITE_RTOL}'}; {card}")
+    say("suite U1 table:\n" + got.table())
+
+    # U2. a PlanRef request through the wire codec, priced on the H100
+    request = plan_request({"granite-3-2b": PlanRef("granite-3-2b", "train_4k")}, ["H100"])
+    text = schema.dumps(request)
+    back = schema.loads(text)
+    if back != request:
+        raise AssertionError("the plan request does not round-trip through the codec")
+    t0 = time.perf_counter()
+    result = price(back)
+    t_price = time.perf_counter() - t0
+    report = result.suite.get("granite-3-2b", "H100-SXM5-80G")
+    priced = (report.time_s, report.flops, report.hbm_bytes, report.roofline.dominant)
+    roles = report.by_role()
+    if not report.complete or not same_numbers(priced, GRANITE_H100) or set(roles) != set(
+            GRANITE_H100_ROLES) or not all(same_numbers((roles[k],), (v,))
+                                           for k, v in GRANITE_H100_ROLES.items()):
+        raise AssertionError(f"the H100 price of granite-3-2b {priced}, {roles} is not the "
+                             f"reference's {GRANITE_H100}, {GRANITE_H100_ROLES}")
+    say(f"suite U2 plan request: {len(text)} bytes on the wire, decoded equal; price() on "
+        f"H100 in {t_price:.4f} s ({result.suite.wall_time_s:.4f} s the sweep): "
+        f"{report.time_s * 1e3:.2f} ms a pass, {report.flops / 1e12:.2f} TFLOP, "
+        f"{report.hbm_bytes / 1e9:.2f} GB, {report.roofline.dominant}-dominant, "
+        f"{len(report.rows)} rows (the reference's numbers); by role (ms): "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in roles.items()))
+
+    # the pools the sweeps may have started outlive them: stop them
+    pool.stop_helpers()
+    left = live_children()
+    if left:
+        raise AssertionError(f"processes the smoke started are still there: {left}")
+    say("suite: no pool helper and no child process left after the sweeps")
+
+    # U3. one forward pass of the plan on the card: the GEMM classes through
+    # tuned_matmul, the attention core through flash_attention in place of
+    # the GPU half's per-head core[qk] / core[av] GEMM classes
+    cfg = get_config("granite-3-2b")
+    plan = lower_model(cfg, "train_4k")
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim
+    S = plan.shape.seq_len
+    # the GPU half's GEMM classes by (M, K, N): their roles, count a pass and
+    # the suite's H100 price of them all; the attention core's per-head
+    # classes priced together, one flash call a layer on the card
+    priced_rows = {r.name: r for r in report.rows}
+    classes, n_attn, attn_price = {}, 0, 0.0
+    for w in plan.workloads:
+        if "gpu" not in w.backends:
+            continue
+        row = priced_rows[w.name]
+        if w.role in ("attn.core[qk]", "attn.core[av]"):
+            n_attn += w.role == "attn.core[qk]"
+            attn_price += row.total_time_s
+            continue
+        c = classes.setdefault((w.params["M"], w.params["K"], w.params["N"]),
+                               {"roles": [], "count": 0, "price_s": 0.0})
+        c["roles"] += [] if w.role in c["roles"] else [w.role]
+        c["count"] += w.count
+        c["price_s"] += row.total_time_s
+    gemms = [("+".join(c["roles"]), shape, c["count"]) for shape, c in classes.items()]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    operands = {}
+    for role, (M, K, N), _ in gemms:
+        a = torch.randn((M, K), device=dev, generator=gen).bfloat16()
+        b = (torch.randn((K, N), device=dev, generator=gen) * K ** -0.5).bfloat16()
+        operands[role] = (a, b)
+    q = torch.randn((plan.batch, Hq, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    k = torch.randn((plan.batch, Hkv, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+    v = torch.randn((plan.batch, Hkv, S, D), device=dev, generator=gen, dtype=torch.bfloat16)
+
+    # the main path: each class once through its entry point, every launch counted
+    reset_counts()
+    outs = {role: tuned_matmul(a, b) for role, (a, b) in operands.items()}
+    attn = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = {"matmul_tiled": MK.LAUNCHES["matmul_tiled"],
+                "flash_attention_fwd": FK.LAUNCHES["flash_attention_fwd"]}
+    mm_tile = MK.LAST_LAUNCH["matmul_tiled"]
+    fa_tile = FK.LAST_LAUNCH["flash_attention_fwd"]
+    if launches != {"matmul_tiled": len(gemms), "flash_attention_fwd": 1} or \
+            mm_tile[0] != "wgmma" or FK.fwd_route(torch.bfloat16, D, *fa_tile[:2]) != "wgmma":
+        raise AssertionError(f"suite pass: launches {launches} (want {len(gemms)} GEMMs and 1 "
+                             f"flash forward), last GEMM {mm_tile}, last flash {fa_tile}")
+    errs = {role: check_close(torch, outs[role], matmul_ref(a, b), f"suite {role} bf16",
+                              **GEMM_TOL[2]) for role, (a, b) in operands.items()}
+    del outs
+    want = attention_ref(q.float(), k.float(), v.float(), True).to(torch.bfloat16)
+    err_attn, rel_attn = check_flash(torch, attn, want, "suite attention core", 2)
+    del attn, want
+    say(f"suite U3 main path: {len(gemms)} GEMM classes through tuned_matmul at "
+        f"{mm_tile}, the attention core through flash_attention at {fa_tile}; launches "
+        f"{launches}; max abs error {errs} (rtol/atol {GEMM_TOL[2]}); attention "
+        f"{err_attn!r} ({FLASH_TOL[2]}), row relative {rel_attn!r} (bound {FLASH_ROW_REL[2]})")
+
+    # times: each class alone, beside the suite's H100 price of it and its bound
+    lines, total, bound_total, flops_total = [], 0.0, 0.0, 0.0
+    for role, (M, K, N), count in gemms:
+        a, b = operands[role]
+        ms = cuda_ms(torch, lambda: tuned_matmul(a, b))
+        b_ms, b_by = bf16_bound(2.0 * M * K * N, (M * K + K * N + M * N) * 2)
+        price_ms = classes[(M, K, N)]["price_s"] * 1e3
+        total += count * ms
+        bound_total += count * b_ms
+        flops_total += count * 2.0 * M * K * N
+        lines.append({"class": role, "shape": [M, K, N], "count": count, "ms": ms,
+                      "total_ms": count * ms, "suite_h100_ms": price_ms,
+                      "bound_ms": b_ms, "bound_by": b_by})
+        say(f"suite U3 {role} {M}x{K}x{N} x{count}: {ms:.4f} ms, x{count} = "
+            f"{count * ms:.4f} ms ({2.0 * M * K * N / ms / 1e9:.1f} TFLOP/s); the suite's H100 "
+            f"price of the class {price_ms:.4f} ms ({price_ms / (count * ms):.1f}x); bound "
+            f"{count * b_ms:.4f} ms ({b_by})")
+    ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    b_ms, b_by, flops = attention_bound(plan.batch, Hq, Hkv, S, S, D, True, 2)
+    price_ms = attn_price * 1e3
+    total += n_attn * ms
+    bound_total += n_attn * b_ms
+    flops_total += n_attn * flops
+    lines.append({"class": "attn.core", "shape": [plan.batch, Hq, Hkv, S, D], "count": n_attn,
+                  "ms": ms, "total_ms": n_attn * ms, "suite_h100_ms": price_ms,
+                  "bound_ms": b_ms, "bound_by": b_by})
+    say(f"suite U3 attn.core B {plan.batch} x {Hq}/{Hkv} heads x {S}, D {D}, causal x{n_attn}: "
+        f"{ms:.4f} ms, x{n_attn} = {n_attn * ms:.4f} ms; the suite's H100 price of its "
+        f"core[qk] + core[av] classes ({2 * plan.batch * Hq} per-head GEMMs a layer) "
+        f"{price_ms:.4f} ms ({price_ms / (n_attn * ms):.1f}x); bound {n_attn * b_ms:.4f} ms "
+        f"({b_by})")
+
+    # the whole pass back to back, every class its count of times, as a
+    # forward pass queues them: the card's time without idle gaps between calls
+    def one_pass():
+        for role, _, count in gemms:
+            a, b = operands[role]
+            for _ in range(count):
+                tuned_matmul(a, b)
+        for _ in range(n_attn):
+            flash_attention(q, k, v, causal=True)
+
+    pass_ms = cuda_ms(torch, one_pass, warmup=1, reps=SUITE_PASSES)
+    suite_ms = report.time_s * 1e3
+    say(f"suite U3 pass: sum of count x ms {total:.4f} ms; the pass back to back {pass_ms:.4f} ms "
+        f"(median of {SUITE_PASSES}); the suite's H100 price {suite_ms:.2f} ms, "
+        f"{suite_ms / pass_ms:.1f}x the pass on the card; the plan's bf16 bound "
+        f"{bound_total:.4f} ms ({flops_total / 1e12:.3f} TFLOP, the pass at "
+        f"{bound_total / pass_ms * 100:.1f} % of it); {card}")
+    say("suite: " + json.dumps({"card": card, "cores": cores, "example_s": t_example,
+                                "example_sweep_s": got.wall_time_s, "price_s": t_price,
+                                "classes": lines, "sum_ms": total, "pass_ms": pass_ms,
+                                "suite_h100_ms": suite_ms, "ratio": suite_ms / pass_ms,
+                                "bound_ms": bound_total, "launches": launches}))
+    del operands, q, k, v
+    names = {"matmul_tiled": f"matmul_tiled[{'x'.join(map(str, mm_tile[1]))}]",
+             "flash_attention_fwd": f"flash_attention_fwd[bq={fa_tile[0]},bk={fa_tile[1]}]"}
+    if not all(any(kr["name"] == name for kr in kernels) for name in names.values()):
+        raise AssertionError(f"no kernels record named {names}")
+    return {names[key]: n for key, n in launches.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2906,6 +3151,11 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in sim_launches and k.get("config", "") is None:
             k["sim_launches"] = sim_launches[k["name"]]
+    torch.cuda.empty_cache()
+    suite_launches = run_suite(args, torch, dev, kernels)
+    for k in kernels:
+        if k["name"] in suite_launches:
+            k["suite_launches"] = suite_launches[k["name"]]
 
     # peak memory
     say(f"peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
@@ -2927,7 +3177,8 @@ def main(argv=None) -> int:
                                     "fp32_queued_ms", "fp32_library_ms",
                                     "fp32_library_in_turns_ms", "fp32_library_queued_ms",
                                     "fp32_copy_queued_ms", "ytile_fp64", "ytile_fp32",
-                                    "api_launches", "sim_launches", "sim_ms")
+                                    "api_launches", "sim_launches", "sim_ms",
+                                    "suite_launches")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

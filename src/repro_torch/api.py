@@ -2,7 +2,8 @@
 
 Every way of asking the estimator a question — a GPU ``KernelSpec`` with
 launch configs, ``(config, PallasKernelSpec)`` candidates, engine
-``Workload``s — is a ``PriceRequest``; every answer is a ``PriceResult``.
+``Workload``s, suite ``ModelPlan``s / ``PlanRef``s — is a ``PriceRequest``;
+every answer is a ``PriceResult``.
 The same frozen dataclasses travel in-process (``price(request)``) and
 through the wire codec (``repro_torch.serve.schema``), so an encoded
 answer decodes to the same result.
@@ -13,13 +14,11 @@ answer decodes to the same result.
     for e in result.ranking():
         print(e.config, e.perf, e.limiter)
 
-A copy of ``repro.api``.  Two of its request kinds wait for the slices that
-port what they need, and a request that carries one raises a ``ValueError``
-naming it instead of pricing nothing: suite model plans (``plans``; the
-reference's ``plan_request`` / ``PlanRef``, with the suite and the model
-configs) and traced Pallas kernels (``traced``; ``kernel_request``, with
-the frontend).  The request keeps both fields, so its wire form is the
-reference's.
+A copy of ``repro.api``.  One of its request kinds waits for the slice
+that ports what it needs, and a request that carries it raises a
+``ValueError`` naming it instead of pricing nothing: traced Pallas kernels
+(``traced``; ``kernel_request``, with the frontend).  The request keeps the
+field, so its wire form is the reference's.
 """
 from __future__ import annotations
 
@@ -34,11 +33,30 @@ API_VERSION = 1
 
 # what a request that uses a part of the reference's API not ported yet asks
 NOT_PORTED = {
-    "plans": "suite model plans (plan_request / PlanRef) are not ported yet: "
-             "they need the suite and the model configs",
     "traced": "traced Pallas kernels (kernel_request) are not ported yet: "
               "they need the frontend",
 }
+
+
+@dataclass(frozen=True)
+class PlanRef:
+    """A wire-serializable reference to a suite model plan.
+
+    ``ModelPlan`` holds an ``ArchConfig`` and interned spec callables —
+    in-process only — so requests that cross a process boundary carry the
+    recipe instead: ``price`` resolves it through ``configs.get_config`` +
+    ``suite.lower_model`` on the pricing side.
+    """
+
+    arch: str
+    shape: str = "train_4k"
+    batch: int = 1
+
+    def resolve(self):
+        from repro_torch.configs import get_config
+        from repro_torch.suite import lower_model
+
+        return lower_model(get_config(self.arch), self.shape, self.batch)
 
 
 @dataclass(frozen=True)
@@ -46,12 +64,14 @@ class PriceRequest:
     """One pricing question, versioned and value-like.
 
     ``workloads``: engine ``Workload``s (a bare GPU ``KernelSpec`` is
-    promoted, as ``Explorer`` always did).  ``plans`` and ``traced`` keep
-    the reference's fields; a request that fills either is refused (see
+    promoted, as ``Explorer`` always did).  ``plans``: ``{name: ModelPlan |
+    PlanRef}`` (or an items tuple) — priced through suite lowering into the
+    same sweep, results folded into ``result.suite``.  ``traced`` keeps the
+    reference's field; a request that fills it is refused (see
     ``NOT_PORTED``).  ``machines``: registry names (see
     ``core.machines.MACHINES``) or machine objects.  ``gpu_configs``
-    overrides the GPU launch-config list for workloads that do not carry
-    their own.
+    overrides the GPU launch-config list for plan lowering and for
+    workloads that do not carry their own.
     """
 
     workloads: tuple = ()
@@ -85,12 +105,12 @@ class PriceRequest:
 
 @dataclass(frozen=True)
 class PriceResult:
-    """One pricing answer: the engine's ``ExplorationReport``.
+    """One pricing answer: the engine's ``ExplorationReport`` plus, when the
+    request carried suite plans, the folded ``SuiteReport``.
 
     The common report accessors are re-exported so most callers never reach
     inside: ``result.ranking(workload, machine)``, ``result.best(...)``,
-    ``result.cache_stats`` ...  ``suite`` keeps the reference's field and
-    is always None here (no plans are priced yet).
+    ``result.cache_stats`` ...
 
     ``degraded=True`` marks a graceful-degradation answer (``price_bounds``):
     the ranking orders configs by their sound closed-form lower bound, not
@@ -168,11 +188,27 @@ def pallas_request(candidates, machine="TPUv5e", *,
     )
 
 
+def plan_request(plans: dict, machines, *, gpu_configs=None,
+                 top_k: int | None = None,
+                 strict: bool = False) -> PriceRequest:
+    """Price suite model plans on ``machines`` in one sweep.
+
+    ``plans`` values may be ``ModelPlan``s (in-process) or ``PlanRef``s
+    (serializable — resolved on the pricing side).
+    """
+    return PriceRequest(plans=plans, machines=machines,
+                        gpu_configs=gpu_configs, top_k=top_k, strict=strict)
+
+
 # ==========================================================================
 # the one entry point
 # ==========================================================================
 def _resolve_machine(m):
     return get_machine(m) if isinstance(m, str) else m
+
+
+def _resolve_plan(plan):
+    return plan.resolve() if isinstance(plan, PlanRef) else plan
 
 
 def _check_request(request: PriceRequest) -> None:
@@ -185,9 +221,10 @@ def _check_request(request: PriceRequest) -> None:
             raise ValueError(f"request field {field!r}: {reason}")
 
 
-def _request_workloads(request: PriceRequest) -> list:
-    """Lower a request to its engine workload list (shared by ``price`` and
-    ``price_bounds`` so both answer literally the same question)."""
+def _request_workloads(request: PriceRequest):
+    """Lower a request to its engine workload list and its resolved plans
+    (shared by ``price`` and ``price_bounds`` so both answer literally the
+    same question)."""
     workloads = [
         w if isinstance(w, Workload) else Workload(name=w.name, gpu_spec=w)
         for w in request.workloads
@@ -198,27 +235,47 @@ def _request_workloads(request: PriceRequest) -> list:
             if w.gpu_configs is None and w.gpu_spec is not None else w
             for w in workloads
         ]
-    return workloads
+
+    plans = {name: _resolve_plan(p) for name, p in request.plans}
+    if plans:
+        from repro_torch.suite import suite_gpu_configs
+
+        gpu_configs = (list(request.gpu_configs)
+                       if request.gpu_configs is not None
+                       else suite_gpu_configs())
+        for name, plan in plans.items():
+            for w in plan.engine_workloads(gpu_configs):
+                workloads.append(
+                    dataclasses.replace(w, name=f"{name}::{w.name}"))
+    return workloads, plans
 
 
 def price(request: PriceRequest, *, engine: Explorer | None = None,
           progress=None) -> PriceResult:
     """Answer one ``PriceRequest`` in a single engine sweep.
 
-    Every workload runs through ONE ``Explorer`` sweep — sharing the
-    invariant cache, cell-level dedupe, and (with ``machine_axis``)
-    geometry batching.  ``engine`` lets a long-lived caller (a code
-    generator ranking many kernels) reuse one Explorer, and with it its
-    pool settings and cache, across requests.
+    Workloads and every suite plan's lowered kernels run through ONE
+    ``Explorer`` sweep — sharing the invariant cache, cell-level dedupe,
+    and (with ``machine_axis``) geometry batching — then suite plans fold
+    their namespaced entries into ``result.suite``.  ``engine`` lets a
+    long-lived caller (a code generator ranking many kernels) reuse one
+    Explorer, and with it its pool settings and cache, across requests.
     """
     _check_request(request)
     explorer = engine or Explorer()
     machines = [_resolve_machine(m) for m in request.machines]
-    report = explorer._explore(_request_workloads(request), machines,
+    workloads, plans = _request_workloads(request)
+    report = explorer._explore(workloads, machines,
                                strict=request.strict, top_k=request.top_k,
                                progress=progress,
                                machine_axis=request.machine_axis)
-    return PriceResult(report=report)
+    if plans:
+        from repro_torch.suite import suite_from_report
+
+        suite = suite_from_report(plans, machines, report)
+    else:
+        suite = None
+    return PriceResult(report=report, suite=suite)
 
 
 def price_bounds(request: PriceRequest, *,
@@ -229,17 +286,18 @@ def price_bounds(request: PriceRequest, *,
     backend's cheap bound tasks — no grid walks, no wave model, no worker
     pool — and ranks configurations by their sound lower bound on primary
     time.  The result is flagged ``degraded=True``: the order is a bound
-    ranking, not the exact one.
+    ranking, not the exact one, and suite folding is skipped (no exact
+    estimates exist to fold).
     """
     _check_request(request)
     explorer = engine or Explorer()
     machines = [_resolve_machine(m) for m in request.machines]
-    report = explorer.bound_rank(_request_workloads(request), machines,
-                                 top_k=request.top_k)
+    workloads, _ = _request_workloads(request)
+    report = explorer.bound_rank(workloads, machines, top_k=request.top_k)
     return PriceResult(report=report, degraded=True)
 
 
 __all__ = [
-    "API_VERSION", "NOT_PORTED", "PriceRequest", "PriceResult",
-    "gpu_request", "pallas_request", "price", "price_bounds",
+    "API_VERSION", "NOT_PORTED", "PlanRef", "PriceRequest", "PriceResult",
+    "gpu_request", "pallas_request", "plan_request", "price", "price_bounds",
 ]

@@ -31,8 +31,8 @@ structural work (see ``engine.invariants``).
 
 A copy of ``repro.core.engine.explorer`` without the reference's deprecated
 public shims (``rank_gpu``, ``rank_pallas``, ``explore``, ``explore_plans``):
-``repro_torch.api.price`` and ``core.selector.rank_gpu_configs`` call the
-private implementations.  One difference of behaviour: an
+``repro_torch.api.price``, ``core.selector.rank_gpu_configs`` and the
+suite's ``_price_plans`` call the private implementations.  One difference of behaviour: an
 ``ArithmeticError`` of a task or a combine (a launch with a zero block
 extent divides by zero) is an estimation error here, recorded as a skip
 like ``ValueError``/``RuntimeError`` (raised under ``strict``), where the
@@ -42,6 +42,7 @@ it so.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import hashlib
 import json
 import os
@@ -529,6 +530,27 @@ class Explorer:
         report.wall_time_s = time.perf_counter() - t0
         self.save_cache()
         return report
+
+    def _explore_plans(self, plans, machines, *,
+                       strict: bool | None = None, top_k: int | None = None,
+                       progress=None,
+                       machine_axis: bool = False) -> ExplorationReport:
+        """Price a batch of named workload plans in ONE sweep.
+
+        ``plans``: mapping plan name -> iterable of ``Workload``.  Workload
+        names are namespaced as ``"<plan>::<workload>"`` in the report, so
+        many plans (e.g. the model suite's per-model kernel plans) share a
+        single enumerate/dedupe/evaluate pass — and therefore the invariant
+        cache — without name collisions.  Filter per plan with
+        ``report.ranking(f"{plan}::{workload}", machine)``.
+        """
+        namespaced = [
+            dataclasses.replace(w, name=f"{pname}::{w.name}")
+            for pname, wls in plans.items()
+            for w in wls
+        ]
+        return self._explore(namespaced, machines, strict=strict, top_k=top_k,
+                             progress=progress, machine_axis=machine_axis)
 
     # ---- persistence ---------------------------------------------------
     def save_cache(self) -> int:

@@ -18,10 +18,20 @@ H100: at granite-3-2b's causal prefill (B 4 × 4096, D 64), where
 ``chip_smoke.py`` times both tiles in turns, the (64, 64) wgmma kernel
 is the slower one (``PERF.md`` §6 row 10 gives both times, with the card
 and its power limit).
+
+``tpu_candidate_specs`` gives the suite's TPU half the reference's
+``(config, PallasKernelSpec)`` candidates over ``tpu_space``.  The
+reference traces them from its Pallas kernel; the port has no Pallas
+kernel to trace, so it declares them in the form the reference's tracer
+derives (pinned by the reference's ``test_flash_traced_matches_handwritten``);
+a spec frontend for the port's kernels (``ROADMAP.md`` queue 1, item 10)
+would derive them.
 """
 from __future__ import annotations
 
-from repro_torch.core.tpu_adapt import pow2_tiles
+from functools import lru_cache
+
+from repro_torch.core.tpu_adapt import MatmulShape, OperandSpec, PallasKernelSpec, pow2_tiles
 from repro_torch.kernels.flash_attention.kernel import FWD_TILES
 
 TILES = tuple({"bq": bq, "bk": bk} for bq, bk in FWD_TILES)
@@ -39,6 +49,41 @@ def tpu_space(Sq: int, Skv: int):
             if Skv % bk:
                 continue
             yield {"bq": bq, "bk": bk}
+
+
+@lru_cache(maxsize=None)
+def _tpu_candidates(B, Hq, Hkv, Sq, Skv, D, causal, elem_bytes) -> tuple:
+    # the triangular causal work factor is a hand-pinned cost annotation in
+    # the reference too: a property of the masked values, not of addresses
+    tri = 0.5 if causal and Sq == Skv else 1.0
+    out = []
+    for cfg in tpu_space(Sq, Skv):
+        bq, bk = cfg["bq"], cfg["bk"]
+        out.append((cfg, PallasKernelSpec(
+            name=f"fa_{bq}x{bk}", grid=(B * Hq, Sq // bq, Skv // bk),
+            operands=(
+                OperandSpec("q", (1, 1, bq, D), elem_bytes, grid_deps=(0, 1)),
+                OperandSpec("k", (1, 1, bk, D), elem_bytes, grid_deps=(0, 2)),
+                OperandSpec("v", (1, 1, bk, D), elem_bytes, grid_deps=(0, 2)),
+                OperandSpec("o", (1, 1, bq, D), elem_bytes, grid_deps=(0, 1), is_output=True),
+            ),
+            matmuls_per_step=(MatmulShape(bq, D, bk), MatmulShape(bq, bk, D)),
+            vpu_elems_per_step=6.0 * bq * bk * tri,  # exp, mask, rescale
+            vpu_shape=(bq, bk),
+            # the fp32 accumulator and the two (bq, 128) running-stat blocks
+            scratch_bytes=(bq * D + 2 * bq * 128) * 4,
+            work_per_step=float(bq * bk) * tri, elem_bytes=elem_bytes)))
+    return tuple(out)
+
+
+def tpu_candidate_specs(B, Hq, Hkv, Sq, Skv, D, causal=True, elem_bytes=2):
+    """``(config, PallasKernelSpec)`` of the reference's Pallas flash
+    forward at every config of ``tpu_space(Sq, Skv)``, in its order: grid
+    (B·Hq, Sq/bq, Skv/bk), K and V revisited per (head, kv block), the
+    causal triangle's factor 0.5 when Sq == Skv.  Declared, since the port
+    cannot trace a Pallas kernel; memoised per shape, so repeated layers
+    share the candidate objects."""
+    yield from _tpu_candidates(B, Hq, Hkv, Sq, Skv, D, bool(causal), elem_bytes)
 
 
 def decode_bk(Skv: int) -> int:

@@ -14,14 +14,24 @@ decides nothing on the card.
 ``suite_price`` gives the copied estimator's price of ``matmul_naive`` at
 the suite's blocks, which is a CUDA-core model's price, not a prediction of
 the tiled kernel.
+
+``tpu_candidate_specs`` gives the suite's TPU half the reference's
+``(config, PallasKernelSpec)`` candidates over ``tpu_space``.  The
+reference traces them from its Pallas kernel; the port has no Pallas
+kernel to trace, so it declares them in the form the reference's tracer
+derives (pinned by the reference's ``test_matmul_traced_matches_handwritten``);
+a spec frontend for the port's kernels (``ROADMAP.md`` queue 1, item 10)
+would derive them.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 from repro_torch.core.access import LaunchConfig
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankingResult, rank_gpu_configs
 from repro_torch.core.specs import matmul_naive
-from repro_torch.core.tpu_adapt import pow2_tiles
+from repro_torch.core.tpu_adapt import MatmulShape, OperandSpec, PallasKernelSpec, pow2_tiles
 from repro_torch.kernels.matmul.kernel import TILES as _KERNEL_TILES
 from repro_torch.kernels.matmul.kernel import vector_width
 
@@ -64,6 +74,34 @@ def tpu_space(M: int, K: int, N: int):
                 if K % bk:
                     continue
                 yield {"bm": bm, "bk": bk, "bn": bn}
+
+
+@lru_cache(maxsize=None)
+def _tpu_candidates(M: int, K: int, N: int, elem_bytes: int) -> tuple:
+    out = []
+    for cfg in tpu_space(M, K, N):
+        bm, bk, bn = cfg["bm"], cfg["bk"], cfg["bn"]
+        out.append((cfg, PallasKernelSpec(
+            name=f"mm_{bm}x{bk}x{bn}", grid=(M // bm, N // bn, K // bk),
+            operands=(
+                OperandSpec("a", (bm, bk), elem_bytes, grid_deps=(0, 2)),
+                OperandSpec("b", (bk, bn), elem_bytes, grid_deps=(1, 2)),
+                OperandSpec("o", (bm, bn), elem_bytes, grid_deps=(0, 1), is_output=True),
+            ),
+            # one MXU matmul a grid step, accumulated in an fp32 scratch block
+            matmuls_per_step=(MatmulShape(bm, bk, bn),),
+            scratch_bytes=bm * bn * 4,
+            work_per_step=2.0 * bm * bk * bn, elem_bytes=elem_bytes)))
+    return tuple(out)
+
+
+def tpu_candidate_specs(M: int, K: int, N: int, elem_bytes: int = 2):
+    """``(config, PallasKernelSpec)`` of the reference's Pallas matmul at
+    every config of ``tpu_space(M, K, N)``, in its order: grid (M/bm, N/bn,
+    K/bk), A revisited per (i, k), B per (j, k), an fp32 accumulator.
+    Declared, since the port cannot trace a Pallas kernel; memoised per
+    shape, so repeated layers share the candidate objects."""
+    yield from _tpu_candidates(M, K, N, elem_bytes)
 
 
 def default_config(M: int, K: int, N: int, elem_bytes: int = 2) -> dict | None:

@@ -23,8 +23,8 @@ of a request.
 
 A copy of ``repro.serve.schema``'s codec, with the same tags (class names,
 never module paths) and ``SCHEMA_VERSION``.  It registers the types the
-port has; the reference's roofline, traced-spec and suite reports join with
-the slices that port them.
+port has; the reference's traced-spec payload (``TracedSpecPayload``)
+joins with the slice that ports the frontend.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import dataclasses
 import hashlib
 import json
 
-from repro_torch.api import PriceRequest, PriceResult
+from repro_torch.api import PlanRef, PriceRequest, PriceResult
 from repro_torch.core.access import Access, Field, KernelSpec, LaunchConfig
 from repro_torch.core.capacity import CapacityModel, HitRateFit
 from repro_torch.core.engine import (
@@ -50,18 +50,20 @@ from repro_torch.core.machines import (
     TPUMachine,
 )
 from repro_torch.core.perfmodel import GPUEstimate, VolumeBreakdown
+from repro_torch.core.roofline import RooflineReport
 from repro_torch.core.tpu_adapt import (
     MatmulShape,
     OperandSpec,
     PallasEstimate,
     PallasKernelSpec,
 )
+from repro_torch.suite.report import ModelReport, SuiteReport, WorkloadPricing
 
 SCHEMA_VERSION = 1
 
 # the whitelist: everything a PriceRequest/PriceResult tree can contain
 _CLASSES = (
-    PriceRequest, PriceResult,
+    PriceRequest, PriceResult, PlanRef,
     Workload, ExplorationReport, EvalResult, SkippedConfig, PrunedConfig,
     RejectedSpec,
     KernelSpec, Field, Access, LaunchConfig,
@@ -69,6 +71,7 @@ _CLASSES = (
     CapacityModel, HitRateFit,
     GPUEstimate, VolumeBreakdown,
     PallasKernelSpec, OperandSpec, MatmulShape, PallasEstimate,
+    SuiteReport, ModelReport, WorkloadPricing, RooflineReport,
 )
 _BY_NAME = {cls.__name__: cls for cls in _CLASSES}
 _BY_CLASS = {cls: cls.__name__ for cls in _CLASSES}

@@ -6,8 +6,8 @@ both packages' ``price``: the rankings must agree bitwise, field by field,
 exhaustive and pruned to a top-k (the pooled sweep is held to these in
 ``test_torch_engine.py``).  Also: the codec round-trips a request exactly
 and writes the reference's bytes, a newer request version and the request
-kinds not ported yet are refused, and the paper-loop example ranks through
-``price`` and runs its winners on the CPU.
+kind not ported yet (traced kernels) are refused, and the paper-loop
+example ranks through ``price`` and runs its winners on the CPU.
 """
 import dataclasses
 import functools
@@ -258,11 +258,10 @@ def test_future_request_version_is_refused():
         schema.loads(schema.dumps(request).replace('"schema_version":1', '"schema_version":2'))
 
 
-@pytest.mark.parametrize("field", ["plans", "traced"])
+@pytest.mark.parametrize("field", ["traced"])
 def test_requests_not_ported_yet_raise(field):
     spec, _ = SPECS["stencil_2d5pt"]()
-    request = api.PriceRequest(workloads=[spec], machines=["H100"],
-                               **{field: {"m": ("plan",)} if field == "plans" else ("k",)})
+    request = api.PriceRequest(workloads=[spec], machines=["H100"], **{field: ("k",)})
     for fn in (api.price, api.price_bounds):
         with pytest.raises(ValueError, match="not ported yet") as exc:
             fn(request)
