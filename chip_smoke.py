@@ -61,7 +61,19 @@ with nvcc first (one nvcc per source, in parallel):
   ``tuned_matmul`` in bf16 and the attention core through
   ``flash_attention`` (B 1, 32/8 heads, S 4096, D 64, causal), each held
   against its plain version and timed beside the suite's H100 price of it
-  and its bf16 bound; then the pass against the suite's H100 price.
+  and its bf16 bound; then the pass against the suite's H100 price;
+* the serve phase, last: ``python -m repro_torch.serve`` started as a
+  process (pooled, ``--resume``, a pid file); the api phase's request
+  priced cold through its socket and held to the api phase's in-process
+  ``price`` byte for byte, the two paths' own requests coalesced behind it
+  and held to their solo rankings, both spaces in fp32 on the warm daemon;
+  200 memo hits each of the full report and of a top-5 request;
+  ``star_pointwise`` and ``lbm_pointwise`` at the served winners (the
+  generators') against ``ref.py``, timed; a SIGTERM drain, a ``--resume``
+  restart answering warm with the same bytes to a client built while the
+  daemon was down, the ``shutdown`` op; then a ``PricingDaemon`` in this
+  process on a pooled engine (``forkserver`` after CUDA), and no child
+  process left.
 
 Each path's pinned variants (the z-march stencils, the y-tiled LBM, the
 y-tiled Jacobi sweep, the tiled transpose, the second GEMM and flash tiles)
@@ -2396,8 +2408,9 @@ def run_api(args, torch, dev) -> tuple:
     launches four ways (serial; the pooled engine, started after CUDA;
     pooled with a top-k; the same engine warm), and streaming reads at an
     L2-resident footprint and at the two paths' DRAM footprints beside the
-    H100 model's rates.  Returns the main path's launch counts and the
-    streaming reads (label -> footprint, ms, GB/s)."""
+    H100 model's rates.  Returns the main path's launch counts, the
+    streaming reads (label -> footprint, ms, GB/s) and, for the serve phase,
+    the example's in-process ``PriceResult`` and the rankings' host times."""
     import os
 
     from repro_torch import obs
@@ -2570,7 +2583,7 @@ def run_api(args, torch, dev) -> tuple:
     if left:
         raise AssertionError(f"processes the smoke started are still there: {left}")
     say("api: the pool's forkserver stopped and reaped; no child process left")
-    return launches, reads
+    return launches, reads, {"result": result, "rank": times}
 
 
 QUICK_DOMAIN = (192, 192, 256)           # (Z, Y, X), examples/quickstart.py's
@@ -3085,6 +3098,412 @@ def run_suite(args, torch, dev, kernels: list) -> dict:
     return {names[key]: n for key, n in launches.items()}
 
 
+SERVE_BIND_S = 120                       # seconds a daemon may take to answer its first ping
+SERVE_CALL_S = 600                       # a client's socket timeout
+SERVE_HITS = 200                         # memo hits timed of each request
+SERVE_TOP_K = 5                          # the pruned request's k
+SERVE_RETRIES = 12                       # the restart client's retries (backoff 0.2 s, doubling to 5)
+
+
+def answer_wire(schema, result) -> str:
+    """The wire text of a result's answer (entries, skips, prunes, suite and
+    flags), with the sweep's own measurements (wall time, cache counters,
+    metrics) left out: those differ between any two sweeps."""
+    import dataclasses
+
+    report = dataclasses.replace(result.report, cache_stats={}, wall_time_s=0.0, metrics={})
+    return schema.dumps(dataclasses.replace(result, report=report))
+
+
+def boot_daemon(cmd: list, env: dict, sock: str, log) -> tuple:
+    """Start ``python -m repro_torch.serve`` and wait until it answers a
+    ping; returns the process and the seconds that took."""
+    import os
+
+    from repro_torch.serve import PriceClient
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT)
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"the daemon exited {proc.returncode} before it answered")
+        if time.perf_counter() - t0 > SERVE_BIND_S:
+            proc.kill()
+            proc.wait(timeout=60)
+            raise AssertionError(f"the daemon did not answer within {SERVE_BIND_S} s")
+        if os.path.exists(sock):
+            try:
+                with PriceClient(sock, timeout=10) as c:
+                    if c.ping():
+                        return proc, time.perf_counter() - t0
+            except OSError:  # bound, not yet listening
+                pass
+        time.sleep(0.01)
+
+
+def first_pool_split(trace: dict) -> dict:
+    """Where a daemon's first pooled sweep went, from its Chrome trace (host
+    clock, s): the sweep, its first ``pool.run``, when that run's first
+    chunk started and its last ended (from the run's start), its chunks and
+    their worker processes."""
+    xs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    sweep = min((e for e in xs if e["name"] == "engine.sweep"), key=lambda e: e["ts"])
+    run = min((e for e in xs if e["name"] == "pool.run"), key=lambda e: e["ts"])
+    chunks = [e for e in xs if e["name"] == "pool.chunk"
+              and run["ts"] <= e["ts"] <= run["ts"] + run["dur"]]
+    return {"sweep_s": sweep["dur"] / 1e6, "pool_run_s": run["dur"] / 1e6,
+            "first_chunk_s": (min(e["ts"] for e in chunks) - run["ts"]) / 1e6,
+            "last_chunk_end_s": (max(e["ts"] + e["dur"] for e in chunks) - run["ts"]) / 1e6,
+            "chunks": len(chunks), "workers": len({e["pid"] for e in chunks})}
+
+
+def percentiles(ts: list) -> tuple:
+    """p50 and p99 of ``ts`` in ms."""
+    cuts = statistics.quantiles(ts, n=100, method="inclusive")
+    return statistics.median(ts) * 1e3, cuts[98] * 1e3
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host time of ``fn`` in ms, over ``reps`` runs."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def run_serve(args, torch, dev, kernels: list, priced: dict) -> dict:
+    """The pricing daemon on the card's host, its winners on the card: V1
+    ``python -m repro_torch.serve`` started as a process (pooled, with a
+    cache path, ``--resume``, a pid file and telemetry on, as the api
+    phase's pooled rankings have it); V2 the api phase's request
+    through its socket, its answer held to the api phase's in-process
+    ``price`` on the wire (``answer_wire``), with the stencil's and the
+    LBM's own requests sent while it prices, which coalesce into one sweep
+    whose split reports must equal their solo rankings, then the same two
+    spaces in fp32 on the warm daemon; V3 memo hits of the full report and of a top-k request;
+    V4 ``star_pointwise`` and ``lbm_pointwise`` at the served winners,
+    which must be the generators', against ``ref.py`` and timed; V5 a
+    SIGTERM drain, a ``--resume`` restart answering warm with the same
+    bytes to a client built while the daemon was down, then ``shutdown``;
+    and a ``PricingDaemon`` in this process on a pooled engine, whose pool
+    must not fork after CUDA.  Returns V4's launch counts."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.api import PriceRequest, gpu_request, price
+    from repro_torch.core import gridwalk, perfmodel
+    from repro_torch.core.engine import Explorer, Workload, pool
+    from repro_torch.core.machines import H100
+    from repro_torch.core.selector import enumerate_gpu_configs
+    from repro_torch.core.specs import lbm_d3q15, star_stencil_3d
+    from repro_torch.kernels.lbm_d3q15 import kernel as LK
+    from repro_torch.kernels.lbm_d3q15.generator import rank_configs as lbm_rank
+    from repro_torch.kernels.lbm_d3q15.ops import lbm_step
+    from repro_torch.kernels.lbm_d3q15.ref import WEIGHTS, lbm_step_ref, pad_inputs
+    from repro_torch.kernels.stencil3d25 import kernel as K
+    from repro_torch.kernels.stencil3d25.generator import rank_configs as star_rank
+    from repro_torch.kernels.stencil3d25.ops import star_stencil
+    from repro_torch.kernels.stencil3d25.ref import pad_input, star_stencil_ref, star_weights
+    from repro_torch.serve import PriceClient, PricingDaemon, schema
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_stencil_codegen as example
+
+    card = card_line()
+    cores = len(os.sched_getaffinity(0))
+    say(f"serve: card {card}; host {cores} cores available ({os.cpu_count()} on the host)")
+    STENCIL, LBM = example.STENCIL, example.LBM
+    tmp = Path(tempfile.mkdtemp(prefix="serve-"))
+    sock, pid = str(tmp / "s.sock"), tmp / "pid"
+    cmd = [sys.executable, "-m", "repro_torch.serve", "--socket", sock,
+           "--cache-path", str(tmp / "inv"), "--parallel", "--resume", "--pid-file", str(pid),
+           "--trace-out", str(tmp / "trace.json")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = open(tmp / "daemon.log", "w")
+    procs, out = [], {"card": card, "cores": cores}
+    try:
+        # V1. the daemon process
+        proc, out["bind_s"] = boot_daemon(cmd, env, sock, log)
+        procs.append(proc)
+        if int(pid.read_text()) != proc.pid:
+            raise AssertionError("the pid file does not name the daemon")
+        # what a fresh daemon pays before it binds: the interpreter and its imports
+        starts = {}
+        for what, code in (("torch", "import torch"),
+                           ("daemon", "import repro_torch.serve.daemon")):
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
+            starts[what] = time.perf_counter() - t0
+        out["import_s"] = starts
+        say(f"serve V1: python -m repro_torch.serve --parallel --resume answered its first ping "
+            f"{out['bind_s']:.3f} s after it was started (pid {proc.pid}); a fresh process "
+            f"importing torch takes {starts['torch']:.3f} s, importing repro_torch.serve.daemon "
+            f"{starts['daemon']:.3f} s (one at a time, the daemon idle)")
+
+        # V2. the api phase's request cold; the two paths' own requests sent
+        # once the worker has taken it, so they queue behind it and coalesce;
+        # then both spaces in fp32 on the warm daemon
+        pooled = {name: priced["rank"][name]["pooled_s"] for name in ("stencil", "lbm")}
+        first = {name: priced["rank"][name]["pooled_split"]["first_chunk_s"]
+                 for name in ("stencil", "lbm")}
+        full = example.request(DOMAIN, LBM_DOMAIN)
+        solo = {STENCIL: gpu_request(star_stencil_3d(R, DOMAIN, 8), "H100"),
+                LBM: gpu_request(lbm_d3q15(LBM_DOMAIN, 8), "H100")}
+        cold = {}
+
+        def price_cold():
+            with PriceClient(sock, timeout=SERVE_CALL_S) as c:
+                t0 = time.perf_counter()
+                cold["result"] = c.price(full)
+                cold["s"] = time.perf_counter() - t0
+
+        worker = threading.Thread(target=price_cold)
+        worker.start()
+        with PriceClient(sock, timeout=SERVE_CALL_S) as c:
+            t_wait = time.perf_counter()
+            while True:   # taken off the queue (1 in flight, none queued), not answered
+                stats = c.stats()
+                if stats["requests"] == 1 and stats["inflight"] == stats["pending"] == 1:
+                    break
+                if stats["requests"] > 1 or time.perf_counter() - t_wait > SERVE_BIND_S:
+                    raise AssertionError(f"the cold request was not seen in flight: {stats}")
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            split = c.price_many(list(solo.values()))
+            pair_s = time.perf_counter() - t0
+            worker.join(SERVE_CALL_S)
+            stats = c.stats()
+            split_s = first_pool_split(c.trace())
+        served = cold["result"]
+        want = answer_wire(schema, priced["result"])
+        if answer_wire(schema, served) != want:
+            raise AssertionError("the served answer is not the api phase's in-process price()")
+        if stats["coalesced_sweeps"] != 1 or stats["coalesced_requests"] != 2:
+            raise AssertionError(f"the two paths' requests did not coalesce: {stats}")
+        for (name, request), got in zip(solo.items(), split):
+            local = price(request)
+            if schema.dumps(got.entries) != schema.dumps(local.entries) or \
+                    len(got.entries) != 168 or got.cache_stats.get("coalesced") is not True:
+                raise AssertionError(f"the coalesced {name} report is not its solo ranking")
+        out.update(cold_s=cold["s"], served_sweep_s=served.wall_time_s, pair_s=pair_s,
+                   pair_sweep_s=split[0].wall_time_s, cold_split=split_s)
+        say(f"serve V2: the api phase's request (168 + 168 launches on {H100.name}, fp64) cold "
+            f"through the socket in {cold['s']:.3f} s ({served.wall_time_s:.3f} s the daemon's "
+            f"sweep, {served.cache_stats['pool_tasks']} structural tasks); its answer equals the "
+            f"api phase's in-process price() byte for byte ({len(want)} bytes on the wire, the "
+            f"sweep's own timings and counters set aside); the stencil's and the LBM's own "
+            f"requests, sent while it priced, coalesced into one sweep of 2 requests "
+            f"({split[0].wall_time_s:.3f} s, answered {pair_s:.3f} s after they were sent), each "
+            f"split report equal to its solo ranking")
+        say(f"  the cold sweep's spans in the daemon: sweep {split_s['sweep_s']:.3f} s, first "
+            f"pool.run {split_s['pool_run_s']:.3f} s; its first chunk starts at "
+            f"{split_s['first_chunk_s']:.3f} s, the last ends at {split_s['last_chunk_end_s']:.3f} "
+            f"s; {split_s['chunks']} chunks on {split_s['workers']} workers (the api phase's "
+            f"pooled rankings: first chunk at {first['stencil']:.3f} and {first['lbm']:.3f} s)")
+
+        configs = tuple(enumerate_gpu_configs())
+        fp32 = PriceRequest(workloads=[
+            Workload(STENCIL, gpu_spec=star_stencil_3d(R, DOMAIN, 4), gpu_configs=configs),
+            Workload(LBM, gpu_spec=lbm_d3q15(LBM_DOMAIN, 4), gpu_configs=configs)],
+            machines=[H100])
+        with PriceClient(sock, timeout=SERVE_CALL_S) as c:
+            t0 = time.perf_counter()
+            served32 = c.price(fp32)
+            out["fp32_s"] = time.perf_counter() - t0
+        if answer_wire(schema, served32) != answer_wire(schema, price(fp32)):
+            raise AssertionError("the served fp32 answer is not the in-process price()")
+        say(f"serve V2 fp32: both spaces in fp32 on the warm daemon in {out['fp32_s']:.3f} s "
+            f"({served32.wall_time_s:.3f} s its sweep, {served32.cache_stats['pool_tasks']} "
+            f"structural tasks, invariant cache {served32.cache_stats['hits']} hits / "
+            f"{served32.cache_stats['misses']} misses); the api phase's in-process pooled "
+            f"rankings (forkserver after CUDA) took {pooled['stencil']:.3f} + {pooled['lbm']:.3f} "
+            f"s for the two fp64 spaces, of which {first['stencil']:.3f} + {first['lbm']:.3f} s "
+            f"before the first chunk; equal to in-process price() byte for byte")
+
+        # V3. memo hits: the full report and a top-k request, one client
+        topk = dataclasses.replace(full, top_k=SERVE_TOP_K)
+        hits = {}
+        with PriceClient(sock, timeout=SERVE_CALL_S) as c:
+            t0 = time.perf_counter()
+            pruned = c.price(topk)
+            out["topk_cold_s"] = time.perf_counter() - t0
+            for name in (STENCIL, LBM):
+                if schema.dumps(pruned.ranking(name)) != \
+                        schema.dumps(served.ranking(name)[:SERVE_TOP_K]):
+                    raise AssertionError(f"the top-{SERVE_TOP_K} {name} ranking is not the "
+                                         "full ranking's head")
+            for label, request, first_answer in (("full", full, served),
+                                                 (f"top{SERVE_TOP_K}", topk, pruned)):
+                ts = []
+                for _ in range(SERVE_HITS):
+                    t0 = time.perf_counter()
+                    got = c.price(request)
+                    ts.append(time.perf_counter() - t0)
+                if schema.dumps(got) != schema.dumps(first_answer):
+                    raise AssertionError(f"a memo hit of the {label} request changed its bytes")
+                hits[label] = ts
+            trace = c.trace()
+            stats = c.stats()
+        if stats["requests"] != stats["memo_hits"] + stats["dedupe_joins"] + \
+                stats["keys_priced"] + stats["cancelled"] or stats["pending"] != 0 or \
+                stats["memo_hits"] < 2 * SERVE_HITS:
+            raise AssertionError(f"the daemon's counters do not add up: {stats}")
+        # where a full report's hit goes: the daemon decodes its memoized
+        # wire and encodes the body again, the client decodes it
+        wire = schema.dumps(served)
+        body = json.loads(wire)["body"]
+        codec = {"json_loads_ms": host_ms(lambda: json.loads(wire)),
+                 "json_dumps_ms": host_ms(lambda: json.dumps(body, separators=(",", ":"))),
+                 "decode_ms": host_ms(lambda: schema.decode(body))}
+        sizes = {"full": len(wire), f"top{SERVE_TOP_K}": len(schema.dumps(pruned))}
+        for label, ts in hits.items():
+            p50, p99 = percentiles(ts)
+            out[f"hit_{label}_ms"] = {"p50": p50, "p99": p99, "min": min(ts) * 1e3}
+            say(f"serve V3 memo hits, {label} ({SERVE_HITS} through one client, "
+                f"{sizes[label]} bytes): p50 {p50:.3f} ms, p99 {p99:.3f} ms, min "
+                f"{min(ts) * 1e3:.3f} ms; {card}")
+        out.update(codec_ms=codec, wire_bytes=sizes, trace_events=len(trace["traceEvents"]))
+        say(f"serve V3: the full report's wire ({len(wire)} bytes) in this process: json.loads "
+            f"{codec['json_loads_ms']:.3f} ms, json.dumps of its body {codec['json_dumps_ms']:.3f} "
+            f"ms, schema.decode {codec['decode_ms']:.3f} ms (median of 20); the top-"
+            f"{SERVE_TOP_K} request cold {out['topk_cold_s']:.3f} s; counters {stats['requests']} "
+            f"requests = {stats['memo_hits']} memo hits + {stats['dedupe_joins']} joins + "
+            f"{stats['keys_priced']} priced + {stats['cancelled']} cancelled; the trace op "
+            f"shipped {len(trace['traceEvents'])} events")
+
+        # V4. the served winners on the card, held to ref.py and timed
+        star_win, lbm_win = served.best(STENCIL).config, served.best(LBM).config
+        want_star = star_rank(R, DOMAIN, 8, H100)[0].launch
+        want_lbm = lbm_rank(LBM_DOMAIN, 8, H100)[0].launch
+        if (star_win, lbm_win) != (want_star, want_lbm):
+            raise AssertionError(f"the served winners {star_win}, {lbm_win} are not the "
+                                 f"generators' {want_star}, {want_lbm}")
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        src = torch.randn(DOMAIN, dtype=torch.float64, device=dev, generator=gen)
+        w = star_weights(R, torch.float64, dev)
+        phase = torch.sigmoid(torch.randn(LBM_DOMAIN, dtype=torch.float64, device=dev,
+                                          generator=gen))
+        pdf = torch.stack([wq * phase for wq in WEIGHTS])
+        reset_counts()
+        st = star_stencil(src, w, r=R, config={"block": star_win.block,
+                                               "folding": star_win.folding})
+        new_pdf, new_phase = lbm_step(pdf, phase, config={"block": lbm_win.block,
+                                                          "folding": lbm_win.folding})
+        torch.cuda.synchronize()
+        launches = {"star_pointwise": K.LAUNCHES["star_pointwise"],
+                    "lbm_pointwise": LK.LAUNCHES["lbm_pointwise"]}
+        if launches != {"star_pointwise": 1, "lbm_pointwise": 1} or \
+                LK.LAST_LAUNCH["lbm_pointwise"] != lbm_win:
+            raise AssertionError(f"the served winners ran as {launches}, "
+                                 f"{LK.LAST_LAUNCH['lbm_pointwise']}")
+        padded = pad_input(src, R)
+        err_star = check(torch, st, star_stencil_ref(padded, w, R), 8, "served star_stencil")
+        del st, src
+        pdf_p, phase_p = pad_inputs(pdf, phase)
+        ref_pdf, ref_phase = lbm_step_ref(pdf_p, phase_p)
+        err_lbm = max(check(torch, new_pdf, ref_pdf, 8, "served lbm_step"),
+                      check(torch, new_phase, ref_phase, 8, "served lbm_step phase"))
+        del new_pdf, new_phase, ref_pdf, ref_phase, pdf, phase
+        ms = {"star_pointwise": cuda_ms(torch, lambda: K.star_pointwise(padded, w, R, star_win)),
+              "lbm_pointwise": cuda_ms(torch, lambda: LK.lbm_pointwise(pdf_p, phase_p, lbm_win))}
+        del padded, pdf_p, phase_p
+        record = {k["name"]: k for k in kernels if k.get("config", "") is None}
+        for name, t in ms.items():
+            record[name]["serve_ms"] = t
+        out.update(launches=launches, serve_ms=ms, max_abs_err={"star_pointwise": err_star,
+                                                                "lbm_pointwise": err_lbm})
+        say(f"serve V4 main path: star_pointwise at the served {star_win.block}/"
+            f"{star_win.folding} and lbm_pointwise at {lbm_win.block}/{lbm_win.folding}, the "
+            f"generators' winners, through star_stencil and lbm_step at {DOMAIN} and "
+            f"{LBM_DOMAIN} fp64; launches {launches}; max abs error {err_star!r}, {err_lbm!r} "
+            f"(tolerance {TOL[8]}); {ms['star_pointwise']:.4f} ms and {ms['lbm_pointwise']:.4f} "
+            f"ms (3 warm-ups, median of 20) against the kernels phases' "
+            f"{record['star_pointwise']['ms']:.4f} and {record['lbm_pointwise']['ms']:.4f}; {card}")
+
+        # V5. a SIGTERM drain, a --resume restart ridden by a client built
+        # while the daemon is down, then the shutdown op
+        os.kill(proc.pid, signal.SIGTERM)
+        rc = proc.wait(timeout=SERVE_BIND_S)
+        if rc != 0 or pid.exists() or os.path.exists(sock):
+            raise AssertionError(f"the SIGTERM drain exited {rc}, pid file left "
+                                 f"{pid.exists()}, socket left {os.path.exists(sock)}")
+        client = PriceClient(sock, retries=SERVE_RETRIES, backoff_s=0.2, timeout=SERVE_CALL_S)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT)
+        procs.append(proc)
+        again = client.price(full)
+        out["restart_answer_s"] = time.perf_counter() - t0
+        stats = client.stats()
+        client.shutdown_server()
+        client.close()
+        rc = proc.wait(timeout=SERVE_BIND_S)
+        if schema.dumps(again) != schema.dumps(served):
+            raise AssertionError("the restarted daemon's answer is not the first one's bytes")
+        if stats["memo_restored"] < 1 or stats["keys_priced"] != 0 or stats["memo_hits"] < 1:
+            raise AssertionError(f"the restarted daemon did not answer warm: {stats}")
+        if rc != 0 or pid.exists():
+            raise AssertionError(f"the shutdown op exited {rc}, pid file left {pid.exists()}")
+        out.update(memo_restored=stats["memo_restored"])
+        say(f"serve V5: SIGTERM drained with exit 0, pid file removed; restarted with --resume, "
+            f"a client built while it was down ({SERVE_RETRIES} retries) got the request's "
+            f"answer {out['restart_answer_s']:.3f} s after the start, a memo hit "
+            f"({stats['memo_restored']} memo entries restored, {stats['keys_priced']} keys "
+            f"priced) with the first answer's bytes; the shutdown op exited 0")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        log.close()
+        daemon_log = (tmp / "daemon.log").read_text()
+        shutil.rmtree(tmp)
+    say("serve daemon log: " + " | ".join(daemon_log.splitlines()))
+
+    # the daemon in this process, on a pooled engine started after CUDA
+    ctx = pool._context()
+    method = ctx and ctx.get_start_method()
+    if method in (None, "fork"):
+        raise AssertionError(f"a pool in this process would start with {method}")
+    perfmodel._WAVE_BOX_MEMO.clear()
+    gridwalk._STREAM_MEMO.clear()
+    obs.reset()
+    obs.enable()
+    in_sock = tempfile.mkdtemp(prefix="serve-")
+    try:
+        with PricingDaemon(os.path.join(in_sock, "s.sock"), engine=Explorer(parallel=True)):
+            with PriceClient(os.path.join(in_sock, "s.sock"), timeout=SERVE_CALL_S) as c:
+                t0 = time.perf_counter()
+                got = c.price(solo[STENCIL])
+                out["in_process_s"] = time.perf_counter() - t0
+    finally:
+        obs.disable()
+        shutil.rmtree(in_sock)
+    workers = {r.pid for r in obs.spans() if r.name == "pool.chunk"}
+    obs.reset()
+    if not workers or os.getpid() in workers or got.cache_stats["pool_tasks"] < 1:
+        raise AssertionError(f"the in-process daemon's sweep ran no pool worker: {workers}")
+    if schema.dumps(got.entries) != schema.dumps(split[0].entries):
+        raise AssertionError("the in-process daemon's stencil ranking is not the served one")
+    pool.stop_helpers()
+    left = live_children()
+    if left:
+        raise AssertionError(f"processes the smoke started are still there: {left}")
+    out["in_process_start_method"] = method
+    say(f"serve in process: PricingDaemon on Explorer(parallel=True), pool started by {method} "
+        f"({len(workers)} workers) after CUDA, ranked the stencil's 168 launches cold in "
+        f"{out['in_process_s']:.3f} s through its socket (the api phase's pooled ranking "
+        f"{pooled['stencil']:.3f} s); the forkserver stopped, no child process left")
+    say("serve: " + json.dumps(out))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3142,7 +3561,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += run_attention(args, torch, dev)
     torch.cuda.empty_cache()
-    api_launches, reads = run_api(args, torch, dev)
+    api_launches, reads, priced = run_api(args, torch, dev)
     for k in kernels:
         if k["name"] in api_launches and k.get("config", "") is None:
             k["api_launches"] = api_launches[k["name"]]
@@ -3156,6 +3575,11 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in suite_launches:
             k["suite_launches"] = suite_launches[k["name"]]
+    torch.cuda.empty_cache()
+    serve_launches = run_serve(args, torch, dev, kernels, priced)
+    for k in kernels:
+        if k["name"] in serve_launches and k.get("config", "") is None:
+            k["serve_launches"] = serve_launches[k["name"]]
 
     # peak memory
     say(f"peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
@@ -3178,7 +3602,7 @@ def main(argv=None) -> int:
                                     "fp32_library_in_turns_ms", "fp32_library_queued_ms",
                                     "fp32_copy_queued_ms", "ytile_fp64", "ytile_fp32",
                                     "api_launches", "sim_launches", "sim_ms",
-                                    "suite_launches")
+                                    "suite_launches", "serve_launches", "serve_ms")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

@@ -1,17 +1,21 @@
-"""The pricing API's wire codec (``serve.schema``).
+"""Pricing-as-a-service: daemon, scheduler, client, wire schema.
 
-The port of ``repro.serve`` starts with its codec: ``PriceRequest`` and
-``PriceResult`` round-trip through it exactly.  The daemon, scheduler and
-client join with a later slice.
+One long-lived process (``python -m repro_torch.serve``) holds the warm
+``InvariantCache`` and memoized stream tables; every code-generation run on
+the machine prices against it through ``repro_torch.serve.client.PriceClient``
+using the same ``PriceRequest``/``PriceResult`` schema as the in-process
+``repro_torch.api.price``.  DESIGN.md §12 documents the architecture, wire
+protocol, and the cache versioning/eviction contract.
+
+A copy of ``repro.serve``: the wire protocol, the codec's bytes and the memo
+journal are the reference's, so either package's client talks to either
+package's daemon.
 """
-from .schema import (
-    SCHEMA_VERSION,
-    decode,
-    dumps,
-    encode,
-    loads,
-    request_digest,
-)
+from .client import PriceClient, ServeError
+from .daemon import PricingDaemon, serve
+from .scheduler import DeadlineExceeded, QueueFullError, Scheduler
+from .schema import SCHEMA_VERSION, request_digest
 
-__all__ = ["SCHEMA_VERSION", "encode", "decode", "dumps", "loads",
-           "request_digest"]
+__all__ = ["PriceClient", "ServeError", "PricingDaemon", "serve",
+           "Scheduler", "QueueFullError", "DeadlineExceeded",
+           "SCHEMA_VERSION", "request_digest"]

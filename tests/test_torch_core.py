@@ -322,7 +322,8 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules),
     for name in ("kernels.matmul.ops", "kernels.matmul.generator",
                  "kernels.flash_attention.ops", "kernels.flash_attention.generator",
                  "layers.attention", "layers.rope", "layers.shapes",
-                 "configs.base", "configs.granite3_2b"):
+                 "configs.base", "configs.granite3_2b", "serve.scheduler",
+                 "serve.daemon", "serve.client", "serve.__main__"):
         assert f"repro_torch.{name}" in out["modules"]
 
     def foreign(name):
