@@ -32,7 +32,18 @@ with nvcc first (one nvcc per source, in parallel):
   the GEMMs are also timed in turns with ``torch.matmul``, and the prefill's
   two tiles in turns with ``F.scaled_dot_product_attention``, since the
   card slows under sustained tensor-core load;
-* the api phase, last: ``examples/torch_stencil_codegen.main`` at the
+* the layers phase: the rest of the layer library at the full width of
+  the repo's configs, bf16, random weights from ``--seed``: granite-3-2b's
+  rmsnorm and SwiGLU and whisper-base's layernorm and GELU MLP against
+  their fp32 evaluation (L1); granite-3-2b's attention through a full KV
+  cache, bf16 and int8, a 4096-token prefill and 16 decode steps against
+  attention without a cache (L2); mixtral-8x7b's sliding window through a
+  ring cache that wraps (L3); one mixtral-8x7b MoE layer, top-1 against the
+  dense argmax-expert oracle and top-2 with its dropped pairs adding
+  nothing (L4); zamba2-2.7b's Mamba2 and rwkv6-1.6b's time and channel mix
+  chunked at S 4096 and against their exact recurrences (L5); each timed
+  beside its bound, and none launching the port's kernels;
+* the api phase: ``examples/torch_stencil_codegen.main`` at the
   paper's domains (one ``repro_torch.api.price`` sweep of both paths' 168
   launches, then ``star_pointwise`` and ``lbm_pointwise`` at the winners
   against ``ref.py``), its rankings against the generators' bitwise, one
@@ -95,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -369,8 +381,8 @@ def star_conv_weight(torch, weights, r: int):
     return k.view(1, 1, *k.shape)
 
 
-def reset_counts() -> None:
-    """Every wrapper's launch count to 0, just before a path is driven."""
+def kernel_modules() -> tuple:
+    """The wrapper module of every kernel package."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.jacobi2d import kernel as JK
     from repro_torch.kernels.lbm_d3q15 import kernel as LK
@@ -378,7 +390,12 @@ def reset_counts() -> None:
     from repro_torch.kernels.stencil3d25 import kernel as K
     from repro_torch.kernels.transpose_pad import kernel as TK
 
-    for module in (K, LK, JK, TK, MK, FK):
+    return K, LK, JK, TK, MK, FK
+
+
+def reset_counts() -> None:
+    """Every wrapper's launch count to 0, just before a path is driven."""
+    for module in kernel_modules():
         module.reset_launch_counts()
 
 
@@ -1307,10 +1324,11 @@ def run_transpose(args, torch, dev) -> list:
     return kernels
 
 
-def bf16_bound(flops: float, n_bytes: float) -> tuple:
-    """Least time (ms) for work of ``flops`` bf16 operations moving
-    ``n_bytes``: the larger of the tensor-core and the HBM time."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bf16_bound(flops: float, n_bytes: float, fp32_flops: float = 0.0) -> tuple:
+    """Least time (ms) for work of ``flops`` bf16 operations (and
+    ``fp32_flops`` fp32 ones outside the tensor cores, TF32 being off)
+    moving ``n_bytes``: the larger of the operations' and the HBM time."""
+    t_ops = (flops / PEAK_BF16_FLOPS + fp32_flops / PEAK_FLOPS[4]) * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -2383,6 +2401,405 @@ def run_attention(args, torch, dev) -> list:
     return kernels
 
 
+# the layers phase: norms, MLPs, the KV cache, MoE and the SSM blocks at
+# the full width of the repo's configs (bf16, random weights from --seed)
+LAYER_ROW_REL = 2e-2     # a bf16 module against its fp32 evaluation on the card: a bf16
+                         # rounding adds at most 2^-9 relative error, no module here rounds
+                         # more than five times in a chain (5 x 2^-9 = 9.8e-3); twice that
+LAYER_DECODE = 16                        # decode steps after a cache's prefill
+WHISPER_TOKENS = (8, 1500)               # (B, S): whisper-base's 1500 audio frames
+MOE_TOKENS = (1, 4096)                   # (B, S) through one mixtral-8x7b MoE layer
+MOE_DROP_FACTORS = (1.25, 1.0)           # capacity factors of the drop check: the default,
+                                         # and the mean load, where some expert always drops
+SSM_TOKENS = 4096                        # S of the chunked SSM calls, B 1
+SSM_CHECK_TOKENS = 128                   # S of the chunked-against-recurrence check, fp32
+SSM_CHECK_SCALE = 0.3                    # the input's scale there, as tests/test_ssm_numerics.py
+SSM_RECURRENCE_TOL = {"mamba2": 3e-4, "rwkv6": 2e-4, "rwkv6_channel_mix": 2e-4}
+
+
+def int8_row_rel_bound(head_dim: int) -> float:
+    """The row relative error bound of attention through the int8 KV cache:
+    the bf16 flash bound plus, for K and V each, the worst relative RMS of
+    rounding to a per-(token, head) scale.  The rounding error is uniform in
+    ±scale/2 with scale = max|x| / 127, an RMS of scale / sqrt(12), and a
+    row's max is at most sqrt(D) times its RMS."""
+    return FLASH_ROW_REL[2] + 2 * math.sqrt(head_dim) / (127 * math.sqrt(12))
+
+
+
+def check_rows(torch, got, want, what: str, row_rel: float) -> tuple:
+    """(max abs error, max row relative error) of ``got`` against ``want``;
+    raises when the shapes differ, a value is not finite, or a row's
+    relative L2 error exceeds ``row_rel``."""
+    from repro_torch.kernels.flash_attention.ref import row_rel_err
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: got {tuple(got.shape)}, want {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    rel = row_rel_err(got, want)
+    if rel > row_rel:
+        raise AssertionError(f"{what}: row relative error {rel!r} exceeds {row_rel}")
+    return err, rel
+
+
+def gemm_flops(tokens: int, *shapes) -> float:
+    """Operations of multiplying ``tokens`` rows by weights of each (K, N)."""
+    return sum(2.0 * tokens * k * n for k, n in shapes)
+
+
+def tensor_bytes(*trees) -> int:
+    """Bytes of every tensor in ``trees`` (tensors, dicts of them, tuples)."""
+    n = 0
+    for t in trees:
+        if isinstance(t, dict):
+            n += tensor_bytes(*t.values())
+        elif isinstance(t, (tuple, list)):
+            n += tensor_bytes(*t)
+        elif t is not None:
+            n += t.numel() * t.element_size()
+    return n
+
+
+def fp32(params: dict) -> dict:
+    return {k: v.float() for k, v in params.items()}
+
+
+def run_layers_mlp(args, torch, dev) -> None:
+    """L1: granite-3-2b's rmsnorm then SwiGLU at B 4 x 4096, whisper-base's
+    layernorm then GELU MLP at B 8 x 1500, each held to an fp32 evaluation
+    of the same functions on the card within LAYER_ROW_REL, and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers import mlp, norms
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    for arch, (B, S) in (("granite-3-2b", PREFILL), ("whisper-base", WHISPER_TOKENS)):
+        cfg = get_config(arch)
+        E, Fd = cfg.d_model, cfg.d_ff
+        norm = getattr(norms, cfg.norm)
+        ffn = {"swiglu": mlp.swiglu, "gelu": mlp.gelu_mlp}[cfg.mlp]
+        ffn_init = {"swiglu": mlp.swiglu_init, "gelu": mlp.gelu_mlp_init}[cfg.mlp]
+        # a unit scale and a zero bias would not show whether the parameters count
+        norm_p = {k: v + 0.1 * torch.randn(v.shape, generator=gen, device=dev)
+                  for k, v in getattr(norms, f"{cfg.norm}_init")(E, device=dev).items()}
+        ffn_p = ffn_init(E, Fd, torch.bfloat16, generator=gen, device=dev)
+        if cfg.mlp == "gelu":
+            ffn_p = {k: v + 0.02 if k.startswith("b") else v for k, v in ffn_p.items()}
+        x = torch.randn((B, S, E), generator=gen, device=dev, dtype=torch.bfloat16)
+        h = norm(norm_p, x)
+        out = ffn(ffn_p, h)
+        h32 = norm(norm_p, x.float())
+        want = ffn(fp32(ffn_p), h32)
+        n_err, n_rel = check_rows(torch, h, h32, f"{arch} {cfg.norm}", LAYER_ROW_REL)
+        f_err, f_rel = check_rows(torch, out, want, f"{arch} {cfg.mlp}", LAYER_ROW_REL)
+        del h32, want
+        norm_ms = cuda_ms(torch, lambda: norm(norm_p, x))
+        ffn_ms = cuda_ms(torch, lambda: ffn(ffn_p, h))
+        n_in = 2 if cfg.mlp == "swiglu" else 1
+        norm_bound, norm_by = bf16_bound(0.0, tensor_bytes(x, h, norm_p))
+        ffn_bound, ffn_by = bf16_bound(gemm_flops(B * S, *[(E, Fd)] * n_in, (Fd, E)),
+                                       tensor_bytes(h, out, ffn_p))
+        say(f"layers L1 {arch}: x {(B, S, E)} bf16; {cfg.norm} {norm_ms:.4f} ms (bound "
+            f"{norm_bound:.4f} ms, {norm_by}), against fp32 max abs error {n_err!r}, row "
+            f"relative error {n_rel!r}; {ffn.__name__} d_ff {Fd} {ffn_ms:.4f} ms (bound "
+            f"{ffn_bound:.4f} ms, {ffn_by}: {ffn_bound / ffn_ms:.1%}), against fp32 max abs error "
+            f"{f_err!r}, row relative error {f_rel!r} (bound {LAYER_ROW_REL}); median of 20")
+        del x, h, out, norm_p, ffn_p
+        torch.cuda.empty_cache()
+
+
+def decode_steps(torch, attention_apply, params, x, cache, start: int, kw: dict) -> tuple:
+    """``LAYER_DECODE`` single-token steps through the cache from position
+    ``start``: (their outputs (B, steps, E), each step's CUDA-event ms)."""
+    B = x.shape[0]
+    outs, events = [], []
+    for i in range(LAYER_DECODE):
+        pos = torch.full((B, 1), start + i, dtype=torch.int32, device=x.device)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        o, cache = attention_apply(params, x[:, start + i:start + i + 1], positions=pos,
+                                   cache=cache, **kw)
+        ev[1].record()
+        outs.append(o)
+        events.append(ev)
+    torch.cuda.synchronize()
+    return torch.cat(outs, dim=1), [a.elapsed_time(b) for a, b in events]
+
+
+def run_layers_cache(args, torch, dev) -> None:
+    """L2: granite-3-2b's attention at B 4, a 4096-token prefill through
+    ``attention_apply(cache=...)`` into a full cache of 4096 + 16 slots, then
+    16 decode steps, bf16 and int8, held to ``attention_apply`` without a
+    cache over all 4112 tokens; L3: mixtral-8x7b's sliding window at B 1, a
+    ring cache of 4096 slots filled by the prefill, then 16 steps that wrap,
+    held to windowed attention without a cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.attention import KVCache, attention_apply, attention_init
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    for line, arch, B in (("L2", "granite-3-2b", PREFILL[0]), ("L3", "mixtral-8x7b", 1)):
+        cfg = get_config(arch)
+        H, KV, D, P = cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim, PREFILL[1]
+        n = P + LAYER_DECODE
+        window = cfg.swa_window or None
+        capacity = window if window else n
+        params = attention_init(cfg.d_model, H, KV, D, cfg.qkv_bias, torch.bfloat16,
+                                generator=gen, device=dev)
+        x = torch.randn((B, n, cfg.d_model), generator=gen, device=dev, dtype=torch.bfloat16)
+        kw = dict(n_heads=H, n_kv=KV, head_dim=D, rope_theta=cfg.rope_theta, window=window)
+        full, _ = attention_apply(params, x, **kw)
+        for quantized in ((False, True) if line == "L2" else (False,)):
+            cache = KVCache.init(B, KV, capacity, D, torch.bfloat16, quantized, device=dev)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            pre, cache = attention_apply(params, x[:, :P], cache=cache, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            prefill_ms = ev[0].elapsed_time(ev[1])
+            dec, step_ms = decode_steps(torch, attention_apply, params, x, cache, P, kw)
+            kept = torch.arange(n - capacity, n, device=dev, dtype=torch.int32)
+            if (int(cache.cursor.min()) != n or int(cache.cursor.max()) != n
+                    or not torch.equal(cache.positions.sort(dim=1).values,
+                                       kept.expand(B, capacity))):
+                raise AssertionError(f"{arch} cache: cursor {cache.cursor.tolist()}, positions "
+                                     f"not the last {capacity} tokens")
+            what = f"{arch} {'int8' if quantized else 'bf16'} cache"
+            if quantized:
+                row_rel = int8_row_rel_bound(D)
+                bound = f"row bound {row_rel:.4g}"
+                p_err, p_rel = check_rows(torch, pre, full[:, :P], f"{what} prefill", row_rel)
+                d_err, d_rel = check_rows(torch, dec, full[:, P:], f"{what} decode", row_rel)
+            else:
+                bound = f"atol {FLASH_TOL[2]['atol']}, row bound {FLASH_ROW_REL[2]}"
+                p_err, p_rel = check_flash(torch, pre, full[:, :P], f"{what} prefill", 2)
+                d_err, d_rel = check_flash(torch, dec, full[:, P:], f"{what} decode", 2)
+            step_bound, step_by = bf16_bound(gemm_flops(
+                B, (cfg.d_model, (H + 2 * KV) * D), (H * D, cfg.d_model)),
+                tensor_bytes(params, tuple(cache)))
+            say(f"layers {line} {arch}: {H}/{KV} heads, D {D}, B {B}, window {window}, "
+                f"{'ring' if window else 'full'} cache of {capacity} slots "
+                f"({'int8 with per-(token, head) scales' if quantized else 'bf16'}): prefill of "
+                f"{P} tokens {prefill_ms:.3f} ms, max abs error {p_err!r}, row relative error "
+                f"{p_rel!r}; {LAYER_DECODE} decode steps median {statistics.median(step_ms):.4f} "
+                f"ms (min {min(step_ms):.4f}, max {max(step_ms):.4f}; bound {step_bound:.4f} ms, "
+                f"{step_by}), max abs error {d_err!r}, row relative error {d_rel!r}, against "
+                f"attention_apply without a cache over {n} tokens ({bound})")
+            del cache, pre, dec
+        del params, x, full
+        torch.cuda.empty_cache()
+
+
+def moe_oracle(torch, F, p, x, exp_idx, weights) -> torch.Tensor:
+    """sum over k of weights[t, k] * SwiGLU_{exp_idx[t, k]}(x_t) in fp32, one
+    expert at a time over the tokens that chose it.  x: (n, E)."""
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(p["router"].shape[1]):
+        w = (weights * (exp_idx == e)).sum(dim=-1)
+        rows = (exp_idx == e).any(dim=-1).nonzero()[:, 0]
+        xe = x[rows].float()
+        o = (F.silu(xe @ p["w_gate"][e].float()) * (xe @ p["w_up"][e].float())) \
+            @ p["w_down"][e].float()
+        out.index_add_(0, rows, w[rows, None] * o)
+    return out
+
+
+def run_layers_moe(args, torch, dev) -> None:
+    """L4: one mixtral-8x7b MoE layer (8 experts, d_ff 14336) at B 1 x 4096:
+    top-1 at capacity factor 8 against the dense argmax-expert oracle; then
+    the default top-2 at capacity factors 1.25 and 1.0 against the oracle of
+    the kept pairs (each dropped (token, k) pair adding nothing), timed at
+    1.25."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.layers.moe import moe_apply, moe_init, moe_route
+
+    cfg = get_config("mixtral-8x7b")
+    E, Fd, X = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    p = moe_init(E, Fd, X, torch.bfloat16, generator=gen, device=dev)
+    x = torch.randn((*MOE_TOKENS, E), generator=gen, device=dev, dtype=torch.bfloat16)
+    n = MOE_TOKENS[0] * MOE_TOKENS[1]
+    xt = x.reshape(n, E)
+    best = (xt.float() @ p["router"]).argmax(dim=-1)
+    r1 = moe_route(p, x, top_k=1, capacity_factor=8.0)
+    if not bool(r1.keep.all()) or not torch.equal(r1.exp_idx.reshape(n), best):
+        raise AssertionError("moe top-1 at capacity factor 8: routing is not every token's "
+                             "argmax expert, all kept")
+    out1 = moe_apply(p, x, top_k=1, capacity_factor=8.0)
+    want = moe_oracle(torch, F, p, xt, best[:, None], torch.ones((n, 1), device=dev))
+    err1, rel1 = check_rows(torch, out1.reshape(n, E), want, "moe top-1 vs dense oracle",
+                            LAYER_ROW_REL)
+    del out1, want
+    lines, capacity = [], {}
+    for factor in MOE_DROP_FACTORS:
+        r = moe_route(p, x, top_k=cfg.top_k, capacity_factor=factor)
+        capacity[factor] = r.capacity
+        out = moe_apply(p, x, top_k=cfg.top_k, capacity_factor=factor).reshape(n, E)
+        keep = r.keep.reshape(r.groups, cfg.top_k, -1).transpose(1, 2).reshape(n, cfg.top_k)
+        exp_idx, gates = r.exp_idx.reshape(n, cfg.top_k), r.gates.reshape(n, cfg.top_k)
+        dropped = int((~keep).sum())
+        kept_w = gates * keep
+        err, rel = check_rows(torch, out, moe_oracle(torch, F, p, xt, exp_idx, kept_w),
+                              f"moe top-{cfg.top_k} capacity factor {factor} vs kept pairs",
+                              LAYER_ROW_REL)
+        none_kept = ~keep.any(dim=-1)
+        if bool(out[none_kept].any()):
+            raise AssertionError(f"moe capacity factor {factor}: a token with every pair "
+                                 "dropped has a nonzero output")
+        part = (~keep).any(dim=-1) & keep.any(dim=-1)
+        seen = "no dropped pair"
+        if dropped:
+            from repro_torch.kernels.flash_attention.ref import row_rel_err
+
+            with_drops = moe_oracle(torch, F, p, xt[part], exp_idx[part], gates[part])
+            missed = row_rel_err(out[part], with_drops)
+            if missed <= LAYER_ROW_REL:
+                raise AssertionError(f"moe capacity factor {factor}: the row bound cannot tell "
+                                     f"a dropped pair (row relative error {missed!r})")
+            seen = (f"rows with a dropped pair read {missed!r} against the oracle that keeps "
+                    f"them (the bound rejects that)")
+        elif factor == min(MOE_DROP_FACTORS):
+            raise AssertionError(f"moe capacity factor {factor}: no pair dropped, so the check "
+                                 "that dropped pairs add nothing saw none")
+        lines.append(f"capacity factor {factor} (capacity {r.capacity} slots an expert): "
+                     f"{dropped} of {n * cfg.top_k} (token, k) pairs dropped, "
+                     f"{int(none_kept.sum())} tokens with none kept and zero out; against "
+                     f"the oracle of the kept pairs max abs error {err!r}, row relative error "
+                     f"{rel!r}; {seen}")
+        del out, r
+    C = capacity[MOE_DROP_FACTORS[0]]
+    ms = cuda_ms(torch, lambda: moe_apply(p, x, top_k=cfg.top_k,
+                                          capacity_factor=MOE_DROP_FACTORS[0]))
+    bound, by = bf16_bound(gemm_flops(X * C, (E, Fd), (E, Fd), (Fd, E)), tensor_bytes(p, x, x))
+    say(f"layers L4 mixtral-8x7b MoE: d_model {E}, d_ff {Fd}, {X} experts (weights "
+        f"{tensor_bytes(p) / 1e9:.2f} GB bf16), x {tuple(x.shape)}; top-1 at capacity factor 8 "
+        f"against the dense argmax-expert oracle (fp32): max abs error {err1!r}, row relative "
+        f"error {rel1!r} (bound {LAYER_ROW_REL}); top-{cfg.top_k}: " + "; ".join(lines)
+        + f"; moe_apply at capacity factor {MOE_DROP_FACTORS[0]} {ms:.4f} ms (bound {bound:.4f} "
+        f"ms over the {X} x {C} expert slots, {by}: {bound / ms:.1%}), median of 20")
+    del p, x
+    torch.cuda.empty_cache()
+
+
+def mamba2_scan_flops(B, S, H, P, N, L) -> float:
+    """The products of Mamba2's chunked scan: C·B^T, the intra-chunk mix,
+    the state's read and its update."""
+    return -(-S // L) * (2.0 * B * L * L * N + 2.0 * B * H * L * L * P + 4.0 * B * H * L * P * N)
+
+
+def rwkv6_scan_flops(B, S, H, K, L) -> float:
+    """The products of RWKV6's chunked scan: scores, the intra-chunk mix,
+    the state's read and its update."""
+    return -(-S // L) * (4.0 * B * H * L * L * K + 4.0 * B * H * L * K * K)
+
+
+def run_layers_ssm(args, torch, dev) -> None:
+    """L5: zamba2-2.7b's Mamba2 and rwkv6-1.6b's time mix and channel mix,
+    bf16, B 1: the chunked call at S 4096, timed; the chunked form against
+    the exact per-token recurrence at S 128 in fp32 (outputs and final
+    state, the reference's tests/test_ssm_numerics.py tolerances); one
+    decode step from the S 4096 call's state, timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers import shapes
+    from repro_torch.layers.ssm import (
+        mamba2_apply,
+        mamba2_init,
+        rwkv6_apply,
+        rwkv6_channel_mix,
+        rwkv6_channel_mix_init,
+        rwkv6_init,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    zamba, rwkv = get_config("zamba2-2.7b"), get_config("rwkv6-1.6b")
+    md = shapes.mamba2_dims(zamba.d_model, zamba.ssm_state, zamba.ssm_head_dim)
+    rd = shapes.rwkv6_dims(rwkv.d_model, rwkv.ssm_head_dim)
+    mk = dict(d_state=zamba.ssm_state, head_dim=zamba.ssm_head_dim)
+    blocks = (
+        ("mamba2", zamba, mamba2_init(zamba.d_model, zamba.ssm_state, zamba.ssm_head_dim,
+                                      dtype=torch.bfloat16, generator=gen, device=dev),
+         lambda p, x, s: mamba2_apply(p, x, s, **mk),
+         lambda S: (gemm_flops(S, (zamba.d_model, md["d_in_proj"]), (md["d_inner"], zamba.d_model)),
+                    mamba2_scan_flops(1, S, md["n_heads"], md["head_dim"], md["d_state"],
+                                      md["chunk"]))),
+        ("rwkv6", rwkv, rwkv6_init(rwkv.d_model, rwkv.ssm_head_dim, dtype=torch.bfloat16,
+                                   generator=gen, device=dev),
+         lambda p, x, s: rwkv6_apply(p, x, s, head_dim=rwkv.ssm_head_dim),
+         lambda S: (gemm_flops(S, *[(rwkv.d_model, rwkv.d_model)] * 5, (rwkv.d_model, 64),
+                               (64, rwkv.d_model)),
+                    rwkv6_scan_flops(1, S, rd["n_heads"], rd["head_dim"], rd["chunk"]))),
+        ("rwkv6_channel_mix", rwkv, rwkv6_channel_mix_init(rwkv.d_model, rwkv.d_ff,
+                                                           torch.bfloat16, generator=gen,
+                                                           device=dev),
+         rwkv6_channel_mix,
+         lambda S: (gemm_flops(S, (rwkv.d_model, rwkv.d_ff), (rwkv.d_ff, rwkv.d_model),
+                               (rwkv.d_model, rwkv.d_model)), 0.0)),
+    )
+    for name, cfg, p, apply, flops in blocks:
+        E = cfg.d_model
+        x = torch.randn((1, SSM_TOKENS, E), generator=gen, device=dev, dtype=torch.bfloat16)
+        y, state = apply(p, x, None)
+        if y.shape != x.shape or y.dtype != x.dtype or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: chunked output {tuple(y.shape)} {y.dtype}, or not finite")
+        chunked_ms = cuda_ms(torch, lambda: apply(p, x, None))
+        gemm, scan = flops(SSM_TOKENS)
+        bound, by = bf16_bound(gemm, tensor_bytes(p, x, y), scan)
+        x1 = torch.randn((1, 1, E), generator=gen, device=dev, dtype=torch.bfloat16)
+        step_ms = cuda_ms(torch, lambda: apply(p, x1, state))
+        # the recurrence's own products are a few per state element: not counted
+        step_bound, step_by = bf16_bound(flops(1)[0], tensor_bytes(p, x1, state))
+
+        # the chunked form against the exact recurrence, fp32, as the reference's test
+        p32 = fp32(p)
+        xs = torch.randn((1, SSM_CHECK_TOKENS, E), generator=gen, device=dev) * SSM_CHECK_SCALE
+        y_chunk, st_chunk = apply(p32, xs, None)
+        st = (xs.new_zeros(1, E) if name == "rwkv6_channel_mix"
+              else type(st_chunk)(*(torch.zeros_like(t) for t in st_chunk)))
+        outs = []
+        for t in range(SSM_CHECK_TOKENS):
+            yt, st = apply(p32, xs[:, t:t + 1], st)
+            outs.append(yt)
+        y_seq = torch.cat(outs, dim=1)
+        tol = SSM_RECURRENCE_TOL[name]
+        final = (("token shift", st_chunk, st) if name == "rwkv6_channel_mix" else
+                 ("state", st_chunk[0], st[0]))
+        errs = {}
+        for what, got, want in (("output", y_chunk, y_seq), final):
+            errs[what] = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=tol, atol=tol):
+                raise AssertionError(f"{name}: chunked {what} against the recurrence, max abs "
+                                     f"error {errs[what]!r} exceeds rtol = atol = {tol}")
+        say(f"layers L5 {name} ({cfg.name}, d_model {E}"
+            + (f", d_state {cfg.ssm_state}, head_dim {cfg.ssm_head_dim}" if name == "mamba2" else
+               f", d_ff {cfg.d_ff}" if name == "rwkv6_channel_mix" else
+               f", head_dim {cfg.ssm_head_dim}")
+            + f", bf16, B 1): chunked at S {SSM_TOKENS} {chunked_ms:.4f} ms (bound {bound:.4f} "
+            f"ms, {by}: {bound / chunked_ms:.1%}); one decode step {step_ms:.4f} ms (bound "
+            f"{step_bound:.4f} ms, {step_by}); chunked against the per-token recurrence at S "
+            f"{SSM_CHECK_TOKENS} in fp32: output max abs error {errs['output']!r}, final "
+            f"{final[0]} {errs[final[0]]!r} (rtol = atol = {tol}); median of 20")
+        del x, y, state, p32, xs, y_chunk, st_chunk, st, outs, y_seq
+        torch.cuda.empty_cache()
+
+
+def run_layers(args, torch, dev) -> None:
+    """The layers phase: L1 norms and MLPs, L2 the KV cache, L3 the ring
+    cache, L4 MoE, L5 the SSM blocks, each at the full width of a config of
+    the repo.  Their products are torch's einsums, as the reference leaves
+    them to XLA: the phase launches none of the port's kernels, and checks
+    that it did not."""
+    reset_counts()
+    for run in (run_layers_mlp, run_layers_cache, run_layers_moe, run_layers_ssm):
+        run(args, torch, dev)
+        torch.cuda.empty_cache()
+    launched = {k: n for module in kernel_modules() for k, n in module.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"the layers phase launched the port's kernels {launched}")
+    say("layers: L1-L5 launched none of the port's kernels (their products are torch.einsum)")
+
+
 STREAM_L2_BYTES = 8 * 2**20             # a read footprint the 50 MB L2 holds
 STREAM_L2_PASSES = 64                    # passes over it in one reduction
 RANK_TOP_K = 10                          # the pruned ranking's k
@@ -3237,7 +3654,8 @@ def run_serve(args, torch, dev, kernels: list, priced: dict) -> dict:
         # what a fresh daemon pays before it binds: the interpreter and its imports
         starts = {}
         for what, code in (("torch", "import torch"),
-                           ("daemon", "import repro_torch.serve.daemon")):
+                           ("daemon", "import sys, repro_torch.serve.daemon; "
+                                      "sys.exit('torch' in sys.modules)")):
             t0 = time.perf_counter()
             subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
             starts[what] = time.perf_counter() - t0
@@ -3245,7 +3663,7 @@ def run_serve(args, torch, dev, kernels: list, priced: dict) -> dict:
         say(f"serve V1: python -m repro_torch.serve --parallel --resume answered its first ping "
             f"{out['bind_s']:.3f} s after it was started (pid {proc.pid}); a fresh process "
             f"importing torch takes {starts['torch']:.3f} s, importing repro_torch.serve.daemon "
-            f"{starts['daemon']:.3f} s (one at a time, the daemon idle)")
+            f"{starts['daemon']:.3f} s, loading no torch (one at a time, the daemon idle)")
 
         # V2. the api phase's request cold; the two paths' own requests sent
         # once the worker has taken it, so they queue behind it and coalesce;
@@ -3560,6 +3978,8 @@ def main(argv=None) -> int:
     kernels += run_transpose(args, torch, dev)
     torch.cuda.empty_cache()
     kernels += run_attention(args, torch, dev)
+    torch.cuda.empty_cache()
+    run_layers(args, torch, dev)
     torch.cuda.empty_cache()
     api_launches, reads, priced = run_api(args, torch, dev)
     for k in kernels:

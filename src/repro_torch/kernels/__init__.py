@@ -8,8 +8,6 @@ from __future__ import annotations
 
 import importlib
 
-import torch
-
 # name -> generator module; extend when porting a kernel package
 GENERATOR_MODULES = {
     "stencil3d25": "repro_torch.kernels.stencil3d25.generator",
@@ -47,7 +45,9 @@ TPU_REASON = (
 # dynamic shared memory one block may opt into on Hopper (227 KB)
 SMEM_PER_BLOCK = 232_448
 
-_DTYPES = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32, 8: torch.float64}
+# elem_bytes -> torch dtype name; ``dtype_for`` maps it when called, so
+# importing this package (the pricing daemon does) loads no torch
+_DTYPES = {1: "int8", 2: "bfloat16", 4: "float32", 8: "float64"}
 
 
 def tpu_skipped(space) -> list:
@@ -100,7 +100,9 @@ def dtype_for(elem_bytes: int) -> torch.dtype:
         raise ValueError(
             f"unsupported elem_bytes {elem_bytes}; "
             f"choose from {sorted(_DTYPES)}")
-    return _DTYPES[elem_bytes]
+    import torch
+
+    return getattr(torch, _DTYPES[elem_bytes])
 
 
 def raw_stream(index: int) -> int:
@@ -108,12 +110,16 @@ def raw_stream(index: int) -> int:
     ``torch.cuda.current_stream(index).cuda_stream`` gives, without building
     a ``Stream`` object on every launch (host time that a single call on an
     idle card waits out before its kernel starts)."""
+    import torch
+
     return torch._C._cuda_getCurrentRawStream(index)
 
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU.  A CUDA device without a card raises; nothing falls back."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -32,8 +32,8 @@ from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankingResult, rank_gpu_configs
 from repro_torch.core.specs import matmul_naive
 from repro_torch.core.tpu_adapt import MatmulShape, OperandSpec, PallasKernelSpec, pow2_tiles
-from repro_torch.kernels.matmul.kernel import TILES as _KERNEL_TILES
-from repro_torch.kernels.matmul.kernel import vector_width
+from repro_torch.kernels.matmul.tiles import TILES as _KERNEL_TILES
+from repro_torch.kernels.matmul.tiles import vector_width
 
 # GPU launch configurations the suite prices per matmul workload: a small
 # representative set of (x=n, y=m, z=k) thread-block shapes (1024-thread

@@ -32,17 +32,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul.ref import matmul_ref, matmul_split_parts_ref, split_tf32
+from repro_torch.kernels.matmul.tiles import TILES, vector_width
 
 LAUNCHES = {"matmul_tiled": 0, "matmul_split_b": 0}
 LAST_LAUNCH = {"matmul_tiled": None, "matmul_split_b": None}
 
-# the instantiated CTA tiles (bm, bn, bk) of the tensor-core routes per
-# element size: bf16 one wgmma pass, fp32 three TF32 passes (split_tf32),
-# whose slab sums need a second accumulator: no room for a 256-wide tile
-TILES = {
-    2: ((128, 256, 64), (128, 128, 64)),
-    4: ((128, 128, 32),),
-}
 ROUTE = {2: "wgmma", 4: "split_tf32"}  # element size -> the kernel matmul_tiled runs
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -69,11 +63,6 @@ def _lib() -> ctypes.CDLL:
     lib.matmul_error_string.argtypes = [ctypes.c_int]
     lib.matmul_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def vector_width(elem_bytes: int) -> int:
-    """Elements of one 16-byte load: K and N must be multiples of it."""
-    return 16 // elem_bytes
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, tile: tuple) -> tuple:

@@ -1,5 +1,6 @@
-"""GQA attention: the chunked online-softmax path and the flash-kernel path
-(a port of ``repro.layers.attention`` without its KV cache).
+"""GQA attention: the chunked online-softmax path, the flash-kernel path and
+the KV cache (full or sliding-window ring, bf16 or int8) for serving (a port
+of ``repro.layers.attention``).
 
 ``chunked_attention`` is the model-level default, in PyTorch: a loop over
 KV chunks with fp32 running statistics (and a one-pass form for decode
@@ -8,15 +9,24 @@ kernel (``repro_torch.kernels.flash_attention``) where the reference
 reaches its Pallas kernel.  The projections stay ``torch.einsum``, as the
 reference leaves them to XLA outside any kernel.  The sharding hooks of the
 reference (``gather_weight``, ``constrain``) have nothing to do on one
-card and are left out; ``KVCache`` and the cache branch come with the LM
-stack.
+card and are left out.
+
+``KVCache.append`` differs from the reference in one way: it writes into
+the cache's storage in place and returns a ``KVCache`` over the same
+tensors, where the reference returns a functional copy; a copy of the
+whole cache for every decoded token would double its memory and write all
+of it once a token.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import resolve_device
 
+from . import _draw
 from .rope import apply_rope
 
 NEG_INF = -1e30
@@ -29,11 +39,7 @@ def attention_init(d_model: int, n_heads: int, n_kv: int, head_dim: int, qkv_bia
     drawn in fp32 from ``generator`` (on ``device``) and cast to ``dtype``.
     They lie on the card unless the caller asks for the CPU."""
     device = resolve_device(device)
-
-    def normal(shape, scale):
-        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        return (w * scale).to(dtype)
-
+    normal = functools.partial(_draw.normal, dtype=dtype, generator=generator, device=device)
     s = d_model ** -0.5
     p = {
         "wq": normal((d_model, n_heads * head_dim), s),
@@ -117,17 +123,94 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_positions=None,
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+class KVCache(NamedTuple):
+    k: torch.Tensor           # (B, Hkv, C, D): bf16 (or the model's dtype), or int8
+    v: torch.Tensor
+    positions: torch.Tensor   # (B, C) int32 absolute positions, -1 = empty
+    cursor: torch.Tensor      # (B,) int32 next write slot (ring) / length (full)
+    k_scale: torch.Tensor | None = None  # (B, Hkv, C) fp32 per-(token, head) scales
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @staticmethod
+    def init(batch, n_kv, capacity, head_dim, dtype=torch.bfloat16, quantized: bool = False,
+             *, device="cuda") -> "KVCache":
+        """An empty cache of ``capacity`` slots, on the card unless the
+        caller asks for the CPU.  ``quantized=True``: int8 storage with
+        per-(token, head) symmetric scales, half the bytes of bf16."""
+        dev = resolve_device(device)
+        store = torch.int8 if quantized else dtype
+        shape = (batch, n_kv, capacity, head_dim)
+
+        def scales():
+            return torch.zeros(shape[:3], dtype=torch.float32, device=dev) if quantized else None
+
+        return KVCache(
+            k=torch.zeros(shape, dtype=store, device=dev),
+            v=torch.zeros(shape, dtype=store, device=dev),
+            positions=torch.full((batch, capacity), -1, dtype=torch.int32, device=dev),
+            cursor=torch.zeros((batch,), dtype=torch.int32, device=dev),
+            k_scale=scales(), v_scale=scales(),
+        )
+
+    def dequant(self):
+        """The (k, v) the attention reads: the storage itself, or the int8
+        codes times their scales as bf16, as the reference gives them."""
+        if not self.quantized:
+            return self.k, self.v
+        k = self.k.float() * self.k_scale[..., None]
+        v = self.v.float() * self.v_scale[..., None]
+        return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+    def append(self, k_new, v_new, pos_new) -> "KVCache":
+        """Write Sq new entries at the (ring) cursor: slots
+        (cursor + arange(Sq)) % C.  k_new: (B, Hkv, Sq, D), pos_new: (B, Sq).
+        int8 codes are round(x / max(scale, 1e-8)) with scale = max|x| / 127
+        for each (token, head).
+
+        The write is in place: this cache is consumed, and the returned
+        ``KVCache`` holds the same tensors (the cursor advanced by Sq).  With
+        Sq > C one call writes some slots twice, in no specified order (the
+        reference's scatter leaves it unspecified too)."""
+        B, Hkv, Sq, D = k_new.shape
+        C = self.k.shape[2]
+        dev = self.k.device
+        idx = (self.cursor.long()[:, None] + torch.arange(Sq, device=dev)[None, :]) % C
+        bidx = torch.arange(B, device=dev)[:, None]
+        if self.quantized:
+            for store, scale, new in ((self.k, self.k_scale, k_new),
+                                      (self.v, self.v_scale, v_new)):
+                nf = new.float()
+                s = nf.abs().amax(dim=-1) / 127.0                       # (B, Hkv, Sq)
+                q = torch.round(nf / torch.clamp(s, min=1e-8)[..., None])
+                store[bidx, :, idx] = q.transpose(1, 2).to(torch.int8)
+                scale[bidx, :, idx] = s.transpose(1, 2)
+        else:
+            self.k[bidx, :, idx] = k_new.transpose(1, 2).to(self.k.dtype)
+            self.v[bidx, :, idx] = v_new.transpose(1, 2).to(self.v.dtype)
+        self.positions[bidx, idx] = pos_new.to(self.positions.dtype)
+        self.cursor.add_(Sq)
+        return self
+
+
 def attention_apply(params, x, *, n_heads, n_kv, head_dim, causal=True, window=None,
-                    rope_theta=10000.0, positions=None, context=None, use_pallas=False,
-                    chunk=1024):
+                    rope_theta=10000.0, positions=None, cache: KVCache | None = None,
+                    context=None, use_pallas=False, chunk=1024):
     """Full attention block: projections (+bias), RoPE, attention, output
-    projection; returns ``(out, None)`` as the reference does without a
+    projection; returns ``(out, new_cache)``, ``new_cache`` None without a
     cache.
 
     ``context`` switches to cross-attention (K/V from context, no RoPE on it,
-    no causal mask).  ``use_pallas`` runs the port's flash kernel when there
-    is no context and S is a multiple of 128, as the reference runs its
-    Pallas kernel; otherwise ``chunked_attention``.
+    no causal mask).  With ``cache`` set, x is the new-token slice: its K/V
+    are appended to the cache (in place: the cache passed in is consumed)
+    and ``chunked_attention`` reads the whole cache, as the reference's
+    serving path does, whatever ``use_pallas`` says.  Otherwise
+    ``use_pallas`` runs the port's flash kernel when there is no context and
+    S is a multiple of 128, as the reference runs its Pallas kernel; else
+    ``chunked_attention``.
     """
     B, S, E = x.shape
     q = torch.einsum("bse,ehd->bshd", x, params["wq"].reshape(E, n_heads, head_dim))
@@ -151,7 +234,13 @@ def attention_apply(params, x, *, n_heads, n_kv, head_dim, causal=True, window=N
         k = k.transpose(1, 2)
     v = v.transpose(1, 2)
 
-    if use_pallas and S % 128 == 0 and context is None:
+    new_cache = None
+    if cache is not None:
+        new_cache = cache.append(k, v, positions)
+        k, v = new_cache.dequant()
+        o = chunked_attention(q, k, v, causal=causal, window=window, q_positions=positions,
+                              k_positions=new_cache.positions, chunk=chunk)
+    elif use_pallas and S % 128 == 0 and context is None:
         from repro_torch.kernels.flash_attention.ops import flash_attention
 
         o = flash_attention(q, k, v, causal=causal)
@@ -161,4 +250,4 @@ def attention_apply(params, x, *, n_heads, n_kv, head_dim, causal=True, window=N
 
     o = o.transpose(1, 2).reshape(B, S, n_heads * head_dim)
     out = torch.einsum("bsh,he->bse", o, params["wo"])
-    return out, None
+    return out, new_cache

@@ -321,7 +321,8 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules),
     assert "repro_torch.convert" in out["modules"]
     for name in ("kernels.matmul.ops", "kernels.matmul.generator",
                  "kernels.flash_attention.ops", "kernels.flash_attention.generator",
-                 "layers.attention", "layers.rope", "layers.shapes",
+                 "layers.attention", "layers.rope", "layers.shapes", "layers.norms",
+                 "layers.mlp", "layers.moe", "layers.ssm",
                  "configs.base", "configs.granite3_2b", "serve.scheduler",
                  "serve.daemon", "serve.client", "serve.__main__"):
         assert f"repro_torch.{name}" in out["modules"]
@@ -331,3 +332,29 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules),
 
     assert [m for m in out["loaded"] if foreign(m)] == []
     assert [m for m in out["imported"] if foreign(m)] == []
+
+
+def test_pricing_daemon_imports_no_torch():
+    """The daemon, its client and ``python -m repro_torch.serve``'s module,
+    imported in a fresh interpreter, load no torch: they price and never
+    touch a tensor, as the reference's daemon loads no jax.  The GEMM's
+    tiles reach the suite from ``kernels.matmul.tiles``, and
+    ``repro_torch.kernels`` imports torch only when a function needs it."""
+    torch = pytest.importorskip("torch")
+    code = r"""
+import json, sys
+import repro_torch.serve.daemon, repro_torch.serve.client, repro_torch.serve.__main__
+import repro_torch.kernels.matmul.generator, repro_torch.layers
+print(json.dumps({"torch": sorted(m for m in sys.modules if m.split(".")[0] == "torch")}))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"torch": []}
+    from repro_torch import kernels
+    from repro_torch.kernels.matmul import kernel, tiles
+
+    assert kernel.TILES is tiles.TILES and kernel.vector_width is tiles.vector_width
+    assert [kernels.dtype_for(n) for n in (1, 2, 4, 8)] == [
+        torch.int8, torch.bfloat16, torch.float32, torch.float64]
