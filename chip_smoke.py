@@ -43,6 +43,18 @@ with nvcc first (one nvcc per source, in parallel):
   nothing (L4); zamba2-2.7b's Mamba2 and rwkv6-1.6b's time and channel mix
   chunked at S 4096 and against their exact recurrences (L5); each timed
   beside its bound, and none launching the port's kernels;
+* the lm phase: whole models served through the port's LM stack
+  (``repro_torch.models.lm``, ``train.step``, ``launch.serve``), bf16,
+  random weights from ``--seed``: granite-3-2b whole (40 layers) through
+  ``launch.serve``'s loop at B 4, 8 requests, prompt 512, 64 tokens, its
+  prefill and decode logits held to ``forward`` without caches
+  (teacher-forced over each prompt and its tokens) and to an fp32
+  evaluation, two wrong decode steps rejected by the same bound (M1); the
+  same model over an int8 cache held to M1's logits (M2); rwkv6-1.6b,
+  zamba2-2.7b, whisper-base and 2 of mixtral-8x7b's 32 layers through a
+  prefill and 8 decode steps at B 2, timed in bf16 and held in fp32 to
+  their teacher-forced forward, the MoE's routing held equal (M3); each
+  beside its bound, and none launching the port's kernels;
 * the api phase: ``examples/torch_stencil_codegen.main`` at the
   paper's domains (one ``repro_torch.api.price`` sweep of both paths' 168
   launches, then ``star_pointwise`` and ``lbm_pointwise`` at the winners
@@ -2463,7 +2475,8 @@ def tensor_bytes(*trees) -> int:
 
 
 def fp32(params: dict) -> dict:
-    return {k: v.float() for k, v in params.items()}
+    """A copy of a nest of dicts of tensors in fp32."""
+    return {k: fp32(v) if isinstance(v, dict) else v.float() for k, v in params.items()}
 
 
 def run_layers_mlp(args, torch, dev) -> None:
@@ -2798,6 +2811,462 @@ def run_layers(args, torch, dev) -> None:
     if launched:
         raise AssertionError(f"the layers phase launched the port's kernels {launched}")
     say("layers: L1-L5 launched none of the port's kernels (their products are torch.einsum)")
+
+
+# the lm phase: whole models of the repo's configs served through the port's
+# LM stack (models.lm, train.step, launch.serve), bf16, random weights from
+# --seed.  The stack runs eager torch ops and torch.einsum, as the reference
+# leaves them to XLA: it launches none of the port's kernels.
+LM_ARCH = "granite-3-2b"                 # M1 and M2: the repo's config, whole
+LM_BATCH, LM_REQUESTS = 4, 8             # two waves of four
+LM_PROMPT, LM_GEN = 512, 64              # tokens of a prompt, tokens generated a request
+LM_M3_STEPS, LM_M3_BATCH = 8, 2         # decode steps and batch of each other block pattern
+# (arch, layers kept, 0 for all) of M3: mixtral-8x7b is cut to 2 of its 32
+# layers (about 94 GB whole in bf16)
+LM_M3 = (("rwkv6-1.6b", 0), ("zamba2-2.7b", 0), ("whisper-base", 0), ("mixtral-8x7b", 2))
+# M1's bf16 logits against forward without caches: the decode step's GEMMs (4
+# rows) and the teacher-forced forward's (2300) sum in other orders, so their
+# bf16 roundings part here and there and the parting grows through 40 layers:
+# 2.03e-2 at most over M1's 504 decode rows (an H100 80GB HBM3 at 700 W).  A step at its
+# position + 1 read 0.29 and one without the prefill's last cache slot 0.052
+# there; the bound sits between, and each run checks both wrong steps against it
+LM_ROW_REL = 3.5e-2
+# the bf16 model against its fp32 evaluation: each of 40 layers rounds its
+# output at least five times to bf16 (2^-9 each), the fp32 one never: in
+# quadrature sqrt(5 x 40) x 2^-9 = 2.8e-2, and twice that
+LM_FP32_ROW_REL = 2 * math.sqrt(5 * 40) * 2.0 ** -9
+# M3's fp32 check: the two sides sum in other orders (the chunked scans against
+# the per-token recurrences, GEMMs of 2 rows against 1040), each part near
+# 1e-6 of its row, and the depth grows it: zamba2-2.7b's 54 Mamba2 layers read
+# 7.6e-4, the other three 8.6e-7-6.7e-5 (an H100 80GB HBM3 at 700 W); in bf16 the same
+# parting reads 1e-3-0.31, so bf16 is timed and fp32 held.  A decode step at
+# its position + 1 reads 0.29 in M1
+LM_M3_ROW_REL = 5e-3
+LM_INT8_TOL = dict(atol=0.15, rtol=0.05)  # tests/test_optimizations.py:50-52
+# leaves that scale or shift elementwise (no GEMM) in the operation count
+LM_ELEMENTWISE = {"mu", "bonus_u", "conv_w", "scale", "bias", "A_log", "dt_bias", "norm_scale",
+                  "decay_base", "bq", "bk", "bv", "b_up", "b_down"}
+
+
+def named_leaves(tree, prefix=()):
+    """(path, tensor) of every tensor in a nest of dicts."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def token_weights(cfg, tree) -> float:
+    """Weights one token multiplies in ``tree``'s GEMMs: every matrix leaf,
+    a MoE expert's at top_k / n_experts."""
+    n = 0.0
+    for path, t in named_leaves(tree):
+        if path[-1] not in LM_ELEMENTWISE:
+            expert = "moe" in path and path[-1] != "router"
+            n += t.numel() * (cfg.top_k / cfg.n_experts if expert else 1.0)
+    return n
+
+
+def lm_work(cfg, params, B: int, S: int, pos: int, cache_entry_bytes: int) -> tuple:
+    """(prefill operations of B prompts of S tokens, operations and bytes
+    of a decode step at position ``pos``).  Operations: 2 a weight a token
+    multiplies (a MoE expert's at top_k / n_experts; the lm_head for the
+    prefill's last token only; whisper's encoder over its frames and its
+    cross-attention K and V, which a decode step recomputes), plus
+    attention's 4·H·D a (query, key) pair it must see (causal: S(S+1)/2 a
+    head, within the window).  Bytes: every weight a decode step reads (all
+    but the embedding table, of which it gathers B rows; of a MoE layer's
+    experts the min(n_experts, B·top_k) it can reach), each KV entry it sees
+    once (``cache_entry_bytes`` a token and KV head, K and V), each SSM
+    state read and written once, whisper's encoder output once a layer."""
+    H, D, E = cfg.n_heads, cfg.resolved_head_dim, cfg.d_model
+    win = cfg.swa_window or 1 << 62
+    dec = token_weights(cfg, params["layers"])
+    n_attn = cfg.n_layers if cfg.block_pattern == "attn" else 0
+    if cfg.block_pattern == "mamba_hybrid":
+        n_attn = cfg.n_layers // cfg.hybrid_attn_every
+        dec += n_attn * token_weights(cfg, params["shared_attn"])
+    N = cfg.frontend_tokens if cfg.enc_layers else 0
+    enc_ops = cross_kv = 0.0
+    if cfg.enc_layers:
+        cross = params["cross_layers"]["attn"]
+        dec += cross["wq"].numel() + cross["wo"].numel()
+        cross_kv = 2.0 * B * N * (cross["wk"].numel() + cross["wv"].numel())
+        enc_ops = (2.0 * B * N * token_weights(cfg, params["enc_layers"])
+                   + 4.0 * B * H * D * N * N * cfg.enc_layers
+                   + 2.0 * B * N * params["frontend_proj"].numel())
+    head = params["lm_head"].numel()
+    pairs = sum(min(i + 1, win) for i in range(S))
+    prefill = (2.0 * B * S * dec + 2.0 * B * head + 4.0 * B * H * D * pairs * n_attn
+               + enc_ops + cross_kv + 4.0 * B * H * D * S * N * (cfg.n_layers if N else 0))
+    seen = min(pos + 1, win)
+    step_ops = (2.0 * B * (dec + head) + 4.0 * B * H * D * seen * n_attn + cross_kv
+                + 4.0 * B * H * D * N * (cfg.n_layers if N else 0))
+    step_bytes = 0
+    for path, t in named_leaves(params):
+        if path[0] == "enc_layers" or path == ("frontend_proj",):
+            continue
+        share = 1.0
+        if path[0] == "embed":
+            share = B / t.shape[0]
+        elif "moe" in path and path[-1] != "router":
+            share = min(cfg.n_experts, B * cfg.top_k) / cfg.n_experts
+        step_bytes += t.numel() * t.element_size() * share
+    step_bytes += n_attn * B * cfg.n_kv * seen * cache_entry_bytes
+    if cfg.block_pattern == "rwkv":
+        K = cfg.ssm_head_dim
+        step_bytes += 2 * cfg.n_layers * B * (E // K) * K * K * 4
+    elif cfg.block_pattern == "mamba_hybrid":
+        step_bytes += 2 * cfg.n_layers * B * 2 * E * cfg.ssm_state * 4
+    if N:
+        step_bytes += cfg.n_layers * B * N * E * 2
+    return prefill, step_ops, step_bytes
+
+
+def lm_rows(torch, got, want, what: str, bound: float) -> float:
+    """Largest row relative L2 error of logits ``got`` against ``want``;
+    raises when the shapes differ, a value is not finite, or it exceeds
+    ``bound``."""
+    from repro_torch.kernels.flash_attention.ref import row_rel_err
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: got {tuple(got.shape)}, want {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    rel = row_rel_err(got, want)
+    if rel > bound:
+        raise AssertionError(f"{what}: row relative error {rel!r} exceeds {bound}")
+    return rel
+
+
+def lm_rejects(torch, wrong, want, what: str, bound: float) -> float:
+    """Raise unless ``bound`` rejects ``wrong``, logits of a decode step
+    made wrong on purpose; its row relative error."""
+    from repro_torch.kernels.flash_attention.ref import row_rel_err
+
+    rel = row_rel_err(wrong, want)
+    if not rel > bound:
+        raise AssertionError(f"{what}: the row bound {bound} passes it (row relative error "
+                             f"{rel!r})")
+    return rel
+
+
+def clone_kv(caches: dict) -> dict:
+    return {k: type(c)(*(None if t is None else t.clone() for t in c)) for k, c in caches.items()}
+
+
+def run_lm_granite(args, torch, dev) -> None:
+    """M1: granite-3-2b whole through ``launch.serve``'s loop, its prefill
+    and decode logits held to ``forward`` without caches (teacher-forced
+    over the prompt and the generated tokens), the bf16 prefill to an fp32
+    evaluation of the same weights, and two wrong decode steps (a position
+    off by one; the prefill's last cache slot missing) rejected by the same
+    bound.  M2: the same model over an int8 cache, fed M1's tokens, held
+    to M1's logits at the reference's int8 bounds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import row_rel_err
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.lm import forward, init_params
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    cfg = get_config(LM_ARCH)
+    B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    cap = S + G + 8
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    lines = []
+    res = serve(cfg, params, batch=B, requests=LM_REQUESTS, prompt_len=S, gen_len=G,
+                generator=gen, device=dev, keep_logits=True, log=lines.append)
+    for line in lines:
+        say(f"lm M1 {line}")
+    if sorted(res.outputs) != list(range(LM_REQUESTS)) or any(
+            len(v) != G for v in res.outputs.values()):
+        raise AssertionError("lm M1: not every request was answered once with "
+                             f"{G} tokens: {sorted(res.outputs)}")
+    pre_rel, dec_rel = [], []
+    with torch.inference_mode():
+        for w in res.waves:
+            alone, _, _ = forward(cfg, params, w.prompts, last_only=True)
+            pre_rel.append(lm_rows(torch, w.prefill_logits, alone[:, 0],
+                                   "lm M1 prefill against forward without caches", LM_ROW_REL))
+            fed = torch.cat([w.prompts, w.tokens[:, :-1].long()], dim=1)
+            tf = forward(cfg, params, fed)[0][:, S - 1:]
+            steps = torch.stack(w.decode_logits, dim=1)
+            dec_rel.append(max(lm_rows(torch, steps[:, i], tf[:, i + 1],
+                                       f"lm M1 decode step {i} against the teacher-forced "
+                                       "forward", LM_ROW_REL) for i in range(G - 1)))
+            if w is res.waves[0]:
+                first = tf[:, 1].clone()
+            del tf, steps, alone
+        # two wrong steps on wave 0's prefill, and the honest one
+        w = res.waves[0]
+        prefill, decode = make_prefill_step(cfg, cap), make_decode_step(cfg)
+        _, caches, _ = prefill(params, w.prompts)
+        tok, at = w.tokens[:, :1], torch.full((B, 1), S, dtype=torch.int32, device=dev)
+        off, _ = decode(params, tok, clone_kv(caches), at + 1)
+        off_rel = lm_rejects(torch, off, first, "lm M1 a decode step at its position + 1",
+                             LM_ROW_REL)
+        missing = clone_kv(caches)
+        missing["kv"].positions[:, :, S - 1] = -1
+        miss, _ = decode(params, tok, missing, at)
+        miss_rel = lm_rejects(torch, miss, first, "lm M1 a decode step without the prefill's "
+                              "last cache slot", LM_ROW_REL)
+        ok, _ = decode(params, tok, caches, at)
+        ok_rel = lm_rows(torch, ok, first, "lm M1 the same decode step", LM_ROW_REL)
+        del caches, missing, off, miss, ok
+        # the bf16 model against an fp32 evaluation of the same weights
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        params32 = fp32(params)
+        want32, _, _ = forward(cfg32, params32, w.prompts, last_only=True)
+        del params32
+        torch.cuda.empty_cache()
+        fp32_rel = lm_rows(torch, w.prefill_logits, want32[:, 0],
+                           "lm M1 bf16 prefill against its fp32 evaluation", LM_FP32_ROW_REL)
+        del want32
+
+    prefill_ops, step_ops, step_bytes = lm_work(cfg, params, B, S, S + G // 2,
+                                                2 * 2 * cfg.resolved_head_dim)
+    pre_bound, pre_by = bf16_bound(prefill_ops, 0.0)
+    dec_bound, dec_by = bf16_bound(step_ops, step_bytes)
+    dec_ms = [s * 1e3 for s in res.decode_s]
+    med = statistics.median(dec_ms)
+    weights = tensor_bytes(params)
+    say(f"lm M1 {LM_ARCH} whole: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv} heads, d_ff {cfg.d_ff}, padded vocab {cfg.padded_vocab}, "
+        f"{n_params / 1e9:.4f} B parameters ({weights / 1e9:.3f} GB bf16, drawn in "
+        f"{init_s:.2f} s); launch.serve B {B}, {LM_REQUESTS} requests in {len(res.waves)} "
+        f"waves, prompt {S}, {G} tokens generated, bf16 caches of {cap} slots: prefill "
+        + ", ".join(f"{s * 1e3:.2f}" for s in res.prefill_s)
+        + f" ms a wave (bound {pre_bound:.3f} ms, {pre_by}: {prefill_ops / 1e12:.2f} TFLOP at "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s); decode step median {med:.3f} ms over "
+        f"{len(dec_ms)} steps (min {min(dec_ms):.3f}, max {max(dec_ms):.3f}; bound "
+        f"{dec_bound:.4f} ms, {dec_by}: {step_bytes / 1e9:.3f} GB at position {S + G // 2}), "
+        f"{LM_REQUESTS * G / res.total_s:.1f} tokens/s over the loop's {res.total_s:.2f} s, "
+        f"{B / med * 1e3:.1f} tokens/s in decode (bound {B / dec_bound * 1e3:.0f})")
+    say(f"lm M1 checks: prefill's last logits against forward without caches, row relative "
+        f"error {max(pre_rel)!r}; each wave's {G - 1} decode steps against the teacher-forced "
+        f"forward over its {S} + {G - 1} tokens {max(dec_rel)!r} (bound {LM_ROW_REL}); the "
+        f"bf16 prefill against its fp32 evaluation {fp32_rel!r} (bound {LM_FP32_ROW_REL}); "
+        f"wave 0's first decode step again {ok_rel!r}, at its position + 1 {off_rel!r} and "
+        f"without the prefill's last cache slot {miss_rel!r}: both rejected")
+
+    # M2: the int8 cache, fed M1's wave-0 tokens
+    cfg8 = dataclasses.replace(cfg, kv_int8=True)
+    prefill8, decode8 = make_prefill_step(cfg8, cap), make_decode_step(cfg8)
+    w = res.waves[0]
+    errs, rels, times = [], [], []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches, _ = prefill8(params, w.prompts)
+        torch.cuda.synchronize()
+        pre8 = (time.perf_counter() - t0) * 1e3
+        if caches["kv"].k.dtype != torch.int8:
+            raise AssertionError(f"lm M2: the cache holds {caches['kv'].k.dtype}, not int8")
+        pairs = [(lg, w.prefill_logits)]
+        for i in range(G - 1):
+            at = torch.full((B, 1), S + i, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            lg, caches = decode8(params, w.tokens[:, i:i + 1], caches, at)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            pairs.append((lg, w.decode_logits[i]))
+        for got, want in pairs:
+            errs.append(check_close(torch, got, want, "lm M2 int8 cache against bf16",
+                                    **LM_INT8_TOL))
+            rels.append(row_rel_err(got, want))
+        del caches
+    _, step8_ops, step8_bytes = lm_work(cfg, params, B, S, S + G // 2,
+                                        2 * (cfg.resolved_head_dim + 4))
+    dec8_bound, dec8_by = bf16_bound(step8_ops, step8_bytes)
+    med8 = statistics.median(times)
+    say(f"lm M2 {LM_ARCH} whole, int8 KV cache (per-(token, head) scales) fed wave 0's tokens: "
+        f"prefill {pre8:.2f} ms, decode step median {med8:.3f} ms over {len(times)} (min "
+        f"{min(times):.3f}, max {max(times):.3f}; bound {dec8_bound:.4f} ms, {dec8_by}), "
+        f"{med8 / med:.3f}x M1's; logits against M1's bf16-cache logits max abs error "
+        f"{max(errs)!r} (atol {LM_INT8_TOL['atol']}, rtol {LM_INT8_TOL['rtol']}, "
+        f"tests/test_optimizations.py:50-52), row relative error {max(rels)!r}")
+    del params, res
+    torch.cuda.empty_cache()
+
+
+def run_lm_others(args, torch, dev) -> None:
+    """M3: each other block pattern at full width (``LM_M3``), bf16 as
+    configured: a prefill of ``LM_PROMPT`` tokens at B 2 and
+    ``LM_M3_STEPS`` greedy decode steps through ``train.step``, timed.
+    Then the check, in fp32 (the same weights cast, fp32 caches): the
+    prefill and decode steps fed the bf16 run's tokens, each step's logits
+    held to the teacher-forced ``forward`` without caches within
+    ``LM_M3_ROW_REL``.  The MoE runs both sides without drops (a capacity
+    of every token: the default drops pairs a call, and the two sides'
+    calls hold different tokens) and with its routing held equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import row_rel_err
+    from repro_torch.launch.serve import request_prompt
+    from repro_torch.layers.moe import moe_route
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    S, steps, B = LM_PROMPT, LM_M3_STEPS, LM_M3_BATCH
+    real_moe = lm.moe_apply
+    for arch, keep in LM_M3:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=keep) if keep else full
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = lm.init_params(cfg, generator=gen, device=dev)
+        prompts = torch.stack([request_prompt(cfg, r, S) for r in range(B)]).to(dev)
+        frontend = (torch.randn((B, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+                                device=dev) if cfg.frontend else None)
+        prefill, decode = make_prefill_step(cfg, S + steps + 8), make_decode_step(cfg)
+        dropped = []
+
+        def counted(p, x, **kw):
+            dropped.append(int((~moe_route(p, x, top_k=kw["top_k"]).keep).sum()))
+            return real_moe(p, x, **kw)
+
+        lm.moe_apply = counted
+        try:
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, caches, enc = prefill(params, prompts, frontend)
+                tok = lg.argmax(-1)[:, None].to(torch.int32)
+                torch.cuda.synchronize()
+                pre_ms = (time.perf_counter() - t0) * 1e3
+                got, toks, times = [lg], [tok], []
+                for i in range(steps):
+                    at = torch.full((B, 1), S + i, dtype=torch.int32, device=dev)
+                    t0 = time.perf_counter()
+                    lg, caches = decode(params, tok, caches, at, enc)
+                    tok = lg.argmax(-1)[:, None].to(torch.int32)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    got.append(lg)
+                    toks.append(tok)
+                got = torch.stack(got, dim=1)
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"lm M3 {arch}: non-finite logits")
+                fed = torch.cat([prompts, torch.cat(toks[:-1], dim=1).long()], dim=1)
+                served_drops = list(dropped)
+                bf16_rel = row_rel_err(got, lm.forward(cfg, params, fed,
+                                                       frontend_embeds=frontend)[0][:, S - 1:])
+        finally:
+            lm.moe_apply = real_moe
+        del caches, enc
+        rel, routed = lm_check_fp32(torch, dev, cfg, params, prompts, frontend, toks)
+        entry = 2 * 2 * cfg.resolved_head_dim
+        prefill_ops, step_ops, step_bytes = lm_work(cfg, params, B, S, S + steps // 2, entry)
+        pre_bound, pre_by = bf16_bound(prefill_ops, 0.0)
+        dec_bound, dec_by = bf16_bound(step_ops, step_bytes)
+        weights = tensor_bytes(params)
+        cut = ""
+        if keep:
+            whole = weights + tensor_bytes(params["layers"]) / keep * (full.n_layers - keep)
+            cut = (f", cut to {keep} of its {full.n_layers} layers ({whole / 1e9:.1f} GB whole "
+                   "in bf16; one card holds 80)")
+        med = statistics.median(times)
+        say(f"lm M3 {arch}{cut}: {cfg.block_pattern}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {weights / 1e9:.3f} GB bf16"
+            + (f", window {cfg.swa_window}" if cfg.swa_window else "")
+            + (f", encoder {cfg.enc_layers} layers over {cfg.frontend_tokens} random frames"
+               if cfg.enc_layers else "")
+            + f"; B {B}, prefill of {S} tokens {pre_ms:.2f} ms (bound {pre_bound:.3f} ms, "
+            f"{pre_by}), {steps} decode steps median {med:.3f} ms (min {min(times):.3f}, max "
+            f"{max(times):.3f}; bound {dec_bound:.4f} ms, {dec_by})"
+            + (f"; MoE pairs dropped a call {served_drops} (capacity factor 1.25)"
+               if cfg.n_experts else "")
+            + f"; in fp32, the prefill's and each step's logits against the teacher-forced "
+            f"forward over {S} + {steps} tokens, row relative error {rel!r} (bound "
+            f"{LM_M3_ROW_REL}){routed}; bf16 against its own teacher-forced forward {bf16_rel!r} "
+            "(not held: bf16 roundings grown through the depth"
+            + (", and pairs dropped apart" if cfg.n_experts else "") + ")")
+        del params, got
+        torch.cuda.empty_cache()
+
+
+def lm_check_fp32(torch, dev, cfg, params, prompts, frontend, toks) -> tuple:
+    """M3's check: ``params`` cast to fp32 over fp32 caches, a prefill and
+    a decode step for each of ``toks`` but the last, each step's logits
+    against the teacher-forced ``forward`` without caches; the MoE without
+    drops on both sides and its routing held equal.  (row relative error,
+    a note on the routing)."""
+    import dataclasses
+
+    from repro_torch.layers.moe import moe_route
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_decode_step
+
+    B, S = prompts.shape
+    steps = len(toks) - 1
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = fp32(params)
+    routes = []
+    real_moe = lm.moe_apply
+
+    def dropless(p, x, **kw):
+        # a capacity of every token of the call: no pair drops
+        factor = cfg.n_experts / kw["top_k"]
+        r = moe_route(p, x, top_k=kw["top_k"], capacity_factor=factor)
+        routes.append((r.exp_idx.reshape(x.shape[0], x.shape[1], -1).sort(-1).values,
+                       int((~r.keep).sum())))
+        return real_moe(p, x, capacity_factor=factor, **kw)
+
+    lm.moe_apply = dropless
+    try:
+        with torch.inference_mode():
+            caches = lm.init_caches(cfg32, B, S + steps + 8, torch.float32, device=dev)
+            lg, caches, enc = lm.forward(cfg32, p32, prompts, caches=caches,
+                                         frontend_embeds=frontend, last_only=True)
+            got = [lg[:, -1]]
+            decode = make_decode_step(cfg32)
+            for i in range(steps):
+                at = torch.full((B, 1), S + i, dtype=torch.int32, device=dev)
+                lg, caches = decode(p32, toks[i], caches, at, enc)
+                got.append(lg)
+            served = len(routes)
+            fed = torch.cat([prompts, torch.cat(toks[:-1], dim=1).long()], dim=1)
+            tf = lm.forward(cfg32, p32, fed, frontend_embeds=frontend)[0][:, S - 1:]
+    finally:
+        lm.moe_apply = real_moe
+    routed = ""
+    if cfg.n_experts:
+        L = cfg.n_layers
+        pre, dec, want = routes[:L], routes[L:served], routes[served:]
+        other = [int((pre[layer][0] != want[layer][0][:, :S]).any(-1).sum())
+                 + sum(int((dec[i * L + layer][0][:, 0] != want[layer][0][:, S + i])
+                           .any(-1).sum()) for i in range(steps)) for layer in range(L)]
+        drops = sum(d for _, d in routes)
+        if any(other) or drops:
+            raise AssertionError(f"lm M3 {cfg.name} fp32: tokens routed otherwise than the "
+                                 f"teacher-forced forward by layer {other}, {drops} pairs dropped")
+        routed = (f"; the {L} MoE layers route every token as the teacher-forced forward "
+                  "does, no pair dropped (capacity n_experts / top_k)")
+    rel = lm_rows(torch, torch.stack(got, dim=1), tf, f"lm M3 {cfg.name} fp32 against the "
+                  "teacher-forced forward", LM_M3_ROW_REL)
+    del p32, caches, tf
+    return rel, routed
+
+
+def run_lm(args, torch, dev) -> None:
+    """The lm phase: M1 granite-3-2b whole through ``launch.serve``, M2 its
+    int8 cache, M3 the other block patterns.  Like the layers it runs, it
+    launches none of the port's kernels, and checks that it did not."""
+    reset_counts()
+    run_lm_granite(args, torch, dev)
+    run_lm_others(args, torch, dev)
+    launched = {k: n for module in kernel_modules() for k, n in module.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"the lm phase launched the port's kernels {launched}")
+    say("lm: M1-M3 launched none of the port's kernels (eager torch ops and torch.einsum)")
 
 
 STREAM_L2_BYTES = 8 * 2**20             # a read footprint the 50 MB L2 holds
@@ -3980,6 +4449,8 @@ def main(argv=None) -> int:
     kernels += run_attention(args, torch, dev)
     torch.cuda.empty_cache()
     run_layers(args, torch, dev)
+    torch.cuda.empty_cache()
+    run_lm(args, torch, dev)
     torch.cuda.empty_cache()
     api_launches, reads, priced = run_api(args, torch, dev)
     for k in kernels:

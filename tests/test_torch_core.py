@@ -185,6 +185,91 @@ def test_from_numpy_carries_jax_bf16_bit_exactly():
     assert from_numpy(np.float32(2.5), "cpu").dtype == torch.float32
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mixtral-8x7b", "rwkv6-1.6b", "zamba2-2.7b",
+                                  "whisper-base", "internvl2-76b"])
+def test_lm_params_from_numpy_carries_bf16_and_checks_every_block(arch):
+    """``convert.lm_params_from_numpy`` carries ``repro.models.lm``'s tree
+    (bf16 bit for bit, the stacked layout leaf for leaf) and raises on an
+    unknown or a missing key, at the top and inside each block."""
+    torch = pytest.importorskip("torch")
+    import jax
+
+    from repro.configs import get_config as jget
+    from repro.models.lm import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+
+    cfg = get_config(arch).reduced()
+    want = jax.tree.map(np.asarray, init_params(jget(arch).reduced(), jax.random.PRNGKey(0)))
+    got = lm_params_from_numpy(cfg, want, "cpu")
+    flat_w, _ = jax.tree_util.tree_flatten_with_path(want)
+    for path, w in flat_w:
+        t = got
+        for k in path:
+            t = t[k.key]
+        assert tuple(t.shape) == w.shape
+        if w.dtype.name == "bfloat16":
+            assert t.dtype == torch.bfloat16
+            np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                          w.view(np.uint16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), w)
+    block = "layers"
+    inner = next(iter(want[block]))
+    cases = [({**want, "extra": want["embed"]}, "unknown \\['extra'\\]"),
+             ({k: v for k, v in want.items() if k != "lm_head"}, "missing \\['lm_head'\\]"),
+             ({**want, block: {**want[block], "bogus": {}}}, "unknown \\['bogus'\\]"),
+             ({**want, block: {k: v for k, v in want[block].items() if k != inner}},
+              f"missing \\['{inner}'\\]"),
+             ({**want, block: {**want[block], inner: {**want[block][inner], "w_x": np.zeros(1)}}},
+              f"layers.{inner}: .*unknown \\['w_x'\\]")]
+    for bad, match in cases:
+        with pytest.raises(KeyError, match=match):
+            lm_params_from_numpy(cfg, bad, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-1.6b", "zamba2-2.7b"])
+def test_lm_caches_from_numpy_carries_the_stacked_caches(arch):
+    """``convert.lm_caches_from_numpy`` carries ``repro.models.lm``'s stacked
+    ``{"kv"}``, ``{"rwkv"}`` and ``{"mamba", "shared_kv"}`` trees after a
+    prefill (bf16 and int32 bit for bit, the int8 cache too) and raises on
+    an unknown or a missing key."""
+    torch = pytest.importorskip("torch")
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget
+    from repro.models.lm import init_params
+    from repro.train.step import make_prefill_step
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_caches_from_numpy
+
+    for int8 in (False, True):
+        jcfg = dataclasses.replace(jget(arch).reduced(), kv_int8=int8)
+        cfg = dataclasses.replace(get_config(arch).reduced(), kv_int8=int8)
+        tokens = jnp.asarray(np.random.default_rng(0).integers(0, cfg.vocab, (2, 5)), jnp.int32)
+        _, want, _ = make_prefill_step(jcfg, 8)(init_params(jcfg, jax.random.PRNGKey(0)), tokens)
+        want = jax.tree.map(np.asarray, want)
+        got = lm_caches_from_numpy(cfg, want, "cpu")
+        flat_w = jax.tree.leaves(want)
+        flat_g = [t for t in jax.tree.leaves(got, is_leaf=lambda x: isinstance(x, torch.Tensor))]
+        assert len(flat_g) == len(flat_w) and set(got) == set(want)
+        for t, w in zip(flat_g, flat_w, strict=True):
+            assert tuple(t.shape) == w.shape
+            if w.dtype.name == "bfloat16":
+                np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                              w.view(np.uint16))
+            else:
+                assert str(t.dtype).split(".")[1] == w.dtype.name
+                np.testing.assert_array_equal(t.numpy(), w)
+    with pytest.raises(KeyError, match="unknown \\['extra'\\]"):
+        lm_caches_from_numpy(cfg, {**want, "extra": None}, "cpu")
+    with pytest.raises(KeyError, match="missing"):
+        lm_caches_from_numpy(cfg, {}, "cpu")
+
+
 @pytest.mark.parametrize("name", ["V100", "A100", "A100_80G", "H100"])
 def test_machine_parameters_equal_reference(name):
     assert _fields(getattr(machines, name)) == _fields(getattr(ref_machines, name))
@@ -322,7 +407,8 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules),
     for name in ("kernels.matmul.ops", "kernels.matmul.generator",
                  "kernels.flash_attention.ops", "kernels.flash_attention.generator",
                  "layers.attention", "layers.rope", "layers.shapes", "layers.norms",
-                 "layers.mlp", "layers.moe", "layers.ssm",
+                 "layers.mlp", "layers.moe", "layers.ssm", "models.lm", "train.sharding",
+                 "train.step", "launch.serve",
                  "configs.base", "configs.granite3_2b", "serve.scheduler",
                  "serve.daemon", "serve.client", "serve.__main__"):
         assert f"repro_torch.{name}" in out["modules"]

@@ -622,7 +622,7 @@ def test_examples_import_no_jax_and_nothing_of_repro():
 
     files = sorted((ROOT / "examples").glob("torch_*.py"))
     assert {f.name for f in files} >= {"torch_quickstart.py", "torch_design_space.py",
-                                       "torch_stencil_codegen.py"}
+                                       "torch_stencil_codegen.py", "torch_serve_lm.py"}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -631,10 +631,12 @@ def test_examples_import_no_jax_and_nothing_of_repro():
                 assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), (f.name, name)
     code = ("import json, sys; sys.path.insert(0, 'examples')\n"
             "import torch_quickstart, torch_design_space, torch_stencil_codegen\n"
+            "import torch_serve_lm\n"
             "print(json.dumps(sorted(sys.modules)))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(SRC)})
     assert proc.returncode == 0, proc.stderr
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.cachesim" in loaded and "repro_torch.core.designspace" in loaded
+    assert "repro_torch.models.lm" in loaded and "repro_torch.train.step" in loaded
     assert not [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -159,8 +159,13 @@ def test_rows_that_see_no_key_match_the_jax_kernel(dtype, config):
     """Causal with Sq > Skv: rows i < Sq - Skv see no key.  The reference's
     kernel gives them 0 at (128, 128) (it computes no KV block for their q
     block) and the mean of V over keys 0-127 at (256, 128); the port's entry
-    point matches it exactly there, with no NaN (``attention_ref`` gives
-    NaN), and to the pinned tolerance on the rows that see keys."""
+    point matches it there, with no NaN (``attention_ref`` gives NaN), and
+    to the pinned tolerance on the rows that see keys.  The zero rows match
+    exactly.  So do the bf16 mean rows; the fp32 mean rows are held to the
+    rounding bound of a 128-term fp32 sum taken in two orders (each within
+    127·2^-24·sum|v| of the exact sum, over 128): the reference's sum is its
+    host's dot (XLA's on the CPU in interpret mode) and the port's a torch
+    matmul, and their orders differ between hosts."""
     import jax.numpy as jnp
 
     from repro.kernels.flash_attention.kernel import make_flash_attention
@@ -173,7 +178,12 @@ def test_rows_that_see_no_key_match_the_jax_kernel(dtype, config):
     got = flash_attention(*_port(q, k, v), causal=True, config=config).float().numpy()
     n = Sq - Skv
     assert not np.isnan(got).any()
-    np.testing.assert_array_equal(got[:, :, :n], want[:, :, :n])
+    if dtype == "float32" and config["bq"] != 128:
+        keys = np.abs(np.asarray(v, np.float32)[:, :, None, :128]).repeat(Hq // Hkv, axis=1)
+        bound = 2 * 127 * 2.0 ** -24 / (1 - 127 * 2.0 ** -24) * keys.mean(axis=3)
+        assert (np.abs(got[:, :, :n] - want[:, :, :n]) <= bound).all()
+    else:
+        np.testing.assert_array_equal(got[:, :, :n], want[:, :, :n])
     np.testing.assert_allclose(got[:, :, n:], want[:, :, n:], atol=2e-3 if dtype == "float32" else 3e-2)
     mean = np.asarray(v, np.float32)[:, :, None, :128].mean(axis=3).repeat(Hq // Hkv, axis=1)
     np.testing.assert_allclose(want[:, :, :n], np.broadcast_to(
