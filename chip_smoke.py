@@ -55,6 +55,20 @@ with nvcc first (one nvcc per source, in parallel):
   prefill and 8 decode steps at B 2, timed in bf16 and held in fp32 to
   their teacher-forced forward, the MoE's routing held equal (M3); each
   beside its bound, and none launching the port's kernels;
+* the train phase: the training half of the LM stack (``data``,
+  ``optim.adamw``, ``train.step``, ``checkpoint``, ``runtime.fault``,
+  ``launch.train``), bf16, random weights from ``--seed``: granite-3-2b
+  whole trained through ``launch.train.train`` at global batch 8 x 512 in
+  two microbatches, remat on, 6 steps, timed beside its bound, its first
+  batch's loss, gradient norm and gradients held to an fp32 evaluation on
+  the card, labels shifted by one position rejected, one microbatch held
+  to two (T1); ``apply_updates`` on four of its leaves, card against CPU,
+  with and without int8 compression (T2); 2 layers of it at full width
+  trained 4 steps straight and 2 + an async save + a resume of 2, bit for
+  bit under deterministic algorithms, and its checkpoint's save and restore
+  timed (T3); rwkv6-1.6b, zamba2-2.7b, whisper-base and 2 of mixtral-8x7b's
+  layers, two train steps each at B 2 x 512, the first's loss and gradient
+  norm held to fp32 (T4); none launching the port's kernels;
 * the api phase: ``examples/torch_stencil_codegen.main`` at the
   paper's domains (one ``repro_torch.api.price`` sweep of both paths' 168
   launches, then ``star_pointwise`` and ``lbm_pointwise`` at the winners
@@ -3269,6 +3283,501 @@ def run_lm(args, torch, dev) -> None:
     say("lm: M1-M3 launched none of the port's kernels (eager torch ops and torch.einsum)")
 
 
+# the train phase: the training half of the LM stack (data, the train step,
+# AdamW, checkpoints, the fault hooks) through launch.train.train, bf16,
+# random weights from --seed.  Like the lm phase it runs eager torch ops and
+# torch.einsum, and launches none of the port's kernels.
+TRAIN_ARCH = "granite-3-2b"              # T1 and T3: the repo's config
+TRAIN_BATCH, TRAIN_SEQ = 8, 512          # T1's global batch and sequence: 4096 tokens a step
+TRAIN_MICRO = 2                          # T1's microbatches (and T3's)
+TRAIN_STEPS = 6                          # T1's steps, the first one untimed
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=20)  # launch.train's schedule
+TRAIN_BYTES_A_PARAM = 2 * 2 + 4 + 4 * 4  # AdamW: bf16 param read and written, the fp32
+#                                          gradient sum read, m and v read and written
+TRAIN_CKPT_LAYERS, TRAIN_CKPT_BATCH = 2, 4  # T3: granite-3-2b cut to 2 layers, B 4 x 512
+TRAIN_T4_BATCH = 2                       # T4: B 2 x TRAIN_SEQ, two train steps each
+# bounds of the bf16 step against its fp32 evaluation on the card (same
+# weights upcast, same batch).  An H100 80GB HBM3 at 700 W read: the loss
+# 1.4e-5 (granite) to 1.7e-3 (rwkv6-1.6b, 24 recurrent layers), the gradient
+# norm 2.4e-6 to 6.1e-3, each granite gradient leaf's rows 5.2e-2 at most;
+# labels shifted by one position read 1.75 there.  The bounds sit about
+# twice above the honest readings and an order below the wrong one
+TRAIN_LOSS_REL = 1e-2                    # T1 and T4: the loss
+TRAIN_GNORM_REL = 5e-2                   # T1 and T4 (but zamba2, below): the gradient norm
+TRAIN_GRAD_ROW_REL = 0.1                 # T1: each gradient leaf's rows (relative L2)
+TRAIN_MICRO_REL = 5e-3                   # T1: the loss in two microbatches against one
+TRAIN_ADAMW_REL = 1e-5                   # T2: the moments, card against CPU
+# (arch, layers kept (0 for all), the gradient norm's bound) of T4:
+# mixtral-8x7b is cut to 2 of its 32 layers (6.2 GB of bf16 weights and 25
+# GB of moments at 2).  zamba2-2.7b's gradients explode backward through
+# its 54 Mamba2 layers at init (fp32 norm 3364 against granite's 5.8),
+# and bf16's roundings grow with them: the card read its bf16 norm 0.712x
+# the fp32 one.  At 6 Mamba2 layers a group and width 128 the port's fp32
+# gradients equal the reference's and its bf16 norm stays within 0.5 of
+# fp32 (tests/test_torch_train_step_ssm_enc.py).  Its norm is held within 0.5
+TRAIN_T4 = (("rwkv6-1.6b", 0, TRAIN_GNORM_REL), ("zamba2-2.7b", 0, 0.5),
+            ("whisper-base", 0, TRAIN_GNORM_REL), ("mixtral-8x7b", 2, TRAIN_GNORM_REL))
+
+
+def train_work(cfg, params, tokens: int, seq: int) -> tuple:
+    """(the step's GEMM operations, the optimiser's bytes) for ``tokens``
+    tokens in sequences of ``seq``.  Operations: 2 a weight a token
+    multiplies (``token_weights``: every matrix but the embedding table,
+    whose rows are gathered; the shared attention block once a turn;
+    whisper's encoder, its frontend projection and the cross-attention's K
+    and V over the frames instead), plus attention's 4·H·D a (query, key)
+    pair (causal: seq(seq+1)/2 a sequence and head, within the window; the
+    encoder's frames all pairs; the cross-attention's tokens by frames), all
+    four times: the forward, its recompute under remat, and the backward's
+    two products.  Bytes: ``TRAIN_BYTES_A_PARAM`` a parameter."""
+    seqs = tokens // seq
+    dec = token_weights(cfg, params["layers"]) + params["lm_head"].numel()
+    groups = cfg.n_layers // cfg.hybrid_attn_every if cfg.block_pattern == "mamba_hybrid" else 0
+    if groups:
+        dec += groups * token_weights(cfg, params["shared_attn"])
+    n_attn = {"attn": cfg.n_layers, "rwkv": 0, "mamba_hybrid": groups}[cfg.block_pattern]
+    win = cfg.swa_window or 1 << 62
+    pairs = seqs * sum(min(i + 1, win) for i in range(seq)) * n_attn
+    frame_ops = 0.0
+    if cfg.enc_layers:
+        N = cfg.frontend_tokens
+        cross = params["cross_layers"]["attn"]
+        dec += cross["wq"].numel() + cross["wo"].numel()
+        frames = (token_weights(cfg, params["enc_layers"]) + params["frontend_proj"].numel()
+                  + cross["wk"].numel() + cross["wv"].numel())
+        frame_ops = 2.0 * seqs * N * frames
+        pairs += seqs * (N * N * cfg.enc_layers + seq * N * cfg.n_layers)
+    attn = 4.0 * cfg.n_heads * cfg.resolved_head_dim * pairs
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    return 4 * (2.0 * tokens * dec + frame_ops + attn), TRAIN_BYTES_A_PARAM * n_params
+
+
+def to_device(torch, batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def grad_norm(torch, grads) -> float:
+    from repro_torch.tree import leaves
+
+    return float(torch.sqrt(sum(g.float().square().sum() for g in leaves(grads))))
+
+
+def worst_rows(torch, grads, want) -> tuple:
+    """(the largest row relative L2 error of any leaf of ``grads`` against
+    ``want``, its leaf's path)."""
+    from repro_torch.kernels.flash_attention.ref import row_rel_err
+    from repro_torch.tree import flatten_with_path, leaves, path_str
+
+    return max((row_rel_err(g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])),
+                path_str(p)) for (p, g), w in zip(flatten_with_path(grads), leaves(want),
+                                                  strict=True))
+
+
+def rel_close(got: float, want: float, bound: float, what: str) -> float:
+    """|got - want| / |want|; raises when it exceeds ``bound`` or ``got`` is
+    not finite."""
+    rel = abs(got - want) / abs(want)
+    if not (math.isfinite(got) and rel <= bound):
+        raise AssertionError(f"{what}: {got!r} against {want!r}, relative error {rel!r} "
+                             f"exceeds {bound}")
+    return rel
+
+
+def run_train_granite(args, torch, dev) -> dict:
+    """T1: granite-3-2b whole, bf16, through ``launch.train.train``: global
+    batch ``TRAIN_BATCH`` x ``TRAIN_SEQ`` in ``TRAIN_MICRO`` microbatches,
+    remat on, ``TRAIN_STEPS`` steps, no checkpoint.  Before the optimiser
+    state exists, the first batch's loss and gradients (two microbatches,
+    as the step takes them) against an fp32 evaluation of the same weights
+    on the card, labels shifted by one position rejected by the same
+    gradient bound, and the loss in one microbatch against two.  Returns
+    the trained parameters for T2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, generator=gen, device=dev)
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batch = to_device(torch, batch_for_step(dc, 0), dev)
+
+    # the checks, before the optimiser state exists
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(cfg, params, batch, TRAIN_MICRO)
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    loss, gnorm = float(loss), grad_norm(torch, grads)
+    loss1 = float(loss_and_grads(cfg, params, batch, 1)[0])
+    micro_rel = rel_close(loss, loss1, TRAIN_MICRO_REL, "train T1 the loss in "
+                          f"{TRAIN_MICRO} microbatches against one")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = fp32(params)
+    t0 = time.perf_counter()
+    loss32, g32 = loss_and_grads(cfg32, p32, batch, TRAIN_MICRO)
+    torch.cuda.synchronize()
+    grads32_s = time.perf_counter() - t0
+    del p32
+    loss32, gnorm32 = float(loss32), grad_norm(torch, g32)
+    loss_rel = rel_close(loss, loss32, TRAIN_LOSS_REL, "train T1 bf16 loss against fp32")
+    gnorm_rel = rel_close(gnorm, gnorm32, TRAIN_GNORM_REL,
+                          "train T1 bf16 gradient norm against fp32")
+    rows, at = worst_rows(torch, grads, g32)
+    if not rows <= TRAIN_GRAD_ROW_REL:
+        raise AssertionError(f"train T1 bf16 gradients against fp32: {at}'s rows read "
+                             f"{rows!r}, beyond {TRAIN_GRAD_ROW_REL}")
+    del grads
+    shifted = dict(batch, labels=torch.roll(batch["labels"], 1, dims=1))
+    wrong, wrong_at = worst_rows(torch, loss_and_grads(cfg, params, shifted, TRAIN_MICRO)[1],
+                                 g32)
+    if not wrong > TRAIN_GRAD_ROW_REL:
+        raise AssertionError(f"train T1: labels shifted by one position pass the gradient "
+                             f"bound {TRAIN_GRAD_ROW_REL} ({wrong_at}'s rows read {wrong!r})")
+    del g32, shifted
+    checks_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+
+    # the run
+    opt_cfg = OptConfig(total_steps=TRAIN_STEPS, **TRAIN_OPT)
+    opt = init_opt_state(opt_cfg, params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    lines = []
+    res = train(cfg, params, opt, opt_cfg=opt_cfg, data=dc, steps=TRAIN_STEPS,
+                microbatches=TRAIN_MICRO, log=lines.append)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for line in lines:
+        say(f"train T1 {line}")
+    if len(res.losses) != TRAIN_STEPS or not all(map(math.isfinite, res.losses)):
+        raise AssertionError(f"train T1: the losses of {TRAIN_STEPS} steps: {res.losses}")
+    step_loss_rel = rel_close(res.losses[0], loss32, TRAIN_LOSS_REL,
+                              "train T1 the first step's loss against fp32")
+    step_gnorm_rel = rel_close(res.grad_norms[0], gnorm32, TRAIN_GNORM_REL,
+                               "train T1 the first step's gradient norm against fp32")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ops, opt_bytes = train_work(cfg, params, tokens, TRAIN_SEQ)
+    ops_ms = ops / PEAK_BF16_FLOPS * 1e3
+    opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    ms = [s * 1e3 for s in res.step_s[1:]]
+    med = statistics.median(ms)
+    moments = tensor_bytes(res.opt.m, res.opt.v)
+    say(f"train T1 {TRAIN_ARCH} whole: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.4f} B parameters ({tensor_bytes(params) / 1e9:.3f} GB bf16, m and v "
+        f"{moments / 1e9:.3f} GB fp32), remat {cfg.remat}; launch.train.train, global batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches, {TRAIN_STEPS} steps: step "
+        f"median {med:.2f} ms over steps 1-{TRAIN_STEPS - 1} (min {min(ms):.2f}, max "
+        f"{max(ms):.2f}; the first {res.step_s[0] * 1e3:.2f}), {tokens / med * 1e3:.0f} "
+        f"tokens/s; bound {ops_ms + opt_ms:.2f} ms = {ops / 1e12:.2f} TFLOP at "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s ({ops_ms:.2f} ms) + the optimiser's "
+        f"{opt_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s ({opt_ms:.2f} ms), "
+        f"{(ops_ms + opt_ms) / med * 100:.1f} % of it; peak memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated over the run; the checks before it "
+        f"{checks_peak / 2**30:.3f} GiB); losses "
+        + ", ".join(f"{x:.4f}" for x in res.losses))
+    say(f"train T1 checks on batch 0: bf16 loss {loss!r} against fp32 {loss32!r}, relative "
+        f"{loss_rel!r} (bound {TRAIN_LOSS_REL}); gradient norm {gnorm!r} against {gnorm32!r}, "
+        f"{gnorm_rel!r} (bound {TRAIN_GNORM_REL}); the gradients' worst rows {rows!r} ({at}; "
+        f"bound {TRAIN_GRAD_ROW_REL}); labels shifted by one position {wrong!r} ({wrong_at}): "
+        f"rejected; one microbatch against {TRAIN_MICRO} {micro_rel!r} (bound "
+        f"{TRAIN_MICRO_REL}); the first step's loss {step_loss_rel!r} and gradient norm "
+        f"{step_gnorm_rel!r} from fp32; loss and gradients in {grads_s * 1e3:.1f} ms bf16, "
+        f"{grads32_s * 1e3:.1f} ms fp32")
+    del res, opt
+    return params
+
+
+def run_train_adamw(args, torch, dev, params: dict) -> None:
+    """T2: ``apply_updates`` on four of granite-3-2b's leaves at full width
+    (the lm_head, one layer's ``w_up`` and ``wq``, the stacked ``ln1``
+    scales) with random fp32 gradients and moments at step 5, once on the
+    card and once on the CPU, with and without ``compress_grads``: the
+    moments within ``TRAIN_ADAMW_REL`` of the largest value of their leaf,
+    the error feedback within two ulps of g + e, the bf16 parameters
+    within one bf16 step, the gradient norm within 1e-6."""
+    from repro_torch.optim.adamw import OptConfig, OptState, apply_updates
+    from repro_torch.tree import leaves
+
+    picked = {"lm_head": params["lm_head"], "w_up": params["layers"]["mlp"]["w_up"][0],
+              "wq": params["layers"]["attn"]["wq"][0],
+              "ln1": params["layers"]["ln1"]["scale"]}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+
+    def draw(scale):
+        return {k: torch.randn(v.shape, generator=gen, device=dev) * scale
+                for k, v in picked.items()}
+
+    n = sum(v.numel() for v in picked.values())
+    for compress in (False, True):
+        cfg = OptConfig(total_steps=20, compress_grads=compress, **TRAIN_OPT)
+        grads = draw(1e-2)
+        m = draw(1e-3)
+        v = {k: (1e-3 + x.abs()).square() for k, x in draw(1e-3).items()}
+        err = draw(1e-4) if compress else None
+
+        def state(device):
+            copy = lambda tree: None if tree is None else {  # noqa: E731
+                k: x.to(device, copy=True) for k, x in tree.items()}
+            return (copy(picked), OptState(torch.tensor(5, dtype=torch.int32, device=device),
+                                           copy(m), copy(v), copy(err)), copy(grads))
+
+        gp, gs, gg = state(dev)
+        cp, cs, cg = state("cpu")
+        gp, gs, ginfo = apply_updates(cfg, gs, gp, gg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cp, cs, cinfo = apply_updates(cfg, cs, cp, cg)
+        cpu_s = time.perf_counter() - t0
+        gn_rel = rel_close(float(ginfo["grad_norm"]), float(cinfo["grad_norm"]), 1e-6,
+                           "train T2 the gradient norm, card against CPU")
+        flips = 0
+        for (k, a), b in zip(gp.items(), cp.values()):
+            a, b = a.float().cpu(), b.float()
+            d = (a - b).abs()
+            # one bf16 step of the larger result, plus 8 fp32 ulps of the old
+            # value: where an update cancels most of a parameter, the two
+            # sides' fp32 results part by ulps of the operands, not the result
+            allowed = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7 + (
+                picked[k].float().cpu().abs() * 2.0 ** -20)
+            if not bool((d <= allowed).all()):
+                i = int((d - allowed).argmax())
+                raise AssertionError(f"train T2 {k}: a bf16 parameter {float(a.flatten()[i])!r} "
+                                     f"against {float(b.flatten()[i])!r} on the CPU, beyond one "
+                                     "bf16 step")
+            flips += int((d > 0).sum())
+        worst = 0.0
+        for tree_g, tree_c in ((gs.m, cs.m), (gs.v, cs.v)):
+            for a, b in zip(leaves(tree_g), leaves(tree_c)):
+                e = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                worst = max(worst, e)
+        if not worst <= TRAIN_ADAMW_REL:
+            raise AssertionError(f"train T2: the moments part by {worst!r} of their leaves' "
+                                 f"largest, beyond {TRAIN_ADAMW_REL}")
+        err_ulps = 0.0
+        if compress:
+            for k in picked:
+                top = float((grads[k] + err[k]).abs().max())
+                ulp = top * 2.0 ** -23
+                e = float((gs.error[k].cpu() - cs.error[k]).abs().max()) / ulp
+                err_ulps = max(err_ulps, e)
+            if not err_ulps <= 2.0:
+                raise AssertionError(f"train T2: the error feedback parts by {err_ulps!r} ulps")
+
+        def card():
+            p, s, g = state(dev)
+            return lambda: apply_updates(cfg, s, p, g)
+
+        ms = cuda_ms(torch, card(), warmup=1, reps=5)
+        moved = n * (2 * 2 + 4 + 4 * 4 + (8 if compress else 0))
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        say(f"train T2 apply_updates on {len(picked)} of {TRAIN_ARCH}'s leaves "
+            f"({n / 1e6:.1f} M parameters, bf16), compress_grads {compress}: card {ms:.3f} ms "
+            f"(bound {bound:.4f} ms, bytes: {moved / 1e9:.3f} GB), CPU {cpu_s * 1e3:.1f} ms; "
+            f"card against CPU: gradient norm {gn_rel!r}, moments {worst!r} of their leaves' "
+            f"largest (bound {TRAIN_ADAMW_REL}), {flips} of {n} bf16 parameters one step apart"
+            + (f", error feedback within {err_ulps:.2f} ulps of g + e" if compress else ""))
+        del gp, gs, gg, cp, cs, cg
+
+
+def run_train_resume(args, torch, dev) -> None:
+    """T3: granite-3-2b cut to ``TRAIN_CKPT_LAYERS`` layers at full width, B
+    ``TRAIN_CKPT_BATCH`` x ``TRAIN_SEQ`` in two microbatches, under
+    ``torch.use_deterministic_algorithms(True)``: 4 steps straight against
+    2 steps (their async save at step 2), a fresh ``train`` that restores
+    it and takes 2 more; the parameters and the optimiser state equal bit
+    for bit.  Then the final state saved blocking and async and restored,
+    timed, in a temporary directory removed afterwards."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.tree import leaves
+
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_CKPT_LAYERS)
+    opt_cfg = OptConfig(total_steps=4, **TRAIN_OPT)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_CKPT_BATCH)
+
+    def fresh():
+        p = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
+                        device=dev)
+        return p, init_opt_state(opt_cfg, p)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    was = torch.are_deterministic_algorithms_enabled()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # deterministic cuBLAS needs a fixed one
+    lines = []
+    try:
+        torch.use_deterministic_algorithms(True)
+        kw = dict(opt_cfg=opt_cfg, data=dc, microbatches=TRAIN_MICRO, log=lines.append)
+        straight = train(cfg, *fresh(), steps=4, **kw)
+        first = train(cfg, *fresh(), steps=2, ckpt_dir=tmp, ckpt_every=2, **kw)
+        del first
+        resumed = train(cfg, *fresh(), steps=4, ckpt_dir=tmp, ckpt_every=2, **kw)
+        if resumed.start != 2:
+            raise AssertionError(f"train T3: resumed from step {resumed.start}, not 2")
+        a = leaves({"params": straight.params, "opt": straight.opt})
+        b = leaves({"params": resumed.params, "opt": resumed.opt})
+        unequal = sum(not torch.equal(x, y) for x, y in zip(a, b, strict=True))
+        if unequal:
+            raise AssertionError(f"train T3: {unequal} of {len(a)} leaves differ between 4 steps "
+                                 "straight and 2 + a resume of 2")
+        losses = (straight.losses, resumed.losses)
+        del straight, a, b
+        state = {"params": resumed.params, "opt": resumed.opt}
+        for name in os.listdir(tmp):
+            shutil.rmtree(os.path.join(tmp, name))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(tmp, 100, state)
+        block_s = time.perf_counter() - t0
+        d = os.path.join(tmp, "step_000100")
+        on_disk = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        shutil.rmtree(d)
+        t0 = time.perf_counter()
+        writer = save(tmp, 101, state, blocking=False)
+        returned_s = time.perf_counter() - t0
+        writer.join()
+        async_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, step = restore(tmp, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != 101 or not all(torch.equal(x, y) for x, y in
+                                  zip(leaves(got), leaves(state), strict=True)):
+            raise AssertionError("train T3: the restored state is not the saved one")
+        del got, state, resumed
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        shutil.rmtree(tmp, ignore_errors=True)
+    for line in lines:
+        say(f"train T3 {line}")
+    say(f"train T3 {TRAIN_ARCH} cut to {cfg.n_layers} of its {full.n_layers} layers at full "
+        f"width, B {TRAIN_CKPT_BATCH} x {TRAIN_SEQ}, deterministic algorithms: 4 steps straight "
+        f"and 2 + an async save + a resume of 2 equal bit for bit in every leaf of the "
+        f"parameters and the optimiser state (losses {losses[0]} and the resumed "
+        f"{losses[1]}); the final state {on_disk / 1e9:.3f} GB on disk: saved blocking in "
+        f"{block_s:.2f} s, async {returned_s:.2f} s to return (the copy to the host) and "
+        f"{async_s:.2f} s to its commit, restored in {restore_s:.2f} s")
+
+
+def run_train_others(args, torch, dev) -> None:
+    """T4: each other block pattern (``TRAIN_T4``), bf16, B ``TRAIN_T4_BATCH``
+    x ``TRAIN_SEQ``, two train steps on one batch, each timed, and their
+    peak memory; the first step's loss and gradient norm against an fp32
+    evaluation of the same weights and batch, made first.  The MoE runs
+    dropless on both sides (a capacity of every token of the call)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.train.step import loss_and_grads, make_train_step
+
+    real_moe = lm.moe_apply
+
+    def dropless(p, x, **kw):
+        return real_moe(p, x, capacity_factor=cfg.n_experts / kw["top_k"], **kw)
+
+    for arch, keep, gnorm_bound in TRAIN_T4:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=keep) if keep else full
+        params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
+                                device=dev)
+        dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_T4_BATCH,
+                        frontend_tokens=cfg.frontend_tokens if cfg.frontend else 0,
+                        frontend_dim=cfg.frontend_dim if cfg.frontend else 0)
+        batch = to_device(torch, batch_for_step(dc, 0), dev)
+        if cfg.n_experts:
+            lm.moe_apply = dropless
+        try:
+            p32 = fp32(params)
+            loss32, g32 = loss_and_grads(dataclasses.replace(cfg, param_dtype="float32"), p32,
+                                         batch)
+            loss32, gnorm32 = float(loss32), grad_norm(torch, g32)
+            del p32, g32
+            torch.cuda.empty_cache()
+            opt_cfg = OptConfig(total_steps=2, **TRAIN_OPT)
+            opt = init_opt_state(opt_cfg, params)
+            step = make_train_step(cfg, opt_cfg)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch)
+                got = float(metrics["loss"]), float(metrics["grad_norm"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if len(ms) == 1:
+                    loss, gnorm = got
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            lm.moe_apply = real_moe
+        loss_rel = rel_close(loss, loss32, TRAIN_LOSS_REL, f"train T4 {arch} loss against fp32")
+        gnorm_rel = rel_close(gnorm, gnorm32, gnorm_bound,
+                              f"train T4 {arch} gradient norm against fp32")
+        tokens = TRAIN_T4_BATCH * TRAIN_SEQ
+        ops, opt_bytes = train_work(cfg, params, tokens, TRAIN_SEQ)
+        bound = ops / PEAK_BF16_FLOPS * 1e3 + opt_bytes / HBM_BYTES_PER_S * 1e3
+        weights = tensor_bytes(params)
+        cut = ""
+        if keep:
+            whole = weights + tensor_bytes(params["layers"]) / keep * (full.n_layers - keep)
+            cut = f", cut to {keep} of its {full.n_layers} layers ({whole / 1e9:.1f} GB whole)"
+        say(f"train T4 {arch}{cut}: {cfg.block_pattern}, {cfg.n_layers} layers, "
+            f"{weights / 1e9:.3f} GB bf16"
+            + (f", encoder {cfg.enc_layers} layers over {cfg.frontend_tokens} random frames"
+               if cfg.enc_layers else "")
+            + (", MoE dropless" if cfg.n_experts else "")
+            + f"; B {TRAIN_T4_BATCH} x {TRAIN_SEQ}, a train step {ms[1]:.2f} ms (the first "
+            f"{ms[0]:.2f}, cold; bound {bound:.3f} ms, {bound / ms[1] * 100:.1f} % of it), peak "
+            f"memory {peak / 2**30:.3f} GiB; the first step's loss {loss!r} against fp32 "
+            f"{loss32!r} ({loss_rel!r}, bound "
+            f"{TRAIN_LOSS_REL}), gradient norm {gnorm!r} against {gnorm32!r} ({gnorm_rel!r}, "
+            f"bound {gnorm_bound})")
+        del params, opt, metrics, batch
+        torch.cuda.empty_cache()
+
+
+def run_train(args, torch, dev) -> None:
+    """The train phase: T1 granite-3-2b whole through ``launch.train``, T2
+    AdamW card against CPU, T3 checkpoint and resume bit for bit, T4 the
+    other block patterns.  Like the lm phase, it launches none of the
+    port's kernels, and checks that it did not."""
+    reset_counts()
+    t0 = time.perf_counter()
+    params = run_train_granite(args, torch, dev)
+    run_train_adamw(args, torch, dev, params)
+    del params
+    torch.cuda.empty_cache()
+    run_train_resume(args, torch, dev)
+    torch.cuda.empty_cache()
+    run_train_others(args, torch, dev)
+    launched = {k: n for module in kernel_modules() for k, n in module.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"the train phase launched the port's kernels {launched}")
+    say(f"train: T1-T4 in {time.perf_counter() - t0:.1f} s, launching none of the port's "
+        "kernels (eager torch ops and torch.einsum)")
+
+
 STREAM_L2_BYTES = 8 * 2**20             # a read footprint the 50 MB L2 holds
 STREAM_L2_PASSES = 64                    # passes over it in one reduction
 RANK_TOP_K = 10                          # the pruned ranking's k
@@ -4451,6 +4960,8 @@ def main(argv=None) -> int:
     run_layers(args, torch, dev)
     torch.cuda.empty_cache()
     run_lm(args, torch, dev)
+    torch.cuda.empty_cache()
+    run_train(args, torch, dev)
     torch.cuda.empty_cache()
     api_launches, reads, priced = run_api(args, torch, dev)
     for k in kernels:

@@ -1,10 +1,12 @@
-"""Carry the JAX package's arrays, given as numpy, into port tensors.
+"""Carry the JAX package's arrays, given as numpy, into port tensors, and
+the port's trees back out as numpy.
 
 Both packages then compute on the same data: a test makes its inputs with
 numpy, hands them to ``repro`` as they are and to ``repro_torch`` through
 ``from_numpy``.  bf16 arrays (numpy dtype ``ml_dtypes.bfloat16``, what JAX
 hands over for its bf16 parameters) are carried bit for bit, without
-importing ``ml_dtypes``.
+importing ``ml_dtypes``; ``to_numpy`` hands bf16 back as its ``uint16``
+bits.
 """
 from __future__ import annotations
 
@@ -14,17 +16,21 @@ import torch
 from repro_torch.kernels import resolve_device
 from repro_torch.layers.attention import KVCache
 from repro_torch.layers.ssm import Mamba2State, RWKV6State
+from repro_torch.optim.adamw import OptState
+from repro_torch.tree import map_with_path
 
 
 def from_numpy(tree, device="cuda"):
     """Map every numpy array (or numpy scalar) in a nest of dicts, lists and
-    tuples to a tensor on ``device``, keeping dtype and shape; other leaves
+    (named) tuples to a tensor on ``device``, keeping dtype and shape; other leaves
     pass through unchanged."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(conv(v) for v in x))
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
         if isinstance(x, (np.ndarray, np.generic)):
@@ -170,6 +176,34 @@ def lm_params_from_numpy(cfg, np_params: dict, device="cuda") -> dict:
     if cfg.frontend:
         out["frontend_proj"] = from_numpy(p["frontend_proj"], device)
     return out
+
+
+def opt_state_from_numpy(cfg, np_state, device="cuda") -> OptState:
+    """A ``repro.optim.adamw.OptState`` (a NamedTuple, or a mapping of its
+    fields ``step``, ``m``, ``v``, ``error``) as numpy leaves, as the port's
+    ``OptState`` on ``device``: ``step`` a 0-d int32, each moment tree
+    checked as ``lm_params_from_numpy`` checks the parameters', ``error``
+    None where the reference's is."""
+    f = _checked("OptState", _fields(np_state), ("step", "m", "v", "error"))
+    step = from_numpy(np.asarray(f["step"], dtype=np.int32), device)
+    err = None if f["error"] is None else lm_params_from_numpy(cfg, f["error"], device)
+    return OptState(step, lm_params_from_numpy(cfg, f["m"], device),
+                    lm_params_from_numpy(cfg, f["v"], device), err)
+
+
+def numpy_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` on the host; bf16 as its ``uint16`` bits (numpy
+    has no bfloat16 without ``ml_dtypes``)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def to_numpy(tree):
+    """A port tree (parameters, an ``OptState``, caches) with every tensor
+    as its ``numpy_copy``, keeping the tree's dicts and (named) tuples."""
+    return map_with_path(lambda _, t: numpy_copy(t), tree)
 
 
 def _fields(x) -> dict:

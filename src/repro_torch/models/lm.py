@@ -5,7 +5,8 @@ layer library.  The parameter and cache trees keep the reference's stacked
 layout: every per-layer leaf has a leading ``n_layers`` (or ``enc_layers``,
 or shared-block) axis, so they match the JAX trees leaf for leaf.  The
 reference's ``lax.scan`` over layers becomes a Python loop over the views
-``leaf[i]``, and its ``jax.checkpoint`` (``cfg.remat``) becomes
+of each stacked parameter, taken by one ``unbind`` (so its gradient is
+stacked once, as the scan's transpose gives it), and its ``jax.checkpoint`` (``cfg.remat``) becomes
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` around a
 block while autograd is on and no cache is passed (recomputing a block
 would append to its cache twice); under ``torch.inference_mode()``, as
@@ -87,6 +88,25 @@ def _map(fn, tree, *rest):
 def _index(tree, i: int):
     """Layer ``i``'s views of a stacked tree."""
     return _map(lambda t: t[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """Layer ``i``'s views of a stacked tree for every ``i``, by one
+    ``unbind`` a leaf.  Its backward stacks the layers' gradients once,
+    where ``n`` selects (``_index``) would each give a zero-filled gradient
+    of the whole stacked leaf to be added up: ``n`` passes over the stack
+    (``python -m repro_torch.train.ablate`` times both)."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tuple):
+        per = [_unstack(v, n) for v in tree]
+        if hasattr(tree, "_fields"):
+            return [type(tree)(*(p[i] for p in per)) for i in range(n)]
+        return [tuple(p[i] for p in per) for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack(trees: list):
@@ -294,10 +314,11 @@ def _scan_blocks(cfg: ArchConfig, fn, h, stacked, caches, n: int):
         return constrain(out, res_tags), new_c
 
     remat = _remat(cfg, caches)
+    layers = _unstack(stacked, n)
     new = []
     for i in range(n):
         lc = None if caches is None else _index(caches, i)
-        args = (h, _index(stacked, i), lc)
+        args = (h, layers[i], lc)
         h, c = checkpoint(body, *args, use_reentrant=False) if remat else body(*args)
         new.append(c)
     return h, new
@@ -382,6 +403,7 @@ def forward(cfg: ArchConfig, params, tokens, *, positions=None, caches=None,
                              f"hybrid_attn_every {k}")
         mst = caches["mamba"] if caches else None
         skv = caches["shared_kv"] if caches else None
+        layers = _unstack(params["layers"], cfg.n_layers)
 
         def group(carry, g):
             # k Mamba2 blocks, then the weight-shared attention block with
@@ -389,7 +411,7 @@ def forward(cfg: ArchConfig, params, tokens, *, positions=None, caches=None,
             hh = constrain(carry, ("dp", None, None))
             new_m = []
             for i in range(g * k, (g + 1) * k):
-                hh, s = _mamba_block(cfg, _index(params["layers"], i), hh,
+                hh, s = _mamba_block(cfg, layers[i], hh,
                                      None if mst is None else _index(mst, i))
                 new_m.append(s)
             hh, _ = _attn_block(cfg, params["shared_attn"], hh, positions,

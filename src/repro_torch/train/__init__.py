@@ -1,3 +1,2 @@
-"""Training and serving steps of the port (``repro.train``): the activation
-sharding hooks (``sharding``) and the prefill and decode steps (``step``).
-The training step, its loss and the parameter shardings are not ported yet."""
+"""Training and serving steps of the port (``repro.train``): the sharding
+rules (``sharding``) and the train, prefill and decode steps (``step``)."""

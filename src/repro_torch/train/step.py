@@ -1,14 +1,91 @@
-"""The prefill and decode steps (a port of the serving half of
-``repro.train.step``): plain functions that return closures, where the
-reference's are the units it ``jax.jit``s.
+"""The train, prefill and decode steps (a port of ``repro.train.step``):
+plain functions that return closures, where the reference's are the units
+it ``jax.jit``s.
 
-The training half (``xent``, ``loss_fn``, ``make_train_step``) is not
-ported yet (ROADMAP queue 1 item 7).
+The train step takes its gradients with ``torch.autograd.grad`` over the
+parameter leaves and hands them to ``optim.adamw.apply_updates``, which
+writes the parameters and the optimiser state in place and returns them.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import forward, init_caches
+from repro_torch.optim.adamw import OptConfig, OptState, apply_updates
+from repro_torch.tree import leaves, unflatten
+
+
+def xent(logits, labels):
+    """Mean cross entropy: logsumexp over every column of the fp32 logits
+    (all ``padded_vocab`` of them, as the reference) minus the label's
+    logit.  The reference takes the label's logit by a one-hot einsum so
+    that SPMD need not gather the vocab axis; one card gathers it."""
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - label_logit)
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """The mean cross entropy of ``batch`` ({"tokens", "labels"[,
+    "frontend"]}); a vision arch scores only the text positions."""
+    logits, _, _ = forward(cfg, params, batch["tokens"], frontend_embeds=batch.get("frontend"))
+    S = batch["tokens"].shape[1]
+    logits = logits[:, -S:]  # vlm: score only the text positions
+    return xent(logits, batch["labels"])
+
+
+def loss_and_grads(cfg: ArchConfig, params, batch, microbatches: int = 1):
+    """(loss, gradients in ``params``' structure) of ``batch``, by
+    ``torch.autograd.grad`` over the parameter leaves.
+
+    With one microbatch the gradients are in the parameters' dtype, as the
+    reference's ``value_and_grad`` gives them.  ``microbatches > 1`` splits
+    the batch into that many equal slices along its first axis, as the
+    reference's ``lax.scan`` does: each slice's gradients are summed into
+    fp32, and the sum and the summed loss are divided by ``microbatches``.
+    """
+
+    def grads_of(mbatch):
+        live = [t.detach().requires_grad_() for t in leaves(params)]
+        loss = loss_fn(cfg, unflatten(params, live), mbatch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+        return loss.detach(), list(grads)
+
+    if microbatches == 1:
+        loss, grads = grads_of(batch)
+        return loss, unflatten(params, grads)
+    b = batch["tokens"].shape[0]
+    if b % microbatches:
+        raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
+    n = b // microbatches
+    loss, grads = 0.0, None
+    for k in range(microbatches):
+        l, g = grads_of({key: x[k * n:(k + 1) * n] for key, x in batch.items()})
+        loss = loss + l
+        if grads is None:
+            grads = [t.float() for t in g]
+        else:
+            for acc, t in zip(grads, g):
+                acc.add_(t)
+        del g
+    for acc in grads:
+        acc.div_(microbatches)
+    return loss / microbatches, unflatten(params, grads)
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, microbatches: int = 1):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics {"loss", "grad_norm", "lr"}, 0-d tensors): ``loss_and_grads``,
+    then ``apply_updates``, which writes the parameters and the optimiser
+    state in place and returns them."""
+
+    def train_step(params, opt_state: OptState, batch):
+        loss, grads = loss_and_grads(cfg, params, batch, microbatches)
+        params, opt_state, info = apply_updates(opt_cfg, opt_state, params, grads)
+        return params, opt_state, {"loss": loss, **info}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, capacity: int):
