@@ -69,6 +69,16 @@ with nvcc first (one nvcc per source, in parallel):
   timed (T3); rwkv6-1.6b, zamba2-2.7b, whisper-base and 2 of mixtral-8x7b's
   layers, two train steps each at B 2 x 512, the first's loss and gradient
   norm held to fp32 (T4); none launching the port's kernels;
+* the dryrun phase: the model-level dry run (``core.cost.count_cost``,
+  ``launch.calibrate``, ``launch.dryrun``) at granite-3-2b's full width:
+  every valid cell through ``lower_cell`` on meta stand-ins, timed, with its
+  dominant term, bound and predicted peak (D1); T1's train step and M1's
+  decode step each counted on meta (calibrated and whole) and on the card,
+  their product FLOPs held equal, the calibrated train products to
+  ``train_work``'s, the predicted peak to ``torch.cuda.max_memory_allocated``
+  over an uncounted step, each placed on the card's data-sheet peaks beside
+  the step's median from the train and lm phases (D2, D3); none launching
+  the port's kernels;
 * the api phase: ``examples/torch_stencil_codegen.main`` at the
   paper's domains (one ``repro_torch.api.price`` sweep of both paths' 168
   launches, then ``star_pointwise`` and ``lbm_pointwise`` at the winners
@@ -2970,14 +2980,15 @@ def clone_kv(caches: dict) -> dict:
     return {k: type(c)(*(None if t is None else t.clone() for t in c)) for k, c in caches.items()}
 
 
-def run_lm_granite(args, torch, dev) -> None:
+def run_lm_granite(args, torch, dev) -> float:
     """M1: granite-3-2b whole through ``launch.serve``'s loop, its prefill
     and decode logits held to ``forward`` without caches (teacher-forced
     over the prompt and the generated tokens), the bf16 prefill to an fp32
     evaluation of the same weights, and two wrong decode steps (a position
     off by one; the prefill's last cache slot missing) rejected by the same
     bound.  M2: the same model over an int8 cache, fed M1's tokens, held
-    to M1's logits at the reference's int8 bounds."""
+    to M1's logits at the reference's int8 bounds.  Returns M1's median
+    decode-step ms."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3109,6 +3120,7 @@ def run_lm_granite(args, torch, dev) -> None:
         f"tests/test_optimizations.py:50-52), row relative error {max(rels)!r}")
     del params, res
     torch.cuda.empty_cache()
+    return med
 
 
 def run_lm_others(args, torch, dev) -> None:
@@ -3270,17 +3282,19 @@ def lm_check_fp32(torch, dev, cfg, params, prompts, frontend, toks) -> tuple:
     return rel, routed
 
 
-def run_lm(args, torch, dev) -> None:
+def run_lm(args, torch, dev) -> float:
     """The lm phase: M1 granite-3-2b whole through ``launch.serve``, M2 its
     int8 cache, M3 the other block patterns.  Like the layers it runs, it
-    launches none of the port's kernels, and checks that it did not."""
+    launches none of the port's kernels, and checks that it did not.
+    Returns M1's median decode-step ms."""
     reset_counts()
-    run_lm_granite(args, torch, dev)
+    m1_ms = run_lm_granite(args, torch, dev)
     run_lm_others(args, torch, dev)
     launched = {k: n for module in kernel_modules() for k, n in module.LAUNCHES.items() if n}
     if launched:
         raise AssertionError(f"the lm phase launched the port's kernels {launched}")
     say("lm: M1-M3 launched none of the port's kernels (eager torch ops and torch.einsum)")
+    return m1_ms
 
 
 # the train phase: the training half of the LM stack (data, the train step,
@@ -3383,7 +3397,7 @@ def rel_close(got: float, want: float, bound: float, what: str) -> float:
     return rel
 
 
-def run_train_granite(args, torch, dev) -> dict:
+def run_train_granite(args, torch, dev) -> tuple:
     """T1: granite-3-2b whole, bf16, through ``launch.train.train``: global
     batch ``TRAIN_BATCH`` x ``TRAIN_SEQ`` in ``TRAIN_MICRO`` microbatches,
     remat on, ``TRAIN_STEPS`` steps, no checkpoint.  Before the optimiser
@@ -3391,7 +3405,7 @@ def run_train_granite(args, torch, dev) -> dict:
     as the step takes them) against an fp32 evaluation of the same weights
     on the card, labels shifted by one position rejected by the same
     gradient bound, and the loss in one microbatch against two.  Returns
-    the trained parameters for T2."""
+    the trained parameters for T2 and the median step ms."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3489,7 +3503,7 @@ def run_train_granite(args, torch, dev) -> dict:
         f"{step_gnorm_rel!r} from fp32; loss and gradients in {grads_s * 1e3:.1f} ms bf16, "
         f"{grads32_s * 1e3:.1f} ms fp32")
     del res, opt
-    return params
+    return params, med
 
 
 def run_train_adamw(args, torch, dev, params: dict) -> None:
@@ -3757,14 +3771,15 @@ def run_train_others(args, torch, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def run_train(args, torch, dev) -> None:
+def run_train(args, torch, dev) -> float:
     """The train phase: T1 granite-3-2b whole through ``launch.train``, T2
     AdamW card against CPU, T3 checkpoint and resume bit for bit, T4 the
     other block patterns.  Like the lm phase, it launches none of the
-    port's kernels, and checks that it did not."""
+    port's kernels, and checks that it did not.  Returns T1's median step
+    ms."""
     reset_counts()
     t0 = time.perf_counter()
-    params = run_train_granite(args, torch, dev)
+    params, t1_ms = run_train_granite(args, torch, dev)
     run_train_adamw(args, torch, dev, params)
     del params
     torch.cuda.empty_cache()
@@ -3776,6 +3791,274 @@ def run_train(args, torch, dev) -> None:
         raise AssertionError(f"the train phase launched the port's kernels {launched}")
     say(f"train: T1-T4 in {time.perf_counter() - t0:.1f} s, launching none of the port's "
         "kernels (eager torch ops and torch.einsum)")
+    return t1_ms
+
+
+# the dryrun phase: the model-level dry run (core.cost.count_cost,
+# launch.calibrate, launch.dryrun) at granite-3-2b's full width, bf16, held
+# against the card.  Its counts run on meta stand-ins (nothing allocated), and
+# the same counter runs one real step on the card.  Bands, from the CPU tests
+# (tests/test_torch_dryrun.py) and a meta count of T1's step here:
+DRY_ARCH = "granite-3-2b"
+# the train step's raw product FLOPs over the calibrated ones: the raw step
+# runs the head's forward once and torch's non-reentrant checkpoint stops a
+# block's recompute after its last saved tensor (the SwiGLU's down product is
+# not recomputed), where calibrate counts 4 passes of everything; the reduced
+# attention archs with remat read 0.933-0.979, T1's step on meta 0.926
+DRY_TRAIN_RAW_BAND = (0.90, 1.00)
+# the prefill and decode steps' raw FLOPs against the calibrated ones: the
+# reduced attention archs read equal (1.0000), granite's decode on meta too
+DRY_STEP_REL = 1e-2
+# calibrate's product FLOPs against train_work's, once the half of each
+# attention square that the causal mask discards (chunked_attention computes
+# it) is added to train_work's: equal but for the order of the sums
+DRY_WORK_REL = 1e-9
+# the predicted peak (the meta count's argument + temp bytes) over the card's
+# torch.cuda.max_memory_allocated over one uncounted step: the caching
+# allocator rounds each block up to 512 bytes, and an op's internal scratch
+# (cuBLAS workspaces, a reduction's temporaries) is allocated where the
+# counter sees no storage, so the card reads above the count
+DRY_PEAK_BAND = (0.85, 1.05)
+
+
+def dry_machine(torch):
+    """The card's data-sheet peaks as a ``core.machines.TPUMachine``
+    record for ``report_from_values``: bf16 at ``PEAK_BF16_FLOPS``, fp32
+    at the CUDA cores' ``PEAK_FLOPS[4]``, HBM at ``HBM_BYTES_PER_S``, and
+    no NVLink term on one card (an infinite link rate: collectives cost
+    nothing)."""
+    from repro_torch.core.machines import TPUMachine
+
+    return TPUMachine(name="H100 SXM data sheet", peak_flops_bf16=PEAK_BF16_FLOPS,
+                      peak_flops_f32=PEAK_FLOPS[4], hbm_bw=HBM_BYTES_PER_S,
+                      ici_bw_per_link=math.inf)
+
+
+def card_bytes(torch, dev) -> int:
+    return (torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda"
+            else 80 * 10**9)
+
+
+def dry_cells(torch, dev, arch: str) -> list:
+    """D1: ``launch.dryrun.lower_cell`` with ``--local`` semantics for each
+    valid cell of ``arch``, on meta; each timed and printed with its
+    dominant term, bound and predicted peak against the card's memory.
+    Returns the rows."""
+    from repro_torch.configs import valid_cells
+    from repro_torch.launch import dryrun
+
+    rows = []
+    for shape in valid_cells(dryrun.get_config(arch)):
+        t0 = time.perf_counter()
+        row = dryrun.lower_cell(arch, shape.name, False, local=True)
+        secs = time.perf_counter() - t0
+        if not (row["mesh"] == "1x1" and row["hlo_gflops"] > 0 and row["memory"]["peak_bytes"] > 0
+                and all(math.isfinite(row[k]) for k in ("t_compute_s", "t_memory_s"))):
+            raise AssertionError(f"dryrun D1 {arch}/{shape.name}: a row without counts: {row}")
+        peak = row["memory"]["peak_bytes"]
+        bound = max(row["t_compute_s"], row["t_memory_s"], row["t_collective_s"])
+        say(f"dryrun D1 {arch}/{shape.name} (B {shape.global_batch} x {shape.seq_len}, "
+            f"{row['mesh']}, kv_int8 {row['kv_int8']}): lower_cell on meta in {secs:.2f} s "
+            f"({row['compile_s']:.2f} s the step's count); dominant {row['dominant']}, bound "
+            f"{bound * 1e3:.3f} ms on TPU_V5E (compute {row['t_compute_s'] * 1e3:.3f}, memory "
+            f"{row['t_memory_s'] * 1e3:.3f}); calibrated {row['hlo_gflops'] / 1e3:.3f} TFLOP, "
+            f"raw {row['raw_cost_analysis']['flops'] / 1e12:.3f} TFLOP (products "
+            f"{row['raw_cost_analysis']['dot_flops'] / 1e12:.3f}), model "
+            f"{row['model_flops'] / 1e12:.3f}; analytic bytes "
+            f"{row['analytic_bytes']['total'] / 1e9:.3f} GB, unfused "
+            f"{row['raw_cost_analysis']['hbm_bytes'] / 1e9:.3f} GB; peak {peak / 1e9:.3f} GB "
+            f"against the card's {card_bytes(torch, dev) / 1e9:.3f} GB "
+            f"({'fits' if peak <= card_bytes(torch, dev) else 'does not fit'})")
+        rows.append(row)
+    return rows
+
+
+def measured_peak(torch, dev, fn) -> tuple:
+    """(``fn()``, the bytes allocated at its peak, what measured them): on
+    the card ``torch.cuda.max_memory_allocated`` after a reset, uncounted;
+    on the CPU the counter's own peak of the real run, less the arguments
+    (``fn`` takes none: its caller adds them)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, torch.cuda.max_memory_allocated(dev), "torch.cuda.max_memory_allocated"
+    from repro_torch.core.cost import count_cost
+
+    out, cost = count_cost(fn)
+    return out, cost.peak_bytes, "count_cost of the run on the CPU"
+
+
+def masked_ops(cfg, tokens: int, seq: int) -> float:
+    """The operations of the (query, key) pairs a causal, windowed mask
+    discards, over every attention layer of a train step (four passes):
+    ``chunked_attention`` computes each whole square, ``train_work`` counts
+    the pairs it keeps."""
+    n_attn = {"attn": cfg.n_layers, "rwkv": 0,
+              "mamba_hybrid": cfg.n_layers // cfg.hybrid_attn_every}[cfg.block_pattern]
+    win = cfg.swa_window or 1 << 62
+    kept = sum(min(i + 1, win) for i in range(seq))
+    return 4 * 4.0 * cfg.n_heads * cfg.resolved_head_dim * n_attn * (tokens // seq) * (
+        seq * seq - kept)
+
+
+def dry_step(torch, dev, cfg, params, shape, step, args, microbatches: int = 1) -> dict:
+    """D2 / D3 for one step: ``calibrated_cost`` and the raw count on meta
+    (``launch.dryrun.step_cost``), ``model_flops``, the same counter over
+    ``step(*args)`` on ``dev`` (the card), and one uncounted run for the
+    peak.  Holds the meta and card products equal and the predicted peak
+    within ``DRY_PEAK_BAND`` of the measured one; returns the numbers."""
+    from repro_torch.core.cost import count_cost
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.calibrate import analytic_bytes, calibrated_cost
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.tree import leaves
+
+    mesh = make_local_mesh("meta")
+    p_meta = dryrun.params_struct(cfg)
+    n_params = sum(t.numel() for t in leaves(p_meta))
+    t0 = time.perf_counter()
+    cal = calibrated_cost(cfg, shape, mesh, microbatches=microbatches, n_params=n_params)
+    cal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meta = dryrun.step_cost(cfg, shape, p_meta, microbatches)
+    meta_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, card = count_cost(step, *args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t0
+    if card.dot_flops != meta.dot_flops:
+        raise AssertionError(f"dryrun {shape.name}: the card's step counts {card.dot_flops!r} "
+                             f"product FLOPs, meta {meta.dot_flops!r}")
+    _, peak, peak_by = measured_peak(torch, dev, lambda: step(*args))
+    if dev.type != "cuda":
+        peak += card.argument_bytes
+    ratio = meta.peak_bytes / peak
+    if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
+        raise AssertionError(f"dryrun {shape.name}: predicted peak {meta.peak_bytes} bytes, "
+                             f"{peak_by} {peak}: {ratio!r} outside {DRY_PEAK_BAND}")
+    return {"cal": cal, "meta": meta, "card": card, "peak": peak, "peak_by": peak_by,
+            "ratio": ratio, "n_params": n_params, "secs": (cal_s, meta_s, card_s),
+            "model_flops": dryrun.model_flops(cfg, shape, p_meta),
+            "analytic": analytic_bytes(cfg, shape, mesh, microbatches, n_params)}
+
+
+def dry_place(torch, name: str, d: dict, measured_ms: float, what: str) -> str:
+    """The step placed with ``report_from_values`` on the card's data-sheet
+    peaks (``dry_machine``): the calibrated FLOPs and the analytic bytes;
+    the line printed beside the measured median."""
+    from repro_torch.core.roofline import report_from_values
+
+    rep = report_from_values(name, flops=d["cal"].flops, hbm_bytes=d["analytic"]["total"],
+                             coll_wire_bytes=0.0, n_chips=1, machine=dry_machine(torch),
+                             model_flops_total=d["model_flops"],
+                             peak_bytes_per_device=d["meta"].peak_bytes)
+    unfused = d["meta"].bytes / HBM_BYTES_PER_S * 1e3
+    return (f"bound {rep.t_bound * 1e3:.3f} ms ({rep.dominant}: compute "
+            f"{rep.t_compute * 1e3:.3f}, memory {rep.t_memory * 1e3:.3f} for "
+            f"{d['analytic']['total'] / 1e9:.3f} GB analytic; the unfused raw bytes "
+            f"{d['meta'].bytes / 1e9:.3f} GB would take {unfused:.3f}) on the H100's "
+            f"data-sheet peaks, beside the {what} median {measured_ms:.3f} ms measured in this "
+            f"run ({rep.t_bound * 1e3 / measured_ms * 100:.1f} % of it); useful FLOPs "
+            f"{rep.useful_flops_ratio:.3f} of the calibrated")
+
+
+def run_dryrun(args, torch, dev, t1_ms: float, m1_ms: float) -> None:
+    """The dryrun phase: D1 every valid cell of granite-3-2b through
+    ``launch.dryrun.lower_cell`` on meta; D2 T1's train step (``TRAIN_BATCH``
+    x ``TRAIN_SEQ``, ``TRAIN_MICRO`` microbatches, remat), counted on meta
+    and on the card, its calibrated products held to ``train_work``'s; D3
+    M1's decode step (B ``LM_BATCH``, the lm phase's cache length) the same
+    way; each placed on the card's data-sheet peaks beside the step's
+    median from the train and lm phases.  It launches none of the port's
+    kernels, and checks that it did not."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models.lm import init_caches, init_params
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.train.step import make_decode_step, make_train_step
+
+    reset_counts()
+    t0 = time.perf_counter()
+    dry_cells(torch, dev, DRY_ARCH)
+
+    # D2: T1's step
+    cfg = get_config(DRY_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, generator=gen, device=dev)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batch = to_device(torch, batch_for_step(dc, 0), dev)
+    opt = init_opt_state(OptConfig(), params)
+    shape = ShapeSpec("T1", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step = make_train_step(cfg, OptConfig(), microbatches=TRAIN_MICRO)
+    d = dry_step(torch, dev, cfg, params, shape, step, (params, opt, batch), TRAIN_MICRO)
+    del opt, batch
+    cal_dot = d["cal"].detail["dot_flops"]
+    raw_ratio = d["meta"].dot_flops / cal_dot
+    if not DRY_TRAIN_RAW_BAND[0] <= raw_ratio <= DRY_TRAIN_RAW_BAND[1]:
+        raise AssertionError(f"dryrun D2: raw over calibrated product FLOPs {raw_ratio!r} "
+                             f"outside {DRY_TRAIN_RAW_BAND}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    work, _ = train_work(cfg, params, tokens, TRAIN_SEQ)
+    masked = masked_ops(cfg, tokens, TRAIN_SEQ)
+    work_rel = rel_close(cal_dot, work + masked, DRY_WORK_REL,
+                         "dryrun D2 calibrated product FLOPs against train_work's + the masked "
+                         "halves")
+    meta, card = d["meta"], d["card"]
+    say(f"dryrun D2 {DRY_ARCH} T1's step ({TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} "
+        f"microbatches, remat {cfg.remat}): calibrated {d['cal'].flops / 1e12:.4f} TFLOP "
+        f"(products {cal_dot / 1e12:.4f}; train_work's {work / 1e12:.4f} + the causal masks' "
+        f"discarded halves {masked / 1e12:.4f}: {work_rel!r} apart, bound {DRY_WORK_REL}; "
+        f"{cal_dot / work:.4f}x train_work) in {d['secs'][0]:.2f} s; raw on meta "
+        f"{meta.flops / 1e12:.4f} TFLOP (products {meta.dot_flops / 1e12:.4f}, "
+        f"{raw_ratio:.4f}x the calibrated, band {DRY_TRAIN_RAW_BAND}; {meta.ops} ops) in "
+        f"{d['secs'][1]:.2f} s; on the card {card.dot_flops / 1e12:.4f} TFLOP of products, "
+        f"equal, {card.ops} ops counted in {d['secs'][2]:.2f} s; model_flops "
+        f"{d['model_flops'] / 1e12:.4f} TFLOP")
+    say(f"dryrun D2 memory: predicted peak {meta.peak_bytes / 2**30:.3f} GiB (arguments "
+        f"{meta.argument_bytes / 2**30:.3f}, temp {meta.temp_bytes / 2**30:.3f}); "
+        f"{d['peak_by']} over one uncounted step {d['peak'] / 2**30:.3f} GiB: predicted/"
+        f"measured {d['ratio']:.4f} (band {DRY_PEAK_BAND}); the counter on the card "
+        f"{card.peak_bytes / 2**30:.3f} GiB")
+    say(f"dryrun D2 placed: {dry_place(torch, 'T1', d, t1_ms, 'train phase T1 step')}")
+    del d, step
+
+    # D3: M1's decode step
+    B, cap = LM_BATCH, LM_PROMPT + LM_GEN + 8
+    shape = ShapeSpec("M1", cap, B, "decode")
+    caches = init_caches(cfg, B, cap, device=dev)
+    token = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    at = torch.full((B, 1), LM_PROMPT, dtype=torch.int32, device=dev)
+    decode = make_decode_step(cfg)
+
+    def step(*a):
+        with torch.no_grad():
+            return decode(*a)
+
+    d = dry_step(torch, dev, cfg, params, shape, step, (params, token, caches, at))
+    meta = d["meta"]
+    step_rel = rel_close(meta.flops, d["cal"].flops, DRY_STEP_REL,
+                         "dryrun D3 raw FLOPs against the calibrated")
+    say(f"dryrun D3 {DRY_ARCH} M1's decode step (B {B}, a cache of {cap}): calibrated "
+        f"{d['cal'].flops / 1e9:.4f} GFLOP in {d['secs'][0]:.2f} s; raw on meta "
+        f"{meta.flops / 1e9:.4f} GFLOP ({step_rel!r} apart, bound {DRY_STEP_REL}; products "
+        f"{meta.dot_flops / 1e9:.4f}, {meta.ops} ops) in {d['secs'][1]:.2f} s; on the card "
+        f"{d['card'].dot_flops / 1e9:.4f} GFLOP of products, equal, in {d['secs'][2]:.2f} s; "
+        f"model_flops {d['model_flops'] / 1e9:.4f} GFLOP; bytes unfused "
+        f"{meta.bytes / 1e9:.3f} GB, analytic {d['analytic']['total'] / 1e9:.3f} GB")
+    say(f"dryrun D3 memory: predicted peak {meta.peak_bytes / 2**30:.3f} GiB (arguments "
+        f"{meta.argument_bytes / 2**30:.3f}, temp {meta.temp_bytes / 2**30:.3f}); "
+        f"{d['peak_by']} {d['peak'] / 2**30:.3f} GiB: {d['ratio']:.4f} (band {DRY_PEAK_BAND})")
+    say(f"dryrun D3 placed: {dry_place(torch, 'M1', d, m1_ms, 'lm phase M1 decode-step')}")
+    del d, params, caches
+    launched = {k: n for module in kernel_modules() for k, n in module.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"the dryrun phase launched the port's kernels {launched}")
+    say(f"dryrun: D1-D3 in {time.perf_counter() - t0:.1f} s, launching none of the port's "
+        "kernels")
 
 
 STREAM_L2_BYTES = 8 * 2**20             # a read footprint the 50 MB L2 holds
@@ -4959,9 +5242,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_layers(args, torch, dev)
     torch.cuda.empty_cache()
-    run_lm(args, torch, dev)
+    m1_ms = run_lm(args, torch, dev)
     torch.cuda.empty_cache()
-    run_train(args, torch, dev)
+    t1_ms = run_train(args, torch, dev)
+    torch.cuda.empty_cache()
+    run_dryrun(args, torch, dev, t1_ms, m1_ms)
     torch.cuda.empty_cache()
     api_launches, reads, priced = run_api(args, torch, dev)
     for k in kernels:

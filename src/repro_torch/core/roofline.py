@@ -10,10 +10,12 @@ dominant term is the bottleneck the perf loop iterates on.  The suite
 ``report_from_values`` (TPU machines) or a ``RooflineReport`` built from a
 GPU machine's measured peaks.
 
-The reference's ``analyze_compiled`` reads these values from a compiled
-JAX object (``compiled.cost_analysis()`` and the optimized HLO text through
-``core.hlo``); it waits for the port's own cost source, with ``launch``
-(``ROADMAP.md`` queue 1, item 9), and so does ``core.hlo``.
+The reference's ``analyze_compiled`` reads FLOPs and bytes from a compiled
+JAX object (``compiled.cost_analysis()``, ``memory_analysis()``) and the
+collectives from its optimized HLO text (``core.hlo.collective_bytes``).
+The port's counterpart is ``analyze_cost``: the same report from a
+``core.cost.Cost``, which ``core.cost.count_cost`` counts by running the
+program once (on ``meta`` stand-ins for a dry run, ``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -67,6 +69,61 @@ class RooflineReport:
             "roofline_fraction": self.roofline_fraction,
             "mem_GB_per_device": self.bytes_per_device / 1e9,
         }
+
+
+def analyze_cost(
+    name: str,
+    cost,
+    n_chips: int,
+    machine: TPUMachine = TPU_V5E,
+    model_flops_total: float = 0.0,
+    elem_bytes: int = 2,
+    ici_links_used: int = 2,
+) -> RooflineReport:
+    """The report the reference's ``analyze_compiled`` builds from a
+    compiled cell, built from ``cost`` (a ``core.cost.Cost`` of one
+    device's program).
+
+    ``model_flops_total`` is the whole-step useful FLOPs (6*N*D style); it is
+    divided by n_chips for the per-chip useful-compute time.
+    """
+    flops = float(cost.flops)
+    hbm = float(cost.bytes)
+    coll = cost.collectives
+    wire = coll["total"]["wire_bytes"]
+    payload = coll["total"]["payload_bytes"]
+
+    peak = machine.peak_flops(elem_bytes)
+    t_compute = flops / peak
+    t_memory = hbm / machine.hbm_bw
+    t_coll = wire / (machine.ici_bw_per_link * ici_links_used)
+    terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
+    dominant = max(terms, key=terms.get)
+
+    model_flops_per_chip = model_flops_total / max(n_chips, 1)
+    t_model = model_flops_per_chip / peak
+    mem = cost.memory()
+
+    return RooflineReport(
+        name=name,
+        flops=flops,
+        hbm_bytes=hbm,
+        coll_payload_bytes=payload,
+        coll_wire_bytes=wire,
+        t_compute=t_compute,
+        t_memory=t_memory,
+        t_collective=t_coll,
+        dominant=dominant,
+        model_flops=model_flops_total,
+        useful_flops_ratio=(model_flops_per_chip / flops) if flops else 0.0,
+        bytes_per_device=mem.get("peak_bytes", 0),
+        detail={
+            "collectives": {k: v for k, v in coll.items() if k != "total"},
+            "t_model_compute": t_model,
+            "memory_analysis": mem,
+            "n_chips": n_chips,
+        },
+    )
 
 
 def report_from_values(

@@ -2,9 +2,14 @@
 
 The port runs on one card: a mesh is a record of its axis names and a
 ``devices`` array of one ``torch.device``, which is all the sharding rules
-(``train.sharding``) read.  A shape of more than one device raises
+(``train.sharding``) and the dry run (``launch.dryrun``; ``--local`` is
+``make_local_mesh("meta")``) read.  A shape of more than one device raises
 ``NotImplementedError`` (``train.sharding.NOT_PORTED``), and so does the
-production mesh, until the specs are applied across cards.
+production mesh, until the specs are applied across cards.  A mesh's axis
+sizes alone, which is all the dry run's analytic half reads
+(``launch.calibrate.analytic_bytes``, ``launch.dryrun.train_microbatches``),
+need no devices: any record with ``axis_names`` and a ``devices`` array of
+the mesh's shape serves.
 """
 from __future__ import annotations
 

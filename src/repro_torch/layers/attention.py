@@ -30,6 +30,9 @@ from . import _draw
 from .rope import apply_rope
 
 NEG_INF = -1e30
+# the calibration's chunk hint (``launch.calibrate``): read by
+# ``chunked_attention`` in place of its ``chunk`` where set
+CHUNK_OVERRIDE = [None]
 
 
 def attention_init(d_model: int, n_heads: int, n_kv: int, head_dim: int, qkv_bias: bool = False,
@@ -97,6 +100,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_positions=None,
         out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
         return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
+    chunk = CHUNK_OVERRIDE[0] or chunk
     chunk = min(chunk, Skv)
     nchunks = -(-Skv // chunk)
     pad = nchunks * chunk - Skv

@@ -12,8 +12,12 @@ factorised inside a chunk as r~ = r·exp(lc), k~ = k·exp(-lc), with each
 step's log-decay clamped to at least ``LOG_DECAY_FLOOR`` so that exp(-lc)
 stays bounded in fp32 (chunk 32: exp(11.2) at most).  Mamba2's per-head
 scalar decay uses the exact segment-sum mask (at most 1), its log decay
-clamped at -20.  The reference's calibration hooks (``CHUNK_OVERRIDE``,
-``SCAN_UNROLL``) serve its launch calibration and are not ported.
+clamped at -20.
+
+``CHUNK_OVERRIDE`` is the reference's calibration hook: ``launch.calibrate``
+sets a chunk hint there, which both chunked forms read in place of their
+``chunk``.  Its ``SCAN_UNROLL`` has no counterpart: the chunk loop is a
+Python loop, which runs, and is counted, chunk by chunk.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from repro_torch.kernels import resolve_device
 
 from . import _draw
 from .shapes import MAMBA_CHUNK, RWKV_CHUNK
+
+CHUNK_OVERRIDE = [None]
 
 LOG_DECAY_FLOOR = -0.35
 
@@ -83,6 +89,7 @@ def _segsum_exp(log_a):
 def mamba2_apply(params, x, state: Mamba2State | None = None, d_state: int = 64,
                  head_dim: int = 64, chunk: int = MAMBA_CHUNK):
     """x: (B, S, E) -> (y, new_state)."""
+    chunk = CHUNK_OVERRIDE[0] or chunk
     B, S, E = x.shape
     d_inner = params["w_out"].shape[0]
     H = d_inner // head_dim
@@ -183,6 +190,7 @@ def _token_shift(x, prev):
 def rwkv6_apply(params, x, state: RWKV6State | None = None, head_dim: int = 64,
                 chunk: int = RWKV_CHUNK):
     """The time-mix block.  x: (B, S, E) -> (y, new_state)."""
+    chunk = CHUNK_OVERRIDE[0] or chunk
     B, S, E = x.shape
     H = E // head_dim
     K = V = head_dim

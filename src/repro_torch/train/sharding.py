@@ -20,14 +20,19 @@ as the reference does with none set.  Applying the specs across more than
 one card (DTensor placements on a ``DeviceMesh``) is not ported:
 ``set_activation_axes`` and ``launch.mesh.make_mesh`` refuse a mesh of more
 than one device, since an activation or a weight that silently stayed
-replicated across devices would be a different program.
+replicated across devices would be a different program.  What reads only a
+mesh's axis sizes takes any mesh: these rules, and the dry run's analytic
+half (``launch.dryrun``, ``launch.calibrate.analytic_bytes``), whose counted
+half (``launch.calibrate.calibrated_cost``) refuses a larger mesh too.
 """
 from __future__ import annotations
 
 from repro_torch.tree import map_with_path
 
 NOT_PORTED = ("sharding over more than one device is not ported yet: the specs applied "
-              "across cards as DTensor placements come with ROADMAP queue 1 item 11")
+              "across cards as DTensor placements come with ROADMAP queue 1 item 11 (a mesh's "
+              "axis sizes are read without applying it by the dry run's analytic half: "
+              "launch.dryrun's model_flops and input specs, launch.calibrate.analytic_bytes)")
 
 
 def _mesh_size(mesh) -> int:
