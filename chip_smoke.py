@@ -109,7 +109,7 @@ with nvcc first (one nvcc per source, in parallel):
   ``flash_attention`` (B 1, 32/8 heads, S 4096, D 64, causal), each held
   against its plain version and timed beside the suite's H100 price of it
   and its bf16 bound; then the pass against the suite's H100 price;
-* the serve phase, last: ``python -m repro_torch.serve`` started as a
+* the serve phase: ``python -m repro_torch.serve`` started as a
   process (pooled, ``--resume``, a pid file); the api phase's request
   priced cold through its socket and held to the api phase's in-process
   ``price`` byte for byte, the two paths' own requests coalesced behind it
@@ -120,7 +120,19 @@ with nvcc first (one nvcc per source, in parallel):
   restart answering warm with the same bytes to a client built while the
   daemon was down, the ``shutdown`` op; then a ``PricingDaemon`` in this
   process on a pooled engine (``forkserver`` after CUDA), and no child
-  process left.
+  process left;
+* the frontend phase, last (``repro_torch.frontend`` with the installed
+  Triton): ``examples/torch_price_my_kernel.main`` on the card, the
+  ``@triton.jit`` scale_shift at 4096 x 4096 fp32 traced, priced on V100,
+  A100, H100 and TPU-v5e through ``kernel_request``, launched and held to
+  x * 2 + 1 within one ulp, timed beside the H100 prediction, its bound and
+  eager ``x * 2.0 + 1.0`` (F1); each tracer fixture (the 5-point Jacobi
+  sweep at 4096^2 fp64, the r = 4 star at 256^3 fp64, a 4096^3 bf16 GEMM,
+  an 8192 x 4096 fp32 transpose) traced from its ``@triton.jit`` kernel,
+  its GPU spec equal on the wire to ``core.specs``', launched and held to
+  its plain version, timed beside its H100 prediction, bound and library
+  call (F2); F1's traced request through ``python -m repro_torch.serve``,
+  equal on the wire to in-process ``price`` (F3).
 
 Each path's pinned variants (the z-march stencils, the y-tiled LBM, the
 y-tiled Jacobi sweep, the tiled transpose, the second GEMM and flash tiles)
@@ -5183,6 +5195,223 @@ def run_serve(args, torch, dev, kernels: list, priced: dict) -> dict:
     return launches
 
 
+FRONTEND_SOURCE = "src/repro_torch/frontend/triton_kernels.py"
+# the tracer's Triton fixtures at real sizes: (kind, shape, dtype, the
+# traced kernel of the reference each is the counterpart of).  They replace
+# no TPU kernel (the CUDA kernels do), so their records' "replaces" is null
+# and "counterpart_of" names that kernel.
+FRONTEND_FIXTURES = (
+    ("jacobi5", (4096, 4096), "float64", "src/repro/kernels/jacobi2d/kernel.py:49"),
+    ("star", (4, (256, 256, 256)), "float64", "src/repro/kernels/stencil3d25/kernel.py:69"),
+    ("gemm", (4096, 4096, 4096), "bfloat16", "src/repro/kernels/matmul/kernel.py:42"),
+    ("transpose", (8192, 4096), "float32", "src/repro/kernels/transpose_pad/kernel.py:29"),
+)
+FRONTEND_SCALE_SHIFT_COUNTERPART = "examples/price_my_kernel.py:24"
+FRONTEND_ROUNDS = 10                     # rounds of a Triton kernel and its library call in turns
+H100_NAME = "H100-SXM5-80G"              # core.machines.H100's name in a ranking
+
+
+def frontend_fixture(torch, F, kind: str, shape, dtype, inputs: list) -> tuple:
+    """``(plain version, library call, (bound ms, bound by))`` of a fixture
+    on ``inputs``."""
+    from repro_torch.frontend import triton_kernels as T
+
+    eb = dtype.itemsize
+    if kind == "jacobi5":
+        w = jacobi_conv_weight(torch, dtype, inputs[0].device)
+        return (lambda: T.jacobi5_ref(*inputs),
+                lambda: F.conv2d(inputs[0][None, None], w)[0, 0], jacobi_bound(inputs[0]))
+    if kind == "star":
+        r = shape[0]
+        full = [T.STAR_WEIGHTS[0]] + [T.STAR_WEIGHTS[o] for _axis in range(3)
+                                      for o in range(1, r + 1) for _sign in (0, 1)]
+        w = star_conv_weight(torch, torch.tensor(full, dtype=dtype, device=inputs[0].device), r)
+        return (lambda: T.star_ref(inputs[0], r),
+                lambda: F.conv3d(inputs[0][None, None], w)[0, 0], bound(inputs[0], r))
+    if kind == "transpose":
+        return (lambda: T.transpose_ref(*inputs), lambda: inputs[0].t().contiguous(),
+                (2 * inputs[0].numel() * eb / HBM_BYTES_PER_S * 1e3, "bytes"))
+    M, K, N = shape
+    return (lambda: T.gemm_ref(*inputs), lambda: torch.matmul(*inputs),
+            bf16_bound(2.0 * M * N * K, (M * K + K * N + M * N) * eb))
+
+
+def run_frontend(args, torch, dev) -> list:
+    """The spec frontend on the card: F1 ``examples/torch_price_my_kernel.py``
+    (the ``@triton.jit`` scale_shift at 4096 x 4096 fp32 traced, priced on
+    four machines, launched and held to x * 2 + 1 within one ulp), then
+    timed beside the estimator's H100 time for its top launch, its bound and
+    ``x * 2.0 + 1.0`` in eager PyTorch; F2 each tracer fixture traced from
+    its real ``@triton.jit`` kernel, its GPU spec's wire equal to the
+    ``core.specs`` spec the CPU tests pin, launched at a real size and held
+    to its plain version, timed beside its H100 prediction, its bound and a
+    library call; F3 F1's request through ``python -m repro_torch.serve``,
+    its answer equal on the wire to in-process ``price()``.  Triton missing,
+    a fixture that does not build or launch, or a spec that differs, fails
+    the run.  Returns the Triton kernels' records."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    try:
+        import triton
+    except ImportError as e:
+        raise AssertionError("frontend: the triton package is missing on this machine") from e
+    from repro_torch import api
+    from repro_torch.frontend import arg
+    from repro_torch.frontend import triton_kernels as T
+    from repro_torch.serve import PriceClient, schema
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_price_my_kernel as example
+
+    card = card_line()
+    say(f"frontend: triton {triton.__version__}, torch {torch.__version__}; card {card}")
+    records = []
+
+    # F1. the example on the card
+    T.reset_launch_counts()
+    t0 = time.perf_counter()
+    f1 = example.main(device=dev, seed=args.seed)
+    f1_s = time.perf_counter() - t0
+    launches = T.LAUNCHES["scale_shift"]
+    if launches != 1:
+        raise AssertionError(f"frontend F1: the example launched {launches} Triton kernels, not 1")
+    x, launcher = f1["x"], f1["launcher"]
+    best = f1["result"].best("scale_shift", H100_NAME)
+    predicted = best.estimate.lups / best.perf * 1e3
+    bound_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+    ms = cuda_ms(torch, lambda: launcher(x))
+    # the plain version is x * 2.0 + 1.0 in eager PyTorch, the library call too
+    eager_ms = cuda_ms(torch, lambda: T.scale_shift_ref(x, 2.0, 1.0))
+    queued = interleaved_ms(torch, {"kernel": lambda: launcher(x), "eager": lambda: x * 2.0 + 1.0},
+                            FRONTEND_ROUNDS, calls=QUEUED_CALLS)
+    say(f"frontend F1: examples/torch_price_my_kernel.py on {dev}: the @triton.jit "
+        f"scale_shift_kernel at {tuple(x.shape)} fp32, tiles {T.SCALE_SHIFT_BLOCK} (BY, BX), "
+        f"4 warps, traced (grid {f1['traced'].grid}), priced on {', '.join(example.MACHINES)} "
+        f"and run in {f1_s:.2f} s (Triton's compile included); launches {launches}; "
+        f"{f1['ulps']} ulp (max abs error {f1['max_abs_err']!r}) from x * 2 + 1")
+    say(f"frontend F1 times: cuda_ms {ms:.4f} single call, {queued['kernel']:.4f} queued "
+        f"({QUEUED_CALLS} back to back); the estimator's H100 time for its top launch "
+        f"{best.config.block}x{best.config.folding} {predicted:.4f} ms ({best.limiter}); bound "
+        f"2 x {x.numel() * x.element_size() / 2**20:.0f} MiB at 3.35 TB/s {bound_ms:.4f} ms; eager x * 2.0 + 1.0 {eager_ms:.4f} single, "
+        f"{queued['eager']:.4f} queued; ratios kernel/predicted {ms / predicted:.3f} "
+        f"({queued['kernel'] / predicted:.3f} queued), kernel/bound {ms / bound_ms:.3f} "
+        f"({queued['kernel'] / bound_ms:.3f}), kernel/eager {ms / eager_ms:.3f} "
+        f"({queued['kernel'] / queued['eager']:.3f}); {card}")
+    records.append({"name": "scale_shift_kernel", "route": "triton", "source": FRONTEND_SOURCE,
+                    "replaces": None, "counterpart_of": FRONTEND_SCALE_SHIFT_COUNTERPART,
+                    "launches": launches, "max_abs_err": f1["max_abs_err"], "ms": ms,
+                    "plain_ms": eager_ms,
+                    "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": eager_ms,
+                    "queued_ms": queued["kernel"], "library_queued_ms": queued["eager"],
+                    "predicted_ms": predicted})
+
+    # F2. each fixture, traced from its @triton.jit kernel and run
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    for kind, shape, dtype_name, counterpart in FRONTEND_FIXTURES:
+        dtype = getattr(torch, dtype_name)
+        t0 = time.perf_counter()
+        spec = T.traced_gpu_spec(kind, shape, dtype)
+        trace_s = time.perf_counter() - t0
+        if schema.encode(spec) != schema.encode(T.hand_spec(kind, shape, dtype.itemsize)):
+            raise AssertionError(f"frontend F2 {kind}: the traced GPU spec is not core.specs' "
+                                 f"{spec.name}: {spec}")
+        call, placeholders, _kw, _costs, _rename = T.traced(kind, shape, dtype)
+        scale = shape[1] ** -0.25 if kind == "gemm" else 1.0
+        inputs = [torch.randn(a.shape, dtype=dtype, device=dev, generator=gen) * scale
+                  for a in placeholders]
+        plain, library, (b_ms, b_by) = frontend_fixture(torch, F, kind, shape, dtype, inputs)
+        T.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call(*inputs)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = T.LAUNCHES[kind]
+        if launches != 1:
+            raise AssertionError(f"frontend F2 {kind}: {launches} launches, not 1")
+        want = plain()
+        what = f"frontend F2 {kind}"
+        if kind == "transpose":
+            err = check_exact(torch, out, want, what)
+        elif kind == "gemm":
+            err = check_close(torch, out, want, what, **GEMM_TOL[2])
+        else:
+            err = check(torch, out, want, dtype.itemsize, what)
+        k_ms = cuda_ms(torch, lambda: call(*inputs))
+        p_ms = cuda_ms(torch, plain)
+        # fp64 conv3d takes ~190 ms a call: timed alone, and not in turns
+        slow = kind == "star"
+        lib_ms = cuda_ms(torch, library, warmup=1, reps=3) if slow else cuda_ms(torch, library)
+        fns = {"kernel": lambda: call(*inputs)}
+        if not slow:
+            fns["library"] = library
+        turns = interleaved_ms(torch, fns, FRONTEND_ROUNDS)
+        t0 = time.perf_counter()
+        top = api.price(api.gpu_request(spec, "H100", top_k=1)).entries[0]
+        rank_s = time.perf_counter() - t0
+        predicted = top.estimate.lups / top.perf * 1e3
+        say(f"frontend F2 {kind}: {spec.name} traced from the @triton.jit kernel in "
+            f"{trace_s:.2f} s, its GPU spec's wire equal to core.specs'; {tuple(out.shape)} "
+            f"{dtype_name} launched ({launches}, first call {first_s:.2f} s with Triton's "
+            f"compile), max abs error {err!r}; {k_ms:.4f} ms (in turns {turns['kernel']:.4f}) "
+            f"against the estimator's H100 top launch {top.config.block}x{top.config.folding} "
+            f"{predicted:.4f} ms ({top.limiter}; ranked in {rank_s:.2f} s), kernel/predicted "
+            f"{k_ms / predicted:.3f}; bound {b_ms:.4f} ms ({b_by}), kernel/bound "
+            f"{k_ms / b_ms:.3f}; plain {p_ms:.4f} ms; library {lib_ms:.4f} ms ("
+            + (f"in turns {turns['library']:.4f}" if not slow else "3 calls, not in turns")
+            + f"); {card}")
+        records.append({"name": f"{kind}_kernel", "route": "triton", "source": FRONTEND_SOURCE,
+                        "replaces": None, "counterpart_of": counterpart,
+                        "launches": launches, "max_abs_err": err,
+                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms, "in_turns_ms": turns["kernel"],
+                        "library_in_turns_ms": turns.get("library"), "predicted_ms": predicted})
+        del inputs, out, want
+        torch.cuda.empty_cache()
+
+    # F3. F1's request through the daemon
+    request = api.kernel_request(launcher, [arg("x", tuple(x.shape), torch.float32)],
+                                 list(example.MACHINES), name="scale_shift")
+    local = api.price(request)
+    tmp = Path(tempfile.mkdtemp(prefix="frontend-"))
+    sock = str(tmp / "s.sock")
+    cmd = [sys.executable, "-m", "repro_torch.serve", "--socket", sock]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = open(tmp / "daemon.log", "w")
+    proc = None
+    try:
+        proc, bind_s = boot_daemon(cmd, env, sock, log)
+        with PriceClient(sock, timeout=SERVE_CALL_S) as c:
+            t0 = time.perf_counter()
+            served = c.price(request)
+            served_s = time.perf_counter() - t0
+            c.shutdown_server()
+        rc = proc.wait(timeout=SERVE_BIND_S)
+        if rc != 0:
+            raise AssertionError(f"frontend F3: the daemon's shutdown exited {rc}")
+        if answer_wire(schema, served) != answer_wire(schema, local):
+            raise AssertionError("frontend F3: the served traced request is not in-process "
+                                 "price()'s answer on the wire")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log.close()
+        shutil.rmtree(tmp)
+    say(f"frontend F3: the traced scale_shift request (a TracedSpecPayload on the wire) through "
+        f"python -m repro_torch.serve (first ping {bind_s:.3f} s after its start) answered in "
+        f"{served_s:.3f} s, equal on the wire to in-process price() "
+        f"({len(local.entries)} entries on {len(request.machines)} machines); the shutdown op "
+        f"exited 0")
+    left = live_children()
+    if left:
+        raise AssertionError(f"processes the smoke started are still there: {left}")
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5267,6 +5496,8 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in serve_launches and k.get("config", "") is None:
             k["serve_launches"] = serve_launches[k["name"]]
+    torch.cuda.empty_cache()
+    kernels += run_frontend(args, torch, dev)
 
     # peak memory
     say(f"peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
@@ -5275,7 +5506,8 @@ def main(argv=None) -> int:
     # the kernels record
     say(f"card: {card}")
     say(json.dumps({"kernels": [
-        {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
+        {"name": k["name"], "route": k.get("route", "cuda"), "source": k["source"],
+         "replaces": k["replaces"],
          "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "pass": True,
@@ -5289,7 +5521,8 @@ def main(argv=None) -> int:
                                     "fp32_library_in_turns_ms", "fp32_library_queued_ms",
                                     "fp32_copy_queued_ms", "ytile_fp64", "ytile_fp32",
                                     "api_launches", "sim_launches", "sim_ms",
-                                    "suite_launches", "serve_launches", "serve_ms")
+                                    "suite_launches", "serve_launches", "serve_ms",
+                                    "predicted_ms", "counterpart_of")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

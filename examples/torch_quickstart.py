@@ -9,11 +9,12 @@ The port of ``examples/quickstart.py``.
 3. Inspect the predicted volumes and limiters; cross-check the winner on a
    1/8-scaled H100 against the exact LRU cache simulator
    (``repro_torch.core.cachesim``).
-4. Run the H100-ranked winner on the card: ``star_stencil`` at that launch
-   (the per-point CUDA kernel ``star_pointwise``), held against the plain
-   version ``star_stencil_ref``.  The reference's step 4 ranks Pallas
-   configurations through its tracer; the port has no tracer yet, so that
-   ranking is printed as skipped with its reason.
+4. Do the same on the TPU side: rank the stencil's Pallas configurations
+   at the paper's domain on TPU-v5e (``api.price(pallas_request(...))`` over
+   the generator's ``tpu_candidate_specs``, the form the reference's tracer
+   derives from its Pallas builders); then run the H100-ranked winner on the
+   card: ``star_stencil`` at that launch (the per-point CUDA kernel
+   ``star_pointwise``), held against the plain version ``star_stencil_ref``.
 
 Run:  PYTHONPATH=src python examples/torch_quickstart.py [--device cpu]
 
@@ -30,23 +31,23 @@ import time
 
 import torch
 
+from repro_torch.api import pallas_request, price
 from repro_torch.core.cachesim import simulate_l2_waves
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import rank_gpu_configs
 from repro_torch.core.specs import star_stencil_3d
 from repro_torch.kernels import resolve_device
+from repro_torch.kernels.stencil3d25.generator import tpu_candidate_specs
 from repro_torch.kernels.stencil3d25.ops import star_stencil
 from repro_torch.kernels.stencil3d25.ref import pad_input, star_stencil_ref, star_weights
 
 R = 4
 DOMAIN = (192, 192, 256)         # (Z, Y, X) of steps 1-3 and 4, as the reference's
 SMALL_DOMAIN = (48, 96, 128)     # the simulator's cross-check, as the reference's
+TPU_DOMAIN = (512, 512, 640)     # step 4's Pallas ranking, as the reference's (paper §5.2)
 TOTAL_THREADS = 1024
 ELEM_BYTES = 8                   # fp64: the spec's default and the kernel's dtype
 TOL = dict(rtol=1e-12, atol=1e-12)
-PALLAS_SKIPPED = ("skipped: the reference ranks Pallas configurations through its "
-                  "tracer (repro.frontend.trace); the port's frontend waits for "
-                  "ROADMAP queue 1 item 10")
 
 
 def scaled(machine: GPUMachine, factor: int = 8) -> GPUMachine:
@@ -61,10 +62,11 @@ def scaled(machine: GPUMachine, factor: int = 8) -> GPUMachine:
 
 def main(device="cuda", machine: GPUMachine = H100, domain=DOMAIN,
          small_domain=SMALL_DOMAIN, small_machine: GPUMachine | None = None, *,
-         seed: int = 0, show: int = 5) -> dict:
+         seed: int = 0, show: int = 5, tpu_domain=TPU_DOMAIN) -> dict:
     """Steps 1-4.  Returns what it printed, as data: ``{"spec", "ranked"
     (the RankingResult on ``machine``), "winner", "worst", "small": {"spec",
-    "machine", "winner", "sim", "sim_s"}, "launch", "max_abs_err"}``."""
+    "machine", "winner", "sim", "sim_s"}, "tpu" (the TPU-v5e ranking's top
+    3 EvalResults), "launch", "max_abs_err"}``."""
     dev = resolve_device(device)
     domain, small_domain = tuple(domain), tuple(small_domain)
     small_machine = small_machine or scaled(machine)
@@ -98,7 +100,13 @@ def main(device="cuda", machine: GPUMachine = H100, domain=DOMAIN,
           f"B/LUP, simulated {sim['dram_load_bytes_per_lup']:.1f} B/LUP ({sim_s:.2f} s)")
 
     # ---------------------------------------------------------- step 4
-    print(f"\nTPU (Pallas) config selection for the same stencil: {PALLAS_SKIPPED}")
+    print("\nTPU (Pallas) config selection for the same stencil:")
+    tpu = price(pallas_request(tpu_candidate_specs(R, tuple(tpu_domain), ELEM_BYTES),
+                               "TPUv5e")).ranking()[:3]
+    for e in tpu:
+        est = e.estimate
+        print(f"  {e.config}: {est.bytes_per_work:5.1f} B/pt, limiter={est.limiter}, "
+              f"VMEM={est.vmem_alloc_bytes/2**20:.0f} MiB")
     best = ranked[0].launch
     dtype = torch.float64 if ELEM_BYTES == 8 else torch.float32
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -118,7 +126,7 @@ def main(device="cuda", machine: GPUMachine = H100, domain=DOMAIN,
     return {"spec": spec, "ranked": ranked, "winner": ranked[0], "worst": worst,
             "small": {"spec": spec_s, "machine": small_machine, "winner": best_s,
                       "sim": sim, "sim_s": sim_s},
-            "launch": best, "max_abs_err": err}
+            "tpu": tpu, "launch": best, "max_abs_err": err}
 
 
 if __name__ == "__main__":

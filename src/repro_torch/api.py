@@ -2,8 +2,8 @@
 
 Every way of asking the estimator a question — a GPU ``KernelSpec`` with
 launch configs, ``(config, PallasKernelSpec)`` candidates, engine
-``Workload``s, suite ``ModelPlan``s / ``PlanRef``s — is a ``PriceRequest``;
-every answer is a ``PriceResult``.
+``Workload``s, suite ``ModelPlan``s / ``PlanRef``s, traced Triton kernels —
+is a ``PriceRequest``; every answer is a ``PriceResult``.
 The same frozen dataclasses travel in-process (``price(request)``) and
 through the wire codec (``repro_torch.serve.schema``), so an encoded
 answer decodes to the same result.
@@ -14,11 +14,9 @@ answer decodes to the same result.
     for e in result.ranking():
         print(e.config, e.perf, e.limiter)
 
-A copy of ``repro.api``.  One of its request kinds waits for the slice
-that ports what it needs, and a request that carries it raises a
-``ValueError`` naming it instead of pricing nothing: traced Pallas kernels
-(``traced``; ``kernel_request``, with the frontend).  The request keeps the
-field, so its wire form is the reference's.
+A copy of ``repro.api``; ``kernel_request`` traces a Triton launcher
+(``repro_torch.frontend``) where the reference's traces a Pallas builder,
+into the same payload.
 """
 from __future__ import annotations
 
@@ -30,12 +28,6 @@ from repro_torch.core.engine import Explorer, Workload
 from repro_torch.core.machines import get_machine
 
 API_VERSION = 1
-
-# what a request that uses a part of the reference's API not ported yet asks
-NOT_PORTED = {
-    "traced": "traced Pallas kernels (kernel_request) are not ported yet: "
-              "they need the frontend",
-}
 
 
 @dataclass(frozen=True)
@@ -66,12 +58,11 @@ class PriceRequest:
     ``workloads``: engine ``Workload``s (a bare GPU ``KernelSpec`` is
     promoted, as ``Explorer`` always did).  ``plans``: ``{name: ModelPlan |
     PlanRef}`` (or an items tuple) — priced through suite lowering into the
-    same sweep, results folded into ``result.suite``.  ``traced`` keeps the
-    reference's field; a request that fills it is refused (see
-    ``NOT_PORTED``).  ``machines``: registry names (see
-    ``core.machines.MACHINES``) or machine objects.  ``gpu_configs``
-    overrides the GPU launch-config list for plan lowering and for
-    workloads that do not carry their own.
+    same sweep, results folded into ``result.suite``.  ``traced``:
+    ``frontend.TracedSpecPayload``s from ``trace_payload``.  ``machines``:
+    registry names (see ``core.machines.MACHINES``) or machine objects.
+    ``gpu_configs`` overrides the GPU launch-config list for plan lowering
+    and for workloads that do not carry their own.
     """
 
     workloads: tuple = ()
@@ -200,6 +191,22 @@ def plan_request(plans: dict, machines, *, gpu_configs=None,
                         gpu_configs=gpu_configs, top_k=top_k, strict=strict)
 
 
+def kernel_request(call_fn, args, machines, *, name: str = "kernel",
+                   costs=None, rename: dict | None = None,
+                   top_k: int | None = None) -> PriceRequest:
+    """Price one Triton kernel, given its launcher and placeholder args.
+
+    Tracing happens here, eagerly (it needs torch and the launcher); the
+    returned request carries only the pure-value payload, so it can cross
+    the ``repro_torch.serve`` wire.
+    """
+    from repro_torch.frontend import trace_payload
+
+    payload = trace_payload(call_fn, args, name=name, costs=costs,
+                            rename=rename)
+    return PriceRequest(traced=(payload,), machines=machines, top_k=top_k)
+
+
 # ==========================================================================
 # the one entry point
 # ==========================================================================
@@ -211,14 +218,11 @@ def _resolve_plan(plan):
     return plan.resolve() if isinstance(plan, PlanRef) else plan
 
 
-def _check_request(request: PriceRequest) -> None:
+def _check_version(request: PriceRequest) -> None:
     if request.version > API_VERSION:
         raise ValueError(
             f"request version {request.version} is newer than this "
             f"library's API_VERSION {API_VERSION}")
-    for field, reason in NOT_PORTED.items():
-        if getattr(request, field):
-            raise ValueError(f"request field {field!r}: {reason}")
 
 
 def _request_workloads(request: PriceRequest):
@@ -235,6 +239,10 @@ def _request_workloads(request: PriceRequest):
             if w.gpu_configs is None and w.gpu_spec is not None else w
             for w in workloads
         ]
+    for t in request.traced:
+        workloads.append(Workload(
+            name=t.name, gpu_spec=t.gpu_spec,
+            tpu_candidates=[({}, t.tpu_spec)]))
 
     plans = {name: _resolve_plan(p) for name, p in request.plans}
     if plans:
@@ -254,14 +262,14 @@ def price(request: PriceRequest, *, engine: Explorer | None = None,
           progress=None) -> PriceResult:
     """Answer one ``PriceRequest`` in a single engine sweep.
 
-    Workloads and every suite plan's lowered kernels run through ONE
-    ``Explorer`` sweep — sharing the invariant cache, cell-level dedupe,
-    and (with ``machine_axis``) geometry batching — then suite plans fold
-    their namespaced entries into ``result.suite``.  ``engine`` lets a
+    Workloads, traced kernels, and every suite plan's lowered kernels run
+    through ONE ``Explorer`` sweep — sharing the invariant cache, cell-level
+    dedupe, and (with ``machine_axis``) geometry batching — then suite plans
+    fold their namespaced entries into ``result.suite``.  ``engine`` lets a
     long-lived caller (a code generator ranking many kernels) reuse one
     Explorer, and with it its pool settings and cache, across requests.
     """
-    _check_request(request)
+    _check_version(request)
     explorer = engine or Explorer()
     machines = [_resolve_machine(m) for m in request.machines]
     workloads, plans = _request_workloads(request)
@@ -289,7 +297,7 @@ def price_bounds(request: PriceRequest, *,
     ranking, not the exact one, and suite folding is skipped (no exact
     estimates exist to fold).
     """
-    _check_request(request)
+    _check_version(request)
     explorer = engine or Explorer()
     machines = [_resolve_machine(m) for m in request.machines]
     workloads, _ = _request_workloads(request)
@@ -298,6 +306,7 @@ def price_bounds(request: PriceRequest, *,
 
 
 __all__ = [
-    "API_VERSION", "NOT_PORTED", "PlanRef", "PriceRequest", "PriceResult",
-    "gpu_request", "pallas_request", "plan_request", "price", "price_bounds",
+    "API_VERSION", "PlanRef", "PriceRequest", "PriceResult",
+    "gpu_request", "pallas_request", "plan_request", "kernel_request",
+    "price", "price_bounds",
 ]

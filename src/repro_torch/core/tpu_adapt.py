@@ -28,9 +28,9 @@ paper does for thread-block sizes.
 
 A copy of ``repro.core.tpu_adapt``, pure Python, without the explicit
 grid-walk oracle of its property tests and the list-returning
-``select_pallas_config`` wrapper: the port's engine prices hand-built
-``PallasKernelSpec``s with it (the traced specs of the reference's kernels
-need its frontend, which is not ported yet).
+``select_pallas_config`` wrapper: the port's engine prices the specs its
+generators declare and those its spec frontend (``repro_torch.frontend``)
+traces from Triton kernels.
 """
 from __future__ import annotations
 

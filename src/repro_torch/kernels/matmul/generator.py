@@ -17,11 +17,12 @@ the tiled kernel.
 
 ``tpu_candidate_specs`` gives the suite's TPU half the reference's
 ``(config, PallasKernelSpec)`` candidates over ``tpu_space``.  The
-reference traces them from its Pallas kernel; the port has no Pallas
-kernel to trace, so it declares them in the form the reference's tracer
-derives (pinned by the reference's ``test_matmul_traced_matches_handwritten``);
-a spec frontend for the port's kernels (``ROADMAP.md`` queue 1, item 10)
-would derive them.
+reference traces them from its Pallas kernel; the port's kernel is
+hand-written CUDA, which its spec frontend (``repro_torch.frontend``,
+Triton kernels only) cannot trace, so it keeps declaring them in the form
+the reference's tracer derives (pinned by the reference's
+``test_matmul_traced_matches_handwritten`` and, under a test-only shim, against the
+reference's traced specs in ``tests/test_torch_suite.py``).
 """
 from __future__ import annotations
 

@@ -17,14 +17,25 @@ scratch-staged kernels for the GPU target.  They are recorded in
 Ranking runs on the host through the exploration engine
 (``core.selector.rank_gpu_configs``, serial) and is memoized per
 ``(r, domain, elem_bytes, machine)``.
+
+``tpu_candidate_specs`` gives the reference's TPU decision space
+(``tpu_space``: the replane, ring and y-tiled ring Pallas variants) as
+``(config, PallasKernelSpec)`` candidates for ``api.pallas_request``.  The
+reference traces them from its Pallas builders; the port's kernels are
+hand-written CUDA, which no tracer reads, so it declares them in the form
+the reference's tracer derives (pinned against that trace by
+``tests/test_torch_frontend.py``).
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
 from repro_torch.core.machines import H100, GPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import star_stencil_3d
+from repro_torch.core.tpu_adapt import OperandSpec, PallasKernelSpec
 from repro_torch.kernels import SCRATCH_REASON, resolve_device
 from repro_torch.kernels.stencil3d25.kernel import star_pointwise
 
@@ -41,6 +52,63 @@ def zmarch_space(r: int, domain: tuple):
         if Y % ty == 0:
             yield {"variant": "ytile_ring", "ty": ty}
         ty *= 2
+
+
+def tpu_space(r: int, domain: tuple):
+    """The reference's TPU decisions: the replane variant, the full-plane
+    ring, then the y-tiled rings (a copy of
+    ``repro.kernels.stencil3d25.generator._space``)."""
+    yield {"variant": "replane"}
+    yield from zmarch_space(r, domain)
+
+
+@lru_cache(maxsize=None)
+def _tpu_candidates(r: int, domain: tuple, elem_bytes: int) -> tuple:
+    Z, Y, X = domain
+    Yp, Xp, Zp = Y + 2 * r, X + 2 * r, Z + 2 * r
+    fl = float(6 * r + 1) * 2.0  # a multiply and an add a tap
+    eb = elem_bytes
+    out = []
+    for cfg in tpu_space(r, domain):
+        variant = cfg["variant"]
+        if variant == "replane":
+            # 2r+1 plane windows of the padded source a step, no scratch
+            spec = PallasKernelSpec(
+                name=f"star{r}_replane", grid=(Z,),
+                operands=tuple(OperandSpec(f"src_p{k}", (1, Yp, Xp), eb, grid_deps=(0,))
+                               for k in range(2 * r + 1))
+                + (OperandSpec("dst", (1, Y, X), eb, grid_deps=(0,), is_output=True),),
+                vpu_elems_per_step=fl * Y * X, vpu_shape=(Y, X),
+                work_per_step=float(Y * X), elem_bytes=eb)
+        elif variant == "ring":
+            # one plane a step into a ring of 2r+1 planes in scratch
+            spec = PallasKernelSpec(
+                name=f"star{r}_ring", grid=(Zp,),
+                operands=(OperandSpec("src", (1, Yp, Xp), eb, grid_deps=(0,)),
+                          OperandSpec("dst", (1, Y, X), eb, grid_deps=(0,), is_output=True)),
+                vpu_elems_per_step=fl * Y * X * Z / Zp, vpu_shape=(Y, X),
+                scratch_bytes=(2 * r + 1) * Yp * Xp * eb,
+                work_per_step=float(Y * X) * Z / Zp, elem_bytes=eb)
+        else:
+            # two ty-row windows a step into a ring of 2r+1 (2ty)-row tiles
+            ty = cfg["ty"]
+            spec = PallasKernelSpec(
+                name=f"star{r}_ytile{ty}", grid=(Y // ty, Zp),
+                operands=(OperandSpec("src_a", (1, ty, Xp), eb, grid_deps=(0, 1)),
+                          OperandSpec("src_b", (1, ty, Xp), eb, grid_deps=(0, 1)),
+                          OperandSpec("dst", (1, ty, X), eb, grid_deps=(0, 1), is_output=True)),
+                vpu_elems_per_step=fl * ty * X * Z / Zp, vpu_shape=(ty, X),
+                scratch_bytes=(2 * r + 1) * 2 * ty * Xp * eb,
+                work_per_step=float(ty * X) * Z / Zp, elem_bytes=eb)
+        out.append((cfg, spec))
+    return tuple(out)
+
+
+def tpu_candidate_specs(r: int, domain: tuple, elem_bytes: int = 4):
+    """``(config, PallasKernelSpec)`` of the reference's Pallas stencil at
+    every config of ``tpu_space(r, domain)``, in its order.  Declared, since
+    the port cannot trace a Pallas kernel; memoised per shape."""
+    yield from _tpu_candidates(r, tuple(domain), elem_bytes)
 
 
 def rank_configs(r: int, domain: tuple, elem_bytes: int = 8,

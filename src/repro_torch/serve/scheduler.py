@@ -55,9 +55,7 @@ op.
 
 A copy of ``repro.serve.scheduler``: the same counters, spans, memo journal
 (its header too, so a journal one package's daemon wrote restores in the
-other's) and coalescing, except that a request filling a field the port's
-``price`` refuses (``api.NOT_PORTED``) is served solo, so it fails alone
-and never sinks the requests it would have merged with.
+other's) and coalescing.
 """
 from __future__ import annotations
 
@@ -70,7 +68,7 @@ from collections import OrderedDict
 from concurrent.futures import Future
 
 from repro_torch import durable, obs
-from repro_torch.api import NOT_PORTED, PriceRequest, PriceResult, price, price_bounds
+from repro_torch.api import PriceRequest, PriceResult, price, price_bounds
 from repro_torch.obs.metrics import CounterGroup
 from repro_torch.core.engine import (
     EvalResult,
@@ -143,9 +141,8 @@ class _Pending:
 def _coalesce_key(request: PriceRequest):
     """Requests sharing this key can merge into one sweep (suite plans are
     already one sweep internally and keep their own fold, so they never
-    coalesce with others; nor does a request that ``price`` refuses, whose
-    error would otherwise resolve every request merged with it)."""
-    if request.plans or any(getattr(request, f) for f in NOT_PORTED):
+    coalesce with others)."""
+    if request.plans:
         return None
     body = encode((request.machines, request.gpu_configs, request.top_k,
                    request.strict, request.machine_axis))

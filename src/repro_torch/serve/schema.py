@@ -22,9 +22,8 @@ newer schema is rejected, not guessed at.
 of a request.
 
 A copy of ``repro.serve.schema``'s codec, with the same tags (class names,
-never module paths) and ``SCHEMA_VERSION``.  It registers the types the
-port has; the reference's traced-spec payload (``TracedSpecPayload``)
-joins with the slice that ports the frontend.
+never module paths) and ``SCHEMA_VERSION``; the traced-spec payload is the
+port's ``frontend.TracedSpecPayload`` under the reference's tag.
 """
 from __future__ import annotations
 
@@ -57,13 +56,14 @@ from repro_torch.core.tpu_adapt import (
     PallasEstimate,
     PallasKernelSpec,
 )
+from repro_torch.frontend import TracedSpecPayload
 from repro_torch.suite.report import ModelReport, SuiteReport, WorkloadPricing
 
 SCHEMA_VERSION = 1
 
 # the whitelist: everything a PriceRequest/PriceResult tree can contain
 _CLASSES = (
-    PriceRequest, PriceResult, PlanRef,
+    PriceRequest, PriceResult, PlanRef, TracedSpecPayload,
     Workload, ExplorationReport, EvalResult, SkippedConfig, PrunedConfig,
     RejectedSpec,
     KernelSpec, Field, Access, LaunchConfig,

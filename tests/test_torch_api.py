@@ -5,9 +5,10 @@ on a 1/8-scaled A100, hand-built Pallas specs on the TPU v5e — go through
 both packages' ``price``: the rankings must agree bitwise, field by field,
 exhaustive and pruned to a top-k (the pooled sweep is held to these in
 ``test_torch_engine.py``).  Also: the codec round-trips a request exactly
-and writes the reference's bytes, a newer request version and the request
-kind not ported yet (traced kernels) are refused, and the paper-loop
-example ranks through ``price`` and runs its winners on the CPU.
+and writes the reference's bytes, a newer request version is refused, a
+traced kernel (a Triton launcher here, the Pallas builder there) prices
+and bounds as the reference's, and the paper-loop example ranks through
+``price`` and runs its winners on the CPU.
 """
 import dataclasses
 import functools
@@ -258,14 +259,59 @@ def test_future_request_version_is_refused():
         schema.loads(schema.dumps(request).replace('"schema_version":1', '"schema_version":2'))
 
 
-@pytest.mark.parametrize("field", ["traced"])
-def test_requests_not_ported_yet_raise(field):
-    spec, _ = SPECS["stencil_2d5pt"]()
-    request = api.PriceRequest(workloads=[spec], machines=["H100"], **{field: ("k",)})
-    for fn in (api.price, api.price_bounds):
-        with pytest.raises(ValueError, match="not ported yet") as exc:
-            fn(request)
-        assert field in str(exc.value)
+def _traced_requests(top_k):
+    """A Triton kernel traced by the port and the same kernel as a Pallas
+    builder traced by the reference (under the test-only ``pl.load`` shim
+    its tracer patches), at one tiling: one payload, two packages."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from repro.frontend import arg as ref_arg
+    from repro_torch.frontend import arg
+    from repro_torch.frontend.triton_kernels import scale_shift
+
+    (Y, X), (by, bx) = (96, 256), (32, 128)
+
+    def kernel(x_ref, o_ref):
+        o_ref[...] = x_ref[...] * 2.0 + 1.0
+
+    def builder(x):
+        return pl.pallas_call(
+            kernel, grid=(Y // by, X // bx),
+            in_specs=[pl.BlockSpec((by, bx), lambda i, j: (i, j))],
+            out_specs=pl.BlockSpec((by, bx), lambda i, j: (i, j)),
+            out_shape=jax.ShapeDtypeStruct((Y, X), jnp.float32), interpret=True)(x)
+
+    mine = api.kernel_request(scale_shift(block=(by, bx)), [arg("x", (Y, X))],
+                              [SMALL, "H100", "TPUv5e"], name="ss", top_k=top_k)
+    ref = ref_api.kernel_request(builder, [ref_arg("x", (Y, X))],
+                                 [REF_SMALL, "H100", "TPUv5e"], name="ss", top_k=top_k)
+    return mine, ref
+
+
+@pytest.mark.parametrize("top_k", [None, 3])
+def test_traced_request_prices_and_bounds_as_reference(top_k, monkeypatch):
+    from jax.experimental import pallas
+
+    def load(ref, idx):
+        return ref[idx]
+
+    def store(ref, idx, val):
+        ref[idx] = val
+
+    monkeypatch.setattr(pallas, "load", load, raising=False)
+    monkeypatch.setattr(pallas, "store", store, raising=False)
+    mine, ref = _traced_requests(top_k)
+    assert schema.encode(mine) == ref_schema.encode(ref)
+    for fn, ref_fn in ((api.price, ref_api.price), (api.price_bounds, ref_api.price_bounds)):
+        got, want = fn(mine), ref_fn(ref)
+        assert got.degraded == want.degraded == (fn is api.price_bounds)
+        for machine in (SMALL.name, "H100-SXM5-80G", "TPUv5e"):
+            assert got.ranking("ss", machine), machine
+            assert schema.encode(got.ranking("ss", machine)) == \
+                ref_schema.encode(want.ranking("ss", machine))
+        assert got.skipped == [] and want.skipped == []
 
 
 def test_unknown_machine_names_raise():

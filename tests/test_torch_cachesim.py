@@ -659,9 +659,23 @@ def test_quickstart_scaled_machine_is_the_h100_over_eight():
     assert (a100.name, a100.n_sms, a100.l2_bytes) == ("A100/8", 13, SMALL.l2_bytes)
 
 
-def test_quickstart_example_ranks_simulates_and_runs_as_the_reference(capsys):
-    from repro.core.selector import rank_gpu_configs as ref_rank
+def test_quickstart_example_ranks_simulates_and_runs_as_the_reference(capsys, monkeypatch):
+    from jax.experimental import pallas
 
+    from repro.core.selector import rank_gpu_configs as ref_rank
+    from repro.kernels.stencil3d25 import generator as ref_stencil_gen
+
+    # the reference's step 4 traces its Pallas builders, which patch pl.load
+    # and pl.store: jax 0.9.0 has neither, so a test-only shim gives the
+    # tracer something to patch (as tests/test_torch_suite.py does)
+    def load(ref, idx):
+        return ref[idx]
+
+    def store(ref, idx, val):
+        ref[idx] = val
+
+    monkeypatch.setattr(pallas, "load", load, raising=False)
+    monkeypatch.setattr(pallas, "store", store, raising=False)
     ex = _quickstart()
     domain, small_domain = (16, 24, 64), (12, 16, 32)
     out = ex.main(device="cpu", domain=domain, small_domain=small_domain, show=3)
@@ -683,8 +697,17 @@ def test_quickstart_example_ranks_simulates_and_runs_as_the_reference(capsys):
     assert out["max_abs_err"] <= ex.TOL["atol"]
     text = capsys.readouterr().out
     assert "validation vs LRU simulator on H100/8" in text
-    assert "TPU (Pallas) config selection for the same stencil: skipped" in text
-    assert "queue 1 item 10" in text
+    assert "TPU (Pallas) config selection for the same stencil:" in text
+    try:
+        ref_tpu = ref_stencil_gen.rank_configs(4, ex.TPU_DOMAIN, elem_bytes=8)[:3]
+    finally:
+        ref_stencil_gen._candidates.cache_clear()  # no traced spec outlives the shim
+    assert len(out["tpu"]) == len(ref_tpu) == 3
+    for mine, ref in zip(out["tpu"], ref_tpu):
+        assert mine.config == ref.config
+        for f in ("bytes_per_work", "limiter", "total_time", "vmem_alloc_bytes"):
+            assert getattr(mine.estimate, f) == getattr(ref.estimate, f), f
+        assert f"  {ref.config}: {ref.estimate.bytes_per_work:5.1f} B/pt" in text
 
 
 def test_quickstart_example_never_falls_back_to_the_cpu(monkeypatch):

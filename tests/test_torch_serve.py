@@ -1,9 +1,9 @@
 """The port's pricing service (``repro_torch.serve``, DESIGN.md §12):
 scheduler dedupe/memo/coalescing accounting, and the daemon + client over a
 real Unix socket — ``tests/test_serve.py`` run on the port, every client
-with a timeout.  Then what only the port has: a request that ``price``
-refuses (``traced``) fails alone beside compatible requests, a served answer
-equals ``repro.api.price``'s on the wire, and ``python -m repro_torch.serve``
+with a timeout.  Then what only the port has: a traced Triton kernel
+coalesces beside compatible requests, a served answer equals
+``repro.api.price``'s on the wire, and ``python -m repro_torch.serve``
 starts nothing on import.
 
 Determinism pattern for in-flight assertions: gate the scheduler worker's
@@ -322,15 +322,19 @@ def test_daemon_result_is_bitwise_in_process_result(tmp_path):
 # ========================================================================
 # what only the port has
 # ========================================================================
-def test_refused_request_fails_alone_beside_compatible_ones(monkeypatch):
-    """The port's ``price`` refuses a request that fills ``traced``; queued
-    beside compatible requests it is served solo (``_coalesce_key`` None),
-    so it fails with the reference's error class and theirs coalesce into
-    the answers they get alone."""
+def test_traced_request_coalesces_with_its_neighbours(monkeypatch):
+    """A traced kernel (``kernel_request`` on a Triton launcher) queued
+    beside compatible GPU requests coalesces with them into one sweep, as
+    in the reference, and each answer is its solo answer."""
+    torch = pytest.importorskip("torch")
+    from repro_torch.api import kernel_request
+    from repro_torch.frontend import arg
+    from repro_torch.frontend.triton_kernels import scale_shift
     from repro_torch.serve.scheduler import _coalesce_key
 
-    refused = dataclasses.replace(quick_request(), traced=(Workload(name="t"),))
-    assert _coalesce_key(refused) is None
+    traced = kernel_request(scale_shift(block=(8, 32)), [arg("x", (32, 64), torch.float32)],
+                            [SMALL], name="ss")
+    assert _coalesce_key(traced) == _coalesce_key(quick_request()) is not None
     sched, release = _gated_scheduler(monkeypatch)
     try:
         blocker = sched.submit(PriceRequest(
@@ -342,21 +346,18 @@ def test_refused_request_fails_alone_beside_compatible_ones(monkeypatch):
         while sched.stats()["inflight"] > 1:
             assert time.monotonic() - t0 < 120
             time.sleep(0.01)
-        reqs = [quick_request(r=1, domain=d)
-                for d in [(16, 24, 32), (24, 24, 32), (16, 32, 32)]]
-        futs = [sched.submit(r) for r in reqs[:2]]
-        bad = sched.submit(refused)
-        futs.append(sched.submit(reqs[2]))
+        reqs = [quick_request(r=1, domain=(16, 24, 32)), traced,
+                quick_request(r=1, domain=(24, 24, 32))]
+        futs = [sched.submit(r) for r in reqs]
         release.set()
-        with pytest.raises(ValueError, match="traced"):
-            bad.result(120)
         results = [f.result(120) for f in futs]
         blocker.result(120)
         c = sched.counters
         assert c["coalesced_sweeps"] == 1 and c["coalesced_requests"] == 3
-        assert c["errors"] == 1 and c["keys_priced"] == 5
+        assert c["errors"] == 0 and c["keys_priced"] == 4
         for req, res in zip(reqs, results):
             solo = price(req, engine=Explorer(parallel=False))
+            assert res.entries
             assert [_entry_key(e) for e in res.entries] == \
                 [_entry_key(e) for e in solo.entries]
     finally:
@@ -366,14 +367,21 @@ def test_refused_request_fails_alone_beside_compatible_ones(monkeypatch):
 
 @needs_sockets
 def test_daemon_answers_an_undecodable_request_with_an_error_line(tmp_path):
-    """A reference request with a traced kernel carries a tag the port's
-    codec does not have: the daemon answers with an error line naming it,
-    and the connection stays usable."""
+    """A request carrying a tag the codec does not register gets an error
+    line naming it, and the connection stays usable; the traced-spec payload
+    (``TracedSpecPayload``) is registered now, and a traced request over the
+    same connection is priced."""
+    torch = pytest.importorskip("torch")
+    from repro_torch.api import kernel_request
+    from repro_torch.frontend import arg
+    from repro_torch.frontend.triton_kernels import scale_shift
     from repro_torch.serve.schema import encode
 
     wire = encode(quick_request())
-    wire["f"]["traced"] = {"$": "tuple", "v": [{"$": "TracedSpecPayload",
+    wire["f"]["traced"] = {"$": "tuple", "v": [{"$": "UnregisteredPayload",
                                                 "f": {"name": "t"}}]}
+    traced = kernel_request(scale_shift(block=(8, 32)), [arg("x", (32, 64), torch.float32)],
+                            [SMALL], name="ss")
     sock = str(tmp_path / "serve.sock")
     with PricingDaemon(sock, engine=Explorer(parallel=False)):
         with PriceClient(sock, timeout=120) as c:
@@ -381,9 +389,12 @@ def test_daemon_answers_an_undecodable_request_with_an_error_line(tmp_path):
             msg = c._recv()
             assert msg["ok"] is False and msg["id"] == 7
             assert msg["error_class"] == "TypeError"
-            assert "TracedSpecPayload" in msg["error"]
+            assert "UnregisteredPayload" in msg["error"]
             assert c.ping()
             assert c.price(quick_request()).entries
+            served = c.price(traced)
+    assert [_entry_key(e) for e in served.entries] == \
+        [_entry_key(e) for e in price(traced, engine=Explorer(parallel=False)).entries]
 
 
 def test_main_module_does_not_run_on_import(tmp_path):

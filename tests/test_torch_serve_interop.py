@@ -3,8 +3,10 @@
 Both packages speak one wire protocol: the codec's bytes, the request
 digests and the memo journal's frames are the same.  So a request the port
 serves gets the answer ``repro.api.price`` gives in-process, equal on the
-wire once the sweep's measurements of itself are set aside (a GPU request
-and a ``plan_request``); the port's client
+wire once the sweep's measurements of itself are set aside (a GPU request,
+a ``plan_request`` and a traced kernel, the port's ``kernel_request`` on a
+Triton launcher beside the reference's on the same kernel as a Pallas
+builder); the port's client
 against the reference's daemon and the reference's client against the
 port's daemon give those answers too; and a memo journal one package's
 ``Scheduler`` wrote restores warm in the other's.  Each request is built
@@ -62,7 +64,48 @@ def _plan_request():
                             ["H100", "TPUv5e"], top_k=2)
 
 
-REQUESTS = {"gpu": _gpu_request, "plan": _plan_request}
+def _traced_requests(monkeypatch):
+    """A Triton kernel through the port's ``kernel_request`` and the same
+    kernel as a Pallas builder through the reference's (its tracer under
+    the test-only ``pl.load`` / ``pl.store`` shim): one request on the
+    wire, built by each package."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from repro.frontend import arg as ref_arg
+    from repro_torch.frontend import arg
+    from repro_torch.frontend.triton_kernels import scale_shift
+
+    def load(ref, idx):
+        return ref[idx]
+
+    def store(ref, idx, val):
+        ref[idx] = val
+
+    monkeypatch.setattr(pl, "load", load, raising=False)
+    monkeypatch.setattr(pl, "store", store, raising=False)
+    (Y, X), (by, bx) = (64, 256), (16, 128)
+
+    def kernel(x_ref, o_ref):
+        o_ref[...] = x_ref[...] * 2.0 + 1.0
+
+    def builder(x):
+        return pl.pallas_call(
+            kernel, grid=(Y // by, X // bx),
+            in_specs=[pl.BlockSpec((by, bx), lambda i, j: (i, j))],
+            out_specs=pl.BlockSpec((by, bx), lambda i, j: (i, j)),
+            out_shape=jax.ShapeDtypeStruct((Y, X), jnp.float32), interpret=True)(x)
+
+    mine = api.kernel_request(scale_shift(block=(by, bx)), [arg("x", (Y, X))],
+                              ["H100", "TPUv5e"], name="ss", top_k=2)
+    ref = ref_api.kernel_request(builder, [ref_arg("x", (Y, X))], ["H100", "TPUv5e"],
+                                 name="ss", top_k=2)
+    assert ref_schema.request_digest(ref) == schema.request_digest(mine)
+    return mine, ref
+
+
+REQUESTS = {"gpu": _gpu_request, "plan": _plan_request, "traced": _traced_requests}
 #: what a sweep measures of itself: its host time and its counters, which
 #: follow the process's memo tables as well (streams built or shared)
 MEASURED = ("wall_time_s", "cache_stats", "metrics")
@@ -95,6 +138,8 @@ def requests_for(request):
     kind = request.node.callspec.params["kind"]
     if kind == "plan":
         request.getfixturevalue("ref_declared")
+    if kind == "traced":
+        return _traced_requests(request.getfixturevalue("monkeypatch"))
     mine = REQUESTS[kind]()
     return mine, _ref(mine)
 
