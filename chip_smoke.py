@@ -69,6 +69,14 @@ with nvcc first (one nvcc per source, in parallel):
   timed (T3); rwkv6-1.6b, zamba2-2.7b, whisper-base and 2 of mixtral-8x7b's
   layers, two train steps each at B 2 x 512, the first's loss and gradient
   norm held to fp32 (T4); none launching the port's kernels;
+* the shard phase: ``train.sharding``'s specs applied as DTensor
+  placements on a (1, 1) ``DeviceMesh`` ('data', 'model') of a one-rank
+  ``nccl`` group: granite-3-2b whole, bf16, from ``--seed``, two train
+  steps through ``launch.train.train`` at 8 x 512 in two microbatches,
+  every batch placed, timed beside T1's median, the first step's loss and
+  gradient norm held to the plain step's on the same weights and batch,
+  its peak memory to T1's plus a margin (S1); none launching the port's
+  kernels;
 * the dryrun phase: the model-level dry run (``core.cost.count_cost``,
   ``launch.calibrate``, ``launch.dryrun``) at granite-3-2b's full width:
   every valid cell through ``lower_cell`` on meta stand-ins, timed, with its
@@ -3515,7 +3523,7 @@ def run_train_granite(args, torch, dev) -> tuple:
         f"{step_gnorm_rel!r} from fp32; loss and gradients in {grads_s * 1e3:.1f} ms bf16, "
         f"{grads32_s * 1e3:.1f} ms fp32")
     del res, opt
-    return params, med
+    return params, med, peak
 
 
 def run_train_adamw(args, torch, dev, params: dict) -> None:
@@ -3783,15 +3791,15 @@ def run_train_others(args, torch, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def run_train(args, torch, dev) -> float:
+def run_train(args, torch, dev) -> tuple:
     """The train phase: T1 granite-3-2b whole through ``launch.train``, T2
     AdamW card against CPU, T3 checkpoint and resume bit for bit, T4 the
     other block patterns.  Like the lm phase, it launches none of the
     port's kernels, and checks that it did not.  Returns T1's median step
-    ms."""
+    ms and its run's peak bytes."""
     reset_counts()
     t0 = time.perf_counter()
-    params, t1_ms = run_train_granite(args, torch, dev)
+    params, t1_ms, t1_peak = run_train_granite(args, torch, dev)
     run_train_adamw(args, torch, dev, params)
     del params
     torch.cuda.empty_cache()
@@ -3803,7 +3811,135 @@ def run_train(args, torch, dev) -> float:
         raise AssertionError(f"the train phase launched the port's kernels {launched}")
     say(f"train: T1-T4 in {time.perf_counter() - t0:.1f} s, launching none of the port's "
         "kernels (eager torch ops and torch.einsum)")
-    return t1_ms
+    return t1_ms, t1_peak
+
+
+# the shard phase: train.sharding's specs applied as DTensor placements on a
+# DeviceMesh, on the one card there is: a one-rank group and a (1, 1) mesh.
+# The placements shard nothing at one device, but every op of the step runs
+# through DTensor's dispatch, every constrain through redistribute, and the
+# optimiser through the placed path.  Bands:
+# the placed step's loss, gradient norm and each gradient leaf's rows, and the
+# first trained step's loss and gradient norm, against the plain step's on the
+# same weights and batch: one card computes the same sums in the same order
+# (the label logit's one-hot product has one nonzero term a row, so it is the
+# gathered logit exactly); every reading so far was 0.0 (PERF.md, PR 36), and
+# the bound leaves room for the last bit of an fp32 reduction alone
+SHARD_REL = 1e-6
+SHARD_GRAD_ROW_REL = 1e-6
+# peak memory over T1's run: it read 40.404 GiB against T1's 40.404 twice
+# and 40.407 once (PERF.md, PR 36); the margin allows the allocator's
+# rounding of DTensor's extra views and copies, 80 times the largest excess
+SHARD_PEAK_MARGIN = 2 ** 28
+SHARD_STEPS = 2
+
+
+def run_shard(args, torch, dev, t1_ms: float, t1_peak: int) -> None:
+    """S1: a one-rank process group (``nccl`` on the card, ``gloo`` on the
+    CPU; a ``FileStore`` in a temporary directory) and a (1, 1)
+    ``DeviceMesh`` ('data', 'model'); granite-3-2b whole, bf16, from
+    ``--seed``; the plain ``loss_and_grads`` on T1's first batch, then the
+    weights and the batch placed by ``make_param_shardings`` and
+    ``make_batch_shardings`` and the same ``loss_and_grads`` through
+    DTensor: its loss and gradient norm (``SHARD_REL``) and each gradient
+    leaf's rows (``SHARD_GRAD_ROW_REL``) against the plain ones.  Then
+    ``SHARD_STEPS`` train steps through ``launch.train.train`` at
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` in ``TRAIN_MICRO`` microbatches, each
+    batch placed on the mesh (the first no longer cold: the placed
+    gradients filled DTensor's caches).  The steps' ms beside T1's median,
+    the first step's loss and gradient norm against the plain step's
+    (``SHARD_REL``), the peak memory of the steps against T1's plus
+    ``SHARD_PEAK_MARGIN``, the phase's seconds.  The group is destroyed and
+    the activation axes unset; nothing is caught."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.train import sharding
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import leaves
+
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
+                         device=dev)
+    batch = to_device(torch, batch_for_step(dc, 0), dev)
+    loss, grads = loss_and_grads(cfg, params, batch, TRAIN_MICRO)
+    loss, gnorm = float(loss), grad_norm(torch, grads)
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                                device_id=dev if dev.type == "cuda" else None)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+            sharding.set_activation_axes(mesh)
+            params = sharding.place(params, sharding.make_param_shardings(params, mesh), mesh)
+            batch = sharding.place(batch, sharding.make_batch_shardings(batch, mesh), mesh)
+            p_loss, p_grads = loss_and_grads(cfg, params, batch, TRAIN_MICRO)
+            p_grads = sharding.gather(p_grads)
+            p_loss, p_gnorm = float(p_loss), grad_norm(torch, p_grads)
+            rows, at = worst_rows(torch, p_grads, grads)
+            del p_grads, grads, batch
+            torch.cuda.empty_cache()
+            opt_cfg = OptConfig(total_steps=TRAIN_STEPS, **TRAIN_OPT)
+            opt = init_opt_state(opt_cfg, params)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            lines = []
+            res = train(cfg, params, opt, opt_cfg=opt_cfg, data=dc, steps=SHARD_STEPS,
+                        microbatches=TRAIN_MICRO, log=lines.append)
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev)
+            placed = all(sharding.is_dtensor(x) for x in leaves(res.params) + leaves(res.opt.m))
+        finally:
+            sharding.set_activation_axes(None)
+            dist.destroy_process_group()
+    for line in lines:
+        say(f"shard S1 {line}")
+    if not placed:
+        raise AssertionError("shard S1: the trained parameters or moments are not DTensors")
+    p_loss_rel = rel_close(p_loss, loss, SHARD_REL,
+                           "shard S1 the placed loss_and_grads' loss against the plain one's")
+    p_gnorm_rel = rel_close(p_gnorm, gnorm, SHARD_REL, "shard S1 the placed loss_and_grads' "
+                            "gradient norm against the plain one's")
+    if not rows <= SHARD_GRAD_ROW_REL:
+        raise AssertionError(f"shard S1 the placed gradients against the plain ones: {at}'s "
+                             f"rows read {rows!r}, beyond {SHARD_GRAD_ROW_REL}")
+    loss_rel = rel_close(res.losses[0], loss, SHARD_REL,
+                         "shard S1 the first step's loss against the plain step's")
+    gnorm_rel = rel_close(res.grad_norms[0], gnorm, SHARD_REL,
+                          "shard S1 the first step's gradient norm against the plain step's")
+    if peak > t1_peak + SHARD_PEAK_MARGIN:
+        raise AssertionError(f"shard S1: peak memory {peak / 2**30:.3f} GiB exceeds T1's "
+                             f"{t1_peak / 2**30:.3f} GiB plus {SHARD_PEAK_MARGIN / 2**30:.1f}")
+    launched = {k: n for module in kernel_modules() for k, n in module.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"the shard phase launched the port's kernels {launched}")
+    ms = [x * 1e3 for x in res.step_s]
+    first = res.losses[0]
+    del res, opt, params
+    torch.cuda.empty_cache()
+    say(f"shard S1 {TRAIN_ARCH} whole, bf16, on a (1, 1) DeviceMesh ('data', 'model') of a "
+        f"one-rank {backend} group, {SHARD_STEPS} train steps through launch.train.train at "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches through DTensor: steps "
+        + ", ".join(f"{x:.2f}" for x in ms) + f" ms (T1's plain median {t1_ms:.2f} ms); "
+        f"the placed loss_and_grads' loss relative {p_loss_rel!r}, gradient norm "
+        f"{p_gnorm_rel!r} (bound {SHARD_REL}), the gradients' worst rows {rows!r} ({at}; "
+        f"bound {SHARD_GRAD_ROW_REL}); the first step's loss {first!r} against the plain "
+        f"step's {loss!r}, relative {loss_rel!r}, gradient norm relative {gnorm_rel!r} (bound "
+        f"{SHARD_REL}); peak memory {peak / 2**30:.3f} GiB (T1's {t1_peak / 2**30:.3f} GiB, "
+        f"margin {SHARD_PEAK_MARGIN / 2**30:.2f}); phase {time.perf_counter() - t0:.1f} s, "
+        "launching none of the port's kernels")
 
 
 # the dryrun phase: the model-level dry run (core.cost.count_cost,
@@ -5417,6 +5553,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5473,7 +5610,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     m1_ms = run_lm(args, torch, dev)
     torch.cuda.empty_cache()
-    t1_ms = run_train(args, torch, dev)
+    t1_ms, t1_peak = run_train(args, torch, dev)
+    torch.cuda.empty_cache()
+    run_shard(args, torch, dev, t1_ms, t1_peak)
     torch.cuda.empty_cache()
     run_dryrun(args, torch, dev, t1_ms, m1_ms)
     torch.cuda.empty_cache()
@@ -5503,6 +5642,7 @@ def main(argv=None) -> int:
     say(f"peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)")
 
+    say(f"smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     # the kernels record
     say(f"card: {card}")
     say(json.dumps({"kernels": [

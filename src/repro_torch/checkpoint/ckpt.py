@@ -17,6 +17,17 @@ The reference's async save may read its arrays after it returns, because
 JAX arrays are immutable; the port's parameters and moments are written in
 place by the next step.  So ``save`` copies every leaf to the host before
 it returns, and only the file writing goes to the thread.
+
+A state placed across devices (DTensors, ``train.sharding.place``) is saved
+as full leaves, and only rank 0 of the process group writes them: the
+files are the one-device ones, and a blocking save returns on every rank
+once they are committed.  The ranks gather one leaf at a time, each
+joining the collective; only rank 0 copies it to the host, the others drop
+it.  ``restore`` places what it
+reads on the current mesh (the reference's "resharding happens on load"):
+by ``shardings`` (a tree of specs, with ``mesh``), or like the ``like``
+leaf it replaces where that is a DTensor.  A checkpoint saved on one mesh
+thus restores on another, or on one device.
 """
 from __future__ import annotations
 
@@ -30,26 +41,44 @@ import numpy as np
 import torch
 
 from repro_torch.convert import numpy_copy
+from repro_torch.train import sharding
 from repro_torch.tree import flatten_with_path, path_str, unflatten
 
 
 def _snapshot(x) -> tuple:
     """(a host copy of ``x`` that numpy can save, its dtype's name as the
-    manifest writes it)."""
-    t = torch.as_tensor(x)
+    manifest writes it); a DTensor is gathered first."""
+    t = sharding.full(x) if isinstance(x, torch.Tensor) else torch.as_tensor(x)
     a = numpy_copy(t)
     return a, "bfloat16" if t.dtype == torch.bfloat16 else str(a.dtype)
 
 
+def _group_rank():
+    """This process's rank in the initialised process group, else None."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else None
+
+
 def save(ckpt_dir: str, step: int, state, host: int = 0, blocking: bool = True):
-    """Save a tree ``state`` (tensors on any device, or what
+    """Save a tree ``state`` (tensors on any device, DTensors, or what
     ``torch.as_tensor`` takes).  Returns None, or with ``blocking=False``
     the writing thread (join() it); either way every leaf was copied to the
-    host before it returns."""
+    host before it returns.  A placed state is saved by every rank of the
+    group together, one leaf gathered at a time; rank 0 copies and writes
+    them, and the other ranks drop what they gathered and return None, at
+    once or with ``blocking`` once rank 0's files are committed."""
+    flat = flatten_with_path(state)
+    rank = _group_rank() if sharding.is_placed(state) else None
+    if rank not in (None, 0):
+        for _, x in flat:
+            if sharding.is_dtensor(x):
+                x.full_tensor()  # this rank's part of the gather; rank 0 keeps it
+        if blocking:
+            torch.distributed.barrier()
+        return None
+    snaps = [_snapshot(x) for _, x in flat]
     d = os.path.join(ckpt_dir, f"step_{step:06d}")
     os.makedirs(d, exist_ok=True)
-    flat = flatten_with_path(state)
-    snaps = [_snapshot(x) for _, x in flat]
 
     def _write():
         np.savez(os.path.join(d, f"shard_{host}.npz"),
@@ -67,6 +96,8 @@ def save(ckpt_dir: str, step: int, state, host: int = 0, blocking: bool = True):
 
     if blocking:
         _write()
+        if rank is not None:
+            torch.distributed.barrier()
         return None
     t = threading.Thread(target=_write, daemon=True)
     t.start()
@@ -93,14 +124,16 @@ def _decode(raw: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(raw)
 
 
-def restore(ckpt_dir: str, like, step: int | None = None, host: int = 0):
+def restore(ckpt_dir: str, like, step: int | None = None, shardings=None, host: int = 0,
+            mesh=None):
     """Restore into the structure of ``like``: (tree, step), or (None, None)
     when ``ckpt_dir`` holds no committed step.  Each leaf comes back as a
     tensor of the saved dtype, on the device of the ``like`` leaf it
     replaces (the CPU where that is not a tensor).  The manifest's paths
-    and shapes must be ``like``'s, else ``ValueError``.  (The reference's
-    ``shardings`` argument places leaves on a mesh; on one card there is
-    nothing to place.)"""
+    and shapes must be ``like``'s, else ``ValueError``.  ``shardings`` (a
+    tree of specs for ``like``, ``train.sharding``'s rules) places the
+    leaves on the ``DeviceMesh`` ``mesh``; without it a leaf whose ``like``
+    leaf is a DTensor is placed as that one is."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -119,8 +152,22 @@ def restore(ckpt_dir: str, like, step: int | None = None, host: int = 0):
     with np.load(os.path.join(d, f"shard_{host}.npz")) as data:
         for i, (_, x) in enumerate(flat):
             t = _decode(data[f"leaf_{i}"], manifest["dtypes"][i])
-            new.append(t.to(x.device) if isinstance(x, torch.Tensor) else t)
-    return unflatten(like, new), step
+            if isinstance(x, torch.Tensor):
+                t = t.to(x.device)
+                if sharding.is_dtensor(x) and shardings is None:
+                    t = _dtensor_like(t, x)
+            new.append(t)
+    tree = unflatten(like, new)
+    if shardings is not None:
+        tree = sharding.place(tree, shardings, mesh)
+    return tree, step
+
+
+def _dtensor_like(t: torch.Tensor, x):
+    """The full tensor ``t`` placed as the DTensor ``x`` is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, x.device_mesh, x.placements, src_data_rank=None)
 
 
 def prune(ckpt_dir: str, keep: int = 3):

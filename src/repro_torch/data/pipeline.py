@@ -4,7 +4,10 @@ copy of ``repro.data.pipeline``, numpy only).
 Each host generates only its local shard of the global batch, seeded by
 ``SeedSequence([seed, step, host])``, so the batches equal the reference's
 array for array; ``ShardedBatchIterator`` yields them as numpy arrays from
-a background thread, and the launcher moves them to the card.
+a background thread, and the launcher moves them to the card.  Across
+devices the launcher builds the global batch on every rank (host 0 of 1,
+as the reference's does) and each rank keeps its shard of it
+(``train.sharding.make_batch_shardings``, ``place``).
 """
 from __future__ import annotations
 

@@ -25,8 +25,10 @@ numbers are ``BlockCost``s, whose first three fields are the reference's
 The counted half reads one device's program: on a mesh of more than one
 device ``calibrated_cost`` raises ``NotImplementedError``
 (``train.sharding.NOT_PORTED``), since its counts would have to be per
-device.  ``analytic_bytes`` and its constants are the reference's,
-unchanged: they read only a mesh's axis sizes, so they hold for any mesh.
+device, where a dispatch mode around a DTensor step sees the global ops
+and no collective.  ``analytic_bytes`` and its constants are the
+reference's, unchanged: they read only a mesh's axis names and sizes
+(either kind of mesh), so they hold for any mesh.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ from repro_torch.layers.ssm import Mamba2State, RWKV6State
 from repro_torch.models import lm as lm_mod
 from repro_torch.train.sharding import (
     NOT_PORTED,
+    axis_names,
+    mesh_shape,
     constrain,
     make_cache_shardings,
     make_param_shardings,
@@ -75,7 +79,7 @@ class BlockCost(NamedTuple):
 
 
 def _mesh_devices(mesh) -> int:
-    return math.prod(mesh.devices.shape)
+    return math.prod(mesh_shape(mesh))
 
 
 def _cost_of(fn, args, in_shardings, mesh, chunk_hint: int | None = None) -> BlockCost:
@@ -100,12 +104,12 @@ def _cost_of(fn, args, in_shardings, mesh, chunk_hint: int | None = None) -> Blo
 def _h_sharding(mesh, B, S, seq_parallel=False) -> tuple:
     """Residual-stream spec used between blocks (matches models.lm
     _scan_blocks): batch over data; sequence over model iff seq_parallel."""
-    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names) or None
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    dp = tuple(a for a in ("pod", "data") if a in axis_names(mesh)) or None
+    sizes = dict(zip(axis_names(mesh), mesh_shape(mesh)))
     if dp and B % math.prod(sizes[a] for a in dp) != 0:
         dp = None
     tp = None
-    if seq_parallel and "model" in mesh.axis_names and S % sizes.get("model", 1) == 0:
+    if seq_parallel and "model" in axis_names(mesh) and S % sizes.get("model", 1) == 0:
         tp = "model"
     return (dp, tp, None)
 
@@ -113,9 +117,9 @@ def _h_sharding(mesh, B, S, seq_parallel=False) -> tuple:
 def _dp_sharding(mesh, ndim, dim0=None) -> tuple:
     """Batch-dim spec over the data axes; replicates when it doesn't divide
     (the batch-1 long-context cells)."""
-    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    dp = tuple(a for a in ("pod", "data") if a in axis_names(mesh))
     if dp:
-        sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        sizes = dict(zip(axis_names(mesh), mesh_shape(mesh)))
         dsz = math.prod(sizes[a] for a in dp)
         if dim0 is not None and dim0 % dsz != 0:
             dp = ()
@@ -342,8 +346,8 @@ OPT_BYTES_PER_PARAM = 20.0  # p(bf16 r/w) + m,v (f32 r/w)
 def analytic_bytes(cfg: ArchConfig, shape: ShapeSpec, mesh, microbatches: int,
                    n_params: float) -> dict:
     """Per-device HBM bytes per step, first-principles (see constants above)."""
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    chips = math.prod(mesh.devices.shape)
+    sizes = dict(zip(axis_names(mesh), mesh_shape(mesh)))
+    chips = math.prod(mesh_shape(mesh))
     tp = sizes.get("model", 1)
     dp = chips // tp
     B, S = shape.global_batch, shape.seq_len

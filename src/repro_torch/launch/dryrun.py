@@ -15,11 +15,13 @@ A dry run has two halves.  The analytic half (``count_params``,
 ``launch.calibrate.analytic_bytes``) reads only a mesh's axis sizes, and
 holds for every mesh.  The counted half (per-device FLOPs, bytes,
 collectives and memory, ``core.cost.count_cost``) reads one device's
-program: ``--local`` prices the port's one card (``make_local_mesh``),
-the only mesh the port can apply.  Without it the reference's production
-meshes, (16, 16) and (2, 16, 16), raise ``NotImplementedError``
-(``train.sharding.NOT_PORTED``) until the sharding rules are applied
-across cards, and the command exits nonzero.  Rows go to
+program: ``--local`` prices the port's one card (``make_local_mesh``).
+Without it the reference's production meshes, (16, 16) and (2, 16, 16),
+raise ``NotImplementedError`` (``train.sharding.NOT_PORTED``) and the
+command exits nonzero: the port applies those meshes
+(``launch.mesh.make_production_mesh``, a ``DeviceMesh`` over a ``fake``
+group on the CPU), but counting one device's program of a DTensor step is
+still to come.  Rows go to
 ``experiments/dryrun_torch`` by default, apart from the reference's.
 """
 from __future__ import annotations
@@ -40,10 +42,10 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.cost import count_cost
 from repro_torch.core.roofline import analyze_cost, report_from_values
 from repro_torch.launch.calibrate import analytic_bytes, calibrated_cost
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.lm import init_caches, init_params
 from repro_torch.optim.adamw import OptConfig, init_opt_state
-from repro_torch.train.sharding import set_activation_axes
+from repro_torch.train.sharding import NOT_PORTED, axis_names, mesh_shape, set_activation_axes
 from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
 from repro_torch.tree import flatten_with_path, leaves
 
@@ -183,8 +185,8 @@ def kv_int8_for(cfg: ArchConfig, shape: ShapeSpec) -> bool:
 def _data_parallel(mesh) -> int:
     dp = 1
     for a in ("pod", "data"):
-        if a in mesh.axis_names:
-            dp *= dict(zip(mesh.axis_names, mesh.devices.shape))[a]
+        if a in axis_names(mesh):
+            dp *= dict(zip(axis_names(mesh), mesh_shape(mesh)))[a]
     return dp
 
 
@@ -218,21 +220,23 @@ def step_cost(cfg: ArchConfig, shape: ShapeSpec, p_struct, microbatches: int = 1
 
 
 def mesh_name(mesh) -> str:
-    return "x".join(str(d) for d in mesh.devices.shape)
+    return "x".join(str(d) for d in mesh_shape(mesh))
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool, local: bool = False) -> dict:
     """The reference's row for one cell.  ``local`` counts it on the port's
-    one card (a 1 x 1 mesh of ``meta``); otherwise the production mesh,
-    which raises ``NotImplementedError`` (``NOT_PORTED``)."""
+    one card (a 1 x 1 mesh of ``meta``); the production mesh's count raises
+    ``NotImplementedError`` (``NOT_PORTED``)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     kv_int8 = kv_int8_for(cfg, shape)
     if kv_int8:
         cfg = dataclasses.replace(cfg, kv_int8=True)
-    mesh = make_local_mesh(META) if local else make_production_mesh(multi_pod=multi_pod)
+    if not local:
+        raise NotImplementedError(NOT_PORTED)
+    mesh = make_local_mesh(META)
     set_activation_axes(mesh)
-    n_chips = math.prod(mesh.devices.shape)
+    n_chips = math.prod(mesh_shape(mesh))
     p_struct = params_struct(cfg)
     n_params = sum(math.prod(leaf.shape) for leaf in leaves(p_struct))
     mb_used = train_microbatches(cfg, shape, mesh) if shape.kind == "train" else 1

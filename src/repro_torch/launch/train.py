@@ -6,17 +6,36 @@ checkpoints asynchronously and resumes from the newest committed
 checkpoint, in the reference's order: restore, the batch iterator from the
 resumed step, then each step (train step, heartbeat and straggler record,
 ``plan_recovery``, a log line every 10 steps, the periodic async save and
-``prune(keep=2)``), then the final save.
+``prune(keep=2)``), then the final save, and a line of each step's ms and
+each rank's peak device memory over the run.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
-        --reduced --steps 100 [--mesh 1x1] [--device cpu] [--seed 0]
+        --reduced --steps 100 [--mesh 1x1] [--device cpu] [--seed 0] \
+        [--param-dtype float32] [--ckpt-dir DIR]
 
 It runs on the card unless ``--device cpu`` asks for the CPU; ``--seed``
 seeds the random weights (a ``torch.Generator``, where the reference draws
 from ``PRNGKey(0)``).  ``--reduced`` is off by default, as in the
-reference: without it the full config is built.  ``train()`` is the loop,
-for callers that bring their own parameters (``chip_smoke.py`` trains
-granite-3-2b whole through it).
+reference: without it the full config is built.  An empty ``--ckpt-dir``
+keeps no checkpoint.  ``train()`` is the loop, for callers that bring their
+own parameters (``chip_smoke.py`` trains granite-3-2b whole through it).
+
+Across devices it runs under ``torch.distributed.run``, one process a
+device:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+        --reduced --device cpu --mesh 2x2 --steps 3
+
+With ``RANK`` and ``WORLD_SIZE`` set, ``main`` joins the process group
+(``nccl`` on the card, ``gloo`` with ``--device cpu``), builds the
+``DeviceMesh`` of ``--mesh`` (its devices must be the group's ranks), sets
+the activation axes, and places the parameters, the optimiser state and
+each batch by ``train.sharding``'s specs (the reference's ``device_put``
+with its shardings).  Every rank draws the same weights from ``--seed`` and
+builds the global batch, as the reference's launcher does (host 0 of 1),
+and keeps its shard.  The detector and the straggler tracker count the
+group's ranks as hosts; rank 0 alone prints the log lines and writes the
+checkpoints.  ``--mesh 1x1`` (the default) places nothing.
 
 One departure: a checkpoint labelled ``s`` holds the state after ``s``
 steps, as the reference's final save does, so a resume from it takes batch
@@ -32,7 +51,7 @@ import os
 import sys
 import tempfile
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -45,6 +64,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.lm import init_params
 from repro_torch.optim.adamw import OptConfig, OptState, init_opt_state
 from repro_torch.runtime.fault import FailureDetector, StragglerTracker, plan_recovery
+from repro_torch.train import sharding
 from repro_torch.train.sharding import set_activation_axes
 from repro_torch.train.step import make_train_step
 from repro_torch.tree import leaves
@@ -63,6 +83,32 @@ def _hosts() -> tuple:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def _gather_step_times(host: int, n_hosts: int, dt: float) -> list:
+    """(host, its step seconds) of every host: across a group of more than
+    one rank gathered from all of them (one small collective a step), so
+    that each rank's detector hears every host; else this host's own."""
+    if n_hosts == 1:
+        return [(host, dt)]
+    times = [None] * n_hosts
+    torch.distributed.all_gather_object(times, dt)
+    return list(enumerate(times))
+
+
+def _timing(step_s: list, device: torch.device, n_hosts: int) -> str:
+    """The log line of each step's ms and each host's peak device memory
+    since its last reset (``torch.cuda.max_memory_allocated``, gathered
+    from every rank of a group; not measured on the CPU)."""
+    ms = ", ".join(f"{s * 1e3:.2f}" for s in step_s) or "none"
+    if device.type != "cuda":
+        return f"[train] timing: step ms {ms}; peak GiB not measured (cpu)"
+    peaks = [torch.cuda.max_memory_allocated(device) / 2 ** 30]
+    if n_hosts > 1:
+        peaks = [None] * n_hosts
+        torch.distributed.all_gather_object(peaks, torch.cuda.max_memory_allocated(device)
+                                            / 2 ** 30)
+    return f"[train] timing: step ms {ms}; peak GiB " + ", ".join(f"{p:.3f}" for p in peaks)
 
 
 @dataclass
@@ -88,7 +134,10 @@ def train(cfg: ArchConfig, params: dict, opt: OptState, *, opt_cfg: OptConfig,
     ``ckpt_every`` steps (keeping two) and once at the end; ``None`` keeps
     no checkpoint.  ``params`` and ``opt`` are updated in place (the
     restored ones where it resumed); ``log`` takes the reference's printed
-    lines."""
+    lines, and before the last one each step's ms and each host's peak
+    device memory since its last reset (``_timing``).  Placed parameters (DTensors) take each batch placed on their
+    mesh, and their checkpoints are written by rank 0 and restored onto
+    their placements."""
     start = 0
     if ckpt_dir is not None:
         got, step0 = restore(ckpt_dir, {"params": params, "opt": opt})
@@ -97,10 +146,14 @@ def train(cfg: ArchConfig, params: dict, opt: OptState, *, opt_cfg: OptConfig,
             start = step0
             log(f"[train] resumed from step {start}")
 
-    dev = leaves(params)[0].device
+    first = leaves(params)[0]
+    dev = first.device
+    mesh = first.device_mesh if sharding.is_dtensor(first) else None
     step_fn = make_train_step(cfg, opt_cfg, microbatches=microbatches)
     host, n_hosts = _hosts()
-    it = ShardedBatchIterator(data, host=host, n_hosts=n_hosts, start_step=start)
+    writes = mesh is None or host == 0
+    # every host builds the global batch, as the reference's launcher does
+    it = ShardedBatchIterator(data, start_step=start)
     detector = FailureDetector(n_hosts=n_hosts)
     tracker = StragglerTracker(n_hosts=n_hosts)
     losses, norms, step_s, writers = [], [], [], []
@@ -110,6 +163,8 @@ def train(cfg: ArchConfig, params: dict, opt: OptState, *, opt_cfg: OptConfig,
         for _ in range(start, steps):
             step, batch = next(it)
             batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            if mesh is not None:
+                batch = sharding.place(batch, sharding.make_batch_shardings(batch, mesh), mesh)
             params, opt, metrics = step_fn(params, opt, batch)
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
             dt = time.perf_counter() - t_last
@@ -117,8 +172,10 @@ def train(cfg: ArchConfig, params: dict, opt: OptState, *, opt_cfg: OptConfig,
             losses.append(loss)
             norms.append(gnorm)
             step_s.append(dt)
-            detector.heartbeat(host)
-            tracker.record(host, dt)
+            # every host's heartbeat and step time, each rank holding them all
+            for h, t in _gather_step_times(host, n_hosts, dt):
+                detector.heartbeat(h)
+                tracker.record(h, t)
             plan = plan_recovery(detector, tracker, chips_per_host=1, model_parallel=1,
                                  latest_ckpt_step=latest_step(ckpt_dir) if ckpt_dir else None)
             if plan.action != "continue":
@@ -128,15 +185,34 @@ def train(cfg: ArchConfig, params: dict, opt: OptState, *, opt_cfg: OptConfig,
             if ckpt_dir is not None and (step + 1) % ckpt_every == 0:
                 writers.append(save(ckpt_dir, step + 1, {"params": params, "opt": opt},
                                     blocking=False))
-                prune(ckpt_dir, keep=2)
+                if writes:
+                    prune(ckpt_dir, keep=2)
     finally:
         it.close()
         for w in writers:
-            w.join()
+            if w is not None:
+                w.join()
+    if mesh is not None and n_hosts > 1:
+        torch.distributed.barrier()  # rank 0's periodic saves are committed
     if ckpt_dir is not None and latest_step(ckpt_dir) != steps:
         save(ckpt_dir, steps, {"params": params, "opt": opt})
+    log(_timing(step_s, dev, n_hosts))
     log(f"[train] done at step {steps}")
     return TrainResult(params, opt, start, losses, norms, step_s)
+
+
+def join_group(device: torch.device) -> torch.device:
+    """Under ``torch.distributed.run`` (``RANK`` and ``WORLD_SIZE`` set):
+    join the process group, ``nccl`` on the card (this rank's
+    ``LOCAL_RANK`` card), ``gloo`` on the CPU; returns the device to run
+    on."""
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        torch.distributed.init_process_group("nccl", device_id=device)
+    else:
+        torch.distributed.init_process_group("gloo")
+    return device
 
 
 def main(argv=None) -> int:
@@ -149,28 +225,51 @@ def main(argv=None) -> int:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default="1x1")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
-                                                       "repro_torch_train_ckpt"))
+                                                       "repro_torch_train_ckpt"),
+                    help="where to checkpoint and resume; empty: no checkpoint")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    ap.add_argument("--param-dtype", choices=("bfloat16", "float32"),
+                    help="the parameters' dtype (default: the config's)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.param_dtype:
+        cfg = replace(cfg, param_dtype=args.param_dtype)
     device = resolve_device(args.device)
-    set_activation_axes(parse_mesh(args.mesh, device))
-    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=args.steps,
-                        compress_grads=args.compress_grads)
-    dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.global_batch,
-                    frontend_tokens=cfg.frontend_tokens if cfg.frontend else 0,
-                    frontend_dim=cfg.frontend_dim if cfg.frontend else 0)
-    params = init_params(cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
-                         device=device)
-    opt = init_opt_state(opt_cfg, params)
-    train(cfg, params, opt, opt_cfg=opt_cfg, data=dc, steps=args.steps,
-          microbatches=args.microbatches, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    group = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if group:
+        device = join_group(device)
+    try:
+        mesh = parse_mesh(args.mesh, device)
+        host, n_hosts = _hosts()
+        if n_hosts != sharding.mesh_size(mesh):
+            raise RuntimeError(f"--mesh {args.mesh} has {sharding.mesh_size(mesh)} devices "
+                               f"and the process group {n_hosts} ranks")
+        set_activation_axes(mesh)
+        opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=args.steps,
+                            compress_grads=args.compress_grads)
+        dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.global_batch,
+                        frontend_tokens=cfg.frontend_tokens if cfg.frontend else 0,
+                        frontend_dim=cfg.frontend_dim if cfg.frontend else 0)
+        params = init_params(cfg, generator=torch.Generator(device=device).manual_seed(
+            args.seed), device=device)
+        if sharding.is_device_mesh(mesh):
+            params = sharding.place(params, sharding.make_param_shardings(params, mesh), mesh)
+        opt = init_opt_state(opt_cfg, params)
+        log = print if host == 0 else (lambda *a: None)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        train(cfg, params, opt, opt_cfg=opt_cfg, data=dc, steps=args.steps,
+              microbatches=args.microbatches, ckpt_dir=args.ckpt_dir or None,
+              ckpt_every=args.ckpt_every, log=log)
+    finally:
+        if group:
+            torch.distributed.destroy_process_group()
     return 0
 
 

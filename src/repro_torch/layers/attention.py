@@ -7,9 +7,9 @@ KV chunks with fp32 running statistics (and a one-pass form for decode
 shapes).  ``attention_apply(use_pallas=True)`` reaches the port's flash
 kernel (``repro_torch.kernels.flash_attention``) where the reference
 reaches its Pallas kernel.  The projections stay ``torch.einsum``, as the
-reference leaves them to XLA outside any kernel.  The sharding hooks of the
-reference (``gather_weight``, ``constrain``) have nothing to do on one
-card and are left out.
+reference leaves them to XLA outside any kernel.  The reference's
+``constrain`` sites (the decode scores, the cache's K and V) are kept; they
+act on placed (DTensor) inputs only (``train.sharding``).
 
 ``KVCache.append`` differs from the reference in one way: it writes into
 the cache's storage in place and returns a ``KVCache`` over the same
@@ -25,6 +25,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import resolve_device
+from repro_torch.train import sharding
+from repro_torch.train.sharding import constrain
 
 from . import _draw
 from .rope import apply_rope
@@ -68,7 +70,34 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_positions=None,
     q: (B, Hq, Sq, D);  k/v: (B, Hkv, Skv, D).
     positions: absolute positions (B, S) or (S,); invalid cache slots carry
     position -1 and are masked out.
+
+    On placed (DTensor) inputs it runs on each rank's shards
+    (``train.sharding.shard_local``): batch over the data axes, KV heads
+    over 'model' where they divide it (the decode scores' heads over
+    'model', as the reference constrains them), else replicated there.  The
+    decode form with KV heads that 'model' does not divide runs as DTensor
+    ops, its scores constrained as the reference's are: the cache's
+    sequence over 'model' (a flash-decoding-style partial softmax).
     """
+    h = "tp" if k.shape[1] % sharding.tp_size() == 0 else None
+    if sharding.is_dtensor(q) and (q.shape[2] > 4 or h):
+        heads = ("dp", h, None, None)
+
+        def run(q, k, v, qp, kp):
+            return _chunked_attention(q, k, v, causal=causal, window=window, q_positions=qp,
+                                      k_positions=kp, chunk=chunk)
+
+        def pos(p):  # (B, S) rows with the batch, (S,) whole
+            return None if p is None else ("dp", None) if p.dim() == 2 else (None,)
+
+        return sharding.shard_local(run, [
+            (q, heads), (k, heads), (v, heads), (q_positions, pos(q_positions)),
+            (k_positions, pos(k_positions))], heads, q.shape)
+    return _chunked_attention(q, k, v, causal=causal, window=window, q_positions=q_positions,
+                              k_positions=k_positions, chunk=chunk)
+
+
+def _chunked_attention(q, k, v, *, causal, window, q_positions, k_positions, chunk):
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -96,6 +125,9 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_positions=None,
         # decode: the (B, H, Sq, Skv) scores are small enough for one pass
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
         s = torch.where(valid_of(k_positions), s, NEG_INF)
+        tags = (("dp", "tp", None, None) if Hq % sharding.tp_size() == 0
+                else ("dp", None, None, "tp"))
+        s = constrain(s.reshape(B, Hq, Sq, Skv), tags).reshape(B, Hkv, group, Sq, Skv)
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
         return out.reshape(B, Hq, Sq, D).to(q.dtype)
@@ -181,6 +213,8 @@ class KVCache(NamedTuple):
         reference's scatter leaves it unspecified too)."""
         B, Hkv, Sq, D = k_new.shape
         C = self.k.shape[2]
+        if sharding.is_dtensor(self.k):
+            return self._append_placed(k_new, v_new, pos_new)
         dev = self.k.device
         idx = (self.cursor.long()[:, None] + torch.arange(Sq, device=dev)[None, :]) % C
         bidx = torch.arange(B, device=dev)[:, None]
@@ -198,6 +232,72 @@ class KVCache(NamedTuple):
         self.positions[bidx, idx] = pos_new.to(self.positions.dtype)
         self.cursor.add_(Sq)
         return self
+
+    def _append_placed(self, k_new, v_new, pos_new) -> "KVCache":
+        """``append`` into a cache placed on a mesh (DTensors): DTensor has
+        no in-place ``index_put_`` onto a sharded tensor, so each rank
+        writes its own shard (``_write_shard``): the rows of its batch
+        shard, and of a sequence-sharded leaf the slots that fall in its
+        range.  The values written are the one-device ones."""
+        Sq = k_new.shape[2]
+        writes = [(self.positions, pos_new.to(self.positions.dtype))]
+        if self.quantized:
+            for store, scale, new in ((self.k, self.k_scale, k_new),
+                                      (self.v, self.v_scale, v_new)):
+                nf = new.float()
+                s = nf.abs().amax(dim=-1) / 127.0
+                q = torch.round(nf / torch.clamp(s, min=1e-8)[..., None])
+                writes += [(store, q.to(torch.int8)), (scale, s)]
+        else:
+            writes += [(self.k, k_new.to(self.k.dtype)), (self.v, v_new.to(self.v.dtype))]
+        for store, new in writes:
+            _write_shard(store, new, self.cursor)
+        self.cursor.add_(Sq)
+        return self
+
+
+def _write_shard(store, new, cursor) -> None:
+    """Write ``new`` (the store's shape with Sq slots on its slot dim, the
+    last but one of K and V, the last of positions and scales) into the
+    placed ``store`` at slots (cursor + arange(Sq)) % C of each row, each
+    rank into its shard: ``new`` and the cursor are brought to the store's
+    placements on the other dims, and a rank whose shard holds slots
+    [c0, c0 + C_local) writes the entries that land there."""
+    dt = sharding._dtensor()
+    mesh = store.device_mesh
+    cdim = 2 if store.dim() == 4 else store.dim() - 1
+    c0, c_loc = 0, store.to_local().shape[cdim]
+    want = []
+    for m, p in enumerate(store.placements):
+        if p.is_shard() and p.dim == cdim:
+            c0 += mesh.get_local_rank(m) * c_loc
+            want.append(dt.Replicate())
+        else:
+            want.append(p)
+    if not sharding.is_dtensor(new):
+        new = dt.DTensor.from_local(new, mesh, [dt.Replicate()] * mesh.ndim, run_check=False)
+    rows = [p if p.is_shard() and p.dim == 0 else dt.Replicate() for p in want]
+    new = new.redistribute(mesh, want).to_local()
+    cur = cursor.redistribute(mesh, rows).to_local().long()
+    Sq = new.shape[cdim]
+    idx = (cur[:, None] + torch.arange(Sq, device=cur.device)[None, :]) % store.shape[cdim] - c0
+    b_sel, s_sel = ((idx >= 0) & (idx < c_loc)).nonzero(as_tuple=True)
+    loc = store.to_local()
+    if cdim == 2:   # K and V (B, H, C, D), int8 scales (B, H, C)
+        loc[b_sel, :, idx[b_sel, s_sel]] = new[b_sel, :, s_sel]
+    else:           # positions (B, C)
+        loc[b_sel, idx[b_sel, s_sel]] = new[b_sel, s_sel]
+
+
+def _project(x, w, n: int, head_dim: int):
+    """x (B, S, E) through a column-parallel projection w (E, n·head_dim),
+    as (B, S, n, head_dim).  Placed where ``n`` heads do not divide 'model',
+    the product is taken flat and gathered on 'model' before it is split
+    into heads: a shard would hold part of a head."""
+    if sharding.is_dtensor(w) and n % sharding.tp_size():
+        y = constrain(torch.einsum("bse,ef->bsf", x, w), ("dp", None, None))
+        return y.reshape(*y.shape[:2], n, head_dim)
+    return torch.einsum("bse,ehd->bshd", x, w.reshape(w.shape[0], n, head_dim))
 
 
 def attention_apply(params, x, *, n_heads, n_kv, head_dim, causal=True, window=None,
@@ -217,12 +317,12 @@ def attention_apply(params, x, *, n_heads, n_kv, head_dim, causal=True, window=N
     ``chunked_attention``.
     """
     B, S, E = x.shape
-    q = torch.einsum("bse,ehd->bshd", x, params["wq"].reshape(E, n_heads, head_dim))
+    q = _project(x, params["wq"], n_heads, head_dim)
     if "bq" in params:
         q = q + params["bq"].reshape(n_heads, head_dim)
     kv_src = context if context is not None else x
-    k = torch.einsum("bse,ehd->bshd", kv_src, params["wk"].reshape(E, n_kv, head_dim))
-    v = torch.einsum("bse,ehd->bshd", kv_src, params["wv"].reshape(E, n_kv, head_dim))
+    k = _project(kv_src, params["wk"], n_kv, head_dim)
+    v = _project(kv_src, params["wv"], n_kv, head_dim)
     if "bk" in params:
         k = k + params["bk"].reshape(n_kv, head_dim)
         v = v + params["bv"].reshape(n_kv, head_dim)
@@ -242,6 +342,11 @@ def attention_apply(params, x, *, n_heads, n_kv, head_dim, causal=True, window=N
     if cache is not None:
         new_cache = cache.append(k, v, positions)
         k, v = new_cache.dequant()
+        # the (B, Hkv, C, D) views: batch over data; heads over model where
+        # they divide it, else the cache's sequence
+        kv_tags = (("dp", "tp", None, None) if k.shape[1] % sharding.tp_size() == 0
+                   else ("dp", None, "tp", None))
+        k, v = constrain(k, kv_tags), constrain(v, kv_tags)
         o = chunked_attention(q, k, v, causal=causal, window=window, q_positions=positions,
                               k_positions=new_cache.positions, chunk=chunk)
     elif use_pallas and S % 128 == 0 and context is None:

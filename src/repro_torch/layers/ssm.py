@@ -14,6 +14,11 @@ stays bounded in fp32 (chunk 32: exp(11.2) at most).  Mamba2's per-head
 scalar decay uses the exact segment-sum mask (at most 1), its log decay
 clamped at -20.
 
+On placed (DTensor) inputs the chunked scans run on each rank's shards
+(``train.sharding.shard_local``): batch over the data axes, heads over
+'model' where they divide it.  A scan is local along both, and run through
+DTensor's ops its per-chunk einsums would reshard at every chunk.
+
 ``CHUNK_OVERRIDE`` is the reference's calibration hook: ``launch.calibrate``
 sets a chunk hint there, which both chunked forms read in place of their
 ``chunk``.  Its ``SCAN_UNROLL`` has no counterpart: the chunk loop is a
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import resolve_device
+from repro_torch.train import sharding
 
 from . import _draw
 from .shapes import MAMBA_CHUNK, RWKV_CHUNK
@@ -66,8 +72,19 @@ class Mamba2State(NamedTuple):
 
 def _causal_conv(x, conv_w, conv_state=None):
     """Depthwise causal convolution of width 4.  x: (B, S, D); returns
-    (silu(y), the last 3 inputs)."""
+    (silu(y), the last 3 inputs).  Placed, it runs on each rank's shards
+    (batch over 'dp', channels over 'tp'): the product of the inputs with a
+    channel-sharded ``conv_w`` row broadcast over (B, S) is refused by
+    DTensor in torch 2.11."""
     B, S, D = x.shape
+    ch = ("dp", None, "tp")
+    return sharding.shard_local(_conv_local, [(x, ch), (conv_w, (None, "tp")),
+                                              (conv_state, ch)],
+                                (ch, ch), ((B, S, D), (B, 3, D)))
+
+
+def _conv_local(x, conv_w, conv_state):
+    S = x.shape[1]
     if conv_state is None:
         xp = F.pad(x, (0, 0, 3, 0))
     else:
@@ -84,6 +101,42 @@ def _segsum_exp(log_a):
     diff = cs[..., :, None] - cs[..., None, :]
     mask = torch.ones((L, L), dtype=torch.bool, device=log_a.device).tril()
     return torch.where(mask, torch.exp(diff), 0.0)
+
+
+def _mamba2_chunks(xdt, Bc, Cc, log_a, s, *, chunk: int):
+    """The chunked scan: xdt (B, S, H, P), Bc and Cc (B, S, N), log_a (B, S,
+    H), the state s (B, H, P, N) or None for zeros.  Returns (y (B, S,
+    H·P), the final state), fp32."""
+    B, S, H, head_dim = xdt.shape
+    N = Bc.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        Bc = F.pad(Bc, (0, 0, 0, pad))
+        Cc = F.pad(Cc, (0, 0, 0, pad))
+        log_a = F.pad(log_a, (0, 0, 0, pad))
+    nch = (S + pad) // chunk
+    xdt_c = xdt.reshape(B, nch, chunk, H, head_dim).permute(1, 0, 3, 2, 4)
+    B_c = Bc.reshape(B, nch, chunk, N).transpose(0, 1)
+    C_c = Cc.reshape(B, nch, chunk, N).transpose(0, 1)
+    la_c = log_a.reshape(B, nch, chunk, H).permute(1, 0, 3, 2)             # (n, B, H, L)
+
+    if s is None:
+        s = torch.zeros((B, H, head_dim, N), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for c in range(nch):
+        xdt_b, Bb, Cb, lab = xdt_c[c], B_c[c], C_c[c], la_c[c]
+        Lmat = _segsum_exp(lab)                                           # (B, H, L, L)
+        att = torch.einsum("bln,bmn->blm", Cb, Bb)[:, None] * Lmat
+        y_intra = torch.einsum("bhlm,bhmp->bhlp", att, xdt_b)
+        cum = torch.cumsum(lab, dim=-1)                                   # (B, H, L)
+        y_inter = torch.einsum("bln,bhl,bhpn->bhlp", Cb, torch.exp(cum), s)
+        decay_out = torch.exp(cum[..., -1:] - cum)                        # (B, H, L)
+        s = s * torch.exp(cum[..., -1])[..., None, None] + torch.einsum(
+            "bhl,bhlp,bln->bhpn", decay_out, xdt_b, Bb)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, nch * chunk, H * head_dim)[:, :S]
+    return y, s
 
 
 def mamba2_apply(params, x, state: Mamba2State | None = None, d_state: int = 64,
@@ -115,33 +168,13 @@ def mamba2_apply(params, x, state: Mamba2State | None = None, d_state: int = 64,
         y = torch.einsum("bhpn,bn->bhp", s_new, Cc[:, 0]).reshape(B, 1, d_inner)
         new_state = Mamba2State(s_new, new_conv)
     else:
-        pad = (-S) % chunk
-        if pad:
-            xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
-            Bc = F.pad(Bc, (0, 0, 0, pad))
-            Cc = F.pad(Cc, (0, 0, 0, pad))
-            log_a = F.pad(log_a, (0, 0, 0, pad))
-        nch = (S + pad) // chunk
-        xdt_c = xdt.reshape(B, nch, chunk, H, head_dim).permute(1, 0, 3, 2, 4)
-        B_c = Bc.reshape(B, nch, chunk, N).transpose(0, 1)
-        C_c = Cc.reshape(B, nch, chunk, N).transpose(0, 1)
-        la_c = log_a.reshape(B, nch, chunk, H).permute(1, 0, 3, 2)         # (n, B, H, L)
-
-        s = (state.ssm if state is not None
-             else torch.zeros((B, H, head_dim, N), dtype=torch.float32, device=x.device))
-        ys = []
-        for c in range(nch):
-            xdt_b, Bb, Cb, lab = xdt_c[c], B_c[c], C_c[c], la_c[c]
-            Lmat = _segsum_exp(lab)                                       # (B, H, L, L)
-            att = torch.einsum("bln,bmn->blm", Cb, Bb)[:, None] * Lmat
-            y_intra = torch.einsum("bhlm,bhmp->bhlp", att, xdt_b)
-            cum = torch.cumsum(lab, dim=-1)                               # (B, H, L)
-            y_inter = torch.einsum("bln,bhl,bhpn->bhlp", Cb, torch.exp(cum), s)
-            decay_out = torch.exp(cum[..., -1:] - cum)                    # (B, H, L)
-            s = s * torch.exp(cum[..., -1])[..., None, None] + torch.einsum(
-                "bhl,bhlp,bln->bhpn", decay_out, xdt_b, Bb)
-            ys.append(y_intra + y_inter)
-        y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, nch * chunk, H * head_dim)[:, :S]
+        h = "tp" if H % sharding.tp_size() == 0 else None
+        heads = ("dp", None, h, None)
+        y, s = sharding.shard_local(
+            lambda *a: _mamba2_chunks(*a, chunk=chunk),
+            [(xdt, heads), (Bc, ("dp", None, None)), (Cc, ("dp", None, None)),
+             (log_a, heads[:3]), (state.ssm if state is not None else None, ("dp", h, None, None))],
+            (("dp", None, h), ("dp", h, None, None)), ((B, S, d_inner), (B, H, head_dim, N)))
         new_state = Mamba2State(s, new_conv)
 
     # the gated RMSNorm output (Mamba2 style)
@@ -187,6 +220,43 @@ def _token_shift(x, prev):
     return torch.cat([pv, x[:, :-1]], dim=1)
 
 
+def _rwkv6_chunks(rf, kf, vf, log_w, u, s, *, chunk: int):
+    """The chunked scan: r, k, v and the log decay (B, S, H, K) fp32, the
+    bonus u (H, K), the state s (B, H, K, V) or None for zeros.  Returns
+    (y (B, S, H·V), the final state), fp32."""
+    B, S, H, K = rf.shape
+    V = vf.shape[-1]
+    if s is None:
+        s = torch.zeros((B, H, K, V), dtype=torch.float32, device=rf.device)
+    pad = (-S) % chunk
+    if pad:
+        rf, kf, vf, log_w = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (rf, kf, vf, log_w))
+    nch = (S + pad) // chunk
+
+    def shp(t):
+        return t.reshape(B, nch, chunk, H, K).permute(1, 0, 3, 2, 4)       # (n, B, H, L, K)
+
+    r_c, k_c, v_c, lw_c = shp(rf), shp(kf), shp(vf), shp(log_w)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=rf.device).tril(-1)
+    ys = []
+    for c in range(nch):
+        rb, kb, vb, lwb = r_c[c], k_c[c], v_c[c], lw_c[c]                 # (B, H, L, K)
+        lc = torch.cumsum(lwb, dim=2)                                     # inclusive
+        lc_prev = lc - lwb                                                # up to t - 1
+        r_t = rb * torch.exp(lc_prev)
+        k_t = kb * torch.exp(-lc)
+        scores = torch.einsum("bhtk,bhsk->bhts", r_t, k_t)
+        y_intra = torch.einsum("bhts,bhsv->bhtv", torch.where(mask, scores, 0.0), vb)
+        y_diag = torch.einsum("bhtk,bhtv->bhtv", rb * u[None, :, None, :] * kb, vb)
+        y_inter = torch.einsum("bhtk,bhkv->bhtv", r_t, s)
+        a_end = torch.exp(lc[:, :, -1])                                   # (B, H, K)
+        k_end = kb * torch.exp(lc[:, :, -1:] - lc)                        # decay from s to L
+        s = s * a_end[..., None] + torch.einsum("bhsk,bhsv->bhkv", k_end, vb)
+        ys.append(y_intra + y_diag + y_inter)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, nch * chunk, H * V)[:, :S]
+    return y, s
+
+
 def rwkv6_apply(params, x, state: RWKV6State | None = None, head_dim: int = 64,
                 chunk: int = RWKV_CHUNK):
     """The time-mix block.  x: (B, S, E) -> (y, new_state)."""
@@ -211,10 +281,9 @@ def rwkv6_apply(params, x, state: RWKV6State | None = None, head_dim: int = 64,
     u = params["bonus_u"]                                          # (H, K)
 
     rf, kf, vf = r.float(), k.float(), v.float()
-    s = (state.wkv if state is not None
-         else torch.zeros((B, H, K, V), dtype=torch.float32, device=x.device))
 
     if S == 1 and state is not None:
+        s = state.wkv
         # the exact recurrence: out = r . (S_prev + u k (x) v); S = w S_prev + k (x) v
         wkv = s + torch.einsum("bhk,bhv->bhkv", u[None] * kf[:, 0], vf[:, 0])
         out_t = torch.einsum("bhk,bhkv->bhv", rf[:, 0], wkv)
@@ -222,32 +291,13 @@ def rwkv6_apply(params, x, state: RWKV6State | None = None, head_dim: int = 64,
             "bhk,bhv->bhkv", kf[:, 0], vf[:, 0])
         y = out_t.reshape(B, 1, E)
     else:
-        pad = (-S) % chunk
-        if pad:
-            rf, kf, vf, log_w = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (rf, kf, vf, log_w))
-        nch = (S + pad) // chunk
-
-        def shp(t):
-            return t.reshape(B, nch, chunk, H, K).permute(1, 0, 3, 2, 4)   # (n, B, H, L, K)
-
-        r_c, k_c, v_c, lw_c = shp(rf), shp(kf), shp(vf), shp(log_w)
-        mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril(-1)
-        ys = []
-        for c in range(nch):
-            rb, kb, vb, lwb = r_c[c], k_c[c], v_c[c], lw_c[c]             # (B, H, L, K)
-            lc = torch.cumsum(lwb, dim=2)                                 # inclusive
-            lc_prev = lc - lwb                                            # up to t - 1
-            r_t = rb * torch.exp(lc_prev)
-            k_t = kb * torch.exp(-lc)
-            scores = torch.einsum("bhtk,bhsk->bhts", r_t, k_t)
-            y_intra = torch.einsum("bhts,bhsv->bhtv", torch.where(mask, scores, 0.0), vb)
-            y_diag = torch.einsum("bhtk,bhtv->bhtv", rb * u[None, :, None, :] * kb, vb)
-            y_inter = torch.einsum("bhtk,bhkv->bhtv", r_t, s)
-            a_end = torch.exp(lc[:, :, -1])                               # (B, H, K)
-            k_end = kb * torch.exp(lc[:, :, -1:] - lc)                    # decay from s to L
-            s = s * a_end[..., None] + torch.einsum("bhsk,bhsv->bhkv", k_end, vb)
-            ys.append(y_intra + y_diag + y_inter)
-        y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, nch * chunk, E)[:, :S]
+        h = "tp" if H % sharding.tp_size() == 0 else None
+        heads = ("dp", None, h, None)
+        y, s = sharding.shard_local(
+            lambda *a: _rwkv6_chunks(*a, chunk=chunk),
+            [(rf, heads), (kf, heads), (vf, heads), (log_w, heads), (u, (h, None)),
+             (state.wkv if state is not None else None, ("dp", h, None, None))],
+            (("dp", None, h), ("dp", h, None, None)), ((B, S, E), (B, H, K, V)))
 
     y = (y.reshape(B, -1, E) * g).to(x.dtype)
     out = torch.einsum("bse,ef->bsf", y, params["w_o"])

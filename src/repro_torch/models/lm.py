@@ -33,6 +33,15 @@ double its memory and write all of it each step):
 
 The whisper decoder recomputes its cross-attention K and V from
 ``encoder_out`` at every step: the reference keeps no cross cache.
+
+Parameters, tokens and caches placed across devices (DTensors on a
+``DeviceMesh``, ``train.sharding.place``) run the same code: the
+reference's ``constrain`` sites (the embedded tokens, the residual stream
+between blocks, the logits over the vocab) redistribute them to the
+activation axes that ``train.sharding.set_activation_axes`` set.  The
+embedding's rows come from the table placed (tp, fsdp), gathered whole
+(``_embed``), and each stacked leaf's one ``unbind`` splits its lead dim,
+which no spec shards.  Plain tensors run as they did.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ from repro_torch.layers.ssm import (
     rwkv6_channel_mix_init,
     rwkv6_init,
 )
+from repro_torch.train import sharding
 from repro_torch.train.sharding import constrain
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -69,6 +79,26 @@ def _norm_init(cfg: ArchConfig, dim=None, *, device):
 
 def _norm(cfg: ArchConfig, p, x):
     return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
+
+
+def _gathered(cfg: ArchConfig, x):
+    """A normed residual stream before the products that read it: under
+    Megatron-style sequence parallelism (``cfg.seq_parallel``, the residual's
+    sequence over 'model' between blocks) its sequence is gathered here, as
+    Megatron-SP all-gathers before a column-parallel product; DTensor (torch
+    2.11) refuses to flatten (B, S) for a product with S sharded.  The
+    identity otherwise, and on a plain tensor."""
+    return constrain(x, ("dp", None, None)) if cfg.seq_parallel else x
+
+
+def _scattered(cfg: ArchConfig, x):
+    """A sublayer's output before it joins the residual stream: under
+    sequence parallelism its sequence goes back over 'model' (Megatron-SP's
+    reduce-scatter after a row-parallel product), so that the gradient
+    comes back through this redistribute with the sequence whole, as the
+    sublayer's reshapes need it (torch 2.11).  The identity otherwise, and
+    on a plain tensor."""
+    return constrain(x, ("dp", "tp", None)) if cfg.seq_parallel else x
 
 
 # ===========================================================================
@@ -220,14 +250,14 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -
 # ===========================================================================
 def _attn_block(cfg: ArchConfig, p, h, positions, cache, context=None):
     a, new_cache = attention_apply(
-        p["attn"], _norm(cfg, p["ln1"], h),
+        p["attn"], _gathered(cfg, _norm(cfg, p["ln1"], h)),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.resolved_head_dim,
         causal=context is None, window=cfg.swa_window or None,
         rope_theta=cfg.rope_theta if context is None else 0.0,
         positions=positions, cache=cache, context=context,
     )
-    h = h + a
-    hn = _norm(cfg, p["ln2"], h)
+    h = h + _scattered(cfg, a)
+    hn = _gathered(cfg, _norm(cfg, p["ln2"], h))
     if cfg.n_experts:
         f = moe_apply(p["moe"], hn, top_k=cfg.top_k)
         if cfg.dense_residual:
@@ -236,7 +266,7 @@ def _attn_block(cfg: ArchConfig, p, h, positions, cache, context=None):
         f = swiglu(p["mlp"], hn)
     else:
         f = gelu_mlp(p["mlp"], hn)
-    return h + f, new_cache
+    return h + _scattered(cfg, f), new_cache
 
 
 def _rwkv_block(cfg: ArchConfig, p, h, state):
@@ -324,6 +354,18 @@ def _scan_blocks(cfg: ArchConfig, fn, h, stacked, caches, n: int):
     return h, new
 
 
+def _embed(table, tokens):
+    """The table's rows of ``tokens`` (B, S).  A placed table is gathered
+    whole and each rank looks up its batch shard's rows
+    (``train.sharding.shard_local``): DTensor's index and embedding
+    strategies fail on a table sharded on both dims (the index's backward,
+    an accumulating ``index_put``, in torch 2.11; the embedding's masked
+    partial sum in 2.13)."""
+    return sharding.shard_local(lambda t, ids: t[ids.long()],
+                                [(table, (None, None)), (tokens, ("dp", None))],
+                                ("dp", None, None), (*tokens.shape, table.shape[1]))
+
+
 def forward(cfg: ArchConfig, params, tokens, *, positions=None, caches=None,
             frontend_embeds=None, encoder_out=None, last_only: bool = False):
     """Returns (logits, new_caches, encoder_out).
@@ -337,7 +379,7 @@ def forward(cfg: ArchConfig, params, tokens, *, positions=None, caches=None,
     dtype = DTYPES[cfg.param_dtype]
     B, S = tokens.shape
     dev = tokens.device
-    h = constrain(params["embed"][tokens.long()], ("dp", None, None))
+    h = constrain(_embed(params["embed"], tokens), ("dp", None, None))
 
     if cfg.frontend == "vision" and frontend_embeds is not None:
         patches = torch.einsum("bnf,fe->bne", frontend_embeds.to(dtype), params["frontend_proj"])
@@ -427,7 +469,7 @@ def forward(cfg: ArchConfig, params, tokens, *, positions=None, caches=None,
     else:
         raise ValueError(cfg.block_pattern)
 
-    h = _norm(cfg, params["final_norm"], h)
+    h = _gathered(cfg, _norm(cfg, params["final_norm"], h))
     if last_only:
         h = h[:, -1:]  # avoid materializing (B, S, V) logits in prefill
     logits = torch.einsum("bse,ev->bsv", h, params["lm_head"]).float()

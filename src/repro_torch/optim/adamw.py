@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.train import sharding
 from repro_torch.tree import leaves, map_with_path
 
 
@@ -64,9 +65,13 @@ def init_opt_state(cfg: OptConfig, params) -> OptState:
     as ``params``, on each parameter's device; ``step`` a 0-d int32 on the
     first parameter's."""
 
+    def zero(x):
+        if sharding.is_dtensor(x):  # on the parameter's placements
+            return torch.zeros_like(x, dtype=torch.float32)
+        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+
     def zeros(tree):
-        return map_with_path(
-            lambda _, x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), tree)
+        return map_with_path(lambda _, x: zero(x), tree)
 
     dev = leaves(params)[0].device
     return OptState(
@@ -88,7 +93,7 @@ def compress_int8(g, error):
 def _compress(g, error):
     """(dequantized, int8 levels, scale, new error) of ``g + error``."""
     gc = g + error
-    scale = torch.clamp(gc.abs().max(), min=1e-12) / 127.0
+    scale = torch.clamp(sharding.full(gc.abs().max()), min=1e-12) / 127.0
     q = torch.round(gc / scale).to(torch.int8)
     deq = q.to(torch.float32) * scale
     return deq, q, scale, gc - deq
@@ -102,8 +107,21 @@ def apply_updates(cfg: OptConfig, state: OptState, params, grads):
     place and returned (the new state holds a new ``step``); ``grads`` (any
     float dtype, in ``params``' structure) are read, not written.  With
     ``compress_grads`` every gradient is first replaced by its int8
-    compression with error feedback, and the norm and update read those."""
-    p_l, g_l = leaves(params), leaves(grads)
+    compression with error feedback, and the norm and update read those.
+
+    Placed parameters (DTensors, ``train.sharding.place``) take the same
+    code under ``sharding.spmd``, their moments and error feedback on their
+    placements (``init_opt_state``): each gradient is first redistributed
+    to its parameter's placements (``sharding.like``: a reduce-scatter of
+    a partial sum), and the global norm and each leaf's compression scale
+    are full tensors, the one-device values."""
+    with sharding.spmd(params):
+        return _apply_updates(cfg, state, params, grads)
+
+
+def _apply_updates(cfg: OptConfig, state: OptState, params, grads):
+    p_l = leaves(params)
+    g_l = [sharding.like(g, p) for g, p in zip(leaves(grads), p_l)]
     m_l, v_l = leaves(state.m), leaves(state.v)
     if not len(p_l) == len(g_l) == len(m_l) == len(v_l):
         raise ValueError("params, grads and the moments must have the same leaves")
@@ -124,7 +142,7 @@ def apply_updates(cfg: OptConfig, state: OptState, params, grads):
         def grad(i):
             return g_l[i].float()
 
-    sq = [grad(i).square().sum() for i in range(len(p_l))]
+    sq = [sharding.full(grad(i).square().sum()) for i in range(len(p_l))]
     gnorm = torch.sqrt(torch.stack(sq).sum())
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1

@@ -348,4 +348,4 @@ def test_calibrated_cost_refuses_a_larger_mesh():
     with pytest.raises(NotImplementedError, match="not ported"):
         calibrate.calibrated_cost(get_config("granite-3-2b").reduced(),
                                   ShapeSpec("x", 64, 4, "train"), Mesh(), microbatches=2)
-    assert "item 11" in NOT_PORTED
+    assert "item 13" in NOT_PORTED

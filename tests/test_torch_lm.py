@@ -339,17 +339,34 @@ def test_kv_caches_are_written_in_place_and_ssm_states_come_back_new():
 
 
 class _Mesh:
+    axis_names = ("data", "model")
+
     def __init__(self, *shape):
         self.devices = np.empty(shape, dtype=object)
 
 
 def test_sharding_is_the_identity_on_one_device_and_refuses_more():
+    """``constrain`` returns a plain tensor itself, with no axes set, with a
+    one-device mesh's and with a larger mesh's, whose sizes it reads:
+    nothing is placed, so nothing is redistributed.  What still refuses a
+    mesh of more than one device is the dry run's counted half
+    (``NOT_PORTED``)."""
+    from repro_torch.launch import calibrate
+    from repro_torch.configs.base import ShapeSpec
+
     x = torch.ones(2, 3)
     sharding.set_activation_axes(None)
     assert sharding.constrain(x, ("dp", None)) is x
     sharding.set_activation_axes(_Mesh(1, 1))
     assert sharding.constrain(x, ("dp", "tp")) is x
-    for shape in ((2, 1), (1, 4)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    try:
+        for shape in ((2, 1), (1, 4)):
             sharding.set_activation_axes(_Mesh(*shape))
+            assert (sharding.dp_size(), sharding.tp_size()) == shape
+            assert sharding.constrain(x, ("dp", "tp")) is x
+            with pytest.raises(NotImplementedError, match="not ported"):
+                calibrate.calibrated_cost(get_config("granite-3-2b").reduced(),
+                                          ShapeSpec("x", 64, 4, "train"), _Mesh(*shape))
+    finally:
+        sharding.set_activation_axes(None)
     assert sharding.constrain(x, ("dp", "tp")) is x
