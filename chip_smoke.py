@@ -86,7 +86,12 @@ with nvcc first (one nvcc per source, in parallel):
   ``train_work``'s, the predicted peak to ``torch.cuda.max_memory_allocated``
   over an uncounted step, each placed on the card's data-sheet peaks beside
   the step's median from the train and lm phases (D2, D3); none launching
-  the port's kernels;
+  the port's kernels; then the dry run on the reference's production meshes
+  (D4): granite-3-2b's decode_32k through ``lower_cell`` on (16, 16) and a
+  train cell on (2, 16, 16), each counted as rank 0's program on ``meta``
+  shards under a ``fake`` process group opened and closed inside the phase,
+  the decode's products times 256 held equal to one device's and each raw
+  count held to the calibrated one;
 * the api phase: ``examples/torch_stencil_codegen.main`` at the
   paper's domains (one ``repro_torch.api.price`` sweep of both paths' 168
   launches, then ``star_pointwise`` and ``lbm_pointwise`` at the winners
@@ -3969,6 +3974,21 @@ DRY_WORK_REL = 1e-9
 DRY_PEAK_BAND = (0.85, 1.05)
 
 
+# D4: the dry run on the reference's production meshes (DeviceMeshes over a
+# fake group, rank 0's program counted on meta shards).  The train cell is
+# T1's sequence at a batch the (2, 16, 16) mesh's 32 data ranks divide (one
+# row a rank, one microbatch): T1's own batch of 8 leaves DTensor planning
+# strided redistributions for minutes (torch 2.13 on a CPU), train_4k's 8
+# microbatches take 150 s.
+DRY_MESH_DECODE = "decode_32k"
+DRY_MESH_TRAIN_BATCH = 32
+# the train cell's raw product FLOPs over the calibrated ones on the mesh:
+# beside the one-device causes (DRY_TRAIN_RAW_BAND), DTensor picks the
+# backward's products' strategies apart from the forward's that calibrate's
+# 4 x forward counts; read 1.1666 on torch 2.13 (a CPU)
+DRY_MESH_TRAIN_RAW_BAND = (0.90, 1.25)
+
+
 def dry_machine(torch):
     """The card's data-sheet peaks as a ``core.machines.TPUMachine``
     record for ``report_from_values``: bf16 at ``PEAK_BF16_FLOPS``, fp32
@@ -4207,6 +4227,91 @@ def run_dryrun(args, torch, dev, t1_ms: float, m1_ms: float) -> None:
         raise AssertionError(f"the dryrun phase launched the port's kernels {launched}")
     say(f"dryrun: D1-D3 in {time.perf_counter() - t0:.1f} s, launching none of the port's "
         "kernels")
+
+
+def run_dryrun_meshes(args, torch, dev) -> None:
+    """The dryrun phase's D4: ``launch.dryrun.lower_cell`` of granite-3-2b's
+    ``DRY_MESH_DECODE`` on (16, 16), its products times 256 held equal to
+    one device's count (every product divides) and its raw FLOPs to the
+    calibrated ones; then a train cell (``DRY_MESH_TRAIN_BATCH`` x
+    ``TRAIN_SEQ``) on (2, 16, 16), its raw products held to the calibrated
+    ones (``DRY_MESH_TRAIN_RAW_BAND``).  Each mesh is a ``DeviceMesh`` on
+    the CPU over a ``fake`` group that ``launch.dryrun.counting_mesh``
+    opens and closes, so none may be open before or after; counted on meta
+    shards, nothing is allocated.  It launches none of the port's kernels,
+    and checks that it did not."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import calibrate, dryrun
+    from repro_torch.tree import leaves
+
+    if dist.is_initialized():
+        raise AssertionError("dryrun D4: a process group is open before the phase")
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg = dryrun.get_config(DRY_ARCH)
+    p = dryrun.params_struct(cfg)
+    n_params = sum(t.numel() for t in leaves(p))
+
+    shape = SHAPES[DRY_MESH_DECODE]
+    one = dryrun.step_cost(cfg, shape, p)
+    t = time.perf_counter()
+    row = dryrun.lower_cell(DRY_ARCH, DRY_MESH_DECODE, multi_pod=False)
+    secs = time.perf_counter() - t
+    raw = row["raw_cost_analysis"]
+    n_chips = 256
+    if raw["dot_flops"] * n_chips != one.dot_flops:
+        raise AssertionError(f"dryrun D4 {DRY_MESH_DECODE}: products {raw['dot_flops']!r} a "
+                             f"device x {n_chips} are not one device's {one.dot_flops!r}")
+    step_rel = rel_close(raw["flops"], row["hlo_gflops"] * 1e9, DRY_STEP_REL,
+                         f"dryrun D4 {DRY_MESH_DECODE} raw FLOPs against the calibrated")
+    coll = row["collectives"]
+    if not coll or raw["coll_wire_bytes"] <= 0:
+        raise AssertionError(f"dryrun D4 {DRY_MESH_DECODE}: no collective counted on the mesh")
+    say(f"dryrun D4 {DRY_ARCH}/{DRY_MESH_DECODE} on {row['mesh']} ({n_chips} ranks, "
+        f"a fake group): lower_cell in {secs:.2f} s ({row['compile_s']:.2f} s the step's "
+        f"count); a device {row['hlo_gflops'] / 1e3:.6f} TFLOP calibrated, raw "
+        f"{raw['flops'] / 1e12:.6f} ({step_rel!r} apart, bound {DRY_STEP_REL}); products "
+        f"x {n_chips} = one device's {one.dot_flops / 1e12:.4f} TFLOP exactly; "
+        f"collectives {sum(v['count'] for v in coll.values()):.0f}, wire "
+        f"{row['coll_wire_GB']:.4f} GB (raw {raw['coll_wire_bytes'] / 1e9:.4f}: " + ", ".join(
+            f"{k} {v['count']:.0f} for {v['wire_bytes'] / 1e9:.4f} GB"
+            for k, v in sorted(coll.items()))
+        + f"); predicted peak {row['memory']['peak_bytes'] / 2**30:.3f} GiB; dominant "
+        f"{row['dominant']}")
+
+    shape = ShapeSpec("D4", TRAIN_SEQ, DRY_MESH_TRAIN_BATCH, "train")
+    t = time.perf_counter()
+    with dryrun.counting_mesh(True) as mesh:
+        mb = dryrun.train_microbatches(cfg, shape, mesh)
+        cost = dryrun.step_cost(cfg, shape, p, mb, mesh)
+        count_s = time.perf_counter() - t
+        cal = calibrate.calibrated_cost(cfg, shape, mesh, microbatches=mb, n_params=n_params)
+        name = dryrun.mesh_name(mesh)
+    secs = time.perf_counter() - t
+    if dist.is_initialized():
+        raise AssertionError("dryrun D4: the fake group outlived counting_mesh")
+    ratio = cost.dot_flops / cal.detail["dot_flops"]
+    if not DRY_MESH_TRAIN_RAW_BAND[0] <= ratio <= DRY_MESH_TRAIN_RAW_BAND[1]:
+        raise AssertionError(f"dryrun D4 train: raw over calibrated product FLOPs {ratio!r} "
+                             f"outside {DRY_MESH_TRAIN_RAW_BAND}")
+    wire = cost.collectives["total"]["wire_bytes"]
+    if wire <= 0:
+        raise AssertionError("dryrun D4 train: no collective counted on the mesh")
+    say(f"dryrun D4 {DRY_ARCH} train {DRY_MESH_TRAIN_BATCH} x {TRAIN_SEQ} on {name} (512 "
+        f"ranks, {mb} microbatch(es), remat {cfg.remat}): counted in {count_s:.2f} s, "
+        f"calibrated after, {secs:.2f} s in all; a device {cal.flops / 1e12:.4f} TFLOP "
+        f"calibrated, raw {cost.flops / 1e12:.4f} (products {ratio:.4f}x the calibrated, band "
+        f"{DRY_MESH_TRAIN_RAW_BAND}; {cost.ops} ops); collectives "
+        f"{cost.collectives['total']['count']:.0f}, wire {wire / 1e9:.4f} GB raw, "
+        f"{cal.coll_wire / 1e9:.4f} GB calibrated; predicted peak "
+        f"{cost.peak_bytes / 2**30:.3f} GiB (arguments {cost.argument_bytes / 2**30:.3f})")
+    launched = {k: n for module in kernel_modules() for k, n in module.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"dryrun D4 launched the port's kernels {launched}")
+    say(f"dryrun: D4 in {time.perf_counter() - t0:.1f} s, launching none of the port's kernels")
 
 
 STREAM_L2_BYTES = 8 * 2**20             # a read footprint the 50 MB L2 holds
@@ -5615,6 +5720,7 @@ def main(argv=None) -> int:
     run_shard(args, torch, dev, t1_ms, t1_peak)
     torch.cuda.empty_cache()
     run_dryrun(args, torch, dev, t1_ms, m1_ms)
+    run_dryrun_meshes(args, torch, dev)
     torch.cuda.empty_cache()
     api_launches, reads, priced = run_api(args, torch, dev)
     for k in kernels:

@@ -33,12 +33,27 @@ is the storages of the arguments; ``temp_bytes`` the peak of every other
 storage live at once (each tracked by a weak reference to its storage, so
 tensors that autograd saves count until the backward frees them);
 ``peak_bytes`` their sum, as ``core.roofline`` takes XLA's.
+
+A step over DTensors (``train.sharding.place`` on a ``DeviceMesh``) is
+counted as one rank's program, XLA's per-device ``cost_analysis()`` and
+``memory_analysis()`` of the SPMD-partitioned module: the mode lets DTensor
+dispatch first (``NotImplemented``, as ``CommDebugMode`` does), so it sees
+the local ops on each rank's shards and the ``_c10d_functional``
+collectives of DTensor's redistributions, and the arguments' and outputs'
+sizes are their local shards'.  DTensor's sharding propagation, which runs
+an op once at global shapes on ``FakeTensor``s the first time it meets
+those shapes, is counted nowhere, so the counts do not depend on what its
+cache has seen.  The process group's rank 0 stands for every device:
+where a dim does not divide its mesh dims, its shard is the largest
+(``torch.chunk``'s ceil), as XLA pads every shard to that size.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -119,11 +134,17 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _storages(tree) -> dict:
-    """{storage key: bytes} of the tensors in ``tree``."""
+    """{storage key: bytes} of the tensors in ``tree``.  A DTensor counts
+    its local shard by the shard's own bytes: ``distribute_tensor`` may cut
+    it as a view of the whole leaf's storage."""
     out = {}
     for t in _tensors(tree):
-        st = t.untyped_storage()
-        out[st._cdata] = st.nbytes()
+        local = getattr(t, "_local_tensor", None)
+        if local is not None:
+            out[local.untyped_storage()._cdata] = _nbytes(local)
+        else:
+            st = t.untyped_storage()
+            out[st._cdata] = st.nbytes()
     return out
 
 
@@ -151,9 +172,20 @@ class _Einsums(TorchFunctionMode):
             self.counter.in_einsum -= 1
 
 
+def _propagating(ins: list) -> bool:
+    """Whether an op on the tensors ``ins`` runs under DTensor's sharding
+    propagation: a fake mode active, or ``FakeTensor`` arguments."""
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return True
+    return any(isinstance(t, FakeTensor) for t in ins)
+
+
 class _Counter(TorchDispatchMode):
     def __init__(self, arguments: dict):
         super().__init__()
+        from torch.distributed.tensor import DTensor
+
+        self.dtensor = DTensor
         self.cost = Cost(argument_bytes=sum(arguments.values()))
         self.arguments = arguments
         self.in_einsum = 0
@@ -228,11 +260,29 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        if any(issubclass(t, self.dtensor) for t in types):
+            return NotImplemented   # DTensor runs first; its local ops come back here
+        ins = _tensors(kwargs, _tensors(args))
+        if _propagating(ins):
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
-        ins, outs = _tensors(kwargs, _tensors(args)), _tensors(out)
+        outs = _tensors(out)
         self._count(func, args, kwargs, out, ins, outs)
         self._track(ins, outs)
         return out
+
+
+def _nonzero_at_most():
+    """On ``meta`` a data-dependent ``nonzero`` (a placed cache's write,
+    ``layers.attention._write_shard``) is taken at its largest, every
+    element nonzero: rank 0 writes what the rank holding the slot does."""
+    from torch.fx.experimental import _config
+
+    if hasattr(_config, "meta_nonzero_assume_all_nonzero"):
+        return _config.patch(meta_nonzero_assume_all_nonzero=True)
+    return contextlib.nullcontext()
 
 
 def count_cost(fn, *args, **kwargs):
@@ -248,7 +298,7 @@ def count_cost(fn, *args, **kwargs):
                            "of composite ops; use torch.no_grad()")
     arguments = _storages((args, kwargs))
     counter = _Counter(arguments)
-    with _Einsums(counter), counter:
+    with _nonzero_at_most(), _Einsums(counter), counter:
         out = fn(*args, **kwargs)
     counter._sweep()
     c = counter.cost

@@ -22,13 +22,17 @@ counterpart: eager PyTorch runs, and counts, every chunk.  A block's
 numbers are ``BlockCost``s, whose first three fields are the reference's
 ``(flops, bytes, coll_wire)``.
 
-The counted half reads one device's program: on a mesh of more than one
-device ``calibrated_cost`` raises ``NotImplementedError``
-(``train.sharding.NOT_PORTED``), since its counts would have to be per
-device, where a dispatch mode around a DTensor step sees the global ops
-and no collective.  ``analytic_bytes`` and its constants are the
-reference's, unchanged: they read only a mesh's axis names and sizes
-(either kind of mesh), so they hold for any mesh.
+On a ``DeviceMesh`` (``launch.mesh.make_production_mesh``, a ``fake``
+group on the CPU) each block's arguments are placed by the reference's
+specs (``train.sharding.place``, ``meta`` shards) under the mesh's
+activation axes, and ``count_cost`` counts one rank's program: its local
+products, bytes and memory, and the collectives DTensor issues for its
+redistributions, as the reference's per-device ``cost_analysis()`` and
+HLO collectives.  A one-device mesh record places nothing; a record of
+more than one device cannot place, and raises ``ValueError``.
+``analytic_bytes`` and its constants are the reference's, unchanged: they
+read only a mesh's axis names and sizes (either kind of mesh), so they hold
+for any mesh.
 """
 from __future__ import annotations
 
@@ -46,15 +50,19 @@ from repro_torch.layers.attention import KVCache, attention_apply, attention_ini
 from repro_torch.layers.norms import rmsnorm
 from repro_torch.layers.ssm import Mamba2State, RWKV6State
 from repro_torch.models import lm as lm_mod
+from repro_torch.train import sharding
 from repro_torch.train.sharding import (
-    NOT_PORTED,
     axis_names,
-    mesh_shape,
     constrain,
+    is_device_mesh,
     make_cache_shardings,
     make_param_shardings,
+    mesh_shape,
+    place,
+    spec_at,
 )
 from repro_torch.train.step import xent
+from repro_torch.tree import map_with_path
 
 TRAIN_MULT = 4.0  # fwd + remat recompute + dx + dw
 META = torch.device("meta")
@@ -83,20 +91,31 @@ def _mesh_devices(mesh) -> int:
 
 
 def _cost_of(fn, args, in_shardings, mesh, chunk_hint: int | None = None) -> BlockCost:
-    """``count_cost`` of ``fn(*args)`` under the chunk hint.  ``in_shardings``
-    are the reference's specs of the arguments; on one device, the only
-    mesh counted here, they place nothing."""
-    if _mesh_devices(mesh) != 1:
-        raise NotImplementedError(NOT_PORTED)
-    del in_shardings
+    """``count_cost`` of ``fn(*args)`` under the chunk hint.  On a
+    ``DeviceMesh`` each argument is placed by its spec in ``in_shardings``
+    (the reference's ``in_shardings``) and the activation axes are the
+    mesh's while it runs, under ``train.sharding.spmd`` as the steps run:
+    one rank's program is counted.  On a one-device
+    record the arguments stay plain tensors."""
+    placed = is_device_mesh(mesh)
+    if not placed and _mesh_devices(mesh) != 1:
+        raise ValueError(f"counting on a mesh of {_mesh_devices(mesh)} devices needs a "
+                         "DeviceMesh (launch.mesh.make_production_mesh) to place the "
+                         f"arguments on; got {type(mesh).__name__}")
+    before = sharding.activation_mesh()
     attn_mod.CHUNK_OVERRIDE[0] = chunk_hint
     ssm_mod.CHUNK_OVERRIDE[0] = chunk_hint
     try:
-        with torch.no_grad():
+        if placed:
+            sharding.set_activation_axes(mesh)
+            args = tuple(place(a, s, mesh) for a, s in zip(args, in_shardings, strict=True))
+        with torch.no_grad(), sharding.spmd(args):
             _, cost = count_cost(fn, *args)
     finally:
         attn_mod.CHUNK_OVERRIDE[0] = None
         ssm_mod.CHUNK_OVERRIDE[0] = None
+        if placed:
+            sharding.set_activation_axes(before)
     return BlockCost(cost.flops, cost.bytes, float(cost.collectives["total"]["wire_bytes"]),
                      cost.dot_flops, cost)
 
@@ -168,8 +187,8 @@ def _layer_fwd_cost(cfg: ArchConfig, mesh, B, S, decode_cache_len: int | None = 
     cap = min(decode_cache_len, cfg.swa_window) if cfg.swa_window else decode_cache_len
     if pattern == "attn":
         cache = KVCache.init(B, cfg.n_kv, cap, cfg.resolved_head_dim, device=META)
-        stacked = lm_mod._map(lambda x: x[None], cache)
-        c_shard = lm_mod._map(lambda s: s[1:], make_cache_shardings(stacked, mesh))
+        stacked = make_cache_shardings(lm_mod._map(lambda x: x[None], cache), mesh)
+        c_shard = map_with_path(lambda path, _: spec_at(stacked, path)[1:], cache)
 
         def f(lp, h, positions, cache):
             return lm_mod._attn_block(cfg, lp, h, positions, cache)[0]
@@ -240,7 +259,7 @@ def _head_fwd_cost(cfg: ArchConfig, mesh, B, S, with_loss: bool) -> BlockCost:
     t_shard = _dp_sharding(mesh, 2, B)
 
     def f(p, tokens):
-        h = constrain(p["embed"][tokens.long()], ("dp", None, None))
+        h = constrain(lm_mod._embed(p["embed"], tokens), ("dp", None, None))
         h = rmsnorm(p["final_norm"], h)
         if not with_loss:
             h = h[:, -1:]
@@ -266,8 +285,6 @@ def _parts(cfg: ArchConfig, lf: BlockCost, layer) -> list:
 def calibrated_cost(cfg: ArchConfig, shape: ShapeSpec, mesh, microbatches: int = 1,
                     n_params: float = 0.0) -> CellCost:
     n_chips = _mesh_devices(mesh)
-    if n_chips != 1:
-        raise NotImplementedError(NOT_PORTED)
     B = shape.global_batch
     detail = {}
 

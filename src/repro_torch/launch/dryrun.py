@@ -5,28 +5,30 @@ Counts one (architecture x input shape x mesh) cell on ``meta`` stand-ins
 cost analysis and the collective schedule for the roofline, as the
 reference's does from a lowered and compiled program:
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --local \
-        --arch granite-3-2b --shape decode_32k [--out out.json]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --local --all
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --local --sweep --arch A
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \
+        --arch granite-3-2b --shape decode_32k [--multi-pod] [--out out.json]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --sweep --arch A
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --local --arch A --shape S
 
 A dry run has two halves.  The analytic half (``count_params``,
 ``model_flops``, ``input_specs``, the int8-cache choice and
 ``launch.calibrate.analytic_bytes``) reads only a mesh's axis sizes, and
 holds for every mesh.  The counted half (per-device FLOPs, bytes,
 collectives and memory, ``core.cost.count_cost``) reads one device's
-program: ``--local`` prices the port's one card (``make_local_mesh``).
-Without it the reference's production meshes, (16, 16) and (2, 16, 16),
-raise ``NotImplementedError`` (``train.sharding.NOT_PORTED``) and the
-command exits nonzero: the port applies those meshes
-(``launch.mesh.make_production_mesh``, a ``DeviceMesh`` over a ``fake``
-group on the CPU), but counting one device's program of a DTensor step is
-still to come.  Rows go to
+program.  By default a cell is counted on the reference's production mesh,
+(16, 16) or (2, 16, 16) with ``--multi-pod``: a ``DeviceMesh`` on the CPU
+over a ``fake`` process group of 256 or 512 ranks (``counting_mesh``), the
+step's parameters, optimiser state, batch and caches placed by the
+reference's specs as ``meta`` shards, and rank 0's program counted, the
+collectives DTensor issues included.  ``--local`` counts the port's one
+card instead (``make_local_mesh``, plain tensors).  Rows go to
 ``experiments/dryrun_torch`` by default, apart from the reference's.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -42,10 +44,19 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.cost import count_cost
 from repro_torch.core.roofline import analyze_cost, report_from_values
 from repro_torch.launch.calibrate import analytic_bytes, calibrated_cost
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models.lm import init_caches, init_params
 from repro_torch.optim.adamw import OptConfig, init_opt_state
-from repro_torch.train.sharding import NOT_PORTED, axis_names, mesh_shape, set_activation_axes
+from repro_torch.train.sharding import (
+    axis_names,
+    is_device_mesh,
+    make_batch_shardings,
+    make_cache_shardings,
+    make_param_shardings,
+    mesh_shape,
+    place,
+    set_activation_axes,
+)
 from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
 from repro_torch.tree import flatten_with_path, leaves
 
@@ -199,43 +210,90 @@ def train_microbatches(cfg: ArchConfig, shape: ShapeSpec, mesh) -> int:
     return mb
 
 
-def step_cost(cfg: ArchConfig, shape: ShapeSpec, p_struct, microbatches: int = 1):
+def step_cost(cfg: ArchConfig, shape: ShapeSpec, p_struct, microbatches: int = 1, mesh=None):
     """``count_cost`` of the cell's whole step on ``meta``: the train step
     (``microbatches``, the optimiser's update included), the prefill step
-    or the decode step, on ``cell_input_specs``' stand-ins."""
+    or the decode step, on ``cell_input_specs``' stand-ins.  On a
+    ``DeviceMesh`` the parameters (and the moments, which follow them),
+    batch and caches are placed by the reference's specs, the tokens of a
+    batch-1 prefill sequence-sharded as the reference's are, and one rank's
+    program is counted."""
     spec = cell_input_specs(cfg, shape)
+    placed = is_device_mesh(mesh)
+
+    def batch(tree, shard_seq=False):
+        if not placed:
+            return tree
+        return place(tree, make_batch_shardings(tree, mesh, shard_seq=shard_seq), mesh)
+
+    params = place(p_struct, make_param_shardings(p_struct, mesh), mesh) if placed else p_struct
+    if placed and "caches" in spec:
+        spec["caches"] = place(spec["caches"], make_cache_shardings(spec["caches"], mesh), mesh)
     if shape.kind == "train":
-        opt = init_opt_state(OptConfig(), p_struct)
+        opt = init_opt_state(OptConfig(), params)
         step = make_train_step(cfg, OptConfig(), microbatches=microbatches)
-        return count_cost(step, p_struct, opt, spec)[1]
+        return count_cost(step, params, opt, batch(spec))[1]
     with torch.no_grad():
         if shape.kind == "prefill":
             cap = shape.seq_len if not cfg.swa_window else min(shape.seq_len, cfg.swa_window)
-            args = [spec["tokens"]] + ([spec["frontend"]] if cfg.frontend else [])
-            return count_cost(make_prefill_step(cfg, cap), p_struct, *args)[1]
-        args = [spec["token"], spec["caches"], spec["positions"]]
+            args = [batch(spec["tokens"], shard_seq=shape.global_batch == 1)]
+            if cfg.frontend:
+                args.append(batch(spec["frontend"]))
+            return count_cost(make_prefill_step(cfg, cap), params, *args)[1]
+        args = [batch(spec["token"]), spec["caches"], batch(spec["positions"])]
         if cfg.enc_layers:
-            args.append(spec["encoder_out"])
-        return count_cost(make_decode_step(cfg), p_struct, *args)[1]
+            args.append(batch(spec["encoder_out"]))
+        return count_cost(make_decode_step(cfg), params, *args)[1]
 
 
 def mesh_name(mesh) -> str:
     return "x".join(str(d) for d in mesh_shape(mesh))
 
 
+@contextlib.contextmanager
+def counting_mesh(multi_pod: bool):
+    """The reference's production mesh, (16, 16) or (2, 16, 16), as a
+    ``DeviceMesh`` on the CPU with its activation axes set.  Where no
+    process group is initialised a ``fake`` group of 256 or 512 ranks (this
+    process rank 0, which runs no collective) is opened for it and
+    destroyed after, and the axes are unset, also on an error.  A group of
+    another size raises ``launch.mesh.make_mesh``'s ``RuntimeError``."""
+    import torch.distributed as dist
+
+    opened = not dist.is_initialized()
+    if opened:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=512 if multi_pod else 256)
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        set_activation_axes(mesh)
+        yield mesh
+    finally:
+        set_activation_axes(None)
+        if opened:
+            dist.destroy_process_group()
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool, local: bool = False) -> dict:
-    """The reference's row for one cell.  ``local`` counts it on the port's
-    one card (a 1 x 1 mesh of ``meta``); the production mesh's count raises
-    ``NotImplementedError`` (``NOT_PORTED``)."""
+    """The reference's row for one cell, counted on the production mesh
+    (``counting_mesh``), or with ``local`` on the port's one card (a 1 x 1
+    mesh of ``meta``)."""
+    if local:
+        mesh = make_local_mesh(META)
+        set_activation_axes(mesh)
+        return _row(arch, shape_name, mesh)
+    with counting_mesh(multi_pod) as mesh:
+        return _row(arch, shape_name, mesh)
+
+
+def _row(arch: str, shape_name: str, mesh) -> dict:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     kv_int8 = kv_int8_for(cfg, shape)
     if kv_int8:
         cfg = dataclasses.replace(cfg, kv_int8=True)
-    if not local:
-        raise NotImplementedError(NOT_PORTED)
-    mesh = make_local_mesh(META)
-    set_activation_axes(mesh)
     n_chips = math.prod(mesh_shape(mesh))
     p_struct = params_struct(cfg)
     n_params = sum(math.prod(leaf.shape) for leaf in leaves(p_struct))
@@ -243,7 +301,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, local: bool = False)
     name = f"{arch}/{shape_name}/{mesh_name(mesh)}"
 
     t0 = time.time()
-    cost = step_cost(cfg, shape, p_struct, mb_used)
+    cost = step_cost(cfg, shape, p_struct, mb_used, mesh)
     compile_s = time.time() - t0
     mf = model_flops(cfg, shape, p_struct)
 
@@ -402,16 +460,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.local and args.multi_pod:
         ap.error("--local counts one card; --multi-pod names the (2, 16, 16) mesh")
-    try:
-        if args.sweep:
-            failed = sweep_arch(args.arch, args.out_dir, local=args.local)
-            sys.exit(1 if failed else 0)
-        if args.all:
-            failed = orchestrate(args.out_dir, args.jobs, local=args.local)
-            sys.exit(1 if failed else 0)
-        row = lower_cell(args.arch, args.shape, args.multi_pod, local=args.local)
-    except NotImplementedError as e:
-        sys.exit(f"dryrun: {e}")
+    if args.sweep:
+        failed = sweep_arch(args.arch, args.out_dir, local=args.local)
+        sys.exit(1 if failed else 0)
+    if args.all:
+        failed = orchestrate(args.out_dir, args.jobs, local=args.local)
+        sys.exit(1 if failed else 0)
+    row = lower_cell(args.arch, args.shape, args.multi_pod, local=args.local)
     print(json.dumps({k: v for k, v in row.items() if k != "collectives"}, indent=1))
     if args.out:
         with open(args.out, "w") as f:

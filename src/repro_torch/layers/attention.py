@@ -74,12 +74,20 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_positions=None,
     On placed (DTensor) inputs it runs on each rank's shards
     (``train.sharding.shard_local``): batch over the data axes, KV heads
     over 'model' where they divide it (the decode scores' heads over
-    'model', as the reference constrains them), else replicated there.  The
-    decode form with KV heads that 'model' does not divide runs as DTensor
-    ops, its scores constrained as the reference's are: the cache's
-    sequence over 'model' (a flash-decoding-style partial softmax).
+    'model', as the reference constrains them).  Where they do not but the
+    query heads do (granite's 8 KV heads on a 'model' axis of 16), each KV
+    head is repeated for its group and the query heads go over 'model';
+    else the heads are replicated there.  The decode form with KV heads
+    that 'model' does not divide runs as DTensor ops (``_decode_placed``):
+    the cache's sequence over 'model', a flash-decoding partial softmax.
     """
-    h = "tp" if k.shape[1] % sharding.tp_size() == 0 else None
+    tp = sharding.tp_size()
+    h = "tp" if k.shape[1] % tp == 0 else None
+    if sharding.is_dtensor(q) and q.shape[2] > 4 and not h and q.shape[1] % tp == 0:
+        # each KV head repeated for its group: a rank holds its query heads'
+        group = q.shape[1] // k.shape[1]
+        k, v = (x[:, :, None].expand(-1, -1, group, -1, -1).flatten(1, 2) for x in (k, v))
+        h = "tp"
     if sharding.is_dtensor(q) and (q.shape[2] > 4 or h):
         heads = ("dp", h, None, None)
 
@@ -120,6 +128,8 @@ def _chunked_attention(q, k, v, *, causal, window, q_positions, k_positions, chu
             valid = valid & ((qpos - kpos) < window)
         return valid
 
+    if Sq <= 4 and sharding.is_dtensor(q):
+        return _decode_placed(q, k, v, valid_of(k_positions), scale)
     qf = q.float().reshape(B, Hkv, group, Sq, D)
     if Sq <= 4:
         # decode: the (B, H, Sq, Skv) scores are small enough for one pass
@@ -156,6 +166,25 @@ def _chunked_attention(q, k, v, *, causal, window, q_positions, k_positions, chu
         acc = acc * corr[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def _decode_placed(q, k, v, valid, scale):
+    """The decode form on placed inputs whose KV heads 'model' does not
+    divide: flash-decoding over the cache's sequence, sharded over 'model'.
+    The scores stay sharded as the cache is, and the softmax's max and sum
+    and the output are reduced over 'model' (all-reduces of a row each).
+    The reference constrains the scores' heads over 'model' where the query
+    heads divide it; a DTensor cannot shard the (KV heads, group) pair the
+    scores split them into when 'model' divides neither, so the queries are
+    gathered on their heads and the scores keep the sequence."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    qf = constrain(q, ("dp", None, None, None)).float().reshape(B, Hkv, Hq // Hkv, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    s = constrain(torch.where(valid, s, NEG_INF), ("dp", None, None, None, "tp"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / p.sum(dim=-1)[..., None]
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
@@ -295,7 +324,7 @@ def _project(x, w, n: int, head_dim: int):
     the product is taken flat and gathered on 'model' before it is split
     into heads: a shard would hold part of a head."""
     if sharding.is_dtensor(w) and n % sharding.tp_size():
-        y = constrain(torch.einsum("bse,ef->bsf", x, w), ("dp", None, None))
+        y = sharding.redistribute(torch.einsum("bse,ef->bsf", x, w), ("dp", None, None))
         return y.reshape(*y.shape[:2], n, head_dim)
     return torch.einsum("bse,ehd->bshd", x, w.reshape(w.shape[0], n, head_dim))
 

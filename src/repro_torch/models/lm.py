@@ -96,9 +96,15 @@ def _scattered(cfg: ArchConfig, x):
     sequence parallelism its sequence goes back over 'model' (Megatron-SP's
     reduce-scatter after a row-parallel product), so that the gradient
     comes back through this redistribute with the sequence whole, as the
-    sublayer's reshapes need it (torch 2.11).  The identity otherwise, and
-    on a plain tensor."""
-    return constrain(x, ("dp", "tp", None)) if cfg.seq_parallel else x
+    sublayer's reshapes need it (torch 2.11).  Otherwise the row-parallel
+    product's partial sum is reduced (Megatron's all-reduce), the batch
+    keeping the data axes where they divide it: left to itself DTensor
+    reduce-scatters it onto the sequence, which the next products flatten
+    into a strided shard (refused by torch 2.11, and minutes to plan on a
+    3-D mesh in torch 2.13).  The identity on a plain tensor."""
+    if cfg.seq_parallel:
+        return constrain(x, ("dp", "tp", None))
+    return sharding.redistribute(x, ("dp", None, None))
 
 
 # ===========================================================================

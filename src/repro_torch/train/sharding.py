@@ -34,23 +34,17 @@ experts) runs on each rank's shards through ``shard_local``, with no
 DTensor op inside; the layers read the axes' sizes through ``dp_size``
 and ``tp_size``.
 
-What is not applied is the dry run's counted half on the production meshes
-(``launch.calibrate.calibrated_cost``, ``launch.dryrun.lower_cell``):
-``NOT_PORTED``.  Its analytic half reads a mesh's axis sizes only
-(``launch.dryrun``'s model_flops and input specs,
-``launch.calibrate.analytic_bytes``) and takes any mesh.
+The dry run's counted half (``launch.calibrate.calibrated_cost``,
+``launch.dryrun.lower_cell``) places its stand-ins by these specs on the
+production meshes (``meta`` shards under a ``fake`` group) and counts one
+rank's program (``core.cost.count_cost``); its analytic half reads a mesh's
+axis sizes only and takes any mesh.
 """
 from __future__ import annotations
 
 import contextlib
 
 from repro_torch.tree import flatten_with_path, map_with_path, unflatten
-
-NOT_PORTED = ("the dry run's counted half on a mesh of more than one device is not ported "
-              "yet: counting one device's program of a DTensor step comes with ROADMAP "
-              "queue 1 item 13 (a mesh's axis sizes are read without counting by the dry "
-              "run's analytic half: launch.dryrun's model_flops and input specs, "
-              "launch.calibrate.analytic_bytes)")
 
 # the reference's logical activation axes, and the mesh they were set from
 _ACT = {"mesh": None, "dp": None, "tp": None, "dp_size": 1, "tp_size": 1}
@@ -98,6 +92,12 @@ def set_activation_axes(mesh) -> None:
         dp_size *= sizes[a]
     _ACT.update(mesh=mesh, dp=dp, tp="model" if "model" in sizes else None,
                 dp_size=dp_size, tp_size=sizes.get("model", 1))
+
+
+def activation_mesh():
+    """The mesh the activation axes were set from (``None`` where none
+    were)."""
+    return _ACT["mesh"]
 
 
 def dp_size() -> int:
@@ -276,6 +276,17 @@ def constrain(x, tags):
     if all(s is None for s in spec) or not is_dtensor(x):
         return x
     return _redistribute(x, spec)
+
+
+def redistribute(x, tags):
+    """``x`` redistributed to the spec its logical ``tags`` name
+    (``constrain``'s rules), also where every tag degrades: then to
+    replication, partial sums reduced.  For a reshape that splits a dim a
+    mesh dim shards unevenly, which a DTensor cannot view.  A plain tensor,
+    or no axes set, as it is."""
+    if not is_dtensor(x) or (_ACT["dp"] is None and _ACT["tp"] is None):
+        return x
+    return _redistribute(x, _tag_spec(x.shape, tags))
 
 
 def shard_local(fn, args, out_tags, out_shape):

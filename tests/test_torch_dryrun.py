@@ -4,10 +4,12 @@ against the reference's (``repro.launch.dryrun``, ``repro.launch.calibrate``).
 The analytic half (``count_params``, ``model_flops``, ``cell_input_specs``,
 ``analytic_bytes``) equals the reference's exactly for the ten full configs,
 every valid cell and the (1, 1), (16, 16) and (2, 16, 16) meshes (stand-in
-records of sizes on both sides).  The counted half runs on one device: the
-command's ``--local`` row, ``NOT_PORTED`` without it, and the raw
-whole-step count against the calibrated one, where the bands come from the
-reduced configs (as these comparisons read when the bounds were set):
+records of sizes on both sides).  The counted half: the command's
+``--local`` row (one device) and its row without ``--local`` (the (16, 16)
+production mesh, ``tests/test_torch_dryrun_mesh.py`` for the rest), and the
+raw whole-step count against the calibrated one on one device, where the
+bands come from the reduced configs (as these comparisons read when the
+bounds were set):
 
 * prefill and decode: equal for the attention archs (1.0000) and a
   recurrent arch's decode (1.0000-1.0004), within ``STEP_REL``.  The
@@ -45,7 +47,6 @@ from repro_torch.configs import SHAPES, get_config, valid_cells  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import calibrate, dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
-from repro_torch.train.sharding import NOT_PORTED  # noqa: E402
 from repro_torch.tree import flatten_with_path, leaves  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -218,11 +219,23 @@ def test_command_local_row_has_the_reference_keys(tmp_path):
 
 
 def test_command_without_local_names_not_ported(tmp_path):
-    res = _command("--arch", "granite-3-2b", "--shape", "decode_32k", tmp_path=tmp_path)
-    assert res.returncode != 0
-    assert NOT_PORTED in res.stderr
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dryrun.lower_cell("granite-3-2b", "decode_32k", multi_pod=True)
+    """The command without ``--local`` counts granite-3-2b's decode_32k on
+    the (16, 16) production mesh (a ``fake`` group of 256 in its process):
+    it exits 0 and writes the reference's keys, mesh "16x16" and the
+    collectives it counted."""
+    from repro.core.roofline import report_from_values as ref_report
+
+    out = tmp_path / "row.json"
+    res = _command("--arch", "granite-3-2b", "--shape", "decode_32k", "--out", str(out),
+                   tmp_path=tmp_path)
+    assert res.returncode == 0, res.stderr[-2000:]
+    row = json.loads(out.read_text())
+    assert set(row) == set(ref_report("x", 1.0, 1.0, 0.0, 1).row()) | ROW_KEYS
+    assert (row["mesh"], row["kv_int8"]) == ("16x16", False)
+    assert row["collectives"] and all(v["count"] > 0 for v in row["collectives"].values())
+    assert row["coll_wire_GB"] > 0 and row["t_collective_s"] > 0
+    assert row["raw_cost_analysis"]["flops"] == pytest.approx(row["hlo_gflops"] * 1e9,
+                                                              rel=STEP_REL)
 
 
 def test_smoke_dryrun_phase_runs_on_the_cpu_at_reduced_size(monkeypatch, capsys):

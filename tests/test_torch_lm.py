@@ -348,9 +348,9 @@ class _Mesh:
 def test_sharding_is_the_identity_on_one_device_and_refuses_more():
     """``constrain`` returns a plain tensor itself, with no axes set, with a
     one-device mesh's and with a larger mesh's, whose sizes it reads:
-    nothing is placed, so nothing is redistributed.  What still refuses a
-    mesh of more than one device is the dry run's counted half
-    (``NOT_PORTED``)."""
+    nothing is placed, so nothing is redistributed.  What refuses a record
+    of more than one device is the dry run's counted half, which needs a
+    ``DeviceMesh`` to place its stand-ins on (``ValueError``)."""
     from repro_torch.launch import calibrate
     from repro_torch.configs.base import ShapeSpec
 
@@ -364,7 +364,7 @@ def test_sharding_is_the_identity_on_one_device_and_refuses_more():
             sharding.set_activation_axes(_Mesh(*shape))
             assert (sharding.dp_size(), sharding.tp_size()) == shape
             assert sharding.constrain(x, ("dp", "tp")) is x
-            with pytest.raises(NotImplementedError, match="not ported"):
+            with pytest.raises(ValueError, match="DeviceMesh"):
                 calibrate.calibrated_cost(get_config("granite-3-2b").reduced(),
                                           ShapeSpec("x", 64, 4, "train"), _Mesh(*shape))
     finally:
