@@ -32,6 +32,13 @@ with nvcc first (one nvcc per source, in parallel):
   the GEMMs are also timed in turns with ``torch.matmul``, and the prefill's
   two tiles in turns with ``F.scaled_dot_product_attention``, since the
   card slows under sustained tensor-core load;
+* the tpu phase ("tpu P1"), after the paths: the TPU side of the
+  generators, each paper-loop generator's Pallas space ranked with
+  ``tpu_rank_configs`` on the TPU v5e at the paths' domains and dtypes (the
+  stencil's and the LBM's fp64, Jacobi's fp64 and fp32, the transpose's
+  fp32), the TPU winner's config run on the card by the path's entry
+  point and held to its plain version, its kernel timed beside its bound
+  and the H100-ranked launch of the same phase;
 * the layers phase: the rest of the layer library at the full width of
   the repo's configs, bf16, random weights from ``--seed``: granite-3-2b's
   rmsnorm and SwiGLU and whisper-base's layernorm and GELU MLP against
@@ -2460,6 +2467,243 @@ def run_attention(args, torch, dev) -> list:
     torch.cuda.empty_cache()
     run_layer(args, torch, dev)
     return kernels
+
+
+# the TPU side of the generators ("tpu P1"): each paper-loop generator's
+# Pallas space ranked on the TPU v5e at the smoke's own domains, and the TPU
+# winner's config run by the port's entry point on the card
+TPU_P1 = (("stencil", 8), ("lbm", 8), ("jacobi", 8), ("jacobi", 4), ("transpose", 4))
+
+
+def tpu_p1_stencil(torch, dev, gen, cfg: dict, eb: int) -> dict:
+    """The stencil's TPU winner ``cfg`` through ``star_stencil`` on the card,
+    then timed on the pre-padded input beside the H100-ranked launch and,
+    for a new record, ``F.conv3d``."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.machines import H100
+    from repro_torch.kernels.stencil3d25 import kernel as K
+    from repro_torch.kernels.stencil3d25.generator import best_config
+    from repro_torch.kernels.stencil3d25.ops import star_stencil, zmarch_tile
+    from repro_torch.kernels.stencil3d25.ref import pad_input, star_stencil_ref, star_weights
+
+    dtype = torch.float64 if eb == 8 else torch.float32
+    src = torch.randn(DOMAIN, dtype=torch.float64, device=dev, generator=gen).to(dtype)
+    w = star_weights(R, dtype, dev)
+    padded = pad_input(src, R)
+    want = star_stencil_ref(padded, w, R)
+    reset_counts()
+    out = star_stencil(src, w, r=R, config=cfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    err = check(torch, out, want, eb, f"tpu P1 star_stencil({cfg}) fp{eb * 8}")
+    del out, want
+    h100 = best_config(R, DOMAIN, eb, H100).launch
+    if cfg["variant"] == "replane":
+        kernel, launch = "star_pointwise", h100
+        run = lambda: K.star_pointwise(padded, w, R, launch)  # noqa: E731
+        name, what = "star_pointwise", f"block {launch.block} folding {launch.folding}"
+    else:
+        tile = zmarch_tile(cfg, R, DOMAIN, eb)
+        kernel, route = "star_zmarch", K.LAST_ZMARCH["route"]
+        run = lambda: K.star_zmarch(padded, w, R, *tile)  # noqa: E731
+        name = (f"star_zmarch[ring,{route}]" if cfg["variant"] == "ring"
+                else f"star_zmarch[ytile_ring,ty={cfg['ty']},{route}]")
+        what = f"tile {tile[0]}x{tile[1]}, route {route}"
+    x5, conv_w = padded.view(1, 1, *padded.shape), star_conv_weight(torch, w, R)
+    return dict(
+        name=name, kernel=kernel, launches=launches, err=err, what=what, ms=cuda_ms(torch, run),
+        h100_ms=cuda_ms(torch, lambda: K.star_pointwise(padded, w, R, h100)), h100=h100,
+        bound=bound(padded, R), source=SOURCE, replaces=REPLACES[cfg["variant"]],
+        plain=lambda: star_stencil_ref(padded, w, R), library=lambda: F.conv3d(x5, conv_w))
+
+
+def tpu_p1_lbm(torch, dev, gen, cfg: dict, eb: int) -> dict:
+    """The LBM's TPU winner ``cfg`` through ``lbm_step`` on the card, on
+    independent random PDFs, then timed like the stencil's."""
+    from repro_torch.core.machines import H100
+    from repro_torch.kernels.lbm_d3q15 import kernel as LK
+    from repro_torch.kernels.lbm_d3q15.generator import best_config
+    from repro_torch.kernels.lbm_d3q15.ops import lbm_step
+    from repro_torch.kernels.lbm_d3q15.ref import lbm_step_ref, pad_inputs
+
+    dtype = torch.float64 if eb == 8 else torch.float32
+    phase = torch.sigmoid(torch.randn(LBM_DOMAIN, dtype=torch.float64, device=dev,
+                                      generator=gen)).to(dtype)
+    pdf = torch.rand((15, *LBM_DOMAIN), dtype=torch.float64, device=dev,
+                     generator=gen).to(dtype)
+    pdf_p, phase_p = pad_inputs(pdf, phase)
+    want, want_phase = lbm_step_ref(pdf_p, phase_p)
+    reset_counts()
+    out, out_phase = lbm_step(pdf, phase, config=cfg)
+    torch.cuda.synchronize()
+    launches = dict(LK.LAUNCHES)
+    err = max(check(torch, out, want, eb, f"tpu P1 lbm_step({cfg}) fp{eb * 8} PDFs"),
+              check(torch, out_phase, want_phase, eb, f"tpu P1 lbm_step({cfg}) fp{eb * 8} phase"))
+    del out, out_phase, want, want_phase, pdf, phase
+    h100 = best_config(LBM_DOMAIN, eb, H100).launch
+    if cfg["variant"] == "replane":
+        kernel, name, launch = "lbm_pointwise", "lbm_pointwise", h100
+        run = lambda: LK.lbm_pointwise(pdf_p, phase_p, launch)  # noqa: E731
+        what = f"block {launch.block} folding {launch.folding}"
+    else:
+        tile = LK.ytile_tile(cfg["ty"], eb)
+        kernel, name = "lbm_ytile", f"lbm_ytile[ty={cfg['ty']}]"
+        run = lambda: LK.lbm_ytile(pdf_p, phase_p, *tile)  # noqa: E731
+        what = ytile_line(LK, LK.LAST_YTILE, eb)
+    return dict(
+        name=name, kernel=kernel, launches=launches, err=err, what=what, ms=cuda_ms(torch, run),
+        h100_ms=cuda_ms(torch, lambda: LK.lbm_pointwise(pdf_p, phase_p, h100)), h100=h100,
+        bound=lbm_bound(pdf_p, phase_p), source=LBM_SOURCE, replaces=LBM_REPLACES[cfg["variant"]],
+        plain=lambda: lbm_step_ref(pdf_p, phase_p), library=None)
+
+
+def tpu_p1_jacobi(torch, dev, gen, cfg: dict, eb: int) -> dict:
+    """The Jacobi sweep's TPU winner ``cfg`` through ``jacobi_step`` on the
+    card, then timed like the stencil's, beside ``F.conv2d``."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.machines import H100
+    from repro_torch.kernels.jacobi2d import kernel as JK
+    from repro_torch.kernels.jacobi2d.generator import best_config
+    from repro_torch.kernels.jacobi2d.ops import jacobi_step
+    from repro_torch.kernels.jacobi2d.ref import jacobi_padded_ref, pad_input
+
+    dtype = torch.float64 if eb == 8 else torch.float32
+    src = torch.randn(JACOBI_DOMAIN, dtype=torch.float64, device=dev, generator=gen).to(dtype)
+    padded = pad_input(src)
+    want = jacobi_padded_ref(padded, JACOBI_WEIGHTS)
+    reset_counts()
+    out = jacobi_step(src, JACOBI_WEIGHTS, cfg)
+    torch.cuda.synchronize()
+    launches = dict(JK.LAUNCHES)
+    err = check(torch, out, want, eb, f"tpu P1 jacobi_step({cfg}) fp{eb * 8}")
+    del out, want
+    h100 = best_config(JACOBI_DOMAIN, eb, H100).launch
+    prefix = "" if eb == 8 else "fp32,"
+    if cfg["variant"] == "rowstream":
+        kernel, launch = "jacobi_pointwise", h100
+        name = "jacobi_pointwise" if eb == 8 else "jacobi_pointwise[fp32]"
+        run = lambda: JK.jacobi_pointwise(padded, launch, JACOBI_WEIGHTS)  # noqa: E731
+        what = f"block {launch.block} folding {launch.folding}"
+    else:
+        tile = JK.ytile_tile(cfg["ty"], eb)
+        kernel, name = "jacobi_ytile", f"jacobi_ytile[{prefix}ty={cfg['ty']}]"
+        run = lambda: JK.jacobi_ytile(padded, *tile, JACOBI_WEIGHTS)  # noqa: E731
+        what = jacobi_ring_line(JK.LAST_YTILE)
+    x4 = padded.view(1, 1, *padded.shape)
+    weight = jacobi_conv_weight(torch, dtype, dev)
+    return dict(
+        name=name, kernel=kernel, launches=launches, err=err, what=what, ms=cuda_ms(torch, run),
+        h100_ms=cuda_ms(torch, lambda: JK.jacobi_pointwise(padded, h100, JACOBI_WEIGHTS)),
+        h100=h100, bound=jacobi_bound(padded), source=JACOBI_SOURCE,
+        replaces=JACOBI_REPLACES[cfg["variant"]],
+        plain=lambda: jacobi_padded_ref(padded, JACOBI_WEIGHTS),
+        library=lambda: F.conv2d(x4, weight))
+
+
+def tpu_p1_transpose(torch, dev, gen, cfg: dict, eb: int) -> dict:
+    """The transpose's TPU winner ``cfg`` through ``transpose`` on the card,
+    held bit for bit, then timed beside the H100-ranked launch; the plain
+    version, ``x.mT.contiguous()``, is also the library call."""
+    from repro_torch.core.machines import H100
+    from repro_torch.kernels.transpose_pad import kernel as TK
+    from repro_torch.kernels.transpose_pad.generator import best_config
+    from repro_torch.kernels.transpose_pad.ops import transpose
+    from repro_torch.kernels.transpose_pad.ref import transpose_ref
+
+    dtype = torch.float64 if eb == 8 else torch.float32
+    x = torch.randn(TRANSPOSE_SHAPE, dtype=torch.float64, device=dev, generator=gen).to(dtype)
+    reset_counts()
+    out = transpose(x, cfg)
+    torch.cuda.synchronize()
+    launches = dict(TK.LAUNCHES)
+    err = check_exact(torch, out, transpose_ref(x), f"tpu P1 transpose({cfg}) fp{eb * 8}")
+    del out
+    h100 = best_config(TRANSPOSE_SHAPE, eb, H100).launch
+    bm, bn = cfg["bm"], cfg["bn"]
+    prefix = "" if eb == 4 else "fp64,"
+    return dict(
+        name=f"transpose_tiled[{prefix}{bm}x{bn}]", kernel="transpose_tiled",
+        launches=launches, err=err, what=f"tile {bm}x{bn}",
+        ms=cuda_ms(torch, lambda: TK.transpose_tiled(x, bm, bn)),
+        h100_ms=cuda_ms(torch, lambda: TK.transpose_pointwise(x, h100)), h100=h100,
+        bound=(2 * x.numel() * eb / HBM_BYTES_PER_S * 1e3, "bytes"), source=TRANSPOSE_SOURCE,
+        replaces=TRANSPOSE_REPLACES, plain=lambda: transpose_ref(x),
+        library=lambda: transpose_ref(x))
+
+
+def run_tpu(args, torch, dev, kernels: list) -> list:
+    """The "tpu P1" phase: each paper-loop generator's TPU space ranked with
+    ``tpu_rank_configs`` on the TPU v5e at the smoke's domains (host
+    seconds, candidates ranked and skipped, the winner's predicted time and
+    limiter), the winner's config run by the port's entry point on the card
+    and held to its plain version, its kernel timed on the pre-padded input
+    beside its bound and the H100-ranked launch.  A refused config fails
+    the phase.  The launches go onto the record of the kernel and config
+    the path phases ran (``tpu_launches``, ``tpu_ms``); a winner no path
+    runs gets a record of its own, measured here.  Returns the new records."""
+    from repro_torch.core.machines import TPU_V5E
+    from repro_torch.kernels.jacobi2d import generator as jacobi_gen
+    from repro_torch.kernels.lbm_d3q15 import generator as lbm_gen
+    from repro_torch.kernels.stencil3d25 import generator as stencil_gen
+    from repro_torch.kernels.transpose_pad import generator as transpose_gen
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    paths = {
+        "stencil": (stencil_gen, (R, DOMAIN), tpu_p1_stencil, f"r={R} {DOMAIN}"),
+        "lbm": (lbm_gen, (LBM_DOMAIN,), tpu_p1_lbm, f"{LBM_DOMAIN}"),
+        "jacobi": (jacobi_gen, (JACOBI_DOMAIN,), tpu_p1_jacobi, f"{JACOBI_DOMAIN}"),
+        "transpose": (transpose_gen, (TRANSPOSE_SHAPE,), tpu_p1_transpose, f"{TRANSPOSE_SHAPE}"),
+    }
+    records = []
+    for path, eb in TPU_P1:
+        module, shape, drive, where = paths[path]
+        t0 = time.perf_counter()
+        ranked = module.tpu_rank_configs(*shape, TPU_V5E, eb)
+        t_rank = time.perf_counter() - t0
+        n_cands = len(list(module.tpu_candidate_specs(*shape, eb)))
+        if not ranked:
+            raise AssertionError(f"tpu P1 {path}: no TPU candidate of {n_cands} fits")
+        top = ranked[0]
+        cfg, est = top.config, top.estimate
+        say(f"tpu P1 {path} {where} fp{eb * 8}: tpu_rank_configs on {TPU_V5E.name} in "
+            f"{t_rank:.4f} s, {len(ranked)} ranked, {n_cands - len(ranked)} skipped (VMEM); "
+            f"winner {cfg} predicted {est.total_time * 1e3:.4f} ms on the TPU v5e "
+            f"({est.limiter}-limited)")
+        torch.cuda.synchronize()
+        run = drive(torch, dev, gen, cfg, eb)
+        count = run["launches"].get(run["kernel"], 0)
+        if count < 1:
+            raise AssertionError(f"tpu P1 {path}: the entry point at {cfg} launched no "
+                                 f"{run['kernel']}: {run['launches']}")
+        b_ms, b_by = run["bound"]
+        say(f"tpu P1 {path} fp{eb * 8}: the entry point at {cfg} launched {run['kernel']} "
+            f"{count}x ({run['what']}); max abs error {run['err']!r} (tolerance "
+            f"{'bit-exact' if path == 'transpose' else TOL[eb]}); {run['kernel']} "
+            f"{run['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / run['ms'] * 100:.1f}% "
+            f"of bound; the H100-ranked launch ({run['h100'].block}/{run['h100'].folding}) "
+            f"{run['h100_ms']:.4f} ms, {run['ms'] / run['h100_ms']:.4f}x it; {card_line()}")
+        tpu = {"tpu_launches": count, "tpu_ms": run["ms"], "tpu_config": cfg,
+               "tpu_predicted_ms": est.total_time * 1e3, "tpu_h100_ms": run["h100_ms"]}
+        rec = next((k for k in kernels + records if k["name"] == run["name"]), None)
+        if rec is None:
+            plain = cuda_ms(torch, run["plain"], warmup=1, reps=5)
+            lib = run["library"] and cuda_ms(torch, run["library"], warmup=1, reps=5)
+            rec = {"name": run["name"], "config": cfg, "source": run["source"],
+                   "replaces": run["replaces"], "launches": count, "max_abs_err": run["err"],
+                   "ms": run["ms"], "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib}
+            records.append(rec)
+            say(f"tpu P1 {path} fp{eb * 8}: new record {run['name']}: plain {plain:.4f} ms, "
+                "library " + ("none" if lib is None else f"{lib:.4f} ms") + " (medians of 5)")
+        rec.update(tpu)
+        del run
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter() - t_phase
+    say(f"tpu P1: {len(TPU_P1)} rankings and runs in {t_phase:.1f} s")
+    return records
 
 
 # the layers phase: norms, MLPs, the KV cache, MoE and the SSM blocks at
@@ -5711,6 +5955,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += run_attention(args, torch, dev)
     torch.cuda.empty_cache()
+    kernels += run_tpu(args, torch, dev, kernels)
+    torch.cuda.empty_cache()
     run_layers(args, torch, dev)
     torch.cuda.empty_cache()
     m1_ms = run_lm(args, torch, dev)
@@ -5768,7 +6014,8 @@ def main(argv=None) -> int:
                                     "fp32_copy_queued_ms", "ytile_fp64", "ytile_fp32",
                                     "api_launches", "sim_launches", "sim_ms",
                                     "suite_launches", "serve_launches", "serve_ms",
-                                    "predicted_ms", "counterpart_of")
+                                    "predicted_ms", "counterpart_of", "tpu_launches",
+                                    "tpu_ms", "tpu_config", "tpu_predicted_ms", "tpu_h100_ms")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

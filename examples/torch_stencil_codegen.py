@@ -9,6 +9,10 @@ per-point launch spaces (the paper's 168 launches each) on the H100 in one
 GPU model does not price (the stencil's z-march rings, the LBM's y-tiles)
 with their reasons, then runs ``star_stencil`` and ``lbm_step`` at the
 winning launches and holds them against the plain versions in ``ref.py``.
+Beside it, as the reference does, it prices both generators' TPU spaces
+(the stencil's Pallas variants and the LBM's first five) on the TPU v5e in
+one more ``price()`` sweep and prints that ranking, the candidates whose
+VMEM working set does not fit skipped with their reason.
 
 Run:  PYTHONPATH=src python examples/torch_stencil_codegen.py [--device cpu]
 
@@ -25,13 +29,15 @@ import torch
 
 from repro_torch.api import PriceRequest, price
 from repro_torch.core.engine import Workload
-from repro_torch.core.machines import H100
+from repro_torch.core.machines import H100, TPU_V5E
 from repro_torch.core.selector import enumerate_gpu_configs
 from repro_torch.core.specs import lbm_d3q15, star_stencil_3d
 from repro_torch.kernels import SCRATCH_REASON, dtype_for, resolve_device
+from repro_torch.kernels.lbm_d3q15.generator import tpu_candidate_specs as lbm_candidates
 from repro_torch.kernels.lbm_d3q15.generator import ytile_space
 from repro_torch.kernels.lbm_d3q15.ops import lbm_step
 from repro_torch.kernels.lbm_d3q15.ref import WEIGHTS, lbm_step_ref, pad_inputs
+from repro_torch.kernels.stencil3d25.generator import tpu_candidate_specs as st_candidates
 from repro_torch.kernels.stencil3d25.generator import zmarch_space
 from repro_torch.kernels.stencil3d25.ops import star_stencil
 from repro_torch.kernels.stencil3d25.ref import pad_input, star_stencil_ref, star_weights
@@ -57,6 +63,30 @@ def request(stencil_domain=STENCIL_DOMAIN, lbm_domain=LBM_DOMAIN,
         ],
         machines=[machine],
     )
+
+
+def tpu_request(stencil_domain=STENCIL_DOMAIN, lbm_domain=LBM_DOMAIN,
+                machine=TPU_V5E) -> PriceRequest:
+    """The reference's TPU sweep: the stencil's Pallas space and the LBM's
+    first five candidates on ``machine``, one request."""
+    return PriceRequest(
+        workloads=[
+            Workload(STENCIL, tpu_candidates=list(
+                st_candidates(R, tuple(stencil_domain), elem_bytes=ELEM_BYTES))),
+            Workload(LBM, tpu_candidates=list(
+                lbm_candidates(tuple(lbm_domain), elem_bytes=ELEM_BYTES))[:5]),
+        ],
+        machines=[machine],
+    )
+
+
+def _print_tpu_ranking(report, name: str, title: str, unit: str) -> None:
+    print(f"{title} — ranked candidates:")
+    for e in report.ranking(name):
+        print(f"  {str(e.config):38s} {e.estimate.bytes_per_work:6.1f} {unit} "
+              f"t={e.estimate.total_time * 1e3:7.2f} ms  {e.limiter}")
+    for s in report.skipped_for(name):
+        print(f"  {str(s.config):38s} skipped: {s.reason}")
 
 
 def _print_ranking(result, name: str, title: str, unpriced, show: int) -> None:
@@ -89,9 +119,10 @@ def main(device="cuda", stencil_domain=STENCIL_DOMAIN, lbm_domain=LBM_DOMAIN, *,
          engine=None, seed: int = 0, show: int = 10) -> dict:
     """Price both launch spaces in one sweep, print them, run the winners.
 
-    ``engine`` (an ``Explorer``) sets the sweep's pool and cache.  Returns
-    ``{"result": PriceResult, "stencil": {...}, "lbm": {...}}``, each kernel
-    with its winning ``launch`` and ``max_abs_err`` against ``ref.py``."""
+    ``engine`` (an ``Explorer``) sets the sweeps' pool and cache.  Returns
+    ``{"result": PriceResult, "tpu": PriceResult, "stencil": {...}, "lbm":
+    {...}}``: the H100 sweep, the TPU sweep, and each kernel with its
+    winning ``launch`` and ``max_abs_err`` against ``ref.py``."""
     dev = resolve_device(device)
     stencil_domain, lbm_domain = tuple(stencil_domain), tuple(lbm_domain)
     result = price(request(stencil_domain, lbm_domain), engine=engine)
@@ -102,6 +133,15 @@ def main(device="cuda", stencil_domain=STENCIL_DOMAIN, lbm_domain=LBM_DOMAIN, *,
     _print_ranking(result, LBM, f"LBM D3Q15, domain {lbm_domain}, f64",
                    ytile_space(lbm_domain), show)
     print(f"\nengine: {result.report.summary()}")
+
+    # ---- the TPU spaces, as the reference prices them --------------------
+    tpu = price(tpu_request(stencil_domain, lbm_domain), engine=engine)
+    print()
+    _print_tpu_ranking(tpu.report, STENCIL,
+                       f"TPU v5e: stencil 3D25pt, domain {stencil_domain}, f64", "B/pt ")
+    print()
+    _print_tpu_ranking(tpu.report, LBM, f"TPU v5e: LBM D3Q15, domain {lbm_domain}, f64", "B/LUP")
+    print(f"\nengine: {tpu.report.summary()}")
 
     # ---- run the selected kernels and validate -------------------------
     dtype = dtype_for(ELEM_BYTES)
@@ -127,7 +167,7 @@ def main(device="cuda", stencil_domain=STENCIL_DOMAIN, lbm_domain=LBM_DOMAIN, *,
     print(f"  lbm at block {best_lbm.block} folding {best_lbm.folding}: max abs error "
           f"{err_lbm!r}, phase {err_phase!r}; phase sum {float(new_phase.sum()):.4f} "
           f"(ref {float(ref_phase.sum()):.4f})")
-    return {"result": result,
+    return {"result": result, "tpu": tpu,
             "stencil": {"launch": best, "max_abs_err": err_st},
             "lbm": {"launch": best_lbm, "max_abs_err": max(err_lbm, err_phase)}}
 

@@ -11,14 +11,14 @@ floor-division by the cache-line/sector size.  Two addresses are distinct iff
 the tuples differ — exact up to row wrap-around, which the paper shows is
 negligible for realistic grids.
 
-A copy of ``repro.core.access`` trimmed to what ``estimate_gpu`` reaches.
+A copy of ``repro.core.access``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence
 
-from .isets import AffineExpr1D, APRange, Box, map_box
+from .isets import AffineExpr1D, APRange, Box, box_points, map_box
 
 
 def domain_zyx(domain) -> tuple:
@@ -111,6 +111,20 @@ class Access:
         if not (len(self.offsets) == len(self.coeffs) == len(self.dim_map) == nd):
             raise ValueError("access arity mismatch with field ndim")
 
+    # ---- address-expression views -------------------------------------
+    def element_coord(self, p: Sequence[int]) -> tuple:
+        return tuple(
+            c * p[d] + o for c, o, d in zip(self.coeffs, self.offsets, self.dim_map)
+        )
+
+    def linear_address(self, p: Sequence[int]) -> int:
+        """Linear element index (row-major) incl. alignment, in elements."""
+        coord = self.element_coord(p)
+        addr = 0
+        for dim, c in enumerate(coord):
+            addr = addr * self.field.shape[dim] + c
+        return addr + self.field.alignment
+
     def line_exprs(self, line_bytes: int) -> list:
         """Multi-dim address expressions with innermost floor-div (§4.4.1).
 
@@ -148,6 +162,14 @@ class Access:
             out.extend(map_box(exprs, b))
         return out
 
+    def line_tuple(self, p: Sequence[int], line_bytes: int) -> tuple:
+        """Explicit line tuple for a single domain point (oracle path)."""
+        coord = self.element_coord(p)
+        eb = self.field.elem_bytes
+        head = coord[:-1]
+        x = (eb * (coord[-1] + self.field.alignment)) // line_bytes
+        return (self.field.name,) + head + (x,)
+
 
 @memoize_hash
 @dataclass(frozen=True)
@@ -167,6 +189,9 @@ class KernelSpec:
     @property
     def stores(self):
         return tuple(a for a in self.accesses if a.is_store)
+
+    def scale_domain(self, new_domain: tuple) -> "KernelSpec":
+        return replace(self, domain=tuple(new_domain))
 
 
 @memoize_hash
@@ -225,3 +250,10 @@ class LaunchConfig:
         if len(domain) == 2:
             return [b3[1:]]
         return [b3[2:]]
+
+
+def domain_points_of_boxes(boxes) -> list[tuple]:
+    pts = []
+    for b in boxes:
+        pts.extend(box_points(b))
+    return pts

@@ -26,7 +26,7 @@ their own, so the port and the reference never read each other's.
 from .backends import GPUBackend, PallasBackend
 from .explorer import Explorer, Workload
 from .invariants import ENGINE_CACHE_VERSION, InvariantCache
-from .pool import PoisonTaskError, TaskPool, default_workers
+from .pool import PoisonTaskError, TaskPool, default_workers, run_tasks
 from .protocol import (
     Estimator,
     EvalResult,
@@ -42,7 +42,7 @@ __all__ = [
     "Explorer", "Workload",
     "GPUBackend", "PallasBackend",
     "InvariantCache", "ENGINE_CACHE_VERSION",
-    "TaskPool", "PoisonTaskError", "default_workers",
+    "TaskPool", "PoisonTaskError", "run_tasks", "default_workers",
     "Estimator", "EvalResult", "ExplorationReport",
     "SkipConfig", "SkippedConfig", "PrunedConfig", "RejectedSpec", "Task",
 ]

@@ -31,8 +31,9 @@ structural work (see ``engine.invariants``).
 
 A copy of ``repro.core.engine.explorer`` without the reference's deprecated
 public shims (``rank_gpu``, ``rank_pallas``, ``explore``, ``explore_plans``):
-``repro_torch.api.price``, ``core.selector.rank_gpu_configs`` and the
-suite's ``_price_plans`` call the private implementations.  One difference of behaviour: an
+``repro_torch.api.price``, ``core.selector.rank_gpu_configs``,
+``core.tpu_adapt.select_pallas_config`` and the suite's ``_price_plans``
+call the private implementations.  One difference of behaviour: an
 ``ArithmeticError`` of a task or a combine (a launch with a zero block
 extent divides by zero) is an estimation error here, recorded as a skip
 like ``ValueError``/``RuntimeError`` (raised under ``strict``), where the
@@ -50,14 +51,14 @@ import pickle
 import threading
 import time
 from dataclasses import dataclass, field as dc_field
-from typing import Sequence
+from typing import Iterable, Sequence
 
 from repro_torch import durable, obs
 from repro_torch.obs.metrics import cache_stats_view
 
 from ..capacity import CapacityModel
 from ..gridwalk import core_stats_snapshot
-from ..machines import GPUMachine, TPUMachine
+from ..machines import TPU_V5E, GPUMachine, TPUMachine
 from .backends import GPUBackend, PallasBackend
 from .invariants import ENGINE_CACHE_VERSION, InvariantCache
 from .pool import TaskPool, guarded_call
@@ -373,6 +374,20 @@ class Explorer:
         backend = GPUBackend(spec, capacity)
         return self._sweep(
             [(spec.name, backend, list(configs), machine)],
+            strict=strict, top_k=top_k, progress=progress,
+        )
+
+    def _rank_pallas(self, candidates: Iterable,
+                     machine: TPUMachine = TPU_V5E, *,
+                     workload: str | None = None,
+                     strict: bool | None = None,
+                     top_k: int | None = None,
+                     progress=None) -> ExplorationReport:
+        """Rank (config, PallasKernelSpec) candidates on one TPU machine."""
+        candidates = list(candidates)
+        name = workload or (candidates[0][1].name if candidates else "pallas")
+        return self._sweep(
+            [(name, PallasBackend(), candidates, machine)],
             strict=strict, top_k=top_k, progress=progress,
         )
 

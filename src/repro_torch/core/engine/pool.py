@@ -406,3 +406,20 @@ class TaskPool:
             self.health["retries"] += 1
             self._backoff(stall)
         return outcomes
+
+
+def run_tasks(
+    calls: Sequence[tuple],
+    parallel: bool = False,
+    max_workers: int | None = None,
+) -> list:
+    """Evaluate ``[(fn, args), ...]`` and return outcomes in input order.
+
+    One-shot wrapper over ``TaskPool`` (kept for API compatibility and
+    single-round callers): ``parallel=True`` uses a process pool (never
+    ``fork`` once CUDA has started, ``_context``), falling back to the
+    serial path when only one worker is available, the batch is tiny, or
+    no usable multiprocessing start method exists.
+    """
+    with TaskPool(parallel=parallel, max_workers=max_workers) as pool:
+        return pool.run(calls)

@@ -1,7 +1,7 @@
 """Implicit integer-set calculus — the ISL analogue of the paper (§4.4.1).
 
-A copy of ``repro.core.isets`` trimmed to what ``estimate_gpu`` reaches; the
-port keeps its own copy so that it never imports the JAX package.
+A copy of ``repro.core.isets``; the port keeps its own copy so that it never
+imports the JAX package.
 
 The paper uses the Integer Set Library to describe thread-coordinate sets and
 memory-address sets implicitly, so that footprint counting does not scale with
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -120,14 +120,36 @@ def _egcd(a: int, b: int):
 Box = tuple  # tuple[APRange, ...]
 
 
+def box(*ranges: APRange) -> Box:
+    return tuple(ranges)
+
+
+def box_interval(*bounds: tuple) -> Box:
+    """box_interval((lo,hi), (lo,hi), ...) — contiguous box, inclusive bounds."""
+    return tuple(APRange.interval(lo, hi) for lo, hi in bounds)
+
+
 def box_is_empty(b: Box) -> bool:
     return any(r.is_empty() for r in b)
+
+
+def box_count(b: Box) -> int:
+    return math.prod(r.n for r in b)
 
 
 def box_intersect(a: Box, b: Box) -> Box:
     if len(a) != len(b):
         raise ValueError("dim mismatch")
     return tuple(_crt_intersect(ra, rb) for ra, rb in zip(a, b))
+
+
+def box_points(b: Box) -> Iterable[tuple]:
+    """Explicit enumeration (for oracles / small boxes)."""
+    if box_is_empty(b):
+        return
+    from itertools import product
+
+    yield from product(*[list(r) for r in b])
 
 
 def _expand_strided(boxes: Sequence[Box], limit: int = 1 << 22) -> list[Box]:

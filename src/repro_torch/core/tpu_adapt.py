@@ -22,20 +22,18 @@ analytically, before any lowering:
   * **Multi-limiter time**: with Mosaic's double-buffered pipeline, compute
     overlaps DMA, so T = max(T_mxu+T_vpu, T_hbm, T_vmem) + grid overhead.
 
-The exploration engine ranks candidate block configurations with it
-(``repro_torch.api.pallas_request``) — replacing autotuning exactly as the
-paper does for thread-block sizes.
+``select_pallas_config`` ranks candidate block configurations — replacing
+autotuning exactly as the paper does for thread-block sizes.
 
-A copy of ``repro.core.tpu_adapt``, pure Python, without the explicit
-grid-walk oracle of its property tests and the list-returning
-``select_pallas_config`` wrapper: the port's engine prices the specs its
-generators declare and those its spec frontend (``repro_torch.frontend``)
-traces from Triton kernels.
+A copy of ``repro.core.tpu_adapt``, pure Python: the port's engine prices
+the specs its generators declare (``tpu_candidate_specs``) and those its
+spec frontend (``repro_torch.frontend``) traces from Triton kernels.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field as dc_field
+from typing import Callable, Iterable
 
 from .access import memoize_hash
 from .machines import TPUMachine, TPU_V5E
@@ -126,6 +124,23 @@ def fetch_count(grid: tuple, grid_deps: tuple, revisit: bool = True) -> int:
     for d in range(m + 1):
         out *= grid[d]
     return out
+
+
+def fetch_count_oracle(grid: tuple, index_map: Callable, revisit: bool = True) -> int:
+    """Explicit grid walk (the listing-5 analogue for TPU) — test oracle."""
+    from itertools import product
+
+    steps = list(product(*[range(g) for g in grid]))
+    if not steps:
+        return 0
+    count = 0
+    prev = object()
+    for s in steps:
+        cur = index_map(*s)
+        if not revisit or cur != prev:
+            count += 1
+        prev = cur
+    return count
 
 
 @dataclass
@@ -334,6 +349,46 @@ def estimate_pallas(spec: PallasKernelSpec, machine: TPUMachine = TPU_V5E) -> Pa
         work=spec.work_per_step * n_steps,
         detail={"per_operand": per_op, "n_steps": n_steps},
     )
+
+
+@dataclass
+class RankedPallasConfig:
+    config: dict
+    spec: PallasKernelSpec
+    estimate: PallasEstimate
+
+
+def select_pallas_config(
+    candidates: Iterable[tuple],
+    machine: TPUMachine = TPU_V5E,
+    top_k: int | None = None,
+    engine=None,
+) -> list[RankedPallasConfig]:
+    """Rank (config_dict, PallasKernelSpec) candidates by predicted time.
+
+    Routes through the exploration engine (``repro_torch.core.engine``),
+    which memoizes per-spec estimates across sweeps: infeasible candidates
+    (VMEM oversubscription — the violated layer condition) are recorded in
+    the engine report's ``skipped`` list with their reason; ties break
+    toward smaller VMEM footprints.  Pass an ``Explorer`` as ``engine`` to
+    share its cache across calls.  ``top_k`` runs the engine's
+    bound-then-refine search (HBM-volume time floors prune before full
+    estimates) — the returned head is bitwise identical to exhaustive
+    ranking, but a candidate pruned by its bound lands in
+    ``report.pruned`` without its estimate ever running, so VMEM
+    infeasibility beyond the top-k may go undiagnosed; use an exhaustive
+    ranking to audit the layer condition.
+    """
+    from .engine import Explorer
+
+    candidates = list(candidates)
+    explorer = engine or Explorer()
+    report = explorer._rank_pallas(candidates, machine, top_k=top_k)
+    ranked = [
+        RankedPallasConfig(r.config, candidates[r.index][1], r.estimate)
+        for r in report.entries
+    ]
+    return ranked[:top_k] if top_k else ranked
 
 
 def pow2_tiles(lo: int, hi: int) -> list[int]:

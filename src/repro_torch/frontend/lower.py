@@ -58,6 +58,14 @@ class CostModel:
     work_unit: str = "LUP"
 
 
+def block_vpu_shape(block_shape: tuple) -> tuple:
+    """The vector shape a traced kernel's VPU work is padded by, read off its
+    first output's block: the block's dims above 1 (or, where none is, its
+    last two), the last two of them."""
+    nontrivial = tuple(s for s in block_shape if s > 1) or block_shape[-2:]
+    return nontrivial[-2:]
+
+
 def derive_costs(traced: TracedKernel, base: CostModel | None = None) -> CostModel:
     """Fill unset CostModel fields from the traced body digest."""
     c = base or CostModel()
@@ -74,9 +82,7 @@ def derive_costs(traced: TracedKernel, base: CostModel | None = None) -> CostMod
     if vpu_shape is None:
         vpu_shape = ()
         if traced.outputs:
-            bs = traced.outputs[0].block_shape
-            nontrivial = tuple(s for s in bs if s > 1) or bs[-2:]
-            vpu_shape = nontrivial[-2:]
+            vpu_shape = block_vpu_shape(traced.outputs[0].block_shape)
     work = c.work_per_step if c.work_per_step is not None else points
     eb = c.elem_bytes
     if eb is None:

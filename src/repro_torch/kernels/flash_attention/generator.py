@@ -26,13 +26,23 @@ hand-written CUDA, which its spec frontend (``repro_torch.frontend``,
 Triton kernels only) cannot trace, so it keeps declaring them in the form
 the reference's tracer derives (pinned by the reference's
 ``test_flash_traced_matches_handwritten`` and, under a test-only shim, against the
-reference's traced specs in ``tests/test_torch_suite.py``).
+reference's traced specs in ``tests/test_torch_suite.py``);
+``tpu_rank_configs`` ranks them on a ``TPUMachine`` as the reference's
+``rank_configs`` does.
 """
 from __future__ import annotations
 
 from functools import lru_cache
 
-from repro_torch.core.tpu_adapt import MatmulShape, OperandSpec, PallasKernelSpec, pow2_tiles
+from repro_torch.core.machines import TPU_V5E, TPUMachine
+from repro_torch.core.tpu_adapt import (
+    MatmulShape,
+    OperandSpec,
+    PallasKernelSpec,
+    RankedPallasConfig,
+    pow2_tiles,
+    select_pallas_config,
+)
 from repro_torch.kernels.flash_attention.kernel import FWD_TILES
 
 TILES = tuple({"bq": bq, "bk": bk} for bq, bk in FWD_TILES)
@@ -85,6 +95,14 @@ def tpu_candidate_specs(B, Hq, Hkv, Sq, Skv, D, causal=True, elem_bytes=2):
     cannot trace a Pallas kernel; memoised per shape, so repeated layers
     share the candidate objects."""
     yield from _tpu_candidates(B, Hq, Hkv, Sq, Skv, D, bool(causal), elem_bytes)
+
+
+def tpu_rank_configs(B, Hq, Hkv, Sq, Skv, D, causal=True, machine: TPUMachine = TPU_V5E,
+                     elem_bytes=2) -> list[RankedPallasConfig]:
+    """The TPU candidates ranked on ``machine``, best first, as the
+    reference's ``rank_configs`` ranks them (``select_pallas_config``)."""
+    return select_pallas_config(
+        tpu_candidate_specs(B, Hq, Hkv, Sq, Skv, D, causal, elem_bytes), machine)
 
 
 def decode_bk(Skv: int) -> int:

@@ -25,18 +25,41 @@ runnable through a pinned config.
 Ranking runs on the host through the exploration engine
 (``core.selector.rank_gpu_configs``, serial) and is memoized per
 ``(domain, elem_bytes, machine)``.
+
+``tpu_candidate_specs`` gives the reference's TPU decision space
+(``tpu_space``: the rowstream variant, then the y-tiles) as ``(config,
+PallasKernelSpec)`` candidates, and ``tpu_rank_configs`` ranks them on a
+``TPUMachine`` as the reference's ``rank_configs`` does.  The reference
+derives every field of them, the VPU counts and work units too, from its
+traced Pallas bodies; the port's kernels are hand-written CUDA, which no
+tracer reads, so it declares them in the form that trace takes (pinned
+against it by ``tests/test_torch_generators_tpu.py``).
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
-from repro_torch.core.machines import H100, GPUMachine
+from repro_torch.core.machines import H100, TPU_V5E, GPUMachine, TPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import stencil_2d5pt
+from repro_torch.core.tpu_adapt import (
+    OperandSpec,
+    PallasKernelSpec,
+    RankedPallasConfig,
+    select_pallas_config,
+)
+from repro_torch.frontend.lower import block_vpu_shape
 from repro_torch.kernels import SCRATCH_REASON, flat_launches, resolve_device
 from repro_torch.kernels.jacobi2d.kernel import jacobi_pointwise
 
 _RANKINGS: dict = {}
+
+# VPU element-ops a point of the reference's traced bodies: wc * c and
+# wn * (u + d + l + r), summed (two multiplies, four adds); the GPU spec's
+# flops a point stay ``core.specs.stencil_2d5pt``'s 5
+TPU_VPU_OPS_PER_POINT = 6.0
 
 
 def ytile_space(domain: tuple):
@@ -48,6 +71,59 @@ def ytile_space(domain: tuple):
         if Y % ty == 0:
             yield {"variant": "ytile", "ty": ty}
         ty *= 2
+
+
+def tpu_space(domain: tuple):
+    """The reference's TPU decisions: the rowstream variant, then the
+    y-tiles (a copy of ``repro.kernels.jacobi2d.generator._space``)."""
+    yield {"variant": "rowstream"}
+    yield from ytile_space(domain)
+
+
+@lru_cache(maxsize=None)
+def _tpu_candidates(domain: tuple, elem_bytes: int) -> tuple:
+    Y, X = domain
+    Xp = X + 2
+    eb = elem_bytes
+    out = []
+    for cfg in tpu_space(domain):
+        if cfg["variant"] == "rowstream":
+            # padded rows y, y+1 and y+2 a step; the vector shape is read
+            # off the output block, as the reference's lowering reads it
+            spec = PallasKernelSpec(
+                name="jacobi2d_rowstream", grid=(Y,),
+                operands=tuple(OperandSpec(f"src{k}", (1, Xp), eb, grid_deps=(0,))
+                               for k in range(3))
+                + (OperandSpec("dst", (1, X), eb, grid_deps=(0,), is_output=True),),
+                vpu_elems_per_step=TPU_VPU_OPS_PER_POINT * X, vpu_shape=block_vpu_shape((1, X)),
+                work_per_step=float(X), elem_bytes=eb)
+        else:
+            # y-tiles j and j+1 of the input, y-padded to (Y/ty + 1)·ty rows
+            ty = cfg["ty"]
+            spec = PallasKernelSpec(
+                name=f"jacobi2d_ytile{ty}", grid=(Y // ty,),
+                operands=(OperandSpec("src0", (ty, Xp), eb, grid_deps=(0,)),
+                          OperandSpec("src1", (ty, Xp), eb, grid_deps=(0,)),
+                          OperandSpec("dst", (ty, X), eb, grid_deps=(0,), is_output=True)),
+                vpu_elems_per_step=TPU_VPU_OPS_PER_POINT * ty * X,
+                vpu_shape=block_vpu_shape((ty, X)),
+                work_per_step=float(ty * X), elem_bytes=eb)
+        out.append((cfg, spec))
+    return tuple(out)
+
+
+def tpu_candidate_specs(domain: tuple, elem_bytes: int = 4):
+    """``(config, PallasKernelSpec)`` of the reference's Pallas Jacobi sweep
+    at every config of ``tpu_space(domain)``, in its order.  Declared, since
+    the port cannot trace a Pallas kernel; memoised per shape."""
+    yield from _tpu_candidates(tuple(domain), elem_bytes)
+
+
+def tpu_rank_configs(domain: tuple, machine: TPUMachine = TPU_V5E,
+                     elem_bytes: int = 4) -> list[RankedPallasConfig]:
+    """The TPU candidates ranked on ``machine``, best first, as the
+    reference's ``rank_configs`` ranks them (``select_pallas_config``)."""
+    return select_pallas_config(tpu_candidate_specs(domain, elem_bytes), machine)
 
 
 def rank_configs(domain: tuple, elem_bytes: int = 8,

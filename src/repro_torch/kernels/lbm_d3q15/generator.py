@@ -17,18 +17,39 @@ the GPU model prices per-point kernels only: they are recorded in
 Ranking runs on the host through the exploration engine
 (``core.selector.rank_gpu_configs``, serial) and is memoized per
 ``(domain, elem_bytes, machine)``.
+
+``tpu_candidate_specs`` gives the reference's TPU decision space
+(``tpu_space``: the replane variant, then the y-tiles) as ``(config,
+PallasKernelSpec)`` candidates, and ``tpu_rank_configs`` ranks them on a
+``TPUMachine`` as the reference's ``rank_configs`` does.  The reference
+traces them from its Pallas builders; the port's kernels are hand-written
+CUDA, which no tracer reads, so it declares them in the form the
+reference's tracer derives (pinned against that trace by
+``tests/test_torch_generators_tpu.py``).
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
-from repro_torch.core.machines import H100, GPUMachine
+from repro_torch.core.machines import H100, TPU_V5E, GPUMachine, TPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import lbm_d3q15
+from repro_torch.core.tpu_adapt import (
+    OperandSpec,
+    PallasKernelSpec,
+    RankedPallasConfig,
+    select_pallas_config,
+)
 from repro_torch.kernels import SCRATCH_REASON, resolve_device
 from repro_torch.kernels.lbm_d3q15.kernel import lbm_pointwise
 
 _RANKINGS: dict = {}
+
+# the reference's collide-and-stream VPU count a point: relax and
+# equilibrium a PDF, plus the gradient and normal math
+FLOPS_PER_LUP = 15 * 8 + 25
 
 
 def ytile_space(domain: tuple):
@@ -40,6 +61,65 @@ def ytile_space(domain: tuple):
         if Y % ty == 0:
             yield {"variant": "ytile", "ty": ty}
         ty *= 2
+
+
+def tpu_space(domain: tuple):
+    """The reference's TPU decisions: the replane variant, then the y-tiles
+    (a copy of ``repro.kernels.lbm_d3q15.generator._space``)."""
+    yield {"variant": "replane"}
+    yield from ytile_space(domain)
+
+
+@lru_cache(maxsize=None)
+def _tpu_candidates(domain: tuple, elem_bytes: int) -> tuple:
+    Z, Y, X = domain
+    Yp, Xp = Y + 2, X + 2
+    eb = elem_bytes
+    out = []
+    for cfg in tpu_space(domain):
+        if cfg["variant"] == "replane":
+            # a plane of each PDF at its pulled z, the phase planes at z-1,
+            # z and z+1, and the 15 new PDF planes, one z a step
+            spec = PallasKernelSpec(
+                name="lbm_replane", grid=(Z,),
+                operands=tuple(OperandSpec(f"pdf{q}", (1, 1, Yp, Xp), eb, grid_deps=(0,))
+                               for q in range(15))
+                + tuple(OperandSpec(f"phase{k}", (1, Yp, Xp), eb, grid_deps=(0,))
+                        for k in range(3))
+                + (OperandSpec("dst", (15, 1, Y, X), eb, grid_deps=(0,), is_output=True),),
+                vpu_elems_per_step=float(FLOPS_PER_LUP * Y * X), vpu_shape=(Y, X),
+                work_per_step=float(Y * X), elem_bytes=eb)
+        else:
+            # every field as two ty-row tiles (the tile and the next, for
+            # the halo) a (y-tile, z) step; the input is y-padded to
+            # (Y/ty + 1)·ty rows, which no block shape shows
+            ty = cfg["ty"]
+            spec = PallasKernelSpec(
+                name=f"lbm_ytile{ty}", grid=(Y // ty, Z),
+                operands=tuple(OperandSpec(f"pdf{q}_{dj}", (1, 1, ty, Xp), eb, grid_deps=(0, 1))
+                               for dj in (0, 1) for q in range(15))
+                + tuple(OperandSpec(f"phase{k}_{dj}", (1, ty, Xp), eb, grid_deps=(0, 1))
+                        for k in range(3) for dj in (0, 1))
+                + (OperandSpec("dst", (15, 1, ty, X), eb, grid_deps=(0, 1), is_output=True),),
+                vpu_elems_per_step=float(FLOPS_PER_LUP * ty * X), vpu_shape=(ty, X),
+                work_per_step=float(ty * X), elem_bytes=eb)
+        out.append((cfg, spec))
+    return tuple(out)
+
+
+def tpu_candidate_specs(domain: tuple, elem_bytes: int = 4):
+    """``(config, PallasKernelSpec)`` of the reference's Pallas LBM at every
+    config of ``tpu_space(domain)``, in its order: 19 operands a replane
+    step, 37 a y-tile step.  Declared, since the port cannot trace a Pallas
+    kernel; memoised per shape."""
+    yield from _tpu_candidates(tuple(domain), elem_bytes)
+
+
+def tpu_rank_configs(domain: tuple, machine: TPUMachine = TPU_V5E,
+                     elem_bytes: int = 4) -> list[RankedPallasConfig]:
+    """The TPU candidates ranked on ``machine``, best first, as the
+    reference's ``rank_configs`` ranks them (``select_pallas_config``)."""
+    return select_pallas_config(tpu_candidate_specs(domain, elem_bytes), machine)
 
 
 def rank_configs(domain: tuple, elem_bytes: int = 8,

@@ -22,17 +22,26 @@ hand-written CUDA, which its spec frontend (``repro_torch.frontend``,
 Triton kernels only) cannot trace, so it keeps declaring them in the form
 the reference's tracer derives (pinned by the reference's
 ``test_matmul_traced_matches_handwritten`` and, under a test-only shim, against the
-reference's traced specs in ``tests/test_torch_suite.py``).
+reference's traced specs in ``tests/test_torch_suite.py``);
+``tpu_rank_configs`` ranks them on a ``TPUMachine`` as the reference's
+``rank_configs`` does.
 """
 from __future__ import annotations
 
 from functools import lru_cache
 
 from repro_torch.core.access import LaunchConfig
-from repro_torch.core.machines import H100, GPUMachine
+from repro_torch.core.machines import H100, TPU_V5E, GPUMachine, TPUMachine
 from repro_torch.core.selector import RankingResult, rank_gpu_configs
 from repro_torch.core.specs import matmul_naive
-from repro_torch.core.tpu_adapt import MatmulShape, OperandSpec, PallasKernelSpec, pow2_tiles
+from repro_torch.core.tpu_adapt import (
+    MatmulShape,
+    OperandSpec,
+    PallasKernelSpec,
+    RankedPallasConfig,
+    pow2_tiles,
+    select_pallas_config,
+)
 from repro_torch.kernels.matmul.tiles import TILES as _KERNEL_TILES
 from repro_torch.kernels.matmul.tiles import vector_width
 
@@ -103,6 +112,13 @@ def tpu_candidate_specs(M: int, K: int, N: int, elem_bytes: int = 2):
     Declared, since the port cannot trace a Pallas kernel; memoised per
     shape, so repeated layers share the candidate objects."""
     yield from _tpu_candidates(M, K, N, elem_bytes)
+
+
+def tpu_rank_configs(M: int, K: int, N: int, machine: TPUMachine = TPU_V5E,
+                     elem_bytes: int = 2) -> list[RankedPallasConfig]:
+    """The TPU candidates ranked on ``machine``, best first, as the
+    reference's ``rank_configs`` ranks them (``select_pallas_config``)."""
+    return select_pallas_config(tpu_candidate_specs(M, K, N, elem_bytes), machine)
 
 
 def default_config(M: int, K: int, N: int, elem_bytes: int = 2) -> dict | None:

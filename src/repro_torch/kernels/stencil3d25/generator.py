@@ -20,7 +20,9 @@ Ranking runs on the host through the exploration engine
 
 ``tpu_candidate_specs`` gives the reference's TPU decision space
 (``tpu_space``: the replane, ring and y-tiled ring Pallas variants) as
-``(config, PallasKernelSpec)`` candidates for ``api.pallas_request``.  The
+``(config, PallasKernelSpec)`` candidates for ``api.pallas_request``, and
+``tpu_rank_configs`` ranks them on a ``TPUMachine`` as the reference's
+``rank_configs`` does.  The
 reference traces them from its Pallas builders; the port's kernels are
 hand-written CUDA, which no tracer reads, so it declares them in the form
 the reference's tracer derives (pinned against that trace by
@@ -32,10 +34,15 @@ from functools import lru_cache
 
 import torch
 
-from repro_torch.core.machines import H100, GPUMachine
+from repro_torch.core.machines import H100, TPU_V5E, GPUMachine, TPUMachine
 from repro_torch.core.selector import RankedConfig, RankingResult, SkippedConfig, rank_gpu_configs
 from repro_torch.core.specs import star_stencil_3d
-from repro_torch.core.tpu_adapt import OperandSpec, PallasKernelSpec
+from repro_torch.core.tpu_adapt import (
+    OperandSpec,
+    PallasKernelSpec,
+    RankedPallasConfig,
+    select_pallas_config,
+)
 from repro_torch.kernels import SCRATCH_REASON, resolve_device
 from repro_torch.kernels.stencil3d25.kernel import star_pointwise
 
@@ -109,6 +116,14 @@ def tpu_candidate_specs(r: int, domain: tuple, elem_bytes: int = 4):
     every config of ``tpu_space(r, domain)``, in its order.  Declared, since
     the port cannot trace a Pallas kernel; memoised per shape."""
     yield from _tpu_candidates(r, tuple(domain), elem_bytes)
+
+
+def tpu_rank_configs(r: int, domain: tuple, machine: TPUMachine = TPU_V5E,
+                     elem_bytes: int = 4) -> list[RankedPallasConfig]:
+    """The TPU candidates ranked on ``machine``, best first, as the
+    reference's ``rank_configs`` ranks them (``select_pallas_config``):
+    those whose VMEM working set does not fit are left out."""
+    return select_pallas_config(tpu_candidate_specs(r, domain, elem_bytes), machine)
 
 
 def rank_configs(r: int, domain: tuple, elem_bytes: int = 8,

@@ -341,7 +341,39 @@ def _example():
     return torch_stencil_codegen
 
 
-def test_example_ranks_through_price_and_runs_the_winners(capsys):
+def _ref_tpu_sweep(monkeypatch, st_dom, lbm_dom):
+    """The reference example's TPU sweep at these domains, its candidates
+    traced under a test-only shim for the ``pl.load`` / ``pl.store`` that
+    jax 0.9.0 no longer has (its caches cleared after)."""
+    from jax.experimental import pallas as pl
+
+    from repro.kernels.lbm_d3q15 import generator as ref_lbm
+    from repro.kernels.stencil3d25 import generator as ref_st
+
+    def load(ref, idx):
+        return ref[idx]
+
+    def store(ref, idx, val):
+        ref[idx] = val
+
+    with monkeypatch.context() as m:
+        m.setattr(pl, "load", load, raising=False)
+        m.setattr(pl, "store", store, raising=False)
+        try:
+            return ref_api.price(ref_api.PriceRequest(
+                workloads=[
+                    RefWorkload("stencil3d25", tpu_candidates=list(
+                        ref_st.candidate_specs(4, st_dom, elem_bytes=8))),
+                    RefWorkload("lbm_d3q15", tpu_candidates=list(
+                        ref_lbm.candidate_specs(lbm_dom, elem_bytes=8))[:5]),
+                ],
+                machines=[ref_machines.TPU_V5E])).report
+        finally:
+            ref_st._candidates.cache_clear()
+            ref_lbm._candidates.cache_clear()
+
+
+def test_example_ranks_through_price_and_runs_the_winners(capsys, monkeypatch):
     from repro_torch.kernels.lbm_d3q15.generator import rank_configs as lbm_rank
     from repro_torch.kernels.stencil3d25.generator import rank_configs as st_rank
 
@@ -362,6 +394,18 @@ def test_example_ranks_through_price_and_runs_the_winners(capsys):
     text = capsys.readouterr().out
     assert "{'variant': 'ring'}" in text and "{'variant': 'ytile', 'ty': 8}" in text
     assert "168 launches ranked" in text
+    # the TPU sweep, as the reference's example prices it
+    tpu, want = out["tpu"].report, _ref_tpu_sweep(monkeypatch, st_dom, lbm_dom)
+    for name in ("stencil3d25", "lbm_d3q15"):
+        mine, ref = tpu.ranking(name), want.ranking(name)
+        assert [(e.config, e.limiter, dataclasses.astuple(e.estimate)) for e in mine] == [
+            (e.config, e.limiter, dataclasses.astuple(e.estimate)) for e in ref]
+        assert [(s.config, s.reason) for s in tpu.skipped_for(name)] == [
+            (s.config, s.reason) for s in want.skipped_for(name)]
+        for e in mine:
+            assert f"  {str(e.config):38s} {e.estimate.bytes_per_work:6.1f} B/" in text
+    assert len(tpu.ranking("stencil3d25")) == 3 and len(tpu.ranking("lbm_d3q15")) == 2
+    assert f"TPU v5e: stencil 3D25pt, domain {st_dom}, f64" in text
 
 
 def test_example_never_falls_back_to_the_cpu(monkeypatch):
