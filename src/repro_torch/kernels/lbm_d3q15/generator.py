@@ -16,7 +16,8 @@ the GPU model prices per-point kernels only: they are recorded in
 
 Ranking runs on the host through the exploration engine
 (``core.selector.rank_gpu_configs``, serial) and is memoized per
-``(domain, elem_bytes, machine)``.
+``(domain, elem_bytes, machine)``; ``RANK_MEMO`` (the ``obs`` counter group
+``kernels.lbm_d3q15.rank_memo``) counts the memo's hits and misses.
 
 ``tpu_candidate_specs`` gives the reference's TPU decision space
 (``tpu_space``: the replane variant, then the y-tiles) as ``(config,
@@ -44,8 +45,13 @@ from repro_torch.core.tpu_adapt import (
 )
 from repro_torch.kernels import SCRATCH_REASON, resolve_device
 from repro_torch.kernels.lbm_d3q15.kernel import lbm_pointwise
+from repro_torch.obs import metrics
 
 _RANKINGS: dict = {}
+RANK_MEMO = metrics.CounterGroup("kernels.lbm_d3q15.rank_memo", {
+    "hits": "rank_configs calls answered from the memo",
+    "misses": "rank_configs calls that found no memo entry and ranked",
+})
 
 # the reference's collide-and-stream VPU count a point: relax and
 # equilibrium a PDF, plus the gradient and normal math
@@ -128,6 +134,7 @@ def rank_configs(domain: tuple, elem_bytes: int = 8,
     ``machine``; the y-tiled variants are in ``.skipped``."""
     key = (tuple(domain), elem_bytes, machine)
     cached = _RANKINGS.get(key)
+    RANK_MEMO["misses" if cached is None else "hits"] += 1
     if cached is None:
         spec = lbm_d3q15(tuple(domain), elem_bytes)
         cached = rank_gpu_configs(spec, machine)

@@ -18,7 +18,8 @@ Both take the halo-1 padded PDFs (15, Z+2, Y+2, X+2) and phase field
 (Z+2, Y+2, X+2) and return the new PDFs (15, Z, Y, X).  On a CPU tensor they
 compute the plain version (``ref.lbm_step_ref``); on a CUDA tensor they
 launch the kernel on the current stream or raise.  ``LAUNCHES`` counts
-kernel launches per wrapper, and ``LAST_LAUNCH`` holds the launch
+kernel launches on the card per wrapper, as the ``obs`` counter group
+``kernels.lbm_d3q15.launches``, and ``LAST_LAUNCH`` holds the launch
 (``LaunchConfig``, or the (ty, tx) tile) each wrapper last ran on the card.
 """
 from __future__ import annotations
@@ -31,8 +32,12 @@ import torch
 from repro_torch.core.access import LaunchConfig
 from repro_torch.kernels import SMEM_PER_BLOCK, _build, raw_stream
 from repro_torch.kernels.lbm_d3q15.ref import lbm_step_ref
+from repro_torch.obs import metrics
 
-LAUNCHES = {"lbm_pointwise": 0, "lbm_ytile": 0}
+LAUNCHES = metrics.CounterGroup("kernels.lbm_d3q15.launches", {
+    "lbm_pointwise": "lbm_pointwise kernels launched on the card",
+    "lbm_ytile": "lbm_ytile kernels launched on the card",
+})
 LAST_LAUNCH = {"lbm_pointwise": None, "lbm_ytile": None}
 # {"route", "tile", "stages", "points", "ctas"} of the last lbm_ytile launch
 LAST_YTILE: dict = {}

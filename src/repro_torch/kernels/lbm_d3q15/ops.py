@@ -3,11 +3,17 @@
 ``lbm_step`` pads the fields, asks the generator for the best launch
 (ranked analytically on the H100, memoized) and runs the per-point CUDA
 kernel there, unless ``config`` pins the decision.
+
+With ``obs`` on, a call records ``lbm.step`` (``variant`` in its args)
+around ``lbm.pad`` (``pad_inputs``), ``lbm.launch`` (the kernel wrapper)
+and ``lbm.phase_sum`` (``new_pdf.sum(0)``); the memo lookup stays in the
+step's own time.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.access import LaunchConfig
 from repro_torch.kernels.lbm_d3q15.generator import best_config
 from repro_torch.kernels.lbm_d3q15.kernel import lbm_pointwise, lbm_ytile, ytile_tile
@@ -30,28 +36,32 @@ def lbm_step(pdf: torch.Tensor, phase: torch.Tensor, tau: float = 0.8,
     padding.  The phase sum is a plain ``torch.sum``, as the JAX package
     computes it outside any kernel.
     """
-    if pdf.dim() != 4 or pdf.shape[0] != 15 or tuple(pdf.shape[1:]) != tuple(phase.shape):
-        raise ValueError(f"expected pdf (15, Z, Y, X) and phase (Z, Y, X), got "
-                         f"{tuple(pdf.shape)} and {tuple(phase.shape)}")
-    domain = tuple(phase.shape)
     config = config or {"variant": "replane"}
     variant = config.get("variant", "replane")
-    if variant == "replane":
-        if "block" in config:
-            launch = LaunchConfig(block=tuple(config["block"]),
-                                  folding=tuple(config.get("folding", (1, 1, 1))))
+    with obs.span("lbm.step", variant=variant):
+        if pdf.dim() != 4 or pdf.shape[0] != 15 or tuple(pdf.shape[1:]) != tuple(phase.shape):
+            raise ValueError(f"expected pdf (15, Z, Y, X) and phase (Z, Y, X), got "
+                             f"{tuple(pdf.shape)} and {tuple(phase.shape)}")
+        domain = tuple(phase.shape)
+        if variant == "replane":
+            if "block" in config:
+                launch = LaunchConfig(block=tuple(config["block"]),
+                                      folding=tuple(config.get("folding", (1, 1, 1))))
+            else:
+                launch = best_config(domain, pdf.element_size()).launch
+        elif variant == "ytile":
+            ty = config.get("ty") or 8
+            if domain[1] % ty or ty < 2:
+                raise ValueError("ty must divide Y and be >= 2")
+            tile = ytile_tile(ty, pdf.element_size())
         else:
-            launch = best_config(domain, pdf.element_size()).launch
-    elif variant == "ytile":
-        ty = config.get("ty") or 8
-        if domain[1] % ty or ty < 2:
-            raise ValueError("ty must divide Y and be >= 2")
-        tile = ytile_tile(ty, pdf.element_size())
-    else:
-        raise ValueError(f"unknown variant {variant!r}")
-    pdf_p, phase_p = pad_inputs(pdf.contiguous(), phase.contiguous())
-    if variant == "replane":
-        new_pdf = lbm_pointwise(pdf_p, phase_p, launch, tau, kappa)
-    else:
-        new_pdf = lbm_ytile(pdf_p, phase_p, *tile, tau, kappa)
-    return new_pdf, new_pdf.sum(0)
+            raise ValueError(f"unknown variant {variant!r}")
+        with obs.span("lbm.pad"):
+            pdf_p, phase_p = pad_inputs(pdf.contiguous(), phase.contiguous())
+        with obs.span("lbm.launch"):
+            if variant == "replane":
+                new_pdf = lbm_pointwise(pdf_p, phase_p, launch, tau, kappa)
+            else:
+                new_pdf = lbm_ytile(pdf_p, phase_p, *tile, tau, kappa)
+        with obs.span("lbm.phase_sum"):
+            return new_pdf, new_pdf.sum(0)

@@ -16,7 +16,8 @@ scratch-staged kernels for the GPU target.  They are recorded in
 
 Ranking runs on the host through the exploration engine
 (``core.selector.rank_gpu_configs``, serial) and is memoized per
-``(r, domain, elem_bytes, machine)``.
+``(r, domain, elem_bytes, machine)``; ``RANK_MEMO`` (the ``obs`` counter group
+``kernels.stencil3d25.rank_memo``) counts the memo's hits and misses.
 
 ``tpu_candidate_specs`` gives the reference's TPU decision space
 (``tpu_space``: the replane, ring and y-tiled ring Pallas variants) as
@@ -45,8 +46,13 @@ from repro_torch.core.tpu_adapt import (
 )
 from repro_torch.kernels import SCRATCH_REASON, resolve_device
 from repro_torch.kernels.stencil3d25.kernel import star_pointwise
+from repro_torch.obs import metrics
 
 _RANKINGS: dict = {}
+RANK_MEMO = metrics.CounterGroup("kernels.stencil3d25.rank_memo", {
+    "hits": "rank_configs calls answered from the memo",
+    "misses": "rank_configs calls that found no memo entry and ranked",
+})
 
 
 def zmarch_space(r: int, domain: tuple):
@@ -132,6 +138,7 @@ def rank_configs(r: int, domain: tuple, elem_bytes: int = 8,
     ``machine``; the z-march variants are in ``.skipped``."""
     key = (r, tuple(domain), elem_bytes, machine)
     cached = _RANKINGS.get(key)
+    RANK_MEMO["misses" if cached is None else "hits"] += 1
     if cached is None:
         spec = star_stencil_3d(r, tuple(domain), elem_bytes)
         cached = rank_gpu_configs(spec, machine)

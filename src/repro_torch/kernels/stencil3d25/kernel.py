@@ -25,7 +25,8 @@ is one per device and dtype and is guarded: a launch on another stream than
 the bank's last one makes its stream wait for that launch's event first,
 so stencils with different weights may run on several streams at once
 (``bank_counts`` counts the fills and those waits).  ``LAUNCHES`` counts
-kernel launches per wrapper.
+kernel launches on the card per wrapper, as the ``obs`` counter group
+``kernels.stencil3d25.launches``.
 """
 from __future__ import annotations
 
@@ -37,8 +38,12 @@ import torch
 from repro_torch.core.access import LaunchConfig
 from repro_torch.kernels import SMEM_PER_BLOCK, _build
 from repro_torch.kernels.stencil3d25.ref import star_stencil_ref
+from repro_torch.obs import metrics
 
-LAUNCHES = {"star_pointwise": 0, "star_zmarch": 0}
+LAUNCHES = metrics.CounterGroup("kernels.stencil3d25.launches", {
+    "star_pointwise": "star_pointwise kernels launched on the card",
+    "star_zmarch": "star_zmarch kernels launched on the card",
+})
 LAST_POINTWISE: dict = {}          # {"offset_bits", "weights"} of the last star_pointwise launch
 LAST_ZMARCH: dict = {}             # {"route", "tile", "stages", "threads", "segments", "weights"}
 

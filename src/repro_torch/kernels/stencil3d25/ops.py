@@ -3,11 +3,17 @@
 ``star_stencil`` pads the field, asks the generator for the best launch
 (ranked analytically on the H100, memoized) and runs the per-point CUDA
 kernel there, unless ``config`` pins the decision.
+
+With ``obs`` on, a call records ``stencil.step`` (``variant`` in its args)
+around ``stencil.pad`` (``pad_input``) and ``stencil.launch`` (the kernel
+wrapper, the constant bank's fill included); the memo lookup stays in the
+step's own time.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.access import LaunchConfig
 from repro_torch.kernels.stencil3d25.generator import best_config
 from repro_torch.kernels.stencil3d25.kernel import (
@@ -57,20 +63,23 @@ def star_stencil(src: torch.Tensor, weights=None, r: int = 4,
     several streams at once; any other r reads them from the weights
     tensor.  Every r runs on the card as on the CPU.
     """
-    if weights is None:
-        weights = star_weights(r, src.dtype, src.device)
-    weights = torch.as_tensor(weights, dtype=src.dtype, device=src.device).contiguous()
-    domain = tuple(src.shape)
-    elem_bytes = src.element_size()
     config = config or {"variant": "replane"}
     variant = config.get("variant", "replane")
-    if variant == "replane":
-        launch = _launch_for(config, r, domain, elem_bytes)
-    elif variant in ("ring", "ytile_ring"):
-        tile = zmarch_tile(config, r, domain, elem_bytes)
-    else:
-        raise ValueError(f"unknown variant {variant!r}")
-    padded = pad_input(src.contiguous(), r)
-    if variant == "replane":
-        return star_pointwise(padded, weights, r, launch)
-    return star_zmarch(padded, weights, r, *tile)
+    with obs.span("stencil.step", variant=variant):
+        if weights is None:
+            weights = star_weights(r, src.dtype, src.device)
+        weights = torch.as_tensor(weights, dtype=src.dtype, device=src.device).contiguous()
+        domain = tuple(src.shape)
+        elem_bytes = src.element_size()
+        if variant == "replane":
+            launch = _launch_for(config, r, domain, elem_bytes)
+        elif variant in ("ring", "ytile_ring"):
+            tile = zmarch_tile(config, r, domain, elem_bytes)
+        else:
+            raise ValueError(f"unknown variant {variant!r}")
+        with obs.span("stencil.pad"):
+            padded = pad_input(src.contiguous(), r)
+        with obs.span("stencil.launch"):
+            if variant == "replane":
+                return star_pointwise(padded, weights, r, launch)
+            return star_zmarch(padded, weights, r, *tile)

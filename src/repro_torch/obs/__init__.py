@@ -5,9 +5,12 @@ package; the environment variable keeps its name.
 
 Zero-dependency observability substrate: structured spans over every
 pipeline phase (frontend trace/lower, bound tiers, exact pricing, cachesim
-replay, rate stage, pool chunks, scheduler, daemon ops), a documented
-metrics registry absorbing the historical scattered counters, and exporters
-(Chrome trace-event / Perfetto JSON, phase-time table, daemon ``trace`` op).
+replay, rate stage, pool chunks, scheduler, daemon ops) and over the
+simulation step's entry points (``stencil.*``, ``lbm.*``: pad, launch,
+phase sum), a documented metrics registry absorbing the historical
+scattered counters, and exporters (Chrome trace-event / Perfetto JSON,
+phase-time table, daemon ``trace`` op).  While a ``torch.profiler``
+records, enabled spans are also its annotations (``spans.py``).
 
 Off by default; enable with any of
 
@@ -16,9 +19,11 @@ Off by default; enable with any of
   * ``Explorer(trace_out="trace.json")`` — per-sweep dumps;
   * ``obs.enable()`` programmatically.
 
-The disabled path costs one flag check per ``obs.span`` call site
-(<2% on the paper-grid cold sweep, gated by ``benchmarks/bench_obs.py``),
-and rankings are bitwise identical with telemetry on or off.
+The disabled path costs one flag check per ``obs.span`` call site: in the
+stencil and LBM time loops on an H100 (four or five spans a 2.4–4.7 ms
+step) the steps' rate reads the same with telemetry off and on, and on
+costs the host tens of microseconds a span (``PERF.md`` §6).  Rankings are
+bitwise identical with telemetry on or off.
 """
 from __future__ import annotations
 

@@ -14,8 +14,15 @@ Design constraints (DESIGN.md §14):
   * **off by default, near-zero overhead** — ``span()`` performs exactly one
     module-global flag check when telemetry is disabled and returns a shared
     no-op singleton; no allocation beyond the caller's kwargs, no locking,
-    no clock reads.  The overhead contract (<2% disabled on the paper-grid
-    cold sweep) is gated by ``benchmarks/bench_obs.py``;
+    no clock reads.  In the stencil and LBM time loops on an H100 the
+    steps' rate reads the same with telemetry off and on (``PERF.md`` §6);
+  * **one clock with the device trace** — while a ``torch.profiler``
+    records in this process, an enabled span also opens a
+    ``torch.profiler.record_function`` of its name, so it appears among the
+    profiler's host events (``user_annotation``), on the clock of the
+    device's activity; ``perf_counter_ns`` cannot be placed on that
+    timeline.  Torch is never imported here: a process that has not
+    imported it records no annotation;
   * **thread safety** — finished records append under one lock; the active
     span stack is thread-local, so concurrent scheduler/client threads nest
     independently;
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import sys
 import threading
 import time
 from typing import NamedTuple
@@ -183,9 +191,20 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+def _profiler_mark(name: str):
+    """A ``torch.profiler.record_function(name)``, entered, while a torch
+    profiler records in this process; else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    mark = torch.profiler.record_function(name)
+    mark.__enter__()
+    return mark
+
+
 class _Span:
     __slots__ = ("name", "cat", "args", "trace_id", "span_id", "parent_id",
-                 "_t0", "_cpu0")
+                 "_t0", "_cpu0", "_mark")
     enabled = True
 
     def __init__(self, name: str, cat: str, args: dict):
@@ -213,6 +232,7 @@ class _Span:
                 self.trace_id, self.parent_id = _trace_id or "", None
         self.span_id = f"{os.getpid():x}.{next(_ids)}"
         stack.append(self)
+        self._mark = _profiler_mark(self.name)
         self._cpu0 = time.thread_time_ns()
         self._t0 = time.perf_counter_ns()
         return self
@@ -220,6 +240,8 @@ class _Span:
     def __exit__(self, exc_type, exc, tb):
         dur = time.perf_counter_ns() - self._t0
         cpu = time.thread_time_ns() - self._cpu0
+        if self._mark is not None:
+            self._mark.__exit__(exc_type, exc, tb)
         stack = getattr(_tls, "stack", None)
         if stack and stack[-1] is self:
             stack.pop()
