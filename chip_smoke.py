@@ -12,6 +12,10 @@ with nvcc first (one nvcc per source, in parallel):
 * the §5.3 D3Q15 Allen-Cahn LBM (domain (256, 256, 256), fp64): ranks all
   168 launches of the per-point LBM kernel and runs ``lbm_step`` at the
   winning launch;
+* the pad phase: the entry points' zero halo (``kernels.halo_pad``) alone
+  on both paths' fields, fp64, bit for bit against ``F.pad`` and timed in
+  turns with it (single and queued calls) beside its bound, with the
+  launches of the two main paths;
 * the weighted 2D 5-point Jacobi sweep (domain (4096, 4096), fp64): ranks
   the 22 of the 168 launches that fill the 2D domain's depth and runs
   ``jacobi_step`` at the winning launch;
@@ -217,6 +221,11 @@ LBM_REPLACES = {
     "replane": "src/repro/kernels/lbm_d3q15/kernel.py:84",
     "ytile": "src/repro/kernels/lbm_d3q15/kernel.py:141",
 }
+PAD_SOURCE = "src/repro_torch/csrc/halo_pad.cu"
+PAD_STANDS_IN_FOR = ("src/repro/kernels/stencil3d25/ops.py jnp.pad, "
+                     "src/repro/kernels/lbm_d3q15/ops.py jnp.pad")
+PAD_ROUNDS = 20                          # rounds of halo_pad and F.pad in turns
+PAD_QUEUED = 10                          # calls a round when queued
 JACOBI_DOMAIN = (4096, 4096)             # (Y, X), core/specs.py:stencil_2d5pt's default
 JACOBI_EDGE_DOMAIN = (1021, 2043)        # no block extent divides either side
 JACOBI_YTILE_EDGE_DOMAIN = (1008, 2043)  # 8 | Y and 16 | Y, and no tile width divides X
@@ -451,6 +460,7 @@ def star_conv_weight(torch, weights, r: int):
 
 def kernel_modules() -> tuple:
     """The wrapper module of every kernel package."""
+    from repro_torch.kernels import halo_pad as HP
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.jacobi2d import kernel as JK
     from repro_torch.kernels.lbm_d3q15 import kernel as LK
@@ -458,7 +468,7 @@ def kernel_modules() -> tuple:
     from repro_torch.kernels.stencil3d25 import kernel as K
     from repro_torch.kernels.transpose_pad import kernel as TK
 
-    return K, LK, JK, TK, MK, FK
+    return K, LK, JK, TK, MK, FK, HP
 
 
 def reset_counts() -> None:
@@ -546,6 +556,7 @@ def run_stencil(args, torch, dev) -> list:
     import torch.nn.functional as F
 
     from repro_torch.core.machines import H100
+    from repro_torch.kernels import halo_pad as HP
     from repro_torch.kernels.stencil3d25 import kernel as K
     from repro_torch.kernels.stencil3d25.generator import best_config, rank_configs
     from repro_torch.kernels.stencil3d25.ops import star_stencil, zmarch_tile
@@ -587,20 +598,24 @@ def run_stencil(args, torch, dev) -> list:
     launches = dict(K.LAUNCHES)
     if launches["star_pointwise"] < 1:
         raise AssertionError(f"main path launched no star_pointwise: {launches}")
+    pad_launches = HP.LAUNCHES["halo_pad"]
+    if pad_launches != 1:
+        raise AssertionError(f"main path padded by {pad_launches} halo_pad launches, not 1")
     pw = dict(K.LAST_POINTWISE)
     ref64 = star_stencil_ref(padded, w64, R)
     err = check(torch, out, ref64, 8, "star_stencil(config=None) fp64")
     pw_kernel = (f"star_pointwise_kernel<double, {R}, "
                  f"{'int' if pw['offset_bits'] == 32 else 'long'}>")
     say(f"main path: star_stencil(src, r={R}) fp64 at block {best.launch.block} "
-        f"folding {best.launch.folding}; launches {launches}; max abs error {err!r} "
+        f"folding {best.launch.folding}; launches {launches}, halo_pad {pad_launches}; "
+        f"max abs error {err!r} "
         f"(tolerance {TOL[8]}: FMA contraction, same tap order); {pw['offset_bits']}-bit "
         f"offsets, weights from the {pw['weights']}; "
         f"{pw_kernel}: {registers(pw_kernel)}")
     if pw["weights"] != "constant bank":
         raise AssertionError(f"star_pointwise at r={R} took its weights from the {pw['weights']}")
     del out
-    kernels.append({"name": "star_pointwise", "config": None,
+    kernels.append({"name": "star_pointwise", "config": None, "pad_launches": pad_launches,
                     "launches": launches["star_pointwise"], "max_abs_err": err,
                     "replaces": REPLACES["replane"], "source": SOURCE,
                     "offset_bits": pw["offset_bits"], "weights": pw["weights"]})
@@ -838,6 +853,7 @@ def run_lbm(args, torch, dev) -> list:
     y-tile variants, fp32, times and the ranking against the card.  Returns
     the kernels' records; its tensors are freed when it returns."""
     from repro_torch.core.machines import H100
+    from repro_torch.kernels import halo_pad as HP
     from repro_torch.kernels.lbm_d3q15 import kernel as LK
     from repro_torch.kernels.lbm_d3q15.generator import best_config, rank_configs
     from repro_torch.kernels.lbm_d3q15.ops import lbm_step
@@ -887,18 +903,23 @@ def run_lbm(args, torch, dev) -> list:
     ran_at = LK.LAST_LAUNCH["lbm_pointwise"]
     if launches["lbm_pointwise"] < 1:
         raise AssertionError(f"LBM main path launched no lbm_pointwise: {launches}")
+    pad_launches = HP.LAUNCHES["halo_pad"]
+    if pad_launches != 2:
+        raise AssertionError(f"LBM main path padded by {pad_launches} halo_pad launches, "
+                             "not 2 (the PDFs, then the phase field)")
     if ran_at != ranked[0].launch:
         raise AssertionError(f"lbm_pointwise ran at {ran_at}, the top-ranked launch is "
                              f"{ranked[0].launch}")
     err = check(torch, out, ref_pdf, 8, "lbm_step(config=None) fp64 PDFs")
     err_phase = check(torch, out_phase, ref_phase, 8, "lbm_step(config=None) fp64 phase")
     say(f"lbm main path: lbm_step(pdf, phase) fp64 at block {ran_at.block} folding "
-        f"{ran_at.folding} (top-ranked of {len(ranked)}); launches {launches}; max abs "
+        f"{ran_at.folding} (top-ranked of {len(ranked)}); launches {launches}, halo_pad "
+        f"{pad_launches}; max abs "
         f"error PDFs {err!r}, phase {err_phase!r} (tolerance {TOL[8]})")
     del out, out_phase
     kernels.append({"name": "lbm_pointwise", "config": None, "source": LBM_SOURCE,
                     "launches": launches["lbm_pointwise"], "max_abs_err": err,
-                    "replaces": LBM_REPLACES["replane"]})
+                    "replaces": LBM_REPLACES["replane"], "pad_launches": pad_launches})
 
     # L3. folding and edge coverage at pinned launches on a domain that no
     # block extent divides, and a y-tile whose tiles overhang the edge; then
@@ -991,16 +1012,73 @@ def run_lbm(args, torch, dev) -> list:
                 k.update(fp32_ms=ms, fp32_bound_ms=b_ms, fp32_plain_ms=plain)
         new_pdf = lbm_step(pdf_x, phase_x)[0]
         call_ms = cuda_ms(torch, lambda: lbm_step(pdf_x, phase_x))
-        pad_ms = cuda_ms(torch, lambda: pad_inputs(pdf_x, phase_x))
+        pad_ms = cuda_ms(torch, lambda: (HP.halo_pad(pdf_x, 1), HP.halo_pad(phase_x, 1)))
         sum_ms = cuda_ms(torch, lambda: new_pdf.sum(0))
         say(f"time lbm_step(pdf, phase) fp{eb * 8} incl. pad and phase sum: {call_ms:.4f} ms; "
-            f"of which pad_inputs {pad_ms:.4f} ms, new_pdf.sum(0) {sum_ms:.4f} ms")
+            f"of which halo_pad {pad_ms:.4f} ms, new_pdf.sum(0) {sum_ms:.4f} ms")
         del new_pdf
 
     # L7. the ranking against the card: every priced launch of lbm_pointwise, fp64
     rank_vs_card(torch, "lbm", ranked,
                  lambda launch: LK.lbm_pointwise(pdf_p, phase_p, launch), n_pts)
     return kernels
+
+
+def run_pad(args, torch, dev, kernels: list) -> list:
+    """The entry points' zero halo alone (``kernels.halo_pad``), fp64, at the
+    fields of both paths (the stencil's (512, 512, 640) by r = 4; the LBM's
+    15 PDFs and phase field, 256^3, by 1), bit for bit against ``F.pad`` and
+    timed in turns with it (medians of ``PAD_ROUNDS`` CUDA-event timings of
+    single calls, and of ``PAD_QUEUED`` calls queued back to back: the
+    kernel's own time, without the host's launch that a single call on an
+    idle card includes) beside its bound, one read of the field and one
+    write of the padded field at the HBM rate.  The record's launches are
+    the two main paths' (``pad_launches`` of the ``star_pointwise`` and
+    ``lbm_pointwise`` records of ``kernels``).  Returns the kernel's record."""
+    from repro_torch.kernels import halo_pad as HP
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 43)
+    fields = {"stencil": [(torch.rand(DOMAIN, generator=gen, dtype=torch.float64, device=dev),
+                           R)],
+              "lbm": [(torch.rand((15, *LBM_DOMAIN), generator=gen, dtype=torch.float64,
+                                  device=dev), 1),
+                      (torch.rand(LBM_DOMAIN, generator=gen, dtype=torch.float64, device=dev),
+                       1)]}
+    main = {k["name"]: k["pad_launches"] for k in kernels
+            if k["name"] in ("star_pointwise", "lbm_pointwise") and k.get("config", "") is None}
+    record = {"name": "halo_pad", "source": PAD_SOURCE, "replaces": None,
+              "counterpart_of": PAD_STANDS_IN_FOR, "max_abs_err": 0.0, "plain_ms": None,
+              "bound_by": "bytes",
+              "launches": {"star_stencil": main["star_pointwise"],
+                           "lbm_step": main["lbm_pointwise"]}}
+    for path, pads in fields.items():
+        for x, h in pads:
+            got = HP.halo_pad(x, h)
+            if not torch.equal(got.view(torch.int64), F.pad(x, (h,) * 6).view(torch.int64)):
+                raise AssertionError(f"pad {path} {tuple(x.shape)}: halo_pad differs from F.pad")
+            del got
+        n_bytes = sum(x.numel() + math.prod(n + 2 * h for n in x.shape[-3:])
+                      * math.prod(x.shape[:-3]) for x, h in pads) * 8
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        fns = {"halo_pad": lambda: [HP.halo_pad(x, h) for x, h in pads],
+               "F.pad": lambda: [F.pad(x, (h,) * 6) for x, h in pads]}
+        t = interleaved_ms(torch, dict(fns), PAD_ROUNDS)
+        q = interleaved_ms(torch, dict(fns), PAD_ROUNDS, calls=PAD_QUEUED)
+        say(f"pad {path} fp64 {[tuple(x.shape) for x, _ in pads]} by {pads[0][1]}: halo_pad "
+            f"single {t['halo_pad']:.4f} ms, queued {q['halo_pad']:.4f} ms "
+            f"({b_ms / t['halo_pad'] * 100:.1f}; {b_ms / q['halo_pad'] * 100:.1f}% of the "
+            f"{b_ms:.4f} ms bound, bytes), {q['F.pad'] / q['halo_pad']:.3f}x faster queued than "
+            f"F.pad's single {t['F.pad']:.4f}, queued {q['F.pad']:.4f} ms; the last launch "
+            f"{HP.LAST_PAD}")
+        pre = "" if path == "stencil" else "lbm_"
+        record.update({f"{pre}ms": t["halo_pad"], f"{pre}queued_ms": q["halo_pad"],
+                       f"{pre}bound_ms": b_ms, f"{pre}library_ms": t["F.pad"],
+                       f"{pre}library_queued_ms": q["F.pad"]})
+    say(f"pad launches of the main paths: {record['launches']}")
+    del fields
+    return [record]
 
 
 def say_skipped(ranked) -> None:
@@ -5949,6 +6027,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += run_lbm(args, torch, dev)
     torch.cuda.empty_cache()
+    kernels += run_pad(args, torch, dev, kernels)
+    torch.cuda.empty_cache()
     kernels += run_jacobi(args, torch, dev)
     torch.cuda.empty_cache()
     kernels += run_transpose(args, torch, dev)
@@ -6015,7 +6095,9 @@ def main(argv=None) -> int:
                                     "api_launches", "sim_launches", "sim_ms",
                                     "suite_launches", "serve_launches", "serve_ms",
                                     "predicted_ms", "counterpart_of", "tpu_launches",
-                                    "tpu_ms", "tpu_config", "tpu_predicted_ms", "tpu_h100_ms")
+                                    "tpu_ms", "tpu_config", "tpu_predicted_ms", "tpu_h100_ms",
+                                    "lbm_ms", "lbm_bound_ms", "lbm_library_ms",
+                                    "lbm_queued_ms", "lbm_library_queued_ms")
             if key in k}}
         for k in kernels]}))
     say(json.dumps({"ok": True, "device": {

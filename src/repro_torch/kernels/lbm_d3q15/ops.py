@@ -1,13 +1,14 @@
 """Public entry point for the D3Q15 LBM: the paper's fig.-1 loop on §5.3.
 
-``lbm_step`` pads the fields, asks the generator for the best launch
-(ranked analytically on the H100, memoized) and runs the per-point CUDA
-kernel there, unless ``config`` pins the decision.
+``lbm_step`` pads the fields (``kernels.halo_pad``: one pass a field on the
+card, ``F.pad`` on the CPU), asks the generator for the best launch (ranked
+analytically on the H100, memoized) and runs the per-point CUDA kernel
+there, unless ``config`` pins the decision.
 
 With ``obs`` on, a call records ``lbm.step`` (``variant`` in its args)
-around ``lbm.pad`` (``pad_inputs``), ``lbm.launch`` (the kernel wrapper)
-and ``lbm.phase_sum`` (``new_pdf.sum(0)``); the memo lookup stays in the
-step's own time.
+around ``lbm.pad`` (``halo_pad`` of the PDFs, then of the phase field),
+``lbm.launch`` (the kernel wrapper) and ``lbm.phase_sum``
+(``new_pdf.sum(0)``); the memo lookup stays in the step's own time.
 """
 from __future__ import annotations
 
@@ -15,9 +16,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.access import LaunchConfig
+from repro_torch.kernels.halo_pad import halo_pad
 from repro_torch.kernels.lbm_d3q15.generator import best_config
 from repro_torch.kernels.lbm_d3q15.kernel import lbm_pointwise, lbm_ytile, ytile_tile
-from repro_torch.kernels.lbm_d3q15.ref import pad_inputs
 
 
 def lbm_step(pdf: torch.Tensor, phase: torch.Tensor, tau: float = 0.8,
@@ -57,7 +58,7 @@ def lbm_step(pdf: torch.Tensor, phase: torch.Tensor, tau: float = 0.8,
         else:
             raise ValueError(f"unknown variant {variant!r}")
         with obs.span("lbm.pad"):
-            pdf_p, phase_p = pad_inputs(pdf.contiguous(), phase.contiguous())
+            pdf_p, phase_p = halo_pad(pdf.contiguous(), 1), halo_pad(phase.contiguous(), 1)
         with obs.span("lbm.launch"):
             if variant == "replane":
                 new_pdf = lbm_pointwise(pdf_p, phase_p, launch, tau, kappa)

@@ -1,11 +1,12 @@
 """Public entry point for the star stencil: the paper's fig.-1 loop.
 
-``star_stencil`` pads the field, asks the generator for the best launch
-(ranked analytically on the H100, memoized) and runs the per-point CUDA
-kernel there, unless ``config`` pins the decision.
+``star_stencil`` pads the field (``kernels.halo_pad``: one pass on the card,
+``F.pad`` on the CPU), asks the generator for the best launch (ranked
+analytically on the H100, memoized) and runs the per-point CUDA kernel
+there, unless ``config`` pins the decision.
 
 With ``obs`` on, a call records ``stencil.step`` (``variant`` in its args)
-around ``stencil.pad`` (``pad_input``) and ``stencil.launch`` (the kernel
+around ``stencil.pad`` (``halo_pad``) and ``stencil.launch`` (the kernel
 wrapper, the constant bank's fill included); the memo lookup stays in the
 step's own time.
 """
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.access import LaunchConfig
+from repro_torch.kernels.halo_pad import halo_pad
 from repro_torch.kernels.stencil3d25.generator import best_config
 from repro_torch.kernels.stencil3d25.kernel import (
     ring_tile,
@@ -22,7 +24,7 @@ from repro_torch.kernels.stencil3d25.kernel import (
     star_zmarch,
     ytile_tile,
 )
-from repro_torch.kernels.stencil3d25.ref import pad_input, star_weights
+from repro_torch.kernels.stencil3d25.ref import star_weights
 
 
 def _launch_for(config, r: int, domain: tuple, elem_bytes: int) -> LaunchConfig:
@@ -78,7 +80,7 @@ def star_stencil(src: torch.Tensor, weights=None, r: int = 4,
         else:
             raise ValueError(f"unknown variant {variant!r}")
         with obs.span("stencil.pad"):
-            padded = pad_input(src.contiguous(), r)
+            padded = halo_pad(src.contiguous(), r)
         with obs.span("stencil.launch"):
             if variant == "replane":
                 return star_pointwise(padded, weights, r, launch)

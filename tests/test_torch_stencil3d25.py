@@ -449,15 +449,15 @@ while [ $# -gt 0 ]; do if [ "$1" = "-o" ]; then touch "$2"; fi; shift; done
 echo "ptxas info: Used 40 registers" >&2
 ''')
     monkeypatch.setattr(_build, "nvcc_path", lambda: nvcc)
-    assert _build.sources() == ["flash_attention", "jacobi2d", "lbm_d3q15", "matmul",
-                                "stencil3d25", "transpose_pad"]
+    assert _build.sources() == ["flash_attention", "halo_pad", "jacobi2d", "lbm_d3q15",
+                                "matmul", "stencil3d25", "transpose_pad"]
     libs = _build.build()
     lib = libs["stencil3d25"]
     assert lib.is_file() and lib.parent == tmp_path / "build"
     assert "registers" in lib.with_name(lib.name + ".log").read_text()
     assert "arch=compute_90a,code=sm_90a" in calls.read_text()
     assert _build.build() == libs
-    assert len(calls.read_text().splitlines()) == 6
+    assert len(calls.read_text().splitlines()) == 7
 
 
 # ---------------------------------------------------------------------------
